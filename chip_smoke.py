@@ -1,0 +1,503 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py          # from the repository root, one card
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. the card's name and power limit, torch and CUDA versions;
+2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+   nvcc per source, all started together);
+3. each kernel (K1-K4) at every shape phases 4-6 give it (K2 and K3 at
+   both d=60 and d=784), on numpy-seeded inputs with a masked device and
+   masked steps: held against its plain PyTorch version on the card,
+   timed with CUDA events beside the plain version and its roofline
+   bound (the bytes and flops the masks leave to do);
+4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
+   E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
+   5 rounds each with the default ``local_solver="auto"``, held round by
+   round against the same config on the port's CPU path (plain
+   versions): the same selections, params within tolerance;
+5. feddane for 2 rounds in each explicit solver mode: flat and per_leaf
+   bitwise equal on the card, each mode's kernel launched;
+6. FEMNIST-like logistic regression at full width (d=784, C=10, N=200,
+   K=10, E=20), feddane, 3 rounds on "auto" plus one round on
+   "fused_step", held against the CPU path to a multiple of the spread
+   that float32 rounding causes there (measured on the CPU path);
+7. the ``kernels`` JSON line: every kernel with its launches in phases
+   4-6 (the counters are set to 0 just before phase 4 and read just
+   after phase 6), error, times and bound, and each checked shape
+   under ``cases``.
+
+Phases 4-6 also run one more round of the auto and fused_step cells
+under ``torch.profiler`` and print the card's idle share in it.
+
+The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the repository's ``src/repro_torch`` beside this
+script, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and float32 FMA
+#: throughput outside the tensor cores (the kernels use no tensor core).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+#: Flat and per-leaf updates round op by op like the plain version.
+UPDATE_TOL = 0.0
+#: The whole-epoch solve chains up to E*nb = 2560 dependent f32 steps whose
+#: dot products sum in another order than the plain version's cuBLAS calls.
+EPOCH_TOL = 1e-4
+#: One step: a dot product of length d (60 or 784) summed in another order.
+STEP_TOL = 1e-5
+#: The card's fused solve (analytic gradient) against the CPU path's
+#: autodiff + flat update, over 5 rounds of 2560 steps.
+TRAJECTORY_TOL = 1e-4
+#: The FEMNIST-like feddane round amplifies float32 rounding about 1e4-fold:
+#: its correction g - g_k moves with the Hessian (~1e3 at d=784) times any
+#: change of w, and enters every one of the E*nb local steps.  Phase 6
+#: measures that spread on the CPU path itself (a 1e-7 nudge of the
+#: starting weights, two directions) and holds the card to SPREAD_FACTOR
+#: times it.  The limit must stay under MAX_REL_LIMIT of the params' scale,
+#: so that a wrong d=784 solve still fails; the kernels themselves are held
+#: to EPOCH_TOL and STEP_TOL at d=784 in phase 3.
+SPREAD_FACTOR = 4.0
+MAX_REL_LIMIT = 0.01
+
+PAPER = dict(num_devices=30, devices_per_round=10, local_epochs=20,
+             local_batch_size=10, learning_rate=0.01, seed=0)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, launches: int, repeats: int = 5) -> float:
+    """Median over ``repeats`` of CUDA-event time per call, each repeat
+    ``launches`` back-to-back calls after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def max_err(torch, a, b) -> float:
+    from repro_torch.core import pytree as pt
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(pt.leaves(a), pt.leaves(b)))
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_checks(torch, syn, fem):
+    """Phase 3: K1-K4 against their plain versions at every shape that
+    phases 4-6 give them; returns the rows of the kernels line (launches
+    filled in later).  A row's ``max_abs_err`` is the worst of its
+    cases; its times and bound are those of its first case."""
+    from repro_torch.core.client import _epoch_step_mask
+    from repro_torch.core.server import sample_devices
+    from repro_torch.data.batching import stack_device_batches
+    from repro_torch.kernels import dane_update, flatpack, local_solve, ref
+
+    dev = syn.device
+    rng = np.random.default_rng(1234)
+    eta, mu, C, E = 0.01, 0.001, 10, PAPER["local_epochs"]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def normal(*shape, scale=1.0):
+        return t((scale * rng.normal(size=shape)).astype(np.float32))
+
+    # one masked device, as a straggler leaves one in the stacked round
+    mask = t(np.array([1, 1, 1, 0, 1, 1, 1, 1, 1, 1], np.float32))
+    active = int(mask.sum())
+
+    # the first round's solve selection of a run on ``ds``
+    def first_solve_batches(ds):
+        r = np.random.default_rng(PAPER["seed"])
+        sample_devices(r, ds.num_devices, 10, p=ds.weights)
+        return stack_device_batches(
+            ds, sample_devices(r, ds.num_devices, 10, p=ds.weights))
+
+    def case(label, kernel, plain, tol, nbytes, flops, calls=100,
+             plain_repeats=5):
+        err = max_err(torch, kernel(), plain())
+        check(err <= tol, f"{label}: error {err} > {tol}")
+        b_ms, b_by = bound(nbytes, flops)
+        c = dict(shape=label, max_abs_err=err, tol=tol,
+                 ms=cuda_ms(torch, kernel, calls),
+                 plain_ms=cuda_ms(torch, plain, calls,
+                                  repeats=plain_repeats),
+                 bound_ms=b_ms, bound_by=b_by)
+        print(f"  {label:52s} err {err:.3g} (tol {tol:g})  kernel "
+              f"{c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  bound "
+              f"{b_ms:.6f} ms ({b_by})")
+        return c
+
+    def row(name, replaces, source, cases):
+        return dict(cases[0], name=name, route="cuda",
+                    source=f"src/repro_torch/kernels/csrc/{source}",
+                    replaces=f"src/repro/kernels/{replaces}",
+                    max_abs_err=max(c["max_abs_err"] for c in cases),
+                    library_ms=None, cases=cases)
+
+    def k1_case(R):
+        """One flat-mode step over K devices of R rows of 128 lanes.
+        A masked device's rows read only w; the others read all four."""
+        K = mask.numel()
+        w, g, c, a = (normal(K * R, 128) for _ in range(4))
+        per_dev = R * 128
+        nbytes = 4 * (per_dev * (5 * active + 2 * (K - active)) + K)
+        return case(
+            f"dane_update_flat ({K * R}, 128) f32, 1 of {K} masked",
+            lambda: dane_update.dane_update_flat(w, g, c, a, eta, mu, mask,
+                                                 R),
+            lambda: ref.dane_update_flat_ref(w, g, c, a, eta, mu, mask, R),
+            UPDATE_TOL, nbytes, 6 * per_dev * active)
+
+    def k4_case(n, leaf):
+        """The per-leaf launch for a K-stacked leaf of n elements."""
+        w, g, c, a = (normal(-(-n // 128), 128) for _ in range(4))
+        return case(
+            f"dane_update_2d ({w.shape[0]}, 128) f32, the {leaf} leaf",
+            lambda: dane_update.dane_update_2d(w, g, c, a, eta, mu),
+            lambda: ref.dane_update_ref(w, g, c, a, eta=eta, mu=mu),
+            UPDATE_TOL, 5 * 4 * w.numel(), 6 * w.numel())
+
+    def k2_case(ds):
+        """The whole E-epoch solve of the first selection: its padding
+        steps masked and one device masked out entirely."""
+        batches, valid = first_solve_batches(ds)
+        valid = valid.clone()
+        valid[3] = 0.0
+        step_mask = _epoch_step_mask(valid, E).contiguous()
+        K, nb, B, d = batches["x"].shape
+        w0 = {"w": normal(d, C, scale=0.1), "b": normal(C, scale=0.1)}
+        corr = {"w": normal(K, d, C, scale=0.01),
+                "b": normal(K, C, scale=0.01)}
+        # bytes: each batch some kept step reads, the correction of each
+        # device with a kept step, the anchor, the step table, the output
+        used = (step_mask.reshape(K, E, nb) > 0).any(dim=1)
+        dC = d * C + C
+        nbytes = 4 * (int(used.sum()) * B * (d + 1)
+                      + int(used.any(dim=1).sum()) * dC + dC + K * E * nb
+                      + K * dC)
+        steps = float(step_mask.sum())
+        flops = steps * (4 * B * d * C + 8 * B * C + 6 * dC)
+        return case(
+            f"local_epoch K={K} nb={nb} B={B} d={d} E={E} "
+            f"steps={int(steps)}",
+            lambda: local_solve.local_epoch(
+                w0, corr, batches, eta=eta, mu=mu, num_epochs=E,
+                step_mask=step_mask),
+            lambda: ref.local_epoch_ref(
+                w0, corr, batches, eta=eta, mu=mu, num_epochs=E,
+                step_mask=step_mask),
+            EPOCH_TOL, nbytes, flops, calls=1, plain_repeats=2)
+
+    def k3_case(ds):
+        """One step on a [:, j] slice of the stacked batches, as the
+        fused_step mode hands it over, with one device masked."""
+        fb, _ = first_solve_batches(ds)
+        batch = {"x": fb["x"][:, 0], "y": fb["y"][:, 0]}
+        K, B, d = batch["x"].shape
+        wk = {"w": normal(K, d, C, scale=0.1), "b": normal(K, C, scale=0.1)}
+        w0 = {"w": normal(d, C, scale=0.1), "b": normal(C, scale=0.1)}
+        corr = {"w": normal(K, d, C, scale=0.01),
+                "b": normal(K, C, scale=0.01)}
+        # bytes: every device reads w and writes out; an active one also
+        # reads its batch and correction; the anchor and mask once
+        dC = d * C + C
+        nbytes = 4 * (2 * K * dC + active * (B * (d + 1) + dC) + dC + K)
+        flops = active * (4 * B * d * C + 8 * B * C + 6 * dC)
+        return case(
+            f"linear_logistic_step K={K} B={B} d={d}",
+            lambda: local_solve.linear_logistic_step(
+                wk, batch, corr, w0, eta=eta, mu=mu, mask=mask),
+            lambda: ref.linear_logistic_step_ref(
+                wk, batch, corr, w0, eta=eta, mu=mu, mask=mask),
+            STEP_TOL, nbytes, flops)
+
+    # K1 runs on the synthetic model's flat pack (8 rows a device); K4 on
+    # its two leaves, (K, 60, 10) and (K, 10); K2 on the auto path of both
+    # datasets; K3 on both fused_step runs.
+    rows_syn = flatpack.flat_spec({"w": torch.zeros(60, C),
+                                   "b": torch.zeros(C)}).rows
+    K = mask.numel()
+    return [
+        row("dane_update_flat", "dane_update.py:62", "dane_update.cu",
+            [k1_case(rows_syn)]),
+        row("dane_update_2d", "dane_update.py:27", "dane_update.cu",
+            [k4_case(K * 60 * C, "w"), k4_case(K * C, "b")]),
+        row("local_epoch", "local_solve.py:168", "local_solve.cu",
+            [k2_case(syn), k2_case(fem)]),
+        row("linear_logistic_step", "local_solve.py:68", "local_solve.cu",
+            [k3_case(fem), k3_case(syn)]),
+    ]
+
+
+def cpu_sensitivity(torch, data_cpu, cfg, nudge: float = 1e-7):
+    """How far one round of ``cfg`` on the CPU path moves when the
+    starting weights are nudged by ``nudge`` (two numpy-seeded
+    directions; the larger move), and the scale of the round's params
+    (max |param|)."""
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.models.param import init_params
+    from repro_torch.models.small import logreg_loss, logreg_specs
+
+    d = data_cpu.device_batches(0)["x"].shape[-1]
+    out = []
+    for seed, eps in ((7, 0.0), (7, nudge), (8, nudge)):
+        noise = np.random.default_rng(seed).normal(size=(d, 10))
+        tr = FederatedTrainer(logreg_loss, data_cpu,
+                              dataclasses.replace(cfg, engine="batched"),
+                              device="cpu")
+        p = init_params(logreg_specs(d, 10), torch.Generator(),
+                        device="cpu")
+        p["w"] = p["w"] + torch.from_numpy((eps * noise).astype(np.float32))
+        out.append(tr.round(tr.init(p)).params)
+    scale = max(float(x.abs().max()) for x in pt.leaves(out[0]))
+    return max(max_err(torch, out[0], o) for o in out[1:]), scale
+
+
+def run_pair(torch, syn_gpu, syn_cpu, cfg, rounds: int, label: str,
+             tol: float = TRAJECTORY_TOL):
+    """``rounds`` rounds of ``cfg`` on the card and on the CPU path,
+    held together round by round; returns the card's trainer, its final
+    state and the median ms/round."""
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.models.param import init_params
+    from repro_torch.models.small import logreg_loss, logreg_specs
+
+    d = syn_cpu.device_batches(0)["x"].shape[-1]
+    gen = torch.Generator().manual_seed(0)
+    gpu = FederatedTrainer(logreg_loss, syn_gpu, cfg)
+    cpu = FederatedTrainer(logreg_loss, syn_cpu,
+                           dataclasses.replace(cfg, engine="batched"),
+                           device="cpu")
+    sg = gpu.init(init_params(logreg_specs(d, 10), gen))
+    sc = cpu.init(init_params(logreg_specs(d, 10), gen, device="cpu"))
+    ms, losses, errs = [], [], []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sg = gpu.round(sg)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        sc = cpu.round(sc)
+        for a, b in zip(gpu.last_selection, cpu.last_selection):
+            check(np.array_equal(a, b), f"{label}: selections differ")
+        errs.append(max_err(torch, {k: v.cpu() for k, v in
+                                    sg.params.items()}, sc.params))
+        check(errs[-1] <= tol, f"{label}: params differ by {errs[-1]} "
+                               f"> {tol}")
+        lg = gpu.global_loss(sg.params)
+        check(np.isfinite(lg), f"{label}: loss not finite")
+        losses.append((lg, cpu.global_loss(sc.params)))
+    print(f"  {label}: ms/round {[round(m, 2) for m in ms]} "
+          f"(median {statistics.median(ms):.2f})")
+    print(f"    loss card {[round(a, 6) for a, _ in losses]}")
+    print(f"    loss cpu  {[round(b, 6) for _, b in losses]}")
+    print(f"    max |params card - cpu| per round "
+          f"{[f'{e:.2e}' for e in errs]} (tol {tol:g})")
+    return gpu, sg, statistics.median(ms)
+
+
+def device_share(torch, trainer, st, label: str):
+    """One more round of ``trainer`` under ``torch.profiler``: the
+    round's host-clock time (profiler on) against the summed time of the
+    kernels and copies it ran on the card, i.e. the card's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        st = trainer.round(st)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    share = (f"idle share {1.0 - busy / wall:.3f}" if busy > 0
+             else "idle share not measured (no device events recorded)")
+    print(f"    {label}: profiled round {wall:.2f} ms (host clock), "
+          f"device busy {busy:.2f} ms, {share}")
+    return st
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.data import make_femnist_like, make_synthetic
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card = smi()
+    print(f"[1] card: {card}")
+    print(f"    torch {torch.__version__}  CUDA {torch.version.cuda}  "
+          f"python {sys.version.split()[0]}  "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    print(f"[2] kernels built in {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        print(f"    --- {name} ---")
+        for line in log.strip().splitlines():
+            if "ptxas info" in line or line.startswith("["):
+                print(f"    {line.strip()}")
+
+    t0 = time.perf_counter()
+    syn = make_synthetic(1, 1, num_devices=30, seed=0, batch_size=10)
+    syn_cpu = make_synthetic(1, 1, num_devices=30, seed=0, batch_size=10,
+                             device="cpu")
+    fem = make_femnist_like(200, seed=0, batch_size=10)
+    fem_cpu = make_femnist_like(200, seed=0, batch_size=10, device="cpu")
+    print(f"    data made in {time.perf_counter() - t0:.2f} s")
+
+    print("[3] kernels against their plain versions")
+    rows = kernel_checks(torch, syn, fem)
+
+    counts = build.launch_counts
+    build.reset_launch_counts()          # the main path starts here
+    phase_ms = {}
+    print("[4] paper config: synthetic(1,1) N=30 K=10 E=20 B=10 lr=0.01")
+    for algo in ("feddane", "fedprox", "fedavg"):
+        cfg = FederatedConfig(algorithm=algo, mu=0.001, **PAPER)
+        before = dict(counts)
+        tr, st, phase_ms[algo] = run_pair(torch, syn, syn_cpu, cfg, 5,
+                                          algo)
+        device_share(torch, tr, st, algo)
+        print(f"    launches {_delta(before, counts)}")
+
+    print("[5] feddane, 2 rounds per explicit solver mode")
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.models.param import init_params
+    from repro_torch.models.small import logreg_loss, logreg_specs
+    uses = {"flat": "dane_update_flat", "per_leaf": "dane_update_2d",
+            "fused_step": "linear_logistic_step",
+            "fused_epoch": "local_epoch"}
+    finals = {}
+    for mode, kernel in uses.items():
+        cfg = FederatedConfig(algorithm="feddane", mu=0.001,
+                              local_solver=mode, **PAPER)
+        tr = FederatedTrainer(logreg_loss, syn, cfg)
+        st = tr.init(init_params(logreg_specs(60, 10),
+                                 torch.Generator().manual_seed(0)))
+        before = dict(counts)
+        start = time.perf_counter()
+        for _ in range(2):
+            st = tr.round(st)
+        torch.cuda.synchronize()
+        phase_ms[f"feddane/{mode}"] = (time.perf_counter() - start) / 2e-3
+        grew = _delta(before, counts)
+        check(grew.get(kernel, 0) > 0, f"{mode}: {kernel} never launched")
+        finals[mode] = st.params
+        if mode == "fused_step":
+            device_share(torch, tr, st, f"feddane/{mode}")
+        print(f"  {mode:11s} {phase_ms[f'feddane/{mode}']:9.2f} ms/round "
+              f"(host clock)  launches {grew}")
+    for k in ("w", "b"):
+        check(torch.equal(finals["flat"][k], finals["per_leaf"][k]),
+              "flat and per_leaf differ on the card")
+    for mode in ("fused_step", "fused_epoch"):
+        e = max_err(torch, finals[mode], finals["flat"])
+        print(f"  |{mode} - flat| = {e:.2e}")
+        check(e <= TRAJECTORY_TOL, f"{mode} departs from flat by {e}")
+    print("  flat == per_leaf bitwise: yes")
+
+    print("[6] FEMNIST-like logistic regression d=784 C=10 N=200 K=10 E=20")
+    cfg = FederatedConfig(algorithm="feddane", mu=0.001,
+                          **dict(PAPER, num_devices=200))
+    spread, scale = cpu_sensitivity(torch, fem_cpu, cfg)
+    fem_tol = SPREAD_FACTOR * spread
+    print(f"  CPU path, one round: a 1e-7 nudge of w0 moves params by "
+          f"{spread:.2e}; max |param| {scale:.3g}; card held to "
+          f"{SPREAD_FACTOR:g} x {spread:.2e} = {fem_tol:.2e}")
+    check(0 < fem_tol <= MAX_REL_LIMIT * scale,
+          f"FEMNIST-like limit {fem_tol} is not inside (0, "
+          f"{MAX_REL_LIMIT} x {scale}]")
+    before = dict(counts)
+    tr, st, phase_ms["femnist/auto"] = run_pair(
+        torch, fem, fem_cpu, cfg, 3, "femnist feddane auto",
+        tol=fem_tol)
+    grew = _delta(before, counts)
+    modes = [m for m, k in (("fused_epoch", "local_epoch"),
+                            ("fused_step", "linear_logistic_step"))
+             if grew.get(k)]
+    print(f"    fused modes taken: {modes}  launches {grew}")
+    device_share(torch, tr, st, "femnist feddane auto")
+    before = dict(counts)
+    _, _, phase_ms["femnist/fused_step"] = run_pair(
+        torch, fem, fem_cpu, dataclasses.replace(cfg,
+                                                 local_solver="fused_step"),
+        1, "femnist feddane fused_step", tol=fem_tol)
+    print(f"    launches {_delta(before, counts)}")
+
+    main_path = dict(counts)             # read just after the main path
+    for r in rows:
+        r["launches"] = main_path[r["name"]]
+        check(r["launches"] > 0, f"{r['name']} not launched on the main "
+                                 f"path")
+    print(f"[7] done in {time.perf_counter() - t_start:.1f} s; phase "
+          f"ms/round {json.dumps({k: round(v, 3) for k, v in phase_ms.items()})}")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "cases")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+if __name__ == "__main__":
+    sys.exit(main())

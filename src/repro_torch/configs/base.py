@@ -1,0 +1,168 @@
+"""Federated round configuration.
+
+Counterpart of ``FederatedConfig`` in ``repro/configs/base.py``: the same
+fields, defaults and validation, checked against the port's own
+registries.  Knobs of layers the port has not reached yet keep their
+fields (so a config reads the same in both packages) but values that
+would need those layers are refused at construction with a "not yet
+ported" error: any scenario but ``"ideal"``, any codec but ``"none"``,
+the ``"scan"`` and ``"buffered"`` round drivers, a client mesh
+(``mesh_devices`` other than 1) and streaming client sources.
+``round_driver="auto"`` resolves to the python driver.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+#: Solver modes of ``core/client.py`` (mirrored here: configs is a leaf
+#: layer and must not import the client).
+SOLVER_MODES = ("auto", "flat", "per_leaf", "fused_step", "fused_epoch")
+
+
+def _not_ported(what: str) -> ValueError:
+    return ValueError(f"{what} is not yet ported to repro_torch")
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+@dataclass(frozen=True)
+class FederatedConfig:
+    """Federated round configuration (paper Alg. 1/2 + registered
+    strategies); field meanings as in the reference."""
+    algorithm: str = "feddane"       # any repro_torch.core.strategies name
+    num_devices: int = 30            # N
+    devices_per_round: int = 10      # K
+    local_epochs: int = 20           # E
+    local_batch_size: int = 10
+    learning_rate: float = 0.01
+    mu: float = 0.0                  # proximal penalty
+    sample_with_replacement: bool = False
+    weighted_sampling: bool = True   # p_k = n_k / n (paper §III-A)
+    correction_decay: float = 1.0    # decayed FedDANE (§V-C)
+    seed: int = 0
+    server_opt: str = "sgd"          # sgd | momentum | adam
+    server_lr: float = 1.0
+    server_momentum: float = 0.9
+    center_lr: float = 0.5           # sdane center step
+    # "batched" (one stacked round through the kernels), "loop" (the
+    # per-device reference), "auto": batched on the card, loop on CPU
+    engine: str = "auto"
+    round_driver: str = "auto"       # python (auto resolves to it)
+    buffer_size: int = 0
+    staleness_fn: str = "polynomial"
+    max_staleness: int = 0
+    local_solver: str = "auto"       # core/client.py SOLVER_MODES
+    chunk_rounds: int = 32
+    mesh_devices: int | str = 1
+    edge_shards: int = 1
+    client_source: str = "auto"
+    scenario: str = "ideal"
+    avail_prob: float = 0.9
+    diurnal_period: int = 8
+    straggler_sigma: float = 0.5
+    straggler_deadline: float = 2.0
+    dropout_rate: float = 0.1
+    partial_min_work: float = 0.5
+    codec: str = "none"
+    bits: int = 8
+    topk_frac: float = 0.1
+    clip_norm: float = 1.0
+    noise_mult: float = 1.0
+
+    def __post_init__(self):
+        from repro_torch.core.codecs import CODECS
+        from repro_torch.core.strategies import (algorithm_spec,
+                                                 validate_server_opt)
+        algorithm_spec(self.algorithm)
+        validate_server_opt(self.server_opt)
+        if self.scenario != "ideal":
+            raise _not_ported(f"scenario {self.scenario!r}")
+        if self.codec not in CODECS:
+            raise _not_ported(f"codec {self.codec!r}")
+        if self.engine not in ("auto", "batched", "loop"):
+            raise ValueError(
+                f"unknown engine {self.engine!r}; choose from "
+                f"auto/batched/loop")
+        if self.round_driver not in ("auto", "python", "scan",
+                                     "buffered"):
+            raise ValueError(
+                f"unknown round_driver {self.round_driver!r}; choose "
+                f"from auto/python/scan/buffered")
+        if self.round_driver in ("scan", "buffered"):
+            raise _not_ported(f"round_driver {self.round_driver!r}")
+        if not (_is_int(self.bits) and 2 <= self.bits <= 8):
+            raise ValueError(
+                f"bits must be an int in [2, 8], got {self.bits!r}")
+        if not 0.0 < self.topk_frac <= 1.0:
+            raise ValueError(
+                f"topk_frac must be in (0, 1], got {self.topk_frac}")
+        if self.clip_norm <= 0.0 or self.noise_mult < 0.0:
+            raise ValueError(
+                f"clip_norm must be > 0 and noise_mult >= 0, got "
+                f"{self.clip_norm}/{self.noise_mult}")
+        if not 0.0 < self.avail_prob <= 1.0:
+            raise ValueError(
+                f"avail_prob must be in (0, 1], got {self.avail_prob}")
+        if self.diurnal_period < 1:
+            raise ValueError(
+                f"diurnal_period must be >= 1, got {self.diurnal_period}")
+        if not 0.0 <= self.dropout_rate < 1.0:
+            raise ValueError(
+                f"dropout_rate must be in [0, 1), got {self.dropout_rate}")
+        if self.straggler_sigma < 0.0 or self.straggler_deadline <= 0.0:
+            raise ValueError(
+                f"straggler_sigma must be >= 0 and straggler_deadline "
+                f"> 0, got {self.straggler_sigma}/"
+                f"{self.straggler_deadline}")
+        if not 0.0 < self.partial_min_work <= 1.0:
+            raise ValueError(
+                f"partial_min_work must be in (0, 1], got "
+                f"{self.partial_min_work}")
+        if self.staleness_fn not in ("constant", "polynomial"):
+            raise ValueError(
+                f"unknown staleness_fn {self.staleness_fn!r}; choose "
+                f"from constant, polynomial")
+        for knob in ("buffer_size", "max_staleness"):
+            v = getattr(self, knob)
+            if not (_is_int(v) and v >= 0):
+                raise ValueError(
+                    f"{knob} must be a non-negative int (0 = default/"
+                    f"unlimited), got {v!r}")
+        if self.local_solver not in SOLVER_MODES:
+            raise ValueError(
+                f"local_solver must be one of auto/flat/per_leaf/"
+                f"fused_step/fused_epoch, got {self.local_solver!r}")
+        if self.mesh_devices != "auto" and not (
+                _is_int(self.mesh_devices) and self.mesh_devices >= 1):
+            raise ValueError(
+                f"mesh_devices must be a positive int or 'auto', got "
+                f"{self.mesh_devices!r}")
+        if self.mesh_devices != 1:
+            raise _not_ported(f"mesh_devices={self.mesh_devices!r} "
+                              f"(the client mesh)")
+        if not (_is_int(self.edge_shards) and self.edge_shards >= 1):
+            raise ValueError(
+                f"edge_shards must be a positive int, got "
+                f"{self.edge_shards!r}")
+        if self.edge_shards > 1:
+            raise ValueError(
+                f"edge_shards={self.edge_shards} must divide "
+                f"mesh_devices=1")
+        if self.client_source not in ("auto", "stacked", "streaming"):
+            raise ValueError(
+                f"unknown client_source {self.client_source!r}; choose "
+                f"from auto/stacked/streaming")
+        if self.client_source == "streaming":
+            raise _not_ported("client_source 'streaming'")
+
+
+def one_shot_config(num_devices: int, *, local_epochs: int = 50,
+                    **overrides) -> FederatedConfig:
+    """The one-shot federation preset: every device trains a fully
+    local model and the server aggregates once (run ``num_rounds=1``)."""
+    kw = dict(algorithm="one_shot", num_devices=num_devices,
+              devices_per_round=num_devices, local_epochs=local_epochs)
+    kw.update(overrides)
+    return FederatedConfig(**kw)

@@ -1,0 +1,256 @@
+"""Client-side local solvers: per-device (looped reference) and batched.
+
+Counterpart of ``repro/core/client.py``.  Every algorithm reduces to E
+epochs of minibatch SGD on a perturbed local objective
+``F_k(w) + <corr, w - w0> + (mu/2)||w - w0||^2``.
+
+``make_local_solver`` is the looped reference: one device, the plain
+4-op tree update, gradients from ``torch.func.grad``.  The batched
+solvers advance all K selected devices in lockstep over stacked batches
+with a ``(K, nb)`` validity mask (masked steps are identity steps, so a
+device with fewer batches follows exactly its own trajectory).
+
+Solver modes (``make_batched_solver(..., solver=...)``):
+
+- ``"flat"`` -- per-device gradients from
+  ``torch.func.vmap(torch.func.grad(loss))``, then ONE masked update
+  launch (K1) per step over the whole-tree flat pack;
+- ``"per_leaf"`` -- the same gradients, one update launch (K4) per leaf,
+  then the select; bitwise equal to ``"flat"``;
+- ``"fused_step"`` / ``"fused_epoch"`` -- the model's registered
+  :class:`SolverSpec` kernels: one launch per step (K3), or one per
+  whole local solve (K2); atol 1e-5 against the reference, not bitwise;
+- ``"auto"`` -- the fused kernels when the tensors are on the card and a
+  registered spec accepts the workload, else ``"flat"`` (as the
+  reference keeps the CPU on flat).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+from torch.func import grad, vmap
+
+from repro_torch.core import pytree as pt
+
+#: Valid ``make_batched_solver`` modes / ``FederatedConfig.local_solver``.
+SOLVER_MODES = ("auto", "flat", "per_leaf", "fused_step", "fused_epoch")
+
+
+class SolverSpec(NamedTuple):
+    """Fused-solver registration for one loss function.
+
+    - ``select(w0, batches, num_epochs)``: shape gate; returns
+      ``"fused_epoch"``, ``"fused_step"`` or ``None`` (generic flat path).
+    - ``make_step(eta)``: builds ``step(w, batch, corr, w0, mu, mask)``
+      over K-stacked trees.
+    - ``make_epoch(eta, num_epochs)``: builds
+      ``solve(w0, corr, mu, batches, step_mask)`` running the whole
+      E-epoch solve in one launch.
+    """
+
+    name: str
+    summary: str
+    select: Callable[[Any, Any, int], Optional[str]]
+    make_step: Callable
+    make_epoch: Optional[Callable]
+
+
+_SOLVERS: dict = {}
+
+
+def register_local_solver(loss_fn: Callable, spec: SolverSpec) -> None:
+    """Register ``spec`` as the fused solver for ``loss_fn`` (keyed by
+    function identity)."""
+    _SOLVERS[loss_fn] = spec
+
+
+def local_solver_spec(loss_fn: Callable) -> Optional[SolverSpec]:
+    """The registered :class:`SolverSpec` for ``loss_fn``, or None."""
+    if not _SOLVERS:
+        from repro_torch.kernels import local_solve
+        local_solve.register()
+    return _SOLVERS.get(loss_fn)
+
+
+class LocalResult(NamedTuple):
+    """One local solve's outcome: per-device leaves in the looped path,
+    K-stacked leaves from the batched solvers."""
+
+    params: Any           # w_k^t
+    delta: Any            # w_k^t - w^{t-1}
+    num_steps: Any
+
+
+def _batch_weight(batches) -> torch.Tensor:
+    """Per-batch gradient weights over a ``(nb, ...)`` stack: the
+    example-mask sums when the data layer provides ``"w"``, else 1."""
+    if isinstance(batches, dict) and "w" in batches:
+        w = batches["w"]
+        return w.reshape(w.shape[0], -1).sum(dim=1)
+    n = pt.leaves(batches)[0].shape[0]
+    return torch.ones(n, device=pt.leaves(batches)[0].device)
+
+
+def make_local_solver(loss_fn: Callable, *, learning_rate: float,
+                      num_epochs: int) -> Callable:
+    """The looped reference solver for one device.
+
+    ``solve(w0, corr, mu, batches) -> LocalResult`` where ``batches``
+    has leaves ``(num_batches, batch, ...)``; each step applies
+    ``w -= lr * (grad F_k(w) + corr + mu (w - w0))`` as plain tree ops.
+    """
+    grad_fn = grad(loss_fn)
+
+    def solve(w0, corr, mu, batches) -> LocalResult:
+        nb = pt.leaves(batches)[0].shape[0]
+        w = w0
+        for _ in range(num_epochs):
+            for j in range(nb):
+                g = grad_fn(w, pt.index(batches, j))
+                g = pt.add(g, corr)
+                g = pt.add(g, pt.scale(pt.sub(w, w0), mu))
+                w = pt.sub(w, pt.scale(g, learning_rate))
+        return LocalResult(w, pt.sub(w, w0), num_epochs * nb)
+
+    return solve
+
+
+def _weighted_grad_mean(loss_fn, w, batches, weights):
+    """``sum_j weights[j] grad(w, batch_j) / max(sum weights, 1e-9)``."""
+    g = vmap(grad(loss_fn), in_dims=(None, 0))(w, batches)
+    wsum = weights.sum()
+    gsum = pt.tmap(lambda x: (x * weights.reshape(
+        weights.shape + (1,) * (x.ndim - 1))).sum(dim=0), g)
+    return pt.scale(gsum, 1.0 / torch.clamp(wsum, min=1e-9))
+
+
+def make_grad_fn(loss_fn: Callable) -> Callable:
+    """Full local gradient over all of a device's (padded) batches: the
+    weighted mean of the per-batch gradients (FedDANE phase A)."""
+
+    def full_grad(w, batches):
+        return _weighted_grad_mean(loss_fn, w, batches,
+                                   _batch_weight(batches))
+
+    return full_grad
+
+
+def make_batched_grad_fn(loss_fn: Callable) -> Callable:
+    """Full local gradients for a device-stacked selection:
+    ``grads(w, batches, valid)`` with a leading K axis, per device the
+    weighted mean over its *valid* batches."""
+
+    def one(w, batches, valid):
+        return _weighted_grad_mean(loss_fn, w, batches,
+                                   _batch_weight(batches) * valid)
+
+    def grads(w, batches, valid):
+        return vmap(one, in_dims=(None, 0, 0))(w, batches, valid)
+
+    return grads
+
+
+def _resolve_solver_mode(solver: str, loss_fn: Callable, w0, batches,
+                         num_epochs: int) -> str:
+    """Dispatch of the requested solver mode.  Explicit fused requests
+    validate against the registry and shape gate with a clear error;
+    ``"auto"`` falls back to flat silently."""
+    if solver not in SOLVER_MODES:
+        raise ValueError(
+            f"unknown solver mode {solver!r}; pick one of {SOLVER_MODES}")
+    if solver in ("flat", "per_leaf"):
+        return solver
+    spec = local_solver_spec(loss_fn)
+    picked = spec.select(w0, batches, num_epochs) if spec else None
+    if solver == "auto":
+        on_card = pt.leaves(w0)[0].device.type == "cuda"
+        if spec is None or picked is None or not on_card:
+            return "flat"
+        return picked
+    if spec is None:
+        raise ValueError(
+            f"solver={solver!r} but no SolverSpec is registered for "
+            f"{getattr(loss_fn, '__name__', loss_fn)!r} "
+            f"(register_local_solver)")
+    if picked is None:
+        raise ValueError(
+            f"solver={solver!r}: registered spec {spec.name!r} rejects "
+            f"this workload's shapes; use solver='flat'")
+    if solver == "fused_epoch" and spec.make_epoch is None:
+        raise ValueError(
+            f"spec {spec.name!r} has no whole-epoch kernel; "
+            f"use solver='fused_step'")
+    return solver
+
+
+def _epoch_step_mask(valid, num_epochs: int, steps_limit=None):
+    """Per-step keep mask (K, E*nb) in scan order (epochs outer, batches
+    inner): the closed form of the generic solver's running
+    ``done < steps_limit`` predicate."""
+    v_steps = valid.repeat(1, num_epochs)
+    if steps_limit is None:
+        return v_steps
+    done_before = torch.cumsum(v_steps, dim=1) - v_steps
+    return v_steps * (done_before < steps_limit[:, None])
+
+
+def make_batched_solver(loss_fn: Callable, *, learning_rate: float,
+                        num_epochs: int, solver: str = "auto") -> Callable:
+    """Device-parallel E-epoch SGD solver for DANE-type subproblems.
+
+    ``solve(w0, corr, mu, batches, valid) -> LocalResult`` where ``w0``
+    is the unstacked anchor, ``corr`` a K-stacked correction,
+    ``batches`` has leaves ``(K, nb, batch, ...)`` and ``valid`` is the
+    float ``(K, nb)`` mask.  Returned leaves keep the leading K axis.
+    """
+    from repro_torch.kernels import flatpack
+    from repro_torch.kernels import ops as kops
+
+    grad_fn = vmap(grad(loss_fn))
+
+    def solve(w0, corr, mu, batches, valid) -> LocalResult:
+        K, nb = valid.shape
+        mode = _resolve_solver_mode(solver, loss_fn, w0, batches,
+                                    num_epochs)
+        anchor = pt.tmap(
+            lambda x: x.expand((K,) + x.shape).contiguous(), w0)
+        done = num_epochs * valid.sum(dim=1)
+
+        if mode == "fused_epoch":
+            spec = local_solver_spec(loss_fn)
+            solve_fn = spec.make_epoch(learning_rate, num_epochs)
+            mask = _epoch_step_mask(valid, num_epochs)
+            w = solve_fn(w0, pt.tmap(torch.Tensor.contiguous, corr), mu,
+                         batches, mask)
+            return LocalResult(w, pt.sub(w, anchor), done.to(torch.int32))
+
+        if mode == "fused_step":
+            step_fn = local_solver_spec(loss_fn).make_step(learning_rate)
+            corr = pt.tmap(torch.Tensor.contiguous, corr)
+        elif mode == "flat":
+            fspec = flatpack.flat_spec(w0)
+            corr_f = flatpack.pack_stacked(fspec, corr, K)
+            anchor_f = flatpack.pack_broadcast(fspec, w0, K)
+
+        w = anchor
+        for _ in range(num_epochs):
+            for j in range(nb):
+                batch = pt.tmap(lambda x: x[:, j], batches)
+                m = valid[:, j]
+                if mode == "fused_step":
+                    w = step_fn(w, batch, corr, w0, mu, m)
+                elif mode == "flat":
+                    g = grad_fn(w, batch)
+                    wf = kops.dane_update_flat_masked(
+                        flatpack.pack_stacked(fspec, w, K),
+                        flatpack.pack_stacked(fspec, g, K),
+                        corr_f, anchor_f, learning_rate, mu, m, fspec.rows)
+                    w = flatpack.unpack_stacked(fspec, wf, K)
+                else:                               # per_leaf
+                    g = grad_fn(w, batch)
+                    w = kops.dane_update_masked(
+                        w, g, corr, anchor, learning_rate, mu, m)
+        return LocalResult(w, pt.sub(w, anchor), done.to(torch.int32))
+
+    return solve

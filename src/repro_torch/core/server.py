@@ -1,0 +1,56 @@
+"""Server side: device sampling and aggregation (Alg. 1/2 lines 3, 6-7, 9).
+
+Counterpart of the synchronous half of ``repro/core/server.py``.
+:func:`sample_devices` draws from the trainer's
+``np.random.default_rng(seed)`` stream with the same numpy call as the
+reference, so a seed gives exactly the reference's selections.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.core import pytree as pt
+
+
+def sample_devices(rng: np.random.Generator, num_devices: int, k: int,
+                   p: Optional[Sequence[float]] = None,
+                   replace: bool = False) -> np.ndarray:
+    """Select |S_t| = K devices; each chosen with probability p_k (paper
+    line 3).  Without replacement, p is renormalized as numpy does."""
+    k = min(k, num_devices) if not replace else k
+    probs = None
+    if p is not None:
+        probs = np.asarray(p, dtype=np.float64)
+        probs = probs / probs.sum()
+    return rng.choice(num_devices, size=k, replace=replace, p=probs)
+
+
+def aggregate_mean(updates: List) -> object:
+    """w^t = (1/K) sum_k w_k^t  (unweighted mean over the selected set,
+    Alg. 1 line 7 / Alg. 2 line 9)."""
+    return pt.mean(updates)
+
+
+def aggregate_gradients(grads: List) -> object:
+    """g_t = (1/K) sum_{k in S_t} grad F_k(w^{t-1})  (Alg. 2 line 6)."""
+    return pt.mean(grads)
+
+
+def aggregate_stacked(tree) -> object:
+    """Mean over the leading device axis of a K-stacked tree -- the
+    batched round's form of ``aggregate_mean``/``aggregate_gradients``
+    (stays on the device)."""
+    return pt.tmap(lambda x: x.mean(dim=0), tree)
+
+
+def server_step(w0, w_agg, opt=None, opt_state=None):
+    """Post-aggregation server update: hands the pseudo-gradient
+    ``w0 - w_agg`` to an optimizer and applies the result to ``w0``.
+    ``opt=None`` is plain averaging (``w_agg`` returned untouched).
+    Returns ``(new_params, new_opt_state)``."""
+    if opt is None:
+        return w_agg, opt_state
+    updates, new_state = opt.update(pt.sub(w0, w_agg), opt_state, w0)
+    return pt.add(w0, updates), new_state

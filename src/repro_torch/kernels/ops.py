@@ -1,0 +1,83 @@
+"""Public wrappers around the update kernels (K1, K4) over parameter trees.
+
+Counterpart of the ``dane_update*`` wrappers of ``repro/kernels/ops.py``.
+Each launches the CUDA kernel for tensors on the card and the plain
+version for tensors on the CPU (the choice is made in
+``kernels/dane_update.py``); launches are counted in
+``kernels.build.launch_counts``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import pytree as pt
+from repro_torch.kernels import flatpack
+from repro_torch.kernels.dane_update import (LANES, dane_update_2d,
+                                             dane_update_flat)
+
+
+def _pad_2d(a):
+    """Flatten to (rows, LANES) with zero pad; returns (view, orig_size)."""
+    flat = a.reshape(-1)
+    n = flat.shape[0]
+    rows = -(-n // LANES)
+    pad = rows * LANES - n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(rows, LANES), n
+
+
+def dane_update_array(w, grad, g_corr, anchor, eta, mu):
+    """Fused update (K4) for one array of any shape."""
+    w2, n = _pad_2d(w)
+    g2, _ = _pad_2d(grad)
+    c2, _ = _pad_2d(g_corr)
+    a2, _ = _pad_2d(anchor)
+    out = dane_update_2d(w2, g2, c2, a2, eta, mu)
+    return out.reshape(-1)[:n].reshape(w.shape)
+
+
+def dane_update(w_tree, grad_tree, corr_tree, anchor_tree, eta, mu):
+    """The fused FedDANE step leaf-wise over parameter trees (one K4
+    launch per leaf)."""
+    return pt.tmap(
+        lambda w, g, c, a: dane_update_array(w, g, c, a, eta, mu),
+        w_tree, grad_tree, corr_tree, anchor_tree)
+
+
+def dane_update_masked(w_tree, grad_tree, corr_tree, anchor_tree, eta, mu,
+                       valid):
+    """The step over *device-stacked* trees with a ``(K,)`` step mask:
+    one unmasked K4 launch per leaf for all devices, then the select
+    (devices with ``valid`` not > 0 keep ``w``) -- the ``per_leaf``
+    solver mode."""
+    new = dane_update(w_tree, grad_tree, corr_tree, anchor_tree, eta, mu)
+
+    def select(n, o):
+        keep = valid.reshape(valid.shape + (1,) * (n.ndim - 1)) > 0
+        return torch.where(keep, n, o)
+
+    return pt.tmap(select, new, w_tree)
+
+
+def dane_update_flat_masked(wf, gf, cf, af, eta, mu, valid,
+                            rows_per_dev: int):
+    """Masked step on flat-packed ``(K*rows, LANES)`` buffers: ONE K1
+    launch for all leaves and devices, the mask resolved in the kernel.
+    Per-element arithmetic equals the per-leaf path's bitwise."""
+    return dane_update_flat(wf, gf, cf, af, eta, mu, valid, rows_per_dev)
+
+
+def dane_update_tree_masked(w_tree, grad_tree, corr_tree, anchor_tree,
+                            eta, mu, valid):
+    """Pack -> ONE K1 launch -> unpack, with tree in and out; a drop-in
+    for :func:`dane_update_masked`."""
+    spec = flatpack.flat_spec(pt.index(w_tree, 0))
+    k = pt.leaves(w_tree)[0].shape[0]
+    wf = flatpack.pack_stacked(spec, w_tree, k)
+    gf = flatpack.pack_stacked(spec, grad_tree, k)
+    cf = flatpack.pack_stacked(spec, corr_tree, k)
+    af = flatpack.pack_stacked(spec, anchor_tree, k)
+    out = dane_update_flat_masked(wf, gf, cf, af, eta, mu, valid,
+                                  spec.rows)
+    return flatpack.unpack_stacked(spec, out, k)

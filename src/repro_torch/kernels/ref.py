@@ -1,0 +1,92 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function computes what its CUDA kernel computes, op by op, in f32.
+The kernel wrappers take these only for tensors that lie on the CPU;
+the CPU tests run them against the JAX reference, and ``chip_smoke.py``
+holds each kernel against its plain version on the card.  Nothing on
+the main path calls them for tensors on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+
+
+def dane_update_ref(w, grad, g_corr, anchor, *, eta: float, mu: float):
+    """FedDANE local step (Alg. 2 line 7, one SGD step), K4's function:
+
+        w' = w - eta * (grad + g_corr + mu * (w - anchor))
+
+    computed in f32 and cast back to ``w``'s dtype.
+    """
+    wf = w.to(F32)
+    out = wf - eta * (grad.to(F32) + g_corr.to(F32)
+                      + mu * (wf - anchor.to(F32)))
+    return out.to(w.dtype)
+
+
+def dane_update_flat_ref(w, grad, g_corr, anchor, eta: float, mu: float,
+                         mask, rows_per_dev: int):
+    """K1's function: the update over a ``(K*rows_per_dev, 128)`` flat
+    pack, where rows of devices whose ``(K,)`` mask is not > 0 keep
+    ``w`` exactly."""
+    out = dane_update_ref(w, grad, g_corr, anchor, eta=eta, mu=mu)
+    keep = (mask.to(F32) > 0).repeat_interleave(rows_per_dev)[:, None]
+    return torch.where(keep, out, w)
+
+
+def _softmax_residual(x, y, w, b, batch_total: int):
+    """K-batched softmax-regression gradient pieces in the kernels'
+    order: logits, max-subtract, exp, normalise, ``(p - onehot)/B``,
+    then ``Xᵀr`` and ``Σr``.
+
+    ``x``: (K, rows, d); ``y``: (K, rows) int; ``w``: (K, d, C);
+    ``b``: (K, C).  Returns ``(gw (K, d, C), gb (K, C))``.
+    """
+    logits = torch.bmm(x, w) + b[:, None, :]
+    zmax = logits.amax(dim=-1, keepdim=True)
+    ez = torch.exp(logits - zmax)
+    p = ez / ez.sum(dim=-1, keepdim=True)
+    onehot = torch.nn.functional.one_hot(y.long(), w.shape[-1]).to(F32)
+    r = (p - onehot) / batch_total
+    return torch.bmm(x.transpose(1, 2), r), r.sum(dim=1)
+
+
+def _sgd_prox(w, g, c, w0, eta: float, mu: float):
+    return w - eta * (g + c + mu * (w - w0))
+
+
+def linear_logistic_step_ref(w, batch, corr, w0, *, eta: float, mu: float,
+                             mask):
+    """K3's function: one masked SGD step of K stacked softmax
+    regressions.  ``w``/``corr``: ``{"w": (K, d, C), "b": (K, C)}``;
+    ``batch``: ``{"x": (K, B, d), "y": (K, B)}``; ``w0``: the unstacked
+    anchor; ``mask``: (K,), devices not > 0 keep ``w`` exactly."""
+    x = batch["x"].to(F32)
+    ww, bb = w["w"].to(F32), w["b"].to(F32)
+    gw, gb = _softmax_residual(x, batch["y"], ww, bb, x.shape[1])
+    wn = _sgd_prox(ww, gw, corr["w"].to(F32), w0["w"].to(F32), eta, mu)
+    bn = _sgd_prox(bb, gb, corr["b"].to(F32), w0["b"].to(F32), eta, mu)
+    keep = mask.to(F32) > 0
+    return {"w": torch.where(keep[:, None, None], wn, ww),
+            "b": torch.where(keep[:, None], bn, bb)}
+
+
+def local_epoch_ref(w0, corr, batches, *, eta: float, mu: float,
+                    num_epochs: int, step_mask):
+    """K2's function: a whole E-epoch solve of K stacked softmax
+    regressions from the shared anchor ``w0``.  ``batches``:
+    ``{"x": (K, nb, B, d), "y": (K, nb, B)}``; step ``t`` uses batch
+    ``t % nb`` and is kept where ``step_mask[:, t] > 0``."""
+    x = batches["x"].to(F32)
+    K, nb, B, d = x.shape
+    a_w, a_b = w0["w"].to(F32), w0["b"].to(F32)
+    w = {"w": a_w.expand((K,) + a_w.shape).clone(),
+         "b": a_b.expand((K,) + a_b.shape).clone()}
+    for t in range(num_epochs * nb):
+        j = t % nb
+        w = linear_logistic_step_ref(
+            w, {"x": x[:, j], "y": batches["y"][:, j]}, corr, w0,
+            eta=eta, mu=mu, mask=step_mask[:, t])
+    return w

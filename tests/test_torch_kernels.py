@@ -1,0 +1,232 @@
+"""The port's kernel layer against the JAX package's Pallas kernels.
+
+On the CPU each wrapper of ``repro_torch.kernels`` takes its kernel's
+plain PyTorch version; here those plain versions are held against the
+reference kernels run in interpret mode (as tests/test_kernels.py runs
+them), on the same numpy-seeded inputs.  The CUDA kernels themselves
+are held against the same plain versions on the card by chip_smoke.py.
+
+Tolerances:
+- the update (K1, K4): the port rounds op by op, while XLA:CPU may
+  contract ``w - eta * (...)`` into a fused multiply-add, so the two
+  differ by an ulp on some elements: atol 1e-6 on O(1) values.  Inside
+  the port, flat and per-leaf stay bitwise equal;
+- the fused local solve (K2, K3) sums its dot products in another order
+  than XLA: atol 1e-6 on O(1) weights after a handful of steps.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_threads import one_torch_thread  # noqa: F401
+
+from repro.kernels import flatpack as jflat
+from repro.kernels import local_solve as jls
+from repro.kernels import ops as jops
+from repro_torch.core import pytree as pt
+from repro_torch.kernels import build, flatpack, local_solve, ops
+
+UPDATE_ATOL = 1e-6
+SOLVE_ATOL = 1e-6
+
+
+def _np(seed, *shapes, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(dtype) for s in shapes]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _jtree(tree):
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+@pytest.mark.parametrize("eta,mu", [(0.01, 0.0), (0.1, 1.0), (1e-3, 0.01)])
+def test_dane_update_flat_matches_reference(eta, mu):
+    """K1: masked flat-pack update, a masked device keeps w."""
+    k, rows = 5, 8
+    w, g, c, a = _np(0, *[(k * rows, 128)] * 4)
+    mask = np.array([1, 0, 1, 1, 0], np.float32)
+    want = jops.dane_update_flat_masked(
+        jnp.asarray(w), jnp.asarray(g), jnp.asarray(c), jnp.asarray(a),
+        eta, mu, jnp.asarray(mask), rows, interpret=True)
+    got = ops.dane_update_flat_masked(_t(w), _t(g), _t(c), _t(a), eta, mu,
+                                      _t(mask), rows)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=UPDATE_ATOL)
+    np.testing.assert_array_equal(got.numpy()[rows:2 * rows],
+                                  w[rows:2 * rows])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_dane_update_masked_matches_reference(dtype):
+    """K4 per leaf (one launch per leaf) plus the select."""
+    k = 4
+    shapes = {"w": (k, 60, 10), "b": (k, 10)}
+    trees = [dict(zip(shapes, _np(i, *shapes.values()))) for i in range(4)]
+    valid = np.array([1, 1, 0, 1], np.float32)
+    if dtype == "bfloat16":
+        jt = [jax.tree_util.tree_map(
+            lambda x: jnp.asarray(x, jnp.bfloat16), t) for t in trees]
+        tt = [pt.tmap(lambda x: _t(x).to(torch.bfloat16), t)
+              for t in trees]
+    else:
+        jt = [_jtree(t) for t in trees]
+        tt = [pt.tmap(_t, t) for t in trees]
+    want = jops.dane_update_masked(*jt, 0.05, 0.1, jnp.asarray(valid),
+                                   interpret=True)
+    got = ops.dane_update_masked(*tt, 0.05, 0.1, _t(valid))
+    for name in shapes:
+        np.testing.assert_allclose(
+            got[name].float().numpy(),
+            np.asarray(want[name].astype(jnp.float32)), rtol=0,
+            atol=UPDATE_ATOL)
+        np.testing.assert_array_equal(got[name][2].float().numpy(),
+                                      np.asarray(jt[0][name][2],
+                                                 np.float32))
+
+
+def test_tree_flat_equals_per_leaf_bitwise():
+    """Inside the port the flat pack is pure layout: K1 over the packed
+    tree equals K4 per leaf bitwise, masked devices included."""
+    k = 3
+    shapes = {"w": (k, 60, 10), "b": (k, 10)}
+    trees = [{n: _t(x) for n, x in zip(shapes, _np(i, *shapes.values()))}
+             for i in range(4)]
+    valid = _t(np.array([1, 0, 1], np.float32))
+    flat = ops.dane_update_tree_masked(*trees, 0.05, 0.01, valid)
+    leaf = ops.dane_update_masked(*trees, 0.05, 0.01, valid)
+    for name in shapes:
+        assert torch.equal(flat[name], leaf[name])
+
+
+def test_flatpack_layout_matches_reference():
+    k = 3
+    tree = {"w": _np(1, (k, 60, 10))[0], "b": _np(2, (k, 10))[0]}
+    jspec = jflat.flat_spec(jax.tree_util.tree_map(lambda x: x[0],
+                                                   _jtree(tree)))
+    spec = flatpack.flat_spec(pt.index(pt.tmap(_t, tree), 0))
+    assert (spec.rows, spec.total, spec.offsets) == \
+        (jspec.rows, jspec.total, jspec.offsets)
+    want = jflat.pack_stacked(jspec, _jtree(tree), k)
+    got = flatpack.pack_stacked(spec, pt.tmap(_t, tree), k)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    back = flatpack.unpack_stacked(spec, got, k)
+    for name in tree:
+        np.testing.assert_array_equal(back[name].numpy(), tree[name])
+
+
+def _logreg_inputs(seed, K, nb, B, d, C):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(K, nb, B, d)).astype(np.float32)
+    y = rng.integers(0, C, size=(K, nb, B)).astype(np.int32)
+    w0 = {"w": (0.1 * rng.normal(size=(d, C))).astype(np.float32),
+          "b": (0.1 * rng.normal(size=(C,))).astype(np.float32)}
+    corr = {"w": (0.01 * rng.normal(size=(K, d, C))).astype(np.float32),
+            "b": (0.01 * rng.normal(size=(K, C))).astype(np.float32)}
+    return x, y, w0, corr
+
+
+def test_local_epoch_matches_reference():
+    """K2: whole E-epoch solve; the step mask holds padding zeros (a
+    device with fewer batches) and a fully masked device."""
+    K, nb, B, d, C, E = 3, 4, 5, 7, 4, 2
+    x, y, w0, corr = _logreg_inputs(3, K, nb, B, d, C)
+    valid = np.array([[1, 1, 1, 1], [1, 1, 0, 0], [0, 0, 0, 0]],
+                     np.float32)
+    mask = np.tile(valid, (1, E))
+    want = jls.local_epoch(_jtree(w0), _jtree(corr),
+                           {"x": jnp.asarray(x), "y": jnp.asarray(y)},
+                           eta=0.1, mu=0.05, num_epochs=E,
+                           step_mask=jnp.asarray(mask), interpret=True)
+    got = local_solve.local_epoch(
+        pt.tmap(_t, w0), pt.tmap(_t, corr), {"x": _t(x), "y": _t(y)},
+        eta=0.1, mu=0.05, num_epochs=E, step_mask=_t(mask))
+    for name in ("w", "b"):
+        np.testing.assert_allclose(got[name].numpy(),
+                                   np.asarray(want[name]), atol=SOLVE_ATOL)
+    # the fully masked device never moves from the anchor
+    np.testing.assert_array_equal(got["w"][2].numpy(), w0["w"])
+
+
+def test_linear_logistic_step_matches_reference():
+    """K3: one step, B=10 not a multiple of the reference's row block
+    (block_b=4 -> five 2-row blocks), one masked device."""
+    K, B, d, C = 3, 10, 7, 4
+    x, y, w0, corr = _logreg_inputs(4, K, 1, B, d, C)
+    x, y = x[:, 0], y[:, 0]
+    rng = np.random.default_rng(5)
+    w = {"w": rng.normal(size=(K, d, C)).astype(np.float32),
+         "b": rng.normal(size=(K, C)).astype(np.float32)}
+    mask = np.array([1, 0, 1], np.float32)
+    want = jls.linear_logistic_step(
+        _jtree(w), {"x": jnp.asarray(x), "y": jnp.asarray(y)},
+        _jtree(corr), _jtree(w0), eta=0.1, mu=0.05,
+        mask=jnp.asarray(mask), block_b=4, interpret=True)
+    got = local_solve.linear_logistic_step(
+        pt.tmap(_t, w), {"x": _t(x), "y": _t(y)}, pt.tmap(_t, corr),
+        pt.tmap(_t, w0), eta=0.1, mu=0.05, mask=_t(mask))
+    for name in ("w", "b"):
+        np.testing.assert_allclose(got[name].numpy(),
+                                   np.asarray(want[name]), atol=SOLVE_ATOL)
+        np.testing.assert_array_equal(got[name][1].numpy(), w[name][1])
+
+
+@pytest.mark.parametrize("d,nb,epochs,want", [
+    (60, 128, 20, "fused_epoch"),     # synthetic(1,1): E*nb = 2560
+    (784, 64, 20, "fused_epoch"),     # FEMNIST-like, largest client
+    (784, 512, 20, "fused_step"),     # a 5000-sample client
+    (60, 128, 40, "fused_step"),
+])
+def test_select_matches_reference_modes(d, nb, epochs, want):
+    """The port's gate (shared-memory budget + the 4096-step rule) picks
+    the reference's fused mode at the paper's shapes."""
+    w0 = {"w": torch.zeros(d, 10), "b": torch.zeros(10)}
+    batches = {"x": torch.zeros(2, nb, 10, d),
+               "y": torch.zeros(2, nb, 10, dtype=torch.int32)}
+    jw0 = {"w": jnp.zeros((d, 10)), "b": jnp.zeros(10)}
+    jb = {"x": jnp.zeros((2, nb, 10, d)),
+          "y": jnp.zeros((2, nb, 10), jnp.int32)}
+    assert local_solve._select(w0, batches, epochs) == want
+    assert jls._select(jw0, jb, epochs) == want
+
+
+def test_select_rejects_what_the_kernels_cannot_take():
+    w0 = {"w": torch.zeros(60, 10), "b": torch.zeros(10)}
+    x = torch.zeros(2, 4, 10, 60)
+    assert local_solve._select(
+        w0, {"x": x, "y": x[..., 0]}, 2) is None          # float labels
+    assert local_solve._select(
+        {"w": w0["w"]}, {"x": x, "y": x[..., 0].int()}, 2) is None
+    big = {"w": torch.zeros(8000, 10), "b": torch.zeros(10)}
+    assert local_solve._select(
+        big, {"x": torch.zeros(1, 1, 10, 8000),
+              "y": torch.zeros(1, 1, 10, dtype=torch.int32)}, 2) is None
+
+
+def test_wrappers_check_their_inputs():
+    w = torch.zeros(16, 128)
+    with pytest.raises(ValueError, match="differ"):
+        ops.dane_update_flat_masked(w, w, w, torch.zeros(8, 128), 0.1, 0.0,
+                                    torch.ones(2), 8)
+    with pytest.raises(ValueError, match="mask shape"):
+        ops.dane_update_flat_masked(w, w, w, w, 0.1, 0.0, torch.ones(3), 8)
+    with pytest.raises(TypeError, match="dtype"):
+        h = w.half()
+        ops.dane_update_flat_masked(h, h, h, h, 0.1, 0.0, torch.ones(2), 8)
+    with pytest.raises(ValueError, match="rows"):
+        ops.dane_update_flat_masked(w, w, w, w, 0.1, 0.0, torch.ones(2), 5)
+
+
+def test_cpu_path_launches_no_kernel():
+    """Launch counters move only where a kernel launches: never for CPU
+    tensors, which take the plain versions."""
+    build.reset_launch_counts()
+    w = torch.ones(8, 128)
+    ops.dane_update_flat_masked(w, w, w, w, 0.1, 0.0, torch.ones(1), 8)
+    ops.dane_update_array(torch.ones(7), torch.ones(7), torch.ones(7),
+                          torch.ones(7), 0.1, 0.0)
+    assert set(build.launch_counts.values()) == {0}
