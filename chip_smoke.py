@@ -8,11 +8,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together);
-3. each kernel (K1-K4) at every shape phases 4-6 give it (K2 and K3 at
-   both d=60 and d=784), on numpy-seeded inputs with a masked device and
-   masked steps: held against its plain PyTorch version on the card,
-   timed with CUDA events beside the plain version and its roofline
-   bound (the bytes and flops the masks leave to do);
+3. each kernel (K1-K5) at every shape phases 4-7 give it (K2 and K3 at
+   both d=60 and d=784, K5 at the synthetic and FEMNIST-like flat packs
+   and on an all-inactive cohort), on numpy-seeded inputs with a masked
+   device and masked steps: held against its plain PyTorch version on
+   the card, timed with CUDA events beside the plain version, its
+   roofline bound (the bytes and flops the masks leave to do) and, for
+   K5, the one PyTorch call that computes the same sum;
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
@@ -24,13 +26,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    K=10, E=20), feddane, 3 rounds on "auto" plus one round on
    "fused_step", held against the CPU path to a multiple of the spread
    that float32 rounding causes there (measured on the CPU path);
-7. the ``kernels`` JSON line: every kernel with its launches in phases
-   4-6 (the counters are set to 0 just before phase 4 and read just
-   after phase 6), error, times and bound, and each checked shape
+7. scenarios and lossy codecs on the paper config: feddane and fedavg
+   under ``scenario="hostile"`` (availability, partial-credit
+   stragglers, dropout and partial work at once: masks, truncated
+   solves and a thinned gather) with each lossy codec (int8, topk,
+   dp_gauss), plus feddane with the dense codec, 3 rounds each against
+   the CPU path: the same selections and masks every round, params
+   within tolerance (int8 within 4x its own measured sensitivity), and
+   one K5 launch per lossy round on the card;
+8. the ``kernels`` JSON line: every kernel with its launches in phases
+   4-7 (the counters are set to 0 just before phase 4 and read just
+   after phase 7), error, times and bound, and each checked shape
    under ``cases``.
 
-Phases 4-6 also run one more round of the auto and fused_step cells
-under ``torch.profiler`` and print the card's idle share in it.
+Phases 4-7 also run one more round of the auto, fused_step and
+phase-7 cells under ``torch.profiler`` and print the card's idle share
+in it.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/repro_torch`` beside this
@@ -65,6 +76,9 @@ STEP_TOL = 1e-5
 #: The card's fused solve (analytic gradient) against the CPU path's
 #: autodiff + flat update, over 5 rounds of 2560 steps.
 TRAJECTORY_TOL = 1e-4
+#: K5 adds the cohort in client order with every product and sum rounded
+#: on its own (built with -fmad=false), like its plain version.
+CODEC_TOL = 0.0
 #: The FEMNIST-like feddane round amplifies float32 rounding about 1e4-fold:
 #: its correction g - g_k moves with the Hessian (~1e3 at d=784) times any
 #: change of w, and enters every one of the E*nb local steps.  Phase 6
@@ -131,7 +145,8 @@ def kernel_checks(torch, syn, fem):
     from repro_torch.core.client import _epoch_step_mask
     from repro_torch.core.server import sample_devices
     from repro_torch.data.batching import stack_device_batches
-    from repro_torch.kernels import dane_update, flatpack, local_solve, ref
+    from repro_torch.kernels import (codec, dane_update, flatpack,
+                                     local_solve, ref)
 
     dev = syn.device
     rng = np.random.default_rng(1234)
@@ -155,7 +170,7 @@ def kernel_checks(torch, syn, fem):
             ds, sample_devices(r, ds.num_devices, 10, p=ds.weights))
 
     def case(label, kernel, plain, tol, nbytes, flops, calls=100,
-             plain_repeats=5):
+             plain_repeats=5, library=None):
         err = max_err(torch, kernel(), plain())
         check(err <= tol, f"{label}: error {err} > {tol}")
         b_ms, b_by = bound(nbytes, flops)
@@ -163,9 +178,13 @@ def kernel_checks(torch, syn, fem):
                  ms=cuda_ms(torch, kernel, calls),
                  plain_ms=cuda_ms(torch, plain, calls,
                                   repeats=plain_repeats),
-                 bound_ms=b_ms, bound_by=b_by)
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=(cuda_ms(torch, library, calls)
+                             if library is not None else None))
+        lib = (f"  library {c['library_ms']:.4f} ms"
+               if library is not None else "")
         print(f"  {label:52s} err {err:.3g} (tol {tol:g})  kernel "
-              f"{c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  bound "
+              f"{c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms{lib}  bound "
               f"{b_ms:.6f} ms ({b_by})")
         return c
 
@@ -174,7 +193,7 @@ def kernel_checks(torch, syn, fem):
                     source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=f"src/repro/kernels/{replaces}",
                     max_abs_err=max(c["max_abs_err"] for c in cases),
-                    library_ms=None, cases=cases)
+                    cases=cases)
 
     def k1_case(R):
         """One flat-mode step over K devices of R rows of 128 lanes.
@@ -253,12 +272,40 @@ def kernel_checks(torch, syn, fem):
                 wk, batch, corr, w0, eta=eta, mu=mu, mask=mask),
             STEP_TOL, nbytes, flops)
 
+    def k5_case(R, m, what):
+        """The cohort aggregate over K clients of R rows of 128 lanes,
+        as the codec round gives it: int8-like code points with per-
+        client scales.  Only the active clients' slabs are read."""
+        K = m.numel()
+        vals = t(np.floor(rng.uniform(-127, 128, (K, R, 128))).astype(
+            np.float32))
+        scales = t(rng.uniform(1e-4, 1e-3, K).astype(np.float32))
+        n_act = int(m.sum())
+        nbytes = 4 * (n_act * R * 128 + R * 128 + 2 * K)
+        flops = 2 * n_act * R * 128 + R * 128
+        w = scales * m
+        w_over = w / torch.clamp(m.sum(), min=1.0)
+        label = f"codec_aggregate ({K}, {R}, 128) f32, {what}"
+        c = case(label, lambda: codec.codec_aggregate(vals, scales, m),
+                 lambda: ref.codec_aggregate_ref(vals, scales, m),
+                 CODEC_TOL, nbytes, flops,
+                 library=lambda: torch.einsum("k,krl->rl", w_over, vals))
+        if n_act == 0:
+            out = codec.codec_aggregate(vals, scales, m)
+            check(bool((out == 0).all()) and not bool(
+                torch.signbit(out).any()),
+                f"{label}: an all-inactive cohort must give +0.0")
+        return c
+
     # K1 runs on the synthetic model's flat pack (8 rows a device); K4 on
     # its two leaves, (K, 60, 10) and (K, 10); K2 on the auto path of both
     # datasets; K3 on both fused_step runs.
     rows_syn = flatpack.flat_spec({"w": torch.zeros(60, C),
                                    "b": torch.zeros(C)}).rows
+    rows_fem = flatpack.flat_spec({"w": torch.zeros(784, C),
+                                   "b": torch.zeros(C)}).rows
     K = mask.numel()
+    none = torch.zeros_like(mask)
     return [
         row("dane_update_flat", "dane_update.py:62", "dane_update.cu",
             [k1_case(rows_syn)]),
@@ -268,13 +315,19 @@ def kernel_checks(torch, syn, fem):
             [k2_case(syn), k2_case(fem)]),
         row("linear_logistic_step", "local_solve.py:68", "local_solve.cu",
             [k3_case(fem), k3_case(syn)]),
+        # K5 on the synthetic flat pack (phase 7) and the FEMNIST-like one
+        row("codec_aggregate", "codec.py:34", "codec.cu",
+            [k5_case(rows_syn, mask, "1 of 10 masked"),
+             k5_case(rows_fem, mask, "1 of 10 masked"),
+             k5_case(rows_syn, none, "all 10 inactive")]),
     ]
 
 
-def cpu_sensitivity(torch, data_cpu, cfg, nudge: float = 1e-7):
-    """How far one round of ``cfg`` on the CPU path moves when the
+def cpu_sensitivity(torch, data_cpu, cfg, nudge: float = 1e-7,
+                    rounds: int = 1):
+    """How far ``rounds`` rounds of ``cfg`` on the CPU path move when the
     starting weights are nudged by ``nudge`` (two numpy-seeded
-    directions; the larger move), and the scale of the round's params
+    directions; the larger move), and the scale of the resulting params
     (max |param|)."""
     from repro_torch.core import FederatedTrainer
     from repro_torch.core import pytree as pt
@@ -291,7 +344,10 @@ def cpu_sensitivity(torch, data_cpu, cfg, nudge: float = 1e-7):
         p = init_params(logreg_specs(d, 10), torch.Generator(),
                         device="cpu")
         p["w"] = p["w"] + torch.from_numpy((eps * noise).astype(np.float32))
-        out.append(tr.round(tr.init(p)).params)
+        st = tr.init(p)
+        for _ in range(rounds):
+            st = tr.round(st)
+        out.append(st.params)
     scale = max(float(x.abs().max()) for x in pt.leaves(out[0]))
     return max(max_err(torch, out[0], o) for o in out[1:]), scale
 
@@ -313,7 +369,7 @@ def run_pair(torch, syn_gpu, syn_cpu, cfg, rounds: int, label: str,
                            device="cpu")
     sg = gpu.init(init_params(logreg_specs(d, 10), gen))
     sc = cpu.init(init_params(logreg_specs(d, 10), gen, device="cpu"))
-    ms, losses, errs = [], [], []
+    ms, losses, errs, eff_k = [], [], [], []
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -325,6 +381,12 @@ def run_pair(torch, syn_gpu, syn_cpu, cfg, rounds: int, label: str,
         sc = cpu.round(sc)
         for a, b in zip(gpu.last_selection, cpu.last_selection):
             check(np.array_equal(a, b), f"{label}: selections differ")
+        gm, cm = gpu.last_masks, cpu.last_masks
+        check((gm is None) == (cm is None) and (gm is None or all(
+            np.array_equal(a, b) for a, b in zip(gm, cm))),
+              f"{label}: scenario masks differ")
+        if gm is not None:
+            eff_k.append(gpu.last_env[1])
         errs.append(max_err(torch, {k: v.cpu() for k, v in
                                     sg.params.items()}, sc.params))
         check(errs[-1] <= tol, f"{label}: params differ by {errs[-1]} "
@@ -337,7 +399,10 @@ def run_pair(torch, syn_gpu, syn_cpu, cfg, rounds: int, label: str,
     print(f"    loss card {[round(a, 6) for a, _ in losses]}")
     print(f"    loss cpu  {[round(b, 6) for _, b in losses]}")
     print(f"    max |params card - cpu| per round "
-          f"{[f'{e:.2e}' for e in errs]} (tol {tol:g})")
+          f"{[f'{e:.2e}' for e in errs]} (tol {tol:.3g})")
+    if eff_k:
+        print(f"    selections and masks equal every round; effective K "
+              f"per round {eff_k}")
     return gpu, sg, statistics.median(ms)
 
 
@@ -355,12 +420,16 @@ def device_share(torch, trainer, st, label: str):
         st = trainer.round(st)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - start) * 1e3
-    busy = sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in events) / 1e3
     share = (f"idle share {1.0 - busy / wall:.3f}" if busy > 0
              else "idle share not measured (no device events recorded)")
+    top = sorted(events, key=lambda e: -e.device_time_total)[:3]
     print(f"    {label}: profiled round {wall:.2f} ms (host clock), "
-          f"device busy {busy:.2f} ms, {share}")
+          f"device busy {busy:.2f} ms, {share}; largest: "
+          + ", ".join(f"{e.key[:32]} x{e.count} "
+                      f"{e.device_time_total / 1e3:.2f} ms" for e in top))
     return st
 
 
@@ -477,12 +546,49 @@ def main() -> int:
         1, "femnist feddane fused_step", tol=fem_tol)
     print(f"    launches {_delta(before, counts)}")
 
+    print("[7] scenarios and lossy codecs: paper config, "
+          "scenario=\"hostile\", 3 rounds per cell")
+    lossy_rounds = 0
+    cells = [(a, c) for a in ("feddane", "fedavg")
+             for c in ("int8", "topk", "dp_gauss")] + [("feddane", "none")]
+    for algo, codec_name in cells:
+        cfg = FederatedConfig(algorithm=algo, mu=0.001, scenario="hostile",
+                              codec=codec_name, **PAPER)
+        label = f"{algo}/hostile/{codec_name}"
+        tol = TRAJECTORY_TOL
+        if codec_name == "int8":
+            # a one-ulp difference of a rotated delta can move a code
+            # across a floor boundary: hold the card to a multiple of
+            # what a 1e-7 nudge of w0 does on the CPU path itself
+            spread, scale = cpu_sensitivity(torch, syn_cpu, cfg, rounds=3)
+            tol = SPREAD_FACTOR * spread
+            print(f"  {label}: CPU path, 3 rounds: a 1e-7 nudge of w0 "
+                  f"moves params by {spread:.2e}; max |param| {scale:.3g}; "
+                  f"card held to {SPREAD_FACTOR:g} x {spread:.2e} = "
+                  f"{tol:.2e}")
+            check(0 < tol <= MAX_REL_LIMIT * scale,
+                  f"{label}: limit {tol} is not inside (0, "
+                  f"{MAX_REL_LIMIT} x {scale}]")
+        before = dict(counts)
+        tr, st, phase_ms[label] = run_pair(torch, syn, syn_cpu, cfg, 3,
+                                           label, tol=tol)
+        device_share(torch, tr, st, label)
+        grew = _delta(before, counts)
+        lossy = 4 if codec_name != "none" else 0
+        lossy_rounds += lossy
+        check(grew.get("codec_aggregate", 0) == lossy,
+              f"{label}: {grew.get('codec_aggregate', 0)} K5 launches in "
+              f"{lossy} lossy rounds")
+        print(f"    launches {grew}")
+    print(f"  K5 launches = lossy rounds on the card = {lossy_rounds} "
+          f"(3 compared + 1 profiled per lossy cell)")
+
     main_path = dict(counts)             # read just after the main path
     for r in rows:
         r["launches"] = main_path[r["name"]]
         check(r["launches"] > 0, f"{r['name']} not launched on the main "
                                  f"path")
-    print(f"[7] done in {time.perf_counter() - t_start:.1f} s; phase "
+    print(f"[8] done in {time.perf_counter() - t_start:.1f} s; phase "
           f"ms/round {json.dumps({k: round(v, 3) for k, v in phase_ms.items()})}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -2,13 +2,13 @@
 
 Counterpart of ``FederatedConfig`` in ``repro/configs/base.py``: the same
 fields, defaults and validation, checked against the port's own
-registries.  Knobs of layers the port has not reached yet keep their
-fields (so a config reads the same in both packages) but values that
-would need those layers are refused at construction with a "not yet
-ported" error: any scenario but ``"ideal"``, any codec but ``"none"``,
-the ``"scan"`` and ``"buffered"`` round drivers, a client mesh
-(``mesh_devices`` other than 1) and streaming client sources.
-``round_driver="auto"`` resolves to the python driver.
+registries (algorithms, scenarios, codecs).  Knobs of layers the port
+has not reached yet keep their fields (so a config reads the same in
+both packages) but values that would need those layers are refused at
+construction with a "not yet ported" error: the ``"scan"`` and
+``"buffered"`` round drivers, a client mesh (``mesh_devices`` other
+than 1) and streaming client sources.  ``round_driver="auto"`` resolves
+to the python driver.
 """
 from __future__ import annotations
 
@@ -58,29 +58,28 @@ class FederatedConfig:
     mesh_devices: int | str = 1
     edge_shards: int = 1
     client_source: str = "auto"
-    scenario: str = "ideal"
+    scenario: str = "ideal"          # any repro_torch.core.scenarios name
     avail_prob: float = 0.9
     diurnal_period: int = 8
     straggler_sigma: float = 0.5
     straggler_deadline: float = 2.0
     dropout_rate: float = 0.1
     partial_min_work: float = 0.5
-    codec: str = "none"
+    codec: str = "none"              # any repro_torch.core.codecs name
     bits: int = 8
     topk_frac: float = 0.1
     clip_norm: float = 1.0
     noise_mult: float = 1.0
 
     def __post_init__(self):
-        from repro_torch.core.codecs import CODECS
+        from repro_torch.core.codecs import codec_spec
+        from repro_torch.core.scenarios import scenario_spec
         from repro_torch.core.strategies import (algorithm_spec,
                                                  validate_server_opt)
         algorithm_spec(self.algorithm)
         validate_server_opt(self.server_opt)
-        if self.scenario != "ideal":
-            raise _not_ported(f"scenario {self.scenario!r}")
-        if self.codec not in CODECS:
-            raise _not_ported(f"codec {self.codec!r}")
+        scenario_spec(self.scenario)
+        codec_spec(self.codec)
         if self.engine not in ("auto", "batched", "loop"):
             raise ValueError(
                 f"unknown engine {self.engine!r}; choose from "

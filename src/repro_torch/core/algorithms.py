@@ -1,8 +1,7 @@
 """Federated optimization trainer (paper Alg. 1 & 2 + §V-C variants).
 
 Counterpart of ``repro/core/algorithms.py`` for the synchronous python
-driver under the ideal scenario and the dense codec.
-``FederatedTrainer`` interprets the registered
+driver.  ``FederatedTrainer`` interprets the registered
 :class:`~repro_torch.core.strategies.AlgorithmSpec` of
 ``cfg.algorithm`` on one of two engines (``FederatedConfig.engine``):
 
@@ -12,10 +11,21 @@ driver under the ideal scenario and the dense codec.
 - ``"loop"``: the per-device reference with plain tree-op updates;
 - ``"auto"`` (default): batched on the card, loop on the CPU.
 
-Sampling uses the reference's numpy stream (``default_rng(cfg.seed)``),
-so a seed gives the reference's selections under either engine.  The
-trainer runs on ``device`` -- the card unless ``device="cpu"`` -- and
-the dataset must live there.
+Orthogonally, ``cfg.scenario`` selects a registered environment
+(``core/scenarios``: availability, stragglers, dropout, partial work),
+realized once per round as an ``active`` mask and ``work`` fractions
+for the solve selection plus an availability mask for the gradient
+gather, and ``cfg.codec`` a registered wire codec (``core/codecs``):
+update deltas are encoded and the cohort aggregated through the codec
+kernel (K5) on both engines.  ``"ideal"`` and ``"none"`` keep the exact
+pre-scenario, pre-codec programs.
+
+Sampling and the scenario uniforms use the reference's numpy stream
+(``default_rng(cfg.seed)``, the same calls in the same order), so a
+seed gives the reference's selections and environment under either
+engine.  The trainer runs on ``device`` -- the card unless
+``device="cpu"`` -- and the dataset must live there; the environment is
+realized on the host, so the card and the CPU see the same masks.
 """
 from __future__ import annotations
 
@@ -27,16 +37,21 @@ import torch
 from torch.func import vmap
 
 from repro_torch.configs.base import FederatedConfig
+from repro_torch.core import codecs
 from repro_torch.core import pytree as pt
 from repro_torch.core import server
 from repro_torch.core.client import make_grad_fn, make_local_solver
-from repro_torch.core.codecs import round_bytes
 from repro_torch.core.engine import RoundEngine
+from repro_torch.core.scenarios import (availability_mask, env_channels,
+                                        is_trivial, realize_env,
+                                        scenario_spec)
 from repro_torch.core.strategies import (ControlCtx, CorrCtx, algorithm_spec,
                                          init_aux, make_server_opt,
                                          runtime_state_fields)
 from repro_torch.data.batching import num_batches_of, stack_device_batches
 from repro_torch.device import resolve_device
+from repro_torch.kernels import flatpack
+from repro_torch.kernels.codec import codec_aggregate
 
 
 @dataclass
@@ -52,6 +67,7 @@ class FederatedState:
     c_server: Any = None                  # SCAFFOLD server c
     center: Any = None                    # S-DANE auxiliary prox center
     opt_state: Any = None                 # server-optimizer state
+    ef: Any = None                        # codec per-device error feedback
 
 
 class FederatedTrainer:
@@ -74,14 +90,29 @@ class FederatedTrainer:
         self.dataset = dataset
         self.cfg = cfg
         self.spec = algorithm_spec(cfg.algorithm)
+        # the trivial "ideal" scenario and "none" codec keep every path
+        # below exactly pre-scenario and pre-codec: no draws, no masks,
+        # no packing
+        self.scn = scenario_spec(cfg.scenario)
+        self._scn_trivial = is_trivial(self.scn)
+        self._env_channels = env_channels(self.scn)
+        self.codec = codecs.codec_spec(cfg.codec)
+        self._codec_trivial = codecs.is_trivial(self.codec)
         #: (S1, S2) of the most recent round
         self.last_selection: Optional[Tuple[np.ndarray, np.ndarray]] = None
-        #: (phase-A gather devices, solve devices) of the last round
+        #: (phase-A availability mask, solve ``active`` mask) of the most
+        #: recent round as numpy arrays, ``None`` under the ideal scenario
+        self.last_masks: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        #: (intended K, effective K) of the most recent round
+        self.last_env: Optional[Tuple[int, float]] = None
+        #: (phase-A gather devices that responded, solve devices whose
+        #: update arrived) of the last round -- the byte accounting's input
         self.last_comm: Optional[Tuple[float, float]] = None
         self.rng = np.random.default_rng(cfg.seed)
         self.solver = make_local_solver(
             loss_fn, learning_rate=cfg.learning_rate,
             num_epochs=cfg.local_epochs)
+        self._solver_cut = None       # cutoff variant, built on demand
         self.grad_fn = make_grad_fn(loss_fn)
         self._server_opt = make_server_opt(self.spec, cfg)
         self._state_fields = runtime_state_fields(self.spec, cfg)
@@ -120,6 +151,8 @@ class FederatedTrainer:
         st.c_server = aux.get("c_server")
         st.center = aux.get("center")
         st.opt_state = aux.get("opt")
+        st.ef = codecs.init_ef(self.codec, flatpack.flat_spec(params),
+                               self.dataset.num_devices, self.device)
         return st
 
     def _gather_aux(self, st: FederatedState, S) -> Dict[str, Any]:
@@ -152,7 +185,9 @@ class FederatedTrainer:
     # -- the generic round ------------------------------------------------
 
     def round(self, st: FederatedState) -> FederatedState:
-        """Advance one federated round in place and return ``st``."""
+        """Advance one federated round in place and return ``st``:
+        sample the spec's selections, realize the scenario, and interpret
+        the spec on the configured engine."""
         spec, cfg = self.spec, self.cfg
         w0 = st.params
         mu = cfg.mu if spec.use_mu else 0.0
@@ -172,8 +207,38 @@ class FederatedTrainer:
             S1, S2 = self._sample(), self._sample()
         shared = S1 is S2 and spec.grad_source == "fresh"
         self.last_selection = (S1, S2)
-        gather_n = float(len(S1)) if spec.grad_source == "fresh" else 0.0
-        self.last_comm = (gather_n, float(len(S2)))
+
+        # The environment of the solve selection: one per-DEVICE (N,)
+        # uniform per declared channel, in fixed order, from the sampling
+        # stream; realized on the host in float32 (ideal draws nothing)
+        active = work = active_a = None
+        if not self._scn_trivial:
+            n = self.dataset.num_devices
+            uniforms = {c: torch.from_numpy(self.rng.random(n)).to(
+                torch.float32) for c in self._env_channels}
+            env = realize_env(self.scn, cfg, n, torch.from_numpy(S2),
+                              st.round, uniforms)
+            active, work = env.active, env.work
+            if spec.grad_source == "fresh":
+                # availability gates phase A too (same per-device draws)
+                active_a = availability_mask(self.scn, cfg, n,
+                                             torch.from_numpy(S1),
+                                             st.round, uniforms)
+            self.last_masks = (
+                None if active_a is None else active_a.numpy(),
+                active.numpy())
+            self.last_env = (len(S2), float(active.sum()))
+        else:
+            self.last_masks = None
+            self.last_env = (len(S2), float(len(S2)))
+        # phase-A gradients cost bytes only for the devices that
+        # responded: under availability scenarios the thinned gather
+        if spec.grad_source == "fresh":
+            gather_n = (float(len(S1)) if active_a is None
+                        else float(active_a.sum()))
+        else:
+            gather_n = 0.0
+        self.last_comm = (gather_n, self.last_env[1])
 
         if eng is not None:
             b, v = stack_device_batches(self.dataset, S2)
@@ -181,36 +246,81 @@ class FederatedTrainer:
                        if spec.grad_source == "fresh" and not shared
                        else None)
             aux = self._gather_aux(st, S2)
-            st.params, aux_new = eng.round(w0, aux, phase_a, b, v, decay)
+            if not self._codec_trivial:
+                aux["codec_draws"] = codecs.round_draws(
+                    self.codec, cfg, st.round, len(S2),
+                    flatpack.flat_spec(w0).rows, self.device)
+                if self.codec.error_feedback:
+                    aux["ef"] = st.ef.gather(S2)
+            if active is None:
+                st.params, aux_new = eng.round(w0, aux, phase_a, b, v,
+                                               decay)
+            else:
+                dev = self.device
+                st.params, aux_new, _ = eng.round_env(
+                    w0, aux, phase_a, b, v, decay, active.to(dev),
+                    work.to(dev),
+                    None if active_a is None else active_a.to(dev))
             self._scatter_aux(st, aux_new, S2)
+            if not self._codec_trivial and self.codec.error_feedback:
+                st.ef.scatter(S2, aux_new["ef"])
         else:
-            self._loop_round(st, S1, S2, mu, decay)
+            self._loop_round(
+                st, S1, S2, mu, decay,
+                active=None if active is None else active.numpy() > 0,
+                work=None if work is None else work.numpy(),
+                avail_a=None if active_a is None else active_a.numpy() > 0)
         st.comm_rounds += spec.comm_per_round
         st.round += 1
         return st
 
-    def _loop_round(self, st: FederatedState, S1, S2, mu, decay) -> None:
+    def _solve_partial(self, w0, corr, mu, bk, limit: int):
+        """Local solve truncated to ``limit`` SGD steps; the cutoff
+        solver is built on first use."""
+        if self._solver_cut is None:
+            self._solver_cut = make_local_solver(
+                self.loss_fn, learning_rate=self.cfg.learning_rate,
+                num_epochs=self.cfg.local_epochs, with_cutoff=True)
+        return self._solver_cut(w0, corr, mu, bk, limit)
+
+    def _loop_round(self, st: FederatedState, S1, S2, mu, decay,
+                    active=None, work=None, avail_a=None) -> None:
         """Per-device reference interpretation of the spec: one solve or
-        gradient call per device, plain tree-op aggregation."""
+        gradient call per device, plain tree-op aggregation.
+
+        ``active``/``work``/``avail_a`` (the realized environment, None
+        under the ideal scenario): ``avail_a`` thins the phase-A gather
+        to the available part of S1 (with none available there is no
+        g_t and the round runs uncorrected); inactive solve devices are
+        skipped outright; partial-work devices stop after
+        ``ceil(work * steps)`` steps.  With no active device the round
+        is a no-op (``w_agg = w0``).
+        """
         spec, cfg = self.spec, self.cfg
         w0 = st.params
         zeros = pt.zeros_like(w0)
 
         g_global = None
         if spec.grad_source == "fresh":
-            g_global = server.aggregate_gradients(
-                [self.grad_fn(w0, self._batches(k)) for k in S1])
+            S1_avail = (S1 if avail_a is None
+                        else [k for i, k in enumerate(S1) if avail_a[i]])
+            if len(S1_avail) > 0:
+                g_global = server.aggregate_gradients(
+                    [self.grad_fn(w0, self._batches(k)) for k in S1_avail])
         elif spec.grad_source == "stale":
             g_global = st.g_prev
 
         c0 = st.c_server
-        updates, fresh_grads, deltas = [], [], []
-        for k in S2:
+        updates, upd_ids, fresh_grads, deltas = [], [], [], []
+        for i, k in enumerate(S2):
+            if active is not None and not active[i]:
+                continue
             bk = self._batches(k)
             g_local = self.grad_fn(w0, bk) if spec.local_grad else None
             if spec.updates_g_prev:
                 fresh_grads.append(g_local)
-            if spec.correction is not None:
+            if spec.correction is not None and not (
+                    spec.grad_source == "fresh" and g_global is None):
                 corr = spec.correction(CorrCtx(
                     w0=w0, g_global=g_global, g_local=g_local,
                     c_server=c0,
@@ -219,9 +329,15 @@ class FederatedTrainer:
                     center=st.center, mu=mu, decay=decay))
             else:
                 corr = zeros
-            nsteps = cfg.local_epochs * num_batches_of(bk)
-            res = self.solver(w0, corr, mu, bk)
+            total = cfg.local_epochs * num_batches_of(bk)
+            nsteps = (min(total, int(np.ceil(work[i] * total)))
+                      if work is not None else total)
+            if nsteps < total:
+                res = self._solve_partial(w0, corr, mu, bk, nsteps)
+            else:
+                res = self.solver(w0, corr, mu, bk)
             updates.append(res.params)
+            upd_ids.append(int(k))
             if spec.control_update is not None:
                 # option II: corrections used the ROUND-START server
                 # control; duplicates refresh the device control in turn
@@ -232,7 +348,10 @@ class FederatedTrainer:
                 deltas.append(pt.sub(ck_new, st.controls[int(k)]))
                 st.controls[int(k)] = ck_new
 
-        w_agg = server.aggregate_mean(updates) if updates else w0
+        if self._codec_trivial or not updates:
+            w_agg = server.aggregate_mean(updates) if updates else w0
+        else:
+            w_agg = self._codec_aggregate(st, w0, updates, upd_ids)
         if spec.control_update is not None and deltas:
             st.c_server = pt.add(
                 c0, pt.scale(pt.mean(deltas),
@@ -243,6 +362,30 @@ class FederatedTrainer:
             w0, w_agg, self._server_opt, st.opt_state)
         if spec.center_update is not None:
             st.center = spec.center_update(st.center, st.params, cfg)
+
+    def _codec_aggregate(self, st: FederatedState, w0, updates, ids):
+        """The wire stage of the looped path: each active client's delta
+        ``w0 - w_k`` flat-packed and encoded in cohort slots ``0..k-1``
+        (the reference's numbering on this path), the cohort reduced by
+        K5 with an all-ones mask, then the codec's decode."""
+        codec, cfg = self.codec, self.cfg
+        k = len(updates)
+        fspec = flatpack.flat_spec(w0)
+        deltas = (flatpack.pack_broadcast(fspec, w0, k)
+                  - flatpack.pack_stacked(fspec, pt.stack(updates), k)
+                  ).reshape(k, fspec.rows, flatpack.LANES)
+        draws = codecs.round_draws(codec, cfg, st.round, k, fspec.rows,
+                                   self.device)
+        efs = st.ef.gather(ids) if codec.error_feedback else None
+        vals, scales, ef_new = codecs.encode_stacked(codec, cfg, draws,
+                                                     deltas, efs)
+        agg = codec_aggregate(vals, scales, torch.ones(
+            k, dtype=torch.float32, device=deltas.device))
+        agg = codecs.decode_aggregate(codec, cfg, draws, agg, k)
+        if ef_new is not None:
+            # in order: a device selected twice keeps the last residual
+            st.ef.scatter(ids, ef_new)
+        return pt.sub(w0, flatpack.unpack(fspec, agg))
 
     # -- evaluation -------------------------------------------------------
 
@@ -263,9 +406,10 @@ class FederatedTrainer:
             selections=None) -> Tuple[Dict[str, List[float]], Any]:
         """Run ``num_rounds`` rounds; returns ``(history, final_params)``
         with the reference's history keys: ``round`` / ``comm_rounds`` /
-        ``loss`` at eval cadence, and per round ``intended_k`` /
-        ``effective_k`` / ``dropped`` (K / K / 0 under the ideal
-        scenario) and the wire bytes ``bytes_up`` / ``bytes_down``.
+        ``loss`` at eval cadence, and per round the realized
+        participation ``intended_k`` / ``effective_k`` / ``dropped`` (K /
+        K / 0 under the ideal scenario) and the codec's honest wire bytes
+        ``bytes_up`` / ``bytes_down`` (``codecs.round_bytes``).
 
         ``selections``: optional ``(num_rounds, 2, K)`` (or
         ``(num_rounds, K)``) int array overriding device sampling round
@@ -296,11 +440,13 @@ class FederatedTrainer:
         try:
             for t in range(num_rounds):
                 st = self.round(st)
-                k = float(len(self.last_selection[1]))
-                hist["intended_k"].append(k)
-                hist["effective_k"].append(k)
-                hist["dropped"].append(0.0)
-                up, down = round_bytes(self.spec, n_elems, *self.last_comm)
+                intended, eff = self.last_env
+                hist["intended_k"].append(float(intended))
+                hist["effective_k"].append(eff)
+                hist["dropped"].append(float(intended) - eff)
+                up, down = codecs.round_bytes(self.spec, self.codec,
+                                              self.cfg, n_elems,
+                                              *self.last_comm)
                 hist["bytes_up"].append(up)
                 hist["bytes_down"].append(down)
                 if t % eval_every == 0 or t == num_rounds - 1:

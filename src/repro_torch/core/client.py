@@ -93,27 +93,35 @@ def _batch_weight(batches) -> torch.Tensor:
 
 
 def make_local_solver(loss_fn: Callable, *, learning_rate: float,
-                      num_epochs: int) -> Callable:
+                      num_epochs: int, with_cutoff: bool = False) -> Callable:
     """The looped reference solver for one device.
 
     ``solve(w0, corr, mu, batches) -> LocalResult`` where ``batches``
     has leaves ``(num_batches, batch, ...)``; each step applies
     ``w -= lr * (grad F_k(w) + corr + mu (w - w0))`` as plain tree ops.
+
+    ``with_cutoff=True`` builds the scenario variant
+    ``solve(w0, corr, mu, batches, max_steps)``: the device stops after
+    ``max_steps`` steps (partial work, partial-credit stragglers), which
+    equals the reference's identity steps past the cutoff.
     """
     grad_fn = grad(loss_fn)
 
-    def solve(w0, corr, mu, batches) -> LocalResult:
+    def solve_body(w0, corr, mu, batches, max_steps=None) -> LocalResult:
         nb = pt.leaves(batches)[0].shape[0]
+        total = num_epochs * nb
+        steps = total if max_steps is None else min(total, int(max_steps))
         w = w0
-        for _ in range(num_epochs):
-            for j in range(nb):
-                g = grad_fn(w, pt.index(batches, j))
-                g = pt.add(g, corr)
-                g = pt.add(g, pt.scale(pt.sub(w, w0), mu))
-                w = pt.sub(w, pt.scale(g, learning_rate))
-        return LocalResult(w, pt.sub(w, w0), num_epochs * nb)
+        for t in range(steps):
+            g = grad_fn(w, pt.index(batches, t % nb))
+            g = pt.add(g, corr)
+            g = pt.add(g, pt.scale(pt.sub(w, w0), mu))
+            w = pt.sub(w, pt.scale(g, learning_rate))
+        return LocalResult(w, pt.sub(w, w0), steps)
 
-    return solve
+    if with_cutoff:
+        return solve_body
+    return lambda w0, corr, mu, batches: solve_body(w0, corr, mu, batches)
 
 
 def _weighted_grad_mean(loss_fn, w, batches, weights):
@@ -196,34 +204,44 @@ def _epoch_step_mask(valid, num_epochs: int, steps_limit=None):
 
 
 def make_batched_solver(loss_fn: Callable, *, learning_rate: float,
-                        num_epochs: int, solver: str = "auto") -> Callable:
+                        num_epochs: int, with_cutoff: bool = False,
+                        solver: str = "auto") -> Callable:
     """Device-parallel E-epoch SGD solver for DANE-type subproblems.
 
     ``solve(w0, corr, mu, batches, valid) -> LocalResult`` where ``w0``
     is the unstacked anchor, ``corr`` a K-stacked correction,
     ``batches`` has leaves ``(K, nb, batch, ...)`` and ``valid`` is the
     float ``(K, nb)`` mask.  Returned leaves keep the leading K axis.
+
+    ``with_cutoff=True`` builds the scenario variant
+    ``solve(w0, corr, mu, batches, valid, steps_limit)``: device k stops
+    after ``steps_limit[k]`` of its *valid* steps.  The cap folds into
+    the step mask, so every mode -- the fused kernels included -- runs
+    the truncated trajectory the looped cutoff solver gives.
     """
     from repro_torch.kernels import flatpack
     from repro_torch.kernels import ops as kops
 
     grad_fn = vmap(grad(loss_fn))
 
-    def solve(w0, corr, mu, batches, valid) -> LocalResult:
+    def solve_body(w0, corr, mu, batches, valid,
+                   steps_limit=None) -> LocalResult:
         K, nb = valid.shape
         mode = _resolve_solver_mode(solver, loss_fn, w0, batches,
                                     num_epochs)
         anchor = pt.tmap(
             lambda x: x.expand((K,) + x.shape).contiguous(), w0)
         done = num_epochs * valid.sum(dim=1)
+        taken = (done if steps_limit is None
+                 else torch.minimum(done, steps_limit)).to(torch.int32)
 
         if mode == "fused_epoch":
             spec = local_solver_spec(loss_fn)
             solve_fn = spec.make_epoch(learning_rate, num_epochs)
-            mask = _epoch_step_mask(valid, num_epochs)
+            mask = _epoch_step_mask(valid, num_epochs, steps_limit)
             w = solve_fn(w0, pt.tmap(torch.Tensor.contiguous, corr), mu,
                          batches, mask)
-            return LocalResult(w, pt.sub(w, anchor), done.to(torch.int32))
+            return LocalResult(w, pt.sub(w, anchor), taken)
 
         if mode == "fused_step":
             step_fn = local_solver_spec(loss_fn).make_step(learning_rate)
@@ -234,10 +252,13 @@ def make_batched_solver(loss_fn: Callable, *, learning_rate: float,
             anchor_f = flatpack.pack_broadcast(fspec, w0, K)
 
         w = anchor
+        so_far = torch.zeros_like(done)
         for _ in range(num_epochs):
             for j in range(nb):
                 batch = pt.tmap(lambda x: x[:, j], batches)
-                m = valid[:, j]
+                v = valid[:, j]
+                # the cap counts valid steps
+                m = v if steps_limit is None else v * (so_far < steps_limit)
                 if mode == "fused_step":
                     w = step_fn(w, batch, corr, w0, mu, m)
                 elif mode == "flat":
@@ -251,6 +272,11 @@ def make_batched_solver(loss_fn: Callable, *, learning_rate: float,
                     g = grad_fn(w, batch)
                     w = kops.dane_update_masked(
                         w, g, corr, anchor, learning_rate, mu, m)
-        return LocalResult(w, pt.sub(w, anchor), done.to(torch.int32))
+                if steps_limit is not None:
+                    so_far = so_far + v
+        return LocalResult(w, pt.sub(w, anchor), taken)
 
-    return solve
+    if with_cutoff:
+        return solve_body
+    return lambda w0, corr, mu, batches, valid: \
+        solve_body(w0, corr, mu, batches, valid)

@@ -1,0 +1,24 @@
+"""Declarative federated-environment scenarios: specs + registry.
+
+Counterpart of ``repro/core/scenarios``: one :class:`ScenarioSpec` per
+environment (``builtin.py``: ideal, bernoulli, diurnal, stragglers,
+stragglers_partial, dropout, partial_work, hostile); both engines of
+the python driver interpret them.  Register a spec and every path --
+and ``FederatedConfig.scenario`` validation -- picks it up.
+"""
+from repro_torch.core.scenarios.spec import (DEADLINE_POLICIES, ENV_CHANNELS,
+                                             RoundEnv, ScenarioSpec,
+                                             availability_mask,
+                                             available_scenarios,
+                                             env_channels, is_trivial,
+                                             realize_env, register_scenario,
+                                             scenario_spec,
+                                             unregister_scenario)
+from repro_torch.core.scenarios import builtin  # noqa: F401  (registers)
+
+__all__ = [
+    "ScenarioSpec", "RoundEnv",
+    "register_scenario", "unregister_scenario", "scenario_spec",
+    "available_scenarios", "realize_env", "availability_mask",
+    "env_channels", "is_trivial", "DEADLINE_POLICIES", "ENV_CHANNELS",
+]

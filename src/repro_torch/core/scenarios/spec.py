@@ -1,0 +1,204 @@
+"""Declarative federated-environment scenarios + registry.
+
+Counterpart of ``repro/core/scenarios/spec.py`` for the synchronous
+python driver.  A :class:`ScenarioSpec` models the environment -- per-
+device availability, straggler latency against a server deadline,
+dropout mid-round, partial work -- and the trainer's two engines
+(``batched`` and ``loop``) interpret it.
+
+Round semantics (as the reference): availability gates both the
+phase-A gradient gather and the solve; stragglers, dropout and partial
+work act on the solve only.  For the K selected solve devices a round
+realizes
+
+- ``active``: float 0/1, the device's update reaches the server;
+- ``work``: float in (0, 1], the fraction of its local steps it runs
+  (``min(total, ceil(work * total))`` of its ``E * num_batches``).
+
+Randomness: spec callables never draw.  They map uniform draws (and the
+round index) to probabilities and latencies.  The trainer draws one
+``(N,)`` float64 uniform per channel of :func:`env_channels`, in that
+order, from its numpy ``default_rng(cfg.seed)`` stream -- the same
+calls as the reference -- and rounds them to float32, so a seed realizes
+the reference's environment.  The interpreter runs in float32 in the
+reference's order of operations (``f32math`` for ``exp``/``ndtri``),
+because ``u < p`` and ``lat <= deadline`` are threshold tests that one
+ulp can flip.
+
+The ``"ideal"`` scenario is structurally trivial (:func:`is_trivial`):
+every path keeps its exact pre-scenario code, with no draws and no
+masks.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+#: Straggler deadline policies: ``"drop"`` discards late devices;
+#: ``"partial"`` accepts the iterate a late device reached at the
+#: deadline (work fraction deadline/latency).
+DEADLINE_POLICIES = ("drop", "partial")
+
+F32 = torch.float32
+
+
+@dataclass(frozen=True)
+class ScenarioSpec:
+    """One federated environment, declaratively.
+
+    - ``availability(cfg, num_devices, t) -> (N,)``: per-device
+      probability of being reachable at round ``t``; ``None`` = always.
+    - ``latency_quantile(cfg, u) -> latencies``: inverse CDF of the
+      per-device round latency applied to uniforms ``u``; ``None`` = no
+      stragglers.  ``deadline_policy`` says what happens to devices
+      later than ``cfg.straggler_deadline``.
+    - ``dropout``: each device drops mid-round w.p. ``cfg.dropout_rate``.
+    - ``work_fraction(cfg, num_devices) -> (N,)``: deterministic
+      per-device fraction of local work; ``None`` = full work.
+
+    Callables return float32 tensors (or values ``torch.as_tensor``
+    turns into them) on the CPU.
+    """
+    name: str
+    summary: str
+    availability: Optional[Callable[[Any, int, Any], Any]] = None
+    latency_quantile: Optional[Callable[[Any, Any], Any]] = None
+    deadline_policy: str = "drop"
+    dropout: bool = False
+    work_fraction: Optional[Callable[[Any, int], Any]] = None
+
+
+class RoundEnv(NamedTuple):
+    """One round's realized environment for the K selected devices."""
+    active: Any   # float (K,) 0/1 -- update reaches the server
+    work: Any     # float (K,) in (0, 1] -- fraction of local steps done
+
+
+#: Uniform channels a round may consume, in the fixed order both the
+#: reference and the port draw them.  Each is one (N,) draw per round,
+#: indexed by device id, so duplicate selections share one outcome.
+ENV_CHANNELS = ("avail", "latency", "dropout")
+
+
+def is_trivial(spec: ScenarioSpec) -> bool:
+    """True when the scenario is the identity environment."""
+    return (spec.availability is None and spec.latency_quantile is None
+            and not spec.dropout and spec.work_fraction is None)
+
+
+def env_channels(spec: ScenarioSpec) -> Tuple[str, ...]:
+    """The uniform channels this spec consumes, in draw order."""
+    out = []
+    if spec.availability is not None:
+        out.append("avail")
+    if spec.latency_quantile is not None:
+        out.append("latency")
+    if spec.dropout:
+        out.append("dropout")
+    return tuple(out)
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=F32)
+
+
+def realize_env(spec: ScenarioSpec, cfg, num_devices: int, sel, t,
+                uniforms: Dict[str, Any]) -> RoundEnv:
+    """The scenario interpreter: uniforms -> (active, work) for ``sel``.
+
+    ``sel`` is the (K,) solve selection (int tensor), ``t`` the round
+    index and ``uniforms`` maps each channel of :func:`env_channels` to
+    an (N,) float32 draw, per device.
+    """
+    sel = torch.as_tensor(sel, dtype=torch.long)
+    k = sel.shape[0]
+    active = torch.ones(k, dtype=F32)
+    work = torch.ones(k, dtype=F32)
+    if spec.availability is not None:
+        p = _f32(spec.availability(cfg, num_devices, t))
+        active = active * (uniforms["avail"][sel] < p[sel])
+    if spec.latency_quantile is not None:
+        lat = _f32(spec.latency_quantile(cfg, uniforms["latency"][sel]))
+        if spec.deadline_policy == "drop":
+            active = active * (lat <= cfg.straggler_deadline)
+        else:
+            # a tensor numerator: PyTorch takes ``scalar / tensor`` as
+            # a reciprocal times the scalar, which rounds twice
+            work = work * torch.clamp(
+                _f32(cfg.straggler_deadline) / torch.clamp(lat, min=1e-9),
+                0.0, 1.0)
+    if spec.dropout:
+        active = active * (uniforms["dropout"][sel] >= cfg.dropout_rate)
+    if spec.work_fraction is not None:
+        f = _f32(spec.work_fraction(cfg, num_devices))
+        work = work * f[sel]
+    return RoundEnv(active=active.to(F32),
+                    work=torch.clamp(work, 1e-6, 1.0))
+
+
+def availability_mask(spec: ScenarioSpec, cfg, num_devices: int, sel, t,
+                      uniforms: Dict[str, Any]) -> torch.Tensor:
+    """The availability-only 0/1 mask for ``sel`` -- what gates the
+    phase-A gradient gather.  Uses the same per-device ``"avail"``
+    draw as :func:`realize_env`; all ones without an availability
+    process."""
+    sel = torch.as_tensor(sel, dtype=torch.long)
+    if spec.availability is None:
+        return torch.ones(sel.shape[0], dtype=F32)
+    p = _f32(spec.availability(cfg, num_devices, t))
+    return (uniforms["avail"][sel] < p[sel]).to(F32)
+
+
+_REGISTRY: Dict[str, ScenarioSpec] = {}
+
+
+def _check_scenario(spec: ScenarioSpec) -> None:
+    """Completeness check at registration."""
+    def bad(msg):
+        raise ValueError(f"ScenarioSpec {spec.name!r}: {msg}")
+
+    if not spec.name or not spec.name.isidentifier():
+        bad(f"name must be a non-empty identifier, got {spec.name!r}")
+    if spec.deadline_policy not in DEADLINE_POLICIES:
+        bad(f"deadline_policy must be one of {DEADLINE_POLICIES}, "
+            f"got {spec.deadline_policy!r}")
+    if spec.latency_quantile is None and \
+            spec.deadline_policy != DEADLINE_POLICIES[0]:
+        bad("deadline_policy is meaningless without latency_quantile; "
+            "leave it at the default")
+
+
+def register_scenario(spec: ScenarioSpec, *,
+                      override: bool = False) -> ScenarioSpec:
+    """Register ``spec`` under ``spec.name``; duplicates need
+    ``override=True``."""
+    _check_scenario(spec)
+    if spec.name in _REGISTRY and not override:
+        raise ValueError(
+            f"scenario {spec.name!r} is already registered; pass "
+            f"override=True to replace it")
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def unregister_scenario(name: str) -> None:
+    """Remove ``name`` from the registry (test cleanup)."""
+    _REGISTRY.pop(name, None)
+
+
+def available_scenarios() -> Tuple[str, ...]:
+    """Sorted names of every registered scenario."""
+    return tuple(sorted(_REGISTRY))
+
+
+def scenario_spec(name: str) -> ScenarioSpec:
+    """Look up a registered scenario; unknown names raise with the full
+    sorted list."""
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown scenario {name!r}; registered: "
+            f"{', '.join(available_scenarios())}") from None

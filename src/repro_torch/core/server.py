@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core import pytree as pt
 
@@ -43,6 +44,23 @@ def aggregate_stacked(tree) -> object:
     batched round's form of ``aggregate_mean``/``aggregate_gradients``
     (stays on the device)."""
     return pt.tmap(lambda x: x.mean(dim=0), tree)
+
+
+def aggregate_stacked_masked(tree, active, fallback) -> object:
+    """Mean over the devices with ``active[k] > 0`` of a K-stacked tree
+    (``active`` a float 0/1 ``(K,)`` vector): inactive rows contribute
+    exact zeros, so the result equals the looped path's plain mean over
+    the active subset.  With no active device, ``fallback`` (an
+    unstacked tree: ``w0`` for params, the carried value for state) is
+    returned instead."""
+    asum = active.sum()
+    denom = torch.clamp(asum, min=1.0)
+
+    def mmean(x, fb):
+        a = active.reshape(active.shape + (1,) * (x.ndim - 1))
+        return torch.where(asum > 0, (x * a).sum(dim=0) / denom, fb)
+
+    return pt.tmap(mmean, tree, fallback)
 
 
 def server_step(w0, w_agg, opt=None, opt_state=None):

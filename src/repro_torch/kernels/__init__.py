@@ -3,6 +3,7 @@
 - ``dane_update`` (K1 flat, K4 per-leaf): the fused FedDANE update step;
 - ``local_solve`` (K2 whole epoch, K3 one step): the fused softmax-
   regression local solve;
+- ``codec`` (K5): the fused codec decode + masked cohort mean;
 - ``ops``: tree-level wrappers of the update kernels;
 - ``ref``: the plain PyTorch version of each kernel;
 - ``build``: nvcc at first use, ctypes binding, launch counters.

@@ -30,18 +30,20 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-#: Per-source flags.  The update kernels are built without FMA
-#: contraction so that ``w - eta*(g + c + mu*(w - a))`` rounds op by op,
-#: exactly as the plain PyTorch version does (bitwise equal on the card).
+#: Per-source flags.  The update and codec-aggregate kernels are built
+#: without FMA contraction so that each multiply and add rounds on its
+#: own, exactly as the plain PyTorch version does (bitwise equal on the
+#: card).
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "dane_update": ("-fmad=false",),
     "local_solve": (),
+    "codec": ("-fmad=false",),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.
 launch_counts: Dict[str, int] = dict.fromkeys(
     ("dane_update_flat", "dane_update_2d", "local_epoch",
-     "linear_logistic_step"), 0)
+     "linear_logistic_step", "codec_aggregate"), 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,7 +1,7 @@
 """Flat-parameter packing: one ``(rows, LANES)`` f32 buffer per tree.
 
-Counterpart of ``repro/kernels/flatpack.py``, with the same layout, so
-the later codec slice can rely on it::
+Counterpart of ``repro/kernels/flatpack.py``, with the same layout (the
+flat update K1 and the codec layer both rely on it)::
 
     row 0 .. rows-1      device 0:  leaf0 | leaf1 | ... | zero pad
     row rows .. 2*rows-1 device 1:  leaf0 | leaf1 | ... | zero pad
@@ -73,6 +73,15 @@ def pack(spec: FlatSpec, tree) -> torch.Tensor:
     flat = torch.cat([x.reshape(1, -1).to(torch.float32)
                       for x in pt.leaves(tree)], dim=1)
     return _pad_cols(flat, spec).reshape(spec.rows, LANES)
+
+
+def unpack(spec: FlatSpec, buf) -> Any:
+    """``(rows, LANES)`` buffer -> unstacked tree (leaf dtypes kept)."""
+    flat = buf.reshape(spec.padded)
+    leaves = [flat[off:off + n].reshape(shape).to(dt)
+              for off, n, shape, dt in zip(spec.offsets, spec.sizes,
+                                           spec.shapes, spec.dtypes)]
+    return pt.unflatten(spec.treedef, leaves)
 
 
 def pack_stacked(spec: FlatSpec, tree, k: int) -> torch.Tensor:

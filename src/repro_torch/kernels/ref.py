@@ -90,3 +90,24 @@ def local_epoch_ref(w0, corr, batches, *, eta: float, mu: float,
             w, {"x": x[:, j], "y": batches["y"][:, j]}, corr, w0,
             eta=eta, mu=mu, mask=step_mask[:, t])
     return w
+
+
+def codec_aggregate_ref(vals, scales, mask):
+    """K5's function: the dequantized masked cohort mean
+
+        out = sum_k m_k * s_k * v_k / max(sum_k m_k, 1)
+
+    over ``vals`` (K, rows, 128) with ``scales``/``mask`` (K,), in the
+    kernel's order: the count summed k = 0..K-1, then ``acc + v_k * w_k``
+    over the clients with ``m_k != 0`` in order (a masked client adds
+    nothing), then one division.  An all-inactive cohort gives zeros.
+    """
+    m = mask.to(F32)
+    w = scales.to(F32) * m
+    cnt = torch.zeros((), dtype=F32, device=vals.device)
+    for k in range(m.shape[0]):
+        cnt = cnt + m[k]
+    acc = torch.zeros(vals.shape[1:], dtype=F32, device=vals.device)
+    for k in torch.nonzero(m).flatten().tolist():
+        acc = acc + vals[k].to(F32) * w[k]
+    return acc / torch.clamp(cnt, min=1.0)

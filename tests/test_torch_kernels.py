@@ -12,7 +12,10 @@ Tolerances:
   differ by an ulp on some elements: atol 1e-6 on O(1) values.  Inside
   the port, flat and per-leaf stay bitwise equal;
 - the fused local solve (K2, K3) sums its dot products in another order
-  than XLA: atol 1e-6 on O(1) weights after a handful of steps.
+  than XLA: atol 1e-6 on O(1) weights after a handful of steps;
+- the codec aggregate (K5) sums the cohort in client order, as XLA:CPU
+  does, but may round ``sum / count`` differently: rtol/atol 1e-6, the
+  reference's own bar for its kernel (tests/test_codecs.py).
 """
 import jax
 import jax.numpy as jnp
@@ -21,14 +24,17 @@ import pytest
 import torch
 from _torch_threads import one_torch_thread  # noqa: F401
 
+from repro.kernels import codec as jcodec
 from repro.kernels import flatpack as jflat
 from repro.kernels import local_solve as jls
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.core import pytree as pt
-from repro_torch.kernels import build, flatpack, local_solve, ops
+from repro_torch.kernels import build, codec, flatpack, local_solve, ops, ref
 
 UPDATE_ATOL = 1e-6
 SOLVE_ATOL = 1e-6
+CODEC_TOL = 1e-6
 
 
 def _np(seed, *shapes, dtype=np.float32):
@@ -221,6 +227,72 @@ def test_wrappers_check_their_inputs():
         ops.dane_update_flat_masked(w, w, w, w, 0.1, 0.0, torch.ones(2), 5)
 
 
+@pytest.mark.parametrize("k,rows", [(1, 8), (4, 8), (10, 64)])
+def test_codec_aggregate_matches_reference(k, rows):
+    """K5 against the reference's plain version and its Pallas kernel in
+    interpret mode, with random scales and a random mask."""
+    rng = np.random.default_rng(k * 100 + rows)
+    vals = rng.standard_normal((k, rows, 128)).astype(np.float32)
+    scales = rng.uniform(0.5, 2.0, (k,)).astype(np.float32)
+    mask = rng.integers(0, 2, (k,)).astype(np.float32)
+    mask[0] = 1.0
+    got = codec.codec_aggregate(_t(vals), _t(scales), _t(mask)).numpy()
+    for want in (jref.codec_aggregate_ref(jnp.asarray(vals),
+                                          jnp.asarray(scales),
+                                          jnp.asarray(mask)),
+                 jcodec.codec_aggregate(jnp.asarray(vals),
+                                        jnp.asarray(scales),
+                                        jnp.asarray(mask), interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=CODEC_TOL,
+                                   atol=CODEC_TOL)
+
+
+def test_codec_aggregate_all_inactive_is_zero():
+    vals = torch.ones(3, 8, 128)
+    out = codec.codec_aggregate(vals, torch.ones(3), torch.zeros(3))
+    assert torch.equal(out, torch.zeros(8, 128))
+    want = jcodec.codec_aggregate(jnp.ones((3, 8, 128)), jnp.ones((3,)),
+                                  jnp.zeros((3,)), interpret=True)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+def test_codec_aggregate_ref_skips_masked_clients():
+    """The plain version (and so the kernel) adds the active clients in
+    order and never reads a masked one: a masked client's non-finite
+    slab leaves the aggregate finite and unchanged."""
+    rng = np.random.default_rng(5)
+    vals = _t(rng.standard_normal((3, 8, 128)).astype(np.float32))
+    scales = torch.tensor([0.5, 2.0, 1.5])
+    mask = torch.tensor([1.0, 0.0, 1.0])
+    clean = ref.codec_aggregate_ref(vals, scales, mask)
+    vals[1] = float("nan")
+    assert torch.equal(ref.codec_aggregate_ref(vals, scales, mask), clean)
+    manual = (vals[0] * (scales[0] * mask[0]) + vals[2]
+              * (scales[2] * mask[2])) / torch.tensor(2.0)
+    assert torch.equal(clean, manual)
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    (dict(vals=torch.zeros(2, 8, 64)), ValueError, r"\(K, rows, 128\)"),
+    (dict(vals=torch.zeros(8, 128)), ValueError, r"\(K, rows, 128\)"),
+    (dict(vals=torch.zeros(2, 8, 128, dtype=torch.float64)), TypeError,
+     "vals must be float32"),
+    (dict(scales=torch.ones(2, dtype=torch.float16)), TypeError,
+     "scales must be float32"),
+    (dict(mask=torch.ones(3)), ValueError, "mask shape"),
+    (dict(scales=torch.ones(1, 2)), ValueError, "scales shape"),
+    (dict(vals=torch.zeros(0, 8, 128), scales=torch.ones(0),
+          mask=torch.ones(0)), ValueError, "clients"),
+    (dict(mask=torch.ones(2, device="meta")), ValueError, "is on meta"),
+])
+def test_codec_aggregate_checks_its_inputs(bad, err, match):
+    args = dict(vals=torch.zeros(2, 8, 128), scales=torch.ones(2),
+                mask=torch.ones(2))
+    args.update(bad)
+    with pytest.raises(err, match=match):
+        codec.codec_aggregate(**args)
+
+
 def test_cpu_path_launches_no_kernel():
     """Launch counters move only where a kernel launches: never for CPU
     tensors, which take the plain versions."""
@@ -229,4 +301,7 @@ def test_cpu_path_launches_no_kernel():
     ops.dane_update_flat_masked(w, w, w, w, 0.1, 0.0, torch.ones(1), 8)
     ops.dane_update_array(torch.ones(7), torch.ones(7), torch.ones(7),
                           torch.ones(7), 0.1, 0.0)
+    codec.codec_aggregate(torch.ones(2, 8, 128), torch.ones(2),
+                          torch.ones(2))
+    assert set(build.launch_counts) >= {"codec_aggregate"}
     assert set(build.launch_counts.values()) == {0}

@@ -252,13 +252,30 @@ def test_init_params_zeros_for_logreg():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scenario="bernoulli"), dict(codec="int8"),
+    dict(codec="int8", round_driver="scan"),
+    dict(scenario="bernoulli", mesh_devices=2),
     dict(round_driver="scan"), dict(round_driver="buffered"),
     dict(mesh_devices=2), dict(mesh_devices="auto"),
     dict(client_source="streaming")])
 def test_config_rejects_what_is_not_ported(kw):
     with pytest.raises(ValueError, match="not yet ported"):
         FederatedConfig(**kw)
+
+
+def test_config_accepts_every_registered_scenario_and_codec():
+    """The python driver takes every registered scenario and codec, and
+    the port registers the reference's."""
+    from repro.core.codecs import available_codecs as j_codecs
+    from repro.core.scenarios import available_scenarios as j_scenarios
+    from repro_torch.core.codecs import available_codecs
+    from repro_torch.core.scenarios import available_scenarios
+    assert available_scenarios() == j_scenarios()
+    assert available_codecs() == j_codecs()
+    for scenario in available_scenarios():
+        for codec in available_codecs():
+            cfg = FederatedConfig(scenario=scenario, codec=codec,
+                                  round_driver="python")
+            assert (cfg.scenario, cfg.codec) == (scenario, codec)
 
 
 @pytest.mark.parametrize("kw", [dict(algorithm="warp"),
