@@ -8,13 +8,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together);
-3. each kernel (K1-K5) at every shape phases 4-7 give it (K2 and K3 at
-   both d=60 and d=784, K5 at the synthetic and FEMNIST-like flat packs
-   and on an all-inactive cohort), on numpy-seeded inputs with a masked
-   device and masked steps: held against its plain PyTorch version on
-   the card, timed with CUDA events beside the plain version, its
-   roofline bound (the bytes and flops the masks leave to do) and, for
-   K5, the one PyTorch call that computes the same sum;
+3. each kernel (K1-K6) at every shape phases 4-8 give it (K2 and K3 at
+   both d=60 and d=784, K2 also on a rank's devices of the flat mesh
+   and, with its steps cut short, of the tree, K5 at the synthetic and
+   FEMNIST-like flat packs
+   and on an all-inactive cohort, K6 at a rank's slab of the flat and
+   tree meshes, the FEMNIST-like pack and an all-inactive slab), on
+   numpy-seeded inputs with a masked device and masked steps: held
+   against its plain PyTorch version on the card, timed with CUDA events
+   beside the plain version, its roofline bound (the bytes and flops the
+   masks leave to do) and, for K5 and K6, the one PyTorch call that
+   computes the same sum;
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
@@ -34,10 +38,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    the CPU path: the same selections and masks every round, params
    within tolerance (int8 within 4x its own measured sensitivity), and
    one K5 launch per lossy round on the card;
-8. the ``kernels`` JSON line: every kernel with its launches in phases
-   4-7 (the counters are set to 0 just before phase 4 and read just
-   after phase 7), error, times and bound, and each checked shape
-   under ``cases``.
+8. the client mesh (``core/sharding.py``) on the paper config, 3
+   rounds a cell, its ranks started by ``run_on_mesh`` on cuda:0 over
+   gloo (NCCL refuses two ranks on one device): a flat mesh of 2 ranks
+   for feddane and scaffold (ideal, dense) and fedavg with topk (error
+   feedback carried across the ranks), and a tree of 10 ranks under 2
+   edges (one client a rank) for feddane under ``hostile`` with int8.
+   Every rank must end with bitwise-equal params, loss history and
+   per-client state; each cell is held against the single-process card
+   path of the same config and seed (the same selections, masks and
+   effective K every round; params within phase 4's bound, or phase 7's
+   spread-based bound for int8); K6 must launch once per rank and lossy
+   round and K5 never in the ranks (each rank sets its counters to 0
+   just before its cells and reads them just after);
+9. the ``kernels`` JSON line: every kernel with its launches on the
+   main path -- phases 4-7 in this process (the counters are set to 0
+   just before phase 4 and read just after phase 7) plus phase 8's
+   ranks -- error, times and bound, and each checked shape under
+   ``cases``.
 
 Phases 4-7 also run one more round of the auto, fused_step and
 phase-7 cells under ``torch.profiler`` and print the card's idle share
@@ -76,8 +94,8 @@ STEP_TOL = 1e-5
 #: The card's fused solve (analytic gradient) against the CPU path's
 #: autodiff + flat update, over 5 rounds of 2560 steps.
 TRAJECTORY_TOL = 1e-4
-#: K5 adds the cohort in client order with every product and sum rounded
-#: on its own (built with -fmad=false), like its plain version.
+#: K5 and K6 add the cohort in client order with every product and sum
+#: rounded on its own (built with -fmad=false), like their plain versions.
 CODEC_TOL = 0.0
 #: The FEMNIST-like feddane round amplifies float32 rounding about 1e4-fold:
 #: its correction g - g_k moves with the Hessian (~1e3 at d=784) times any
@@ -138,8 +156,8 @@ def bound(nbytes: float, flops: float):
 
 
 def kernel_checks(torch, syn, fem):
-    """Phase 3: K1-K4 against their plain versions at every shape that
-    phases 4-6 give them; returns the rows of the kernels line (launches
+    """Phase 3: K1-K6 against their plain versions at every shape that
+    phases 4-8 give them; returns the rows of the kernels line (launches
     filled in later).  A row's ``max_abs_err`` is the worst of its
     cases; its times and bound are those of its first case."""
     from repro_torch.core.client import _epoch_step_mask
@@ -218,13 +236,24 @@ def kernel_checks(torch, syn, fem):
             lambda: ref.dane_update_ref(w, g, c, a, eta=eta, mu=mu),
             UPDATE_TOL, 5 * 4 * w.numel(), 6 * w.numel())
 
-    def k2_case(ds):
+    def k2_case(ds, k=None, work=None, what=""):
         """The whole E-epoch solve of the first selection: its padding
-        steps masked and one device masked out entirely."""
+        steps masked and one device masked out entirely.  ``k``: only
+        its first k devices, at the whole cohort's batch count, as a
+        rank of the mesh solves them; ``work``: each device stops after
+        ``ceil(work * its steps)`` steps, as a scenario's work cutoff
+        truncates the solve."""
         batches, valid = first_solve_batches(ds)
         valid = valid.clone()
         valid[3] = 0.0
-        step_mask = _epoch_step_mask(valid, E).contiguous()
+        if k is not None:
+            batches = {n: x[:k].contiguous() for n, x in batches.items()}
+            valid = valid[:k].contiguous()
+        limit = None
+        if work is not None:
+            total = E * valid.sum(dim=1)
+            limit = torch.minimum(torch.ceil(work * total), total)
+        step_mask = _epoch_step_mask(valid, E, limit).contiguous()
         K, nb, B, d = batches["x"].shape
         w0 = {"w": normal(d, C, scale=0.1), "b": normal(C, scale=0.1)}
         corr = {"w": normal(K, d, C, scale=0.01),
@@ -240,7 +269,7 @@ def kernel_checks(torch, syn, fem):
         flops = steps * (4 * B * d * C + 8 * B * C + 6 * dC)
         return case(
             f"local_epoch K={K} nb={nb} B={B} d={d} E={E} "
-            f"steps={int(steps)}",
+            f"steps={int(steps)}{what}",
             lambda: local_solve.local_epoch(
                 w0, corr, batches, eta=eta, mu=mu, num_epochs=E,
                 step_mask=step_mask),
@@ -297,6 +326,31 @@ def kernel_checks(torch, syn, fem):
                 f"{label}: an all-inactive cohort must give +0.0")
         return c
 
+    def k6_case(R, m, what):
+        """One rank's partial sum over its K/D clients of R rows of 128
+        lanes, as the mesh's codec round gives it.  Only the active
+        clients' slabs are read."""
+        K = m.numel()
+        vals = t(np.floor(rng.uniform(-127, 128, (K, R, 128))).astype(
+            np.float32))
+        scales = t(rng.uniform(1e-4, 1e-3, K).astype(np.float32))
+        n_act = int(m.sum())
+        nbytes = 4 * (n_act * R * 128 + R * 128 + 2 * K)
+        flops = 2 * n_act * R * 128
+        w = scales * m
+        label = f"codec_aggregate_partial ({K}, {R}, 128) f32, {what}"
+        c = case(label,
+                 lambda: codec.codec_aggregate_partial(vals, scales, m),
+                 lambda: ref.codec_aggregate_partial_ref(vals, scales, m),
+                 CODEC_TOL, nbytes, flops,
+                 library=lambda: torch.einsum("k,krl->rl", w, vals))
+        if n_act == 0:
+            out = codec.codec_aggregate_partial(vals, scales, m)
+            check(bool((out == 0).all()) and not bool(
+                torch.signbit(out).any()),
+                f"{label}: an all-inactive slab must give +0.0")
+        return c
+
     # K1 runs on the synthetic model's flat pack (8 rows a device); K4 on
     # its two leaves, (K, 60, 10) and (K, 10); K2 on the auto path of both
     # datasets; K3 on both fused_step runs.
@@ -311,8 +365,14 @@ def kernel_checks(torch, syn, fem):
             [k1_case(rows_syn)]),
         row("dane_update_2d", "dane_update.py:27", "dane_update.cu",
             [k4_case(K * 60 * C, "w"), k4_case(K * C, "b")]),
+        # K2 also on a rank's slab of the mesh: the flat mesh's 5 of 10
+        # devices (the masked one among them), and the tree's one device
+        # a rank with its solve cut short by the hostile scenario's work
         row("local_epoch", "local_solve.py:168", "local_solve.cu",
-            [k2_case(syn), k2_case(fem)]),
+            [k2_case(syn), k2_case(fem),
+             k2_case(syn, k=5, what=", rows 0:5 (2-rank mesh)"),
+             k2_case(syn, k=1, work=0.37,
+                     what=", row 0, work 0.37 (10-rank tree)")]),
         row("linear_logistic_step", "local_solve.py:68", "local_solve.cu",
             [k3_case(fem), k3_case(syn)]),
         # K5 on the synthetic flat pack (phase 7) and the FEMNIST-like one
@@ -320,6 +380,14 @@ def kernel_checks(torch, syn, fem):
             [k5_case(rows_syn, mask, "1 of 10 masked"),
              k5_case(rows_fem, mask, "1 of 10 masked"),
              k5_case(rows_syn, none, "all 10 inactive")]),
+        # K6 on a rank's slab: K=10 over the flat mesh's two ranks (the
+        # masked client among them), one client a rank of the tree, the
+        # FEMNIST-like pack, and a rank whose clients are all inactive
+        row("codec_aggregate_partial", "codec.py:44", "codec.cu",
+            [k6_case(rows_syn, mask[:5], "K=10 over 2 ranks, 1 masked"),
+             k6_case(rows_syn, mask[:1], "one client a rank"),
+             k6_case(rows_fem, mask[:2], "FEMNIST-like pack"),
+             k6_case(rows_syn, none[:5], "all 5 inactive")]),
     ]
 
 
@@ -404,6 +472,155 @@ def run_pair(torch, syn_gpu, syn_cpu, cfg, rounds: int, label: str,
         print(f"    selections and masks equal every round; effective K "
               f"per round {eff_k}")
     return gpu, sg, statistics.median(ms)
+
+
+#: Phase 8: (ranks, edges) -> [(algorithm, scenario, codec)], 3 rounds a
+#: cell.  The flat mesh splits K=10 into two ranks of 5 clients; the tree
+#: puts one client on each of 10 ranks under 2 edges of 5 leaves.
+MESH_CELLS = {(2, 1): [("feddane", "ideal", "none"),
+                       ("scaffold", "ideal", "none"),
+                       ("fedavg", "ideal", "topk")],
+              (10, 2): [("feddane", "hostile", "int8")]}
+MESH_ROUNDS = 3
+
+
+def mesh_config(algo: str, scenario: str, codec_name: str, **kw):
+    from repro_torch.configs.base import FederatedConfig
+    return FederatedConfig(algorithm=algo, mu=0.001, scenario=scenario,
+                           codec=codec_name, **PAPER, **kw)
+
+
+def drive(torch, trainer, rounds: int, counts=None):
+    """``rounds`` rounds of ``trainer`` from the seeded zero start: each
+    round's selections, masks and effective K, CUDA-event ms and loss,
+    then the final params and per-client state as numpy, and the launch
+    counts of the run when ``counts`` (the counters) is given."""
+    from repro_torch.models.param import init_params
+    from repro_torch.models.small import logreg_specs
+
+    st = trainer.init(init_params(logreg_specs(60, 10),
+                                  torch.Generator().manual_seed(0),
+                                  device=trainer.device))
+    if counts is not None:
+        for k in counts:
+            counts[k] = 0                 # this rank's path starts here
+    rec = {"sel": [], "masks": [], "eff_k": [], "ms": [], "loss": []}
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st = trainer.round(st)
+        end.record()
+        end.synchronize()
+        rec["ms"].append(start.elapsed_time(end))
+        rec["sel"].append([np.asarray(s) for s in trainer.last_selection])
+        rec["masks"].append(trainer.last_masks)
+        rec["eff_k"].append(trainer.last_env[1])
+        rec["loss"].append(trainer.global_loss(st.params))
+    if counts is not None:
+        rec["launches"] = dict(counts)    # and is read here
+    rec["params"] = {k: v.cpu().numpy() for k, v in st.params.items()}
+    for f in ("controls", "ef"):
+        store = getattr(st, f)
+        rec[f] = (None if store is None else [
+            {k: v.cpu().numpy() for k, v in (
+                row.items() if isinstance(row, dict) else [("x", row)])}
+            for row in store.to_dense()])
+    return rec
+
+
+def mesh_rank(mesh, cells, rounds: int):
+    """Phase 8 on one rank of the client mesh: every cell of ``cells``
+    through this rank's own trainer, on the rank's device."""
+    import torch
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import make_synthetic
+    from repro_torch.kernels import build
+    from repro_torch.models.small import logreg_loss
+
+    syn = make_synthetic(1, 1, num_devices=30, seed=0, batch_size=10,
+                         device=mesh.device)
+    out = []
+    for algo, scenario, codec_name in cells:
+        cfg = mesh_config(algo, scenario, codec_name,
+                          mesh_devices=mesh.world,
+                          edge_shards=mesh.edge_shards)
+        tr = FederatedTrainer(logreg_loss, syn, cfg, mesh=mesh)
+        out.append(drive(torch, tr, rounds, build.launch_counts))
+    return out
+
+
+def _bits(rec):
+    """A record's results as bytes, for bitwise comparison across ranks."""
+    import pickle
+    return pickle.dumps({k: rec[k] for k in ("params", "loss", "controls",
+                                             "ef", "sel", "masks",
+                                             "eff_k")})
+
+
+def mesh_phase(torch, syn, int8_tol: float):
+    """Phase 8; returns the launches summed over every rank's cells."""
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core.sharding import run_on_mesh
+    from repro_torch.models.small import logreg_loss
+
+    print("    the ranks share cuda:0 over gloo: NCCL refuses two ranks "
+          "on one device, and this run has one card")
+    summed = {}
+    for (d, e), cells in MESH_CELLS.items():
+        t0 = time.perf_counter()
+        res = run_on_mesh(mesh_rank, d, e, args=(cells, MESH_ROUNDS),
+                          device="cuda:0", backend="gloo")
+        print(f"  {d} ranks under {e} edge(s): {time.perf_counter() - t0:.1f}"
+              f" s, the ranks' start included")
+        for i, (algo, scenario, codec_name) in enumerate(cells):
+            label = f"mesh {d}x{e} {algo}/{scenario}/{codec_name}"
+            recs = [r[i] for r in res]
+            for r, rec in enumerate(recs[1:], 1):
+                check(_bits(rec) == _bits(recs[0]),
+                      f"{label}: rank {r} differs from rank 0")
+            one = drive(torch, FederatedTrainer(
+                logreg_loss, syn, mesh_config(algo, scenario, codec_name)),
+                MESH_ROUNDS)
+            got = recs[0]
+            for t in range(MESH_ROUNDS):
+                check(all(np.array_equal(a, b) for a, b in
+                          zip(got["sel"][t], one["sel"][t])),
+                      f"{label}: round {t} selections differ")
+                gm, om = got["masks"][t], one["masks"][t]
+                check((gm is None) == (om is None) and (gm is None or all(
+                    (a is None and b is None) or np.array_equal(a, b)
+                    for a, b in zip(gm, om))),
+                      f"{label}: round {t} masks differ")
+            check(got["eff_k"] == one["eff_k"],
+                  f"{label}: effective K {got['eff_k']} != {one['eff_k']}")
+            err = max(float(np.abs(got["params"][k] - one["params"][k])
+                            .max()) for k in got["params"])
+            tol = int8_tol if codec_name == "int8" else TRAJECTORY_TOL
+            check(err <= tol, f"{label}: params differ from the single "
+                              f"process by {err} > {tol}")
+            check(all(np.isfinite(got["loss"])), f"{label}: loss not finite")
+            launches = {k: sum(r["launches"][k] for r in recs)
+                        for k in recs[0]["launches"]}
+            lossy = MESH_ROUNDS if codec_name != "none" else 0
+            check(launches["codec_aggregate_partial"] == d * lossy,
+                  f"{label}: {launches['codec_aggregate_partial']} K6 "
+                  f"launches, not {d} ranks x {lossy} lossy rounds")
+            check(launches["codec_aggregate"] == 0,
+                  f"{label}: K5 launched in the ranks")
+            for k, v in launches.items():
+                summed[k] = summed.get(k, 0) + v
+            print(f"  {label}: ms/round (rank 0) "
+                  f"{[round(m, 2) for m in got['ms']]} (median "
+                  f"{statistics.median(got['ms']):.2f}); single process "
+                  f"{[round(m, 2) for m in one['ms']]}")
+            print(f"    {d} ranks bitwise equal; selections, masks and "
+                  f"effective K {got['eff_k']} equal the single process; "
+                  f"max |params mesh - single| {err:.2e} (tol {tol:.3g}); "
+                  f"loss {[round(x, 6) for x in got['loss']]}")
+            print(f"    launches over the ranks "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+    return summed
 
 
 def device_share(torch, trainer, st, label: str):
@@ -546,6 +763,7 @@ def main() -> int:
         1, "femnist feddane fused_step", tol=fem_tol)
     print(f"    launches {_delta(before, counts)}")
 
+    int8_tol = {}
     print("[7] scenarios and lossy codecs: paper config, "
           "scenario=\"hostile\", 3 rounds per cell")
     lossy_rounds = 0
@@ -569,6 +787,7 @@ def main() -> int:
             check(0 < tol <= MAX_REL_LIMIT * scale,
                   f"{label}: limit {tol} is not inside (0, "
                   f"{MAX_REL_LIMIT} x {scale}]")
+            int8_tol[algo] = tol
         before = dict(counts)
         tr, st, phase_ms[label] = run_pair(torch, syn, syn_cpu, cfg, 3,
                                            label, tol=tol)
@@ -584,11 +803,17 @@ def main() -> int:
           f"(3 compared + 1 profiled per lossy cell)")
 
     main_path = dict(counts)             # read just after the main path
+
+    print(f"[8] client mesh: paper config, {MESH_ROUNDS} rounds a cell")
+    t0 = time.perf_counter()
+    on_mesh = mesh_phase(torch, syn, int8_tol["feddane"])
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+
     for r in rows:
-        r["launches"] = main_path[r["name"]]
+        r["launches"] = main_path[r["name"]] + on_mesh.get(r["name"], 0)
         check(r["launches"] > 0, f"{r['name']} not launched on the main "
                                  f"path")
-    print(f"[8] done in {time.perf_counter() - t_start:.1f} s; phase "
+    print(f"[9] done in {time.perf_counter() - t_start:.1f} s; phase "
           f"ms/round {json.dumps({k: round(v, 3) for k, v in phase_ms.items()})}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

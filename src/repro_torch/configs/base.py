@@ -6,9 +6,10 @@ registries (algorithms, scenarios, codecs).  Knobs of layers the port
 has not reached yet keep their fields (so a config reads the same in
 both packages) but values that would need those layers are refused at
 construction with a "not yet ported" error: the ``"scan"`` and
-``"buffered"`` round drivers, a client mesh (``mesh_devices`` other
-than 1) and streaming client sources.  ``round_driver="auto"`` resolves
-to the python driver.
+``"buffered"`` round drivers and streaming client sources.
+``round_driver="auto"`` resolves to the python driver.  The client mesh
+(``mesh_devices``, ``edge_shards``) runs on the python driver with the
+batched engine: its ranks come from ``core.sharding.run_on_mesh``.
 """
 from __future__ import annotations
 
@@ -138,17 +139,27 @@ class FederatedConfig:
             raise ValueError(
                 f"mesh_devices must be a positive int or 'auto', got "
                 f"{self.mesh_devices!r}")
-        if self.mesh_devices != 1:
-            raise _not_ported(f"mesh_devices={self.mesh_devices!r} "
-                              f"(the client mesh)")
+        # the looped per-device reference is single-process by
+        # construction; "auto" may still resolve to 1, so only a concrete
+        # int is rejected here (the trainer re-checks after resolution)
+        if (self.engine == "loop" and _is_int(self.mesh_devices)
+                and self.mesh_devices > 1):
+            raise ValueError(
+                f"engine='loop' does not compose with mesh_devices="
+                f"{self.mesh_devices}: the looped per-device reference "
+                f"path is single-process by construction (set "
+                f"engine='batched' or 'auto', or mesh_devices=1)")
         if not (_is_int(self.edge_shards) and self.edge_shards >= 1):
             raise ValueError(
                 f"edge_shards must be a positive int, got "
                 f"{self.edge_shards!r}")
-        if self.edge_shards > 1:
+        if (_is_int(self.mesh_devices) and self.edge_shards > 1
+                and self.mesh_devices % self.edge_shards != 0):
+            # "auto" resolves at trainer build; core.sharding re-checks
             raise ValueError(
                 f"edge_shards={self.edge_shards} must divide "
-                f"mesh_devices=1")
+                f"mesh_devices={self.mesh_devices} (each edge "
+                f"aggregates an equal leaf-device group)")
         if self.client_source not in ("auto", "stacked", "streaming"):
             raise ValueError(
                 f"unknown client_source {self.client_source!r}; choose "

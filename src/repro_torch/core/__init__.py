@@ -14,6 +14,7 @@ _EXPORTS = {
     "make_batched_grad_fn": "client",
     "AlgorithmSpec": "strategies", "register_algorithm": "strategies",
     "algorithm_spec": "strategies", "available_algorithms": "strategies",
+    "ClientMesh": "sharding", "run_on_mesh": "sharding",
 }
 
 __all__ = sorted(_EXPORTS)

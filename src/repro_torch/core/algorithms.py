@@ -9,7 +9,8 @@ driver.  ``FederatedTrainer`` interprets the registered
   by :class:`~repro_torch.core.engine.RoundEngine` -- on the card
   through the hand-written kernels;
 - ``"loop"``: the per-device reference with plain tree-op updates;
-- ``"auto"`` (default): batched on the card, loop on the CPU.
+- ``"auto"`` (default): batched on the card, loop on the CPU, and
+  batched under the client mesh on either.
 
 Orthogonally, ``cfg.scenario`` selects a registered environment
 (``core/scenarios``: availability, stragglers, dropout, partial work),
@@ -26,6 +27,17 @@ seed gives the reference's selections and environment under either
 engine.  The trainer runs on ``device`` -- the card unless
 ``device="cpu"`` -- and the dataset must live there; the environment is
 realized on the host, so the card and the CPU see the same masks.
+
+Under the client mesh (``cfg.mesh_devices``, ``cfg.edge_shards``; the
+ranks started by ``core.sharding.run_on_mesh``, each building its own
+trainer with the :class:`~repro_torch.core.sharding.ClientMesh` it was
+handed) every rank samples, realizes the environment, draws and
+evaluates exactly as the single process does, then solves only its K/D
+rows of the cohort: the stacks are padded to the whole cohort's batch
+count, so every rank takes the same solver mode and shapes.  Per-client
+state (SCAFFOLD controls, codec error feedback) stays full-N on every
+rank: after a round each rank's updated rows reach all ranks
+(``sharding.gather_rows``) and every rank scatters the same K rows.
 """
 from __future__ import annotations
 
@@ -39,7 +51,7 @@ from torch.func import vmap
 from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import codecs
 from repro_torch.core import pytree as pt
-from repro_torch.core import server
+from repro_torch.core import server, sharding
 from repro_torch.core.client import make_grad_fn, make_local_solver
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.scenarios import (availability_mask, env_channels,
@@ -76,11 +88,22 @@ class FederatedTrainer:
     ``dataset`` provides ``num_devices``, ``weights`` (p_k),
     ``device_batches(k)`` and ``eval_batches()``, with tensors on
     ``device``; ``loss_fn(params, batch) -> scalar`` must work under
-    ``torch.func.grad``/``vmap``.
+    ``torch.func.grad``/``vmap``.  ``mesh``: this rank's
+    :class:`~repro_torch.core.sharding.ClientMesh` when
+    ``cfg.mesh_devices`` asks for the client mesh; the trainer then runs
+    on the mesh's device unless ``device`` names it.
     """
 
     def __init__(self, loss_fn: Callable, dataset, cfg: FederatedConfig,
-                 device=None):
+                 device=None, mesh=None):
+        #: the client mesh (core/sharding.py), or None: one process
+        self.mesh = sharding.mesh_for(cfg, mesh)
+        if self.mesh is not None:
+            if device is None:
+                device = self.mesh.device
+            elif torch.device(device) != self.mesh.device:
+                raise ValueError(f"trainer device {device} is not this "
+                                 f"rank's mesh device {self.mesh.device}")
         self.device = resolve_device(device)
         data_dev = getattr(dataset, "device", None)
         if data_dev is not None and torch.device(data_dev) != self.device:
@@ -118,10 +141,27 @@ class FederatedTrainer:
         self._state_fields = runtime_state_fields(self.spec, cfg)
         engine = cfg.engine
         if engine == "auto":
-            engine = "batched" if self.device.type == "cuda" else "loop"
+            # the mesh runs the batched round, on the CPU too
+            engine = ("batched" if self.device.type == "cuda"
+                      or self.mesh is not None else "loop")
+        if self.mesh is not None:
+            if engine == "loop":
+                raise ValueError(
+                    "mesh_devices > 1 requires the batched engine: the "
+                    "looped per-device reference path is single-process "
+                    "by construction (set engine='batched' or 'auto', or "
+                    "mesh_devices=1)")
+            if self.spec.num_selections == 0:
+                sharding.check_divisible(
+                    dataset.num_devices, self.mesh,
+                    "num_devices (full-participation spec)")
+            else:
+                k = (cfg.devices_per_round if cfg.sample_with_replacement
+                     else min(cfg.devices_per_round, dataset.num_devices))
+                sharding.check_divisible(k, self.mesh, "devices_per_round")
         self.engine: Optional[RoundEngine] = (
             RoundEngine(loss_fn, cfg, spec=self.spec,
-                        num_devices=dataset.num_devices)
+                        num_devices=dataset.num_devices, mesh=self.mesh)
             if engine == "batched" else None)
         self._sample_queue: List[np.ndarray] = []       # test injection
         self._eval_loss = _make_eval_loss(loss_fn)
@@ -138,6 +178,15 @@ class FederatedTrainer:
 
     def _batches(self, k: int):
         return self.dataset.device_batches(int(k))
+
+    def _stack(self, S, lo: int, hi: int):
+        """Rows ``lo:hi`` of selection ``S`` stacked for the batched
+        engine; under the mesh padded to the whole cohort's batch count,
+        so that every rank takes the same solver mode and shapes."""
+        if self.mesh is None:
+            return stack_device_batches(self.dataset, S)
+        nb = max(num_batches_of(self._batches(k)) for k in S)
+        return stack_device_batches(self.dataset, S[lo:hi], nb=nb)
 
     def init(self, params) -> FederatedState:
         """Fresh state at round 0 for ``params`` (moved to the trainer's
@@ -195,7 +244,8 @@ class FederatedTrainer:
                  if spec.decay is not None else 1.0)
         eng = self.engine
         # duplicated selections must update controls sequentially; the
-        # batched scatter would apply them once -> the looped path
+        # batched scatter would apply them once -> the looped path (under
+        # the mesh every rank then runs the whole looped round alike)
         if spec.control_update is not None and cfg.sample_with_replacement:
             eng = None
 
@@ -241,26 +291,37 @@ class FederatedTrainer:
         self.last_comm = (gather_n, self.last_env[1])
 
         if eng is not None:
-            b, v = stack_device_batches(self.dataset, S2)
-            phase_a = (stack_device_batches(self.dataset, S1)
+            # this rank's rows of the cohort (all of them without a mesh)
+            lo, hi = sharding.shard_rows(len(S2), self.mesh)
+            b, v = self._stack(S2, lo, hi)
+            phase_a = (self._stack(S1, lo, hi)
                        if spec.grad_source == "fresh" and not shared
                        else None)
-            aux = self._gather_aux(st, S2)
+            aux = self._gather_aux(st, S2[lo:hi])
             if not self._codec_trivial:
                 aux["codec_draws"] = codecs.round_draws(
-                    self.codec, cfg, st.round, len(S2),
-                    flatpack.flat_spec(w0).rows, self.device)
+                    self.codec, cfg, st.round, hi - lo,
+                    flatpack.flat_spec(w0).rows, self.device, idx0=lo)
                 if self.codec.error_feedback:
-                    aux["ef"] = st.ef.gather(S2)
+                    aux["ef"] = st.ef.gather(S2[lo:hi])
+
+            def rows(x):
+                return None if x is None else x[lo:hi].to(self.device)
+
             if active is None:
                 st.params, aux_new = eng.round(w0, aux, phase_a, b, v,
                                                decay)
             else:
-                dev = self.device
                 st.params, aux_new, _ = eng.round_env(
-                    w0, aux, phase_a, b, v, decay, active.to(dev),
-                    work.to(dev),
-                    None if active_a is None else active_a.to(dev))
+                    w0, aux, phase_a, b, v, decay, rows(active),
+                    rows(work), rows(active_a))
+            if self.mesh is not None:
+                # every rank's updated rows, on every rank
+                for f in ("controls", "ef"):
+                    if f in aux_new:
+                        aux_new[f] = pt.tmap(
+                            lambda x: sharding.gather_rows(x, self.mesh),
+                            aux_new[f])
             self._scatter_aux(st, aux_new, S2)
             if not self._codec_trivial and self.codec.error_feedback:
                 st.ef.scatter(S2, aux_new["ef"])

@@ -157,11 +157,15 @@ STREAM_SIGNS, STREAM_SLOT, STREAM_NOISE = 0, 1, 2
 
 
 def round_draws(spec: CodecSpec, cfg, t: int, k: int, rows: int,
-                device="cpu") -> Optional[CodecDraws]:
-    """Every codec draw of round ``t`` for ``k`` cohort slots of
-    ``(rows, LANES)`` deltas, or ``None`` for a codec without
-    randomness.  Drawn on the host from numpy generators keyed by
-    ``(cfg.seed ^ 0x0DEC, t, stream, slot)``, then moved to ``device``.
+                device="cpu", idx0: int = 0) -> Optional[CodecDraws]:
+    """Every codec draw of round ``t`` for the ``k`` cohort slots
+    ``idx0 .. idx0+k-1`` of ``(rows, LANES)`` deltas, or ``None`` for a
+    codec without randomness.  Drawn on the host from numpy generators
+    keyed by ``(cfg.seed ^ 0x0DEC, t, stream, slot)``, then moved to
+    ``device``.  ``u[i]`` is slot ``idx0 + i``: a rank of the client mesh
+    passes its first row as ``idx0`` and draws exactly the unsharded
+    round's uniforms for its slots; the shared signs and noise are the
+    same on every rank.
     """
     if not spec.uses_rng:
         return None
@@ -172,8 +176,8 @@ def round_draws(spec: CodecSpec, cfg, t: int, k: int, rows: int,
 
     signs = gen(STREAM_SIGNS).integers(0, 2, LANES).astype(np.float32)
     signs = 2.0 * signs - 1.0
-    u = np.stack([gen(STREAM_SLOT, i).random((rows, LANES),
-                                             dtype=np.float32)
+    u = np.stack([gen(STREAM_SLOT, idx0 + i).random((rows, LANES),
+                                                    dtype=np.float32)
                   for i in range(k)]) if k else \
         np.zeros((0, rows, LANES), np.float32)
     noise = gen(STREAM_NOISE).standard_normal((rows, LANES),

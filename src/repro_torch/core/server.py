@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import pytree as pt
+from repro_torch.core import sharding
 
 
 def sample_devices(rng: np.random.Generator, num_devices: int, k: int,
@@ -39,26 +40,44 @@ def aggregate_gradients(grads: List) -> object:
     return pt.mean(grads)
 
 
-def aggregate_stacked(tree) -> object:
+def aggregate_stacked(tree, mesh=None) -> object:
     """Mean over the leading device axis of a K-stacked tree -- the
     batched round's form of ``aggregate_mean``/``aggregate_gradients``
-    (stays on the device)."""
-    return pt.tmap(lambda x: x.mean(dim=0), tree)
+    (stays on the device).
+
+    ``mesh`` (a :class:`~repro_torch.core.sharding.ClientMesh`): the
+    leaves hold this rank's K/D rows; the local mean is then averaged
+    over the ranks through the aggregation tree (``tree_pmean``), which
+    equals the global mean to float association, every rank holding
+    the same row count.  ``None`` is the single-process program.
+    """
+    out = pt.tmap(lambda x: x.mean(dim=0), tree)
+    if mesh is not None:
+        out = pt.tmap(lambda x: sharding.tree_pmean(x, mesh), out)
+    return out
 
 
-def aggregate_stacked_masked(tree, active, fallback) -> object:
+def aggregate_stacked_masked(tree, active, fallback, mesh=None) -> object:
     """Mean over the devices with ``active[k] > 0`` of a K-stacked tree
     (``active`` a float 0/1 ``(K,)`` vector): inactive rows contribute
     exact zeros, so the result equals the looped path's plain mean over
     the active subset.  With no active device, ``fallback`` (an
     unstacked tree: ``w0`` for params, the carried value for state) is
-    returned instead."""
-    asum = active.sum()
+    returned instead.
+
+    ``mesh``: as in :func:`aggregate_stacked`; the masked partial sums
+    and the active count are summed over the ranks (``tree_psum``)
+    before the one division, so the global masked mean and the
+    no-active-device decision are exact however the active clients
+    fall over the ranks.
+    """
+    asum = sharding.tree_psum(active.sum(), mesh)
     denom = torch.clamp(asum, min=1.0)
 
     def mmean(x, fb):
         a = active.reshape(active.shape + (1,) * (x.ndim - 1))
-        return torch.where(asum > 0, (x * a).sum(dim=0) / denom, fb)
+        s = sharding.tree_psum((x * a).sum(dim=0), mesh)
+        return torch.where(asum > 0, s / denom, fb)
 
     return pt.tmap(mmean, tree, fallback)
 

@@ -67,7 +67,8 @@ def pad_batch_stack(batches, nb: int):
     return pt.tmap(lambda x: x[idx.to(x.device)], batches)
 
 
-def stack_device_batches(dataset, indices) -> Tuple[dict, torch.Tensor]:
+def stack_device_batches(dataset, indices, nb: Optional[int] = None
+                         ) -> Tuple[dict, torch.Tensor]:
     """Stack the selected devices' batch stacks along a leading axis.
 
     Returns ``(stacked, valid)``: leaves ``(K, nb_max, batch, ...)`` and
@@ -75,11 +76,16 @@ def stack_device_batches(dataset, indices) -> Tuple[dict, torch.Tensor]:
     batches and 0 for those that only reach the common ``nb_max``.
     Masked batches are no-ops in the engine (zero gradient weight,
     identity SGD step), which keeps parity with the looped path.
+    ``nb_max`` is the selection's largest stack, or ``nb`` when given
+    (a rank of the client mesh pads its rows to the whole cohort's).
     """
     getter = getattr(dataset, "device_batches_padded", None)
     devs = [dataset.device_batches(int(k)) for k in indices]
     nbs = [num_batches_of(d) for d in devs]
-    nb_max = max(nbs)
+    nb_max = max(nbs) if nb is None else nb
+    if nb_max < max(nbs):
+        raise ValueError(f"stack_device_batches: nb={nb} < the selection's "
+                         f"{max(nbs)} batches would silently drop data")
     if getter is not None:
         padded = [getter(int(k), nb_max) for k in indices]
     else:

@@ -3,8 +3,13 @@
 - ``dane_update`` (K1 flat, K4 per-leaf): the fused FedDANE update step;
 - ``local_solve`` (K2 whole epoch, K3 one step): the fused softmax-
   regression local solve;
-- ``codec`` (K5): the fused codec decode + masked cohort mean;
+- ``codec`` (K5, K6): the fused codec decode + masked cohort mean, and
+  the masked sum of one shard of the client mesh;
 - ``ops``: tree-level wrappers of the update kernels;
 - ``ref``: the plain PyTorch version of each kernel;
 - ``build``: nvcc at first use, ctypes binding, launch counters.
 """
+from repro_torch.kernels.codec import (codec_aggregate,  # noqa: E402
+                                       codec_aggregate_partial)
+
+__all__ = ["codec_aggregate", "codec_aggregate_partial"]

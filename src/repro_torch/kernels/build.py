@@ -43,7 +43,8 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
 #: Launches per kernel since the last :func:`reset_launch_counts`.
 launch_counts: Dict[str, int] = dict.fromkeys(
     ("dane_update_flat", "dane_update_2d", "local_epoch",
-     "linear_logistic_step", "codec_aggregate"), 0)
+     "linear_logistic_step", "codec_aggregate", "codec_aggregate_partial"),
+    0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,14 +1,18 @@
-"""Fused codec decode + aggregate kernel (K5) and its wrapper.
+"""Fused codec decode + aggregate kernels (K5, K6) and their wrappers.
 
-    agg = sum_k mask_k * scale_k * vals_k / max(sum_k mask_k, 1)
+    K5  agg = sum_k mask_k * scale_k * vals_k / max(sum_k mask_k, 1)
+    K6  part = sum_k mask_k * scale_k * vals_k
 
-Counterpart of ``codec_aggregate`` in ``repro/kernels/codec.py``: one
-launch turns the stacked ``(K, rows, 128)`` encoded cohort into the
-``(rows, 128)`` aggregate, reading each active client's slab once.  On
-the card it launches ``csrc/codec.cu``; for tensors on the CPU it takes
-the plain version in ``kernels/ref.py``, to which the kernel is bitwise
-equal.  Linear post-transforms of a codec (int8's inverse rotation)
-apply to the aggregate after this launch.
+Counterparts of ``codec_aggregate`` and ``codec_aggregate_partial`` in
+``repro/kernels/codec.py``: one launch turns the stacked
+``(K, rows, 128)`` encoded cohort into the ``(rows, 128)`` aggregate,
+reading each active client's slab once.  K5 is the single-process
+round's whole aggregate; K6 is one shard's partial under the client
+mesh (``core/sharding.py``), whose partials and mask counts the ranks
+sum and divide once.  On the card each launches ``csrc/codec.cu``; for
+tensors on the CPU they take the plain versions in ``kernels/ref.py``,
+to which the kernels are bitwise equal.  Linear post-transforms of a
+codec (int8's inverse rotation) apply to the aggregate after the launch.
 """
 from __future__ import annotations
 
@@ -22,16 +26,12 @@ from repro_torch.kernels.dane_update import LANES
 #: memory).
 MAX_CLIENTS = 1024
 
-_SIGNATURES = {"codec_aggregate_f32": (P, P, P, P, I, LL, P)}
+_SIGNATURES = {"codec_aggregate_f32": (P, P, P, P, I, LL, P),
+               "codec_aggregate_partial_f32": (P, P, P, P, I, LL, P)}
 F32 = torch.float32
 
 
-def codec_aggregate(vals, scales, mask):
-    """K5: the ``(rows, 128)`` dequantized masked mean of the
-    ``(K, rows, 128)`` float32 cohort ``vals``, with ``(K,)`` float32
-    per-client ``scales`` and 0/1 ``mask`` (inactive clients add
-    neither signal nor count; an all-inactive cohort gives zeros)."""
-    what = "codec_aggregate"
+def _check(what: str, vals, scales, mask) -> None:
     if vals.dim() != 3 or vals.shape[2] != LANES:
         raise ValueError(f"{what}: vals must be (K, rows, {LANES}), got "
                          f"{tuple(vals.shape)}")
@@ -50,17 +50,41 @@ def codec_aggregate(vals, scales, mask):
         if t.shape != (k,):
             raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != "
                              f"({k},)")
-    if vals.device.type == "cpu":
-        return ref.codec_aggregate_ref(vals, scales, mask)
-    if vals.device.type != "cuda":
+    if vals.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: tensors on {vals.device}; the kernel "
                          f"runs on CUDA, the plain version on CPU")
+
+
+def _launch(fn: str, what: str, vals, scales, mask):
     vals, scales, mask = (t.contiguous() for t in (vals, scales, mask))
     lib = build.library("codec", _SIGNATURES)
     out = torch.empty(vals.shape[1:], dtype=F32, device=vals.device)
-    rc = lib.codec_aggregate_f32(
+    rc = getattr(lib, fn)(
         vals.data_ptr(), scales.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        k, vals.shape[1] * LANES, build.stream())
+        vals.shape[0], vals.shape[1] * LANES, build.stream())
     build.check_launch(rc, what)
-    build.launch_counts["codec_aggregate"] += 1
+    build.launch_counts[what] += 1
     return out
+
+
+def codec_aggregate(vals, scales, mask):
+    """K5: the ``(rows, 128)`` dequantized masked mean of the
+    ``(K, rows, 128)`` float32 cohort ``vals``, with ``(K,)`` float32
+    per-client ``scales`` and 0/1 ``mask`` (inactive clients add
+    neither signal nor count; an all-inactive cohort gives zeros)."""
+    _check("codec_aggregate", vals, scales, mask)
+    if vals.device.type == "cpu":
+        return ref.codec_aggregate_ref(vals, scales, mask)
+    return _launch("codec_aggregate_f32", "codec_aggregate", vals, scales,
+                   mask)
+
+
+def codec_aggregate_partial(vals, scales, mask):
+    """K6: the ``(rows, 128)`` dequantized masked SUM of one shard's
+    ``(K/D, rows, 128)`` float32 cohort slab (no division by the count),
+    with K5's operands and checks.  An all-inactive shard gives +0.0."""
+    _check("codec_aggregate_partial", vals, scales, mask)
+    if vals.device.type == "cpu":
+        return ref.codec_aggregate_partial_ref(vals, scales, mask)
+    return _launch("codec_aggregate_partial_f32", "codec_aggregate_partial",
+                   vals, scales, mask)

@@ -92,22 +92,40 @@ def local_epoch_ref(w0, corr, batches, *, eta: float, mu: float,
     return w
 
 
+def _mask_count(m):
+    """``sum_k m_k`` added k = 0..K-1, as the codec kernels count."""
+    cnt = torch.zeros((), dtype=F32, device=m.device)
+    for k in range(m.shape[0]):
+        cnt = cnt + m[k]
+    return cnt
+
+
+def codec_aggregate_partial_ref(vals, scales, mask):
+    """K6's function: the dequantized masked cohort sum
+
+        out = sum_k m_k * s_k * v_k
+
+    over ``vals`` (K, rows, 128) with ``scales``/``mask`` (K,), in the
+    kernel's order: ``acc + v_k * w_k`` with ``w_k = s_k * m_k`` over
+    the clients with ``m_k != 0`` in order (a masked client adds
+    nothing, and is never read).  An all-inactive cohort gives +0.0.
+    """
+    m = mask.to(F32)
+    w = scales.to(F32) * m
+    acc = torch.zeros(vals.shape[1:], dtype=F32, device=vals.device)
+    for k in torch.nonzero(m).flatten().tolist():
+        acc = acc + vals[k].to(F32) * w[k]
+    return acc
+
+
 def codec_aggregate_ref(vals, scales, mask):
     """K5's function: the dequantized masked cohort mean
 
         out = sum_k m_k * s_k * v_k / max(sum_k m_k, 1)
 
-    over ``vals`` (K, rows, 128) with ``scales``/``mask`` (K,), in the
-    kernel's order: the count summed k = 0..K-1, then ``acc + v_k * w_k``
-    over the clients with ``m_k != 0`` in order (a masked client adds
-    nothing), then one division.  An all-inactive cohort gives zeros.
+    in the kernel's order: the count summed k = 0..K-1, K6's sum, then
+    one division.  An all-inactive cohort gives zeros.
     """
-    m = mask.to(F32)
-    w = scales.to(F32) * m
-    cnt = torch.zeros((), dtype=F32, device=vals.device)
-    for k in range(m.shape[0]):
-        cnt = cnt + m[k]
-    acc = torch.zeros(vals.shape[1:], dtype=F32, device=vals.device)
-    for k in torch.nonzero(m).flatten().tolist():
-        acc = acc + vals[k].to(F32) * w[k]
-    return acc / torch.clamp(cnt, min=1.0)
+    cnt = _mask_count(mask.to(F32))
+    return (codec_aggregate_partial_ref(vals, scales, mask)
+            / torch.clamp(cnt, min=1.0))

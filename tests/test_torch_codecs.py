@@ -65,15 +65,16 @@ def _sel(rounds, seed=11):
                                for _ in range(2)]) for _ in range(rounds)])
 
 
-def reference_draws(spec, cfg, t, k, rows, device="cpu"):
-    """The reference's codec draws of round ``t`` (its ``round_key`` and
-    ``fold_in`` constants) in the port's ``CodecDraws`` form."""
+def reference_draws(spec, cfg, t, k, rows, device="cpu", idx0=0):
+    """The reference's codec draws of round ``t`` for slots ``idx0 ..
+    idx0+k-1`` (its ``round_key`` and ``fold_in`` constants) in the
+    port's ``CodecDraws`` form."""
     if not spec.uses_rng:
         return None
     key = jcodecs.round_key(cfg, t)
     signs = jax.random.rademacher(jax.random.fold_in(key, 0x5167), (LANES,),
                                   dtype=jnp.float32)
-    u = jnp.stack([jax.random.uniform(jax.random.fold_in(key, i),
+    u = jnp.stack([jax.random.uniform(jax.random.fold_in(key, idx0 + i),
                                       (rows, LANES)) for i in range(k)])
     noise = jax.random.normal(jax.random.fold_in(key, 0x0D99),
                               (rows, LANES))

@@ -293,6 +293,77 @@ def test_codec_aggregate_checks_its_inputs(bad, err, match):
         codec.codec_aggregate(**args)
 
 
+@pytest.mark.parametrize("k,rows,inactive", [(4, 8, False), (2, 64, False),
+                                              (3, 8, True)])
+def test_codec_aggregate_partial_matches_reference(k, rows, inactive):
+    """K6 (one shard's masked sum) against the reference's plain version
+    and its Pallas kernel in interpret mode; an all-inactive slab gives
+    +0.0 everywhere."""
+    rng = np.random.default_rng(k * 1000 + rows)
+    vals = rng.standard_normal((k, rows, 128)).astype(np.float32)
+    scales = rng.uniform(0.5, 2.0, (k,)).astype(np.float32)
+    mask = (np.zeros(k, np.float32) if inactive
+            else rng.integers(0, 2, (k,)).astype(np.float32))
+    if not inactive:
+        mask[0] = 1.0
+    got = codec.codec_aggregate_partial(_t(vals), _t(scales), _t(mask))
+    for want in (jref.codec_aggregate_partial_ref(jnp.asarray(vals),
+                                                  jnp.asarray(scales),
+                                                  jnp.asarray(mask)),
+                 jcodec.codec_aggregate_partial(jnp.asarray(vals),
+                                                jnp.asarray(scales),
+                                                jnp.asarray(mask),
+                                                interpret=True)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=CODEC_TOL, atol=CODEC_TOL)
+    if inactive:
+        assert torch.equal(got, torch.zeros(rows, 128))
+        assert not bool(torch.signbit(got).any())
+
+
+@pytest.mark.parametrize("shards", [2, 5])
+def test_codec_partials_over_shards_are_the_cohort_mean(shards):
+    """The mesh's aggregate -- the sum of the shards' K6 partials over
+    the sum of their mask counts -- against K5's plain version on the
+    whole cohort (float association only: the sum is split across
+    shards)."""
+    rng = np.random.default_rng(shards)
+    k = 10
+    vals = _t(rng.standard_normal((k, 8, 128)).astype(np.float32))
+    scales = _t(rng.uniform(0.5, 2.0, (k,)).astype(np.float32))
+    mask = _t(np.array([1, 1, 0, 1, 1, 1, 0, 1, 1, 1], np.float32))
+    kl = k // shards
+    parts = [codec.codec_aggregate_partial(vals[i:i + kl], scales[i:i + kl],
+                                           mask[i:i + kl])
+             for i in range(0, k, kl)]
+    cnt = sum(mask[i:i + kl].sum() for i in range(0, k, kl))
+    got = sum(parts) / torch.clamp(cnt, min=1.0)
+    want = ref.codec_aggregate_ref(vals, scales, mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=CODEC_TOL,
+                               atol=CODEC_TOL)
+    # one shard holding the whole cohort is K5 before its division
+    whole = codec.codec_aggregate_partial(vals, scales, mask)
+    assert torch.equal(whole / mask.sum(), want)
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    (dict(vals=torch.zeros(2, 8, 64)), ValueError, r"\(K, rows, 128\)"),
+    (dict(vals=torch.zeros(2, 8, 128, dtype=torch.float64)), TypeError,
+     "vals must be float32"),
+    (dict(mask=torch.ones(3)), ValueError, "mask shape"),
+    (dict(vals=torch.zeros(0, 8, 128), scales=torch.ones(0),
+          mask=torch.ones(0)), ValueError, "clients"),
+    (dict(scales=torch.ones(2, device="meta")), ValueError, "is on meta"),
+])
+def test_codec_aggregate_partial_checks_its_inputs(bad, err, match):
+    args = dict(vals=torch.zeros(2, 8, 128), scales=torch.ones(2),
+                mask=torch.ones(2))
+    args.update(bad)
+    with pytest.raises(err, match=match) as e:
+        codec.codec_aggregate_partial(**args)
+    assert str(e.value).startswith("codec_aggregate_partial: ")
+
+
 def test_cpu_path_launches_no_kernel():
     """Launch counters move only where a kernel launches: never for CPU
     tensors, which take the plain versions."""
@@ -303,5 +374,8 @@ def test_cpu_path_launches_no_kernel():
                           torch.ones(7), 0.1, 0.0)
     codec.codec_aggregate(torch.ones(2, 8, 128), torch.ones(2),
                           torch.ones(2))
-    assert set(build.launch_counts) >= {"codec_aggregate"}
+    codec.codec_aggregate_partial(torch.ones(2, 8, 128), torch.ones(2),
+                                  torch.ones(2))
+    assert set(build.launch_counts) >= {"codec_aggregate",
+                                        "codec_aggregate_partial"}
     assert set(build.launch_counts.values()) == {0}

@@ -253,13 +253,25 @@ def test_init_params_zeros_for_logreg():
 
 @pytest.mark.parametrize("kw", [
     dict(codec="int8", round_driver="scan"),
-    dict(scenario="bernoulli", mesh_devices=2),
+    dict(scenario="bernoulli", round_driver="buffered"),
     dict(round_driver="scan"), dict(round_driver="buffered"),
-    dict(mesh_devices=2), dict(mesh_devices="auto"),
+    dict(mesh_devices=2, round_driver="scan"),
+    dict(mesh_devices="auto", round_driver="buffered"),
     dict(client_source="streaming")])
 def test_config_rejects_what_is_not_ported(kw):
     with pytest.raises(ValueError, match="not yet ported"):
         FederatedConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scenario="bernoulli", mesh_devices=2),
+    dict(mesh_devices=2), dict(mesh_devices="auto"),
+    dict(mesh_devices=4, edge_shards=2, codec="int8")])
+def test_config_accepts_the_client_mesh(kw):
+    """The client mesh runs on the python driver: the config takes it
+    (the ranks are checked against it when the trainer is built)."""
+    cfg = FederatedConfig(**kw)
+    assert cfg.mesh_devices == kw["mesh_devices"]
 
 
 def test_config_accepts_every_registered_scenario_and_codec():
