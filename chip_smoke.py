@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together);
-3. each kernel (K1-K6) at every shape phases 4-8 give it (K2 and K3 at
+3. each kernel (K1-K7) at every shape phases 4-9 give it (K2 and K3 at
    both d=60 and d=784, K2 also on a rank's devices of the flat mesh
    and, with its steps cut short, of the tree, K5 at the synthetic and
    FEMNIST-like flat packs
@@ -17,8 +17,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    numpy-seeded inputs with a masked device and masked steps: held
    against its plain PyTorch version on the card, timed with CUDA events
    beside the plain version, its roofline bound (the bytes and flops the
-   masks leave to do) and, for K5 and K6, the one PyTorch call that
-   computes the same sum;
+   masks leave to do) and, for K5, K6 and K7, the one PyTorch call that
+   computes the same function.  K7 (flash attention) at (a) qwen1.5-0.5b's
+   prefill, BH=16, S=T=4096, hd=64, causal, f32; (b) (a) in bf16; (c)
+   yi-9b's GQA-folded prefill in the model's head order, B*Kv=4 slices of
+   8*2048 rows against T=2048 keys, hd=128, causal_period=2048, f32; (d)
+   a ragged length, BH=16, S=T=1000, hd=64; (e) non-causal, BH=8,
+   S=T=512, hd=64; (f) and (g) qwen's prefill at B=2, S=1024 and S=128
+   (BH=32): f32 within atol 4e-5 / rtol 2e-5 (the reference's own sweep
+   tolerance) and bf16 within 4e-3 / 1e-2 (one bf16 ulp and a margin:
+   both sides round an f32 result once), beside SDPA's time;
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
@@ -51,11 +59,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    spread-based bound for int8); K6 must launch once per rank and lossy
    round and K5 never in the ranks (each rank sets its counters to 0
    just before its cells and reads them just after);
-9. the ``kernels`` JSON line: every kernel with its launches on the
+9. the LM stack's inference path at full width, random weights from
+   seed 0, f32: qwen1.5-0.5b (24 layers, d=1024, 16 heads) through
+   ``make_prefill_step`` at B=2, S=128 held against the port's CPU path,
+   and at B=1, S=4096 and B=2, S=1024 against the same model on the card
+   with the plain attention (logits within 1e-4 x max |logit|, the same
+   argmax; K7 launched exactly 24 times a prefill; ms per prefill from
+   CUDA events); the card's idle share over one profiled B=1, S=4096
+   prefill; ``serve.generate`` at serve's defaults (B=2, a 16-token
+   prompt, 16 new tokens, cache 128), whose greedy tokens must equal the
+   CPU path's; yi-9b at full width cut to 4 of its 48 layers (32 heads
+   on 4 KV heads), B=1, S=2048, against the card's plain attention, K7
+   launched 4 times;
+10. the ``kernels`` JSON line: every kernel with its launches on the
    main path -- phases 4-7 in this process (the counters are set to 0
-   just before phase 4 and read just after phase 7) plus phase 8's
-   ranks -- error, times and bound, and each checked shape under
-   ``cases``.
+   just before phase 4 and read just after phase 7), phase 8's ranks
+   and phase 9 (set to 0 just before it and read just after) -- error,
+   times and bound, and each checked shape under ``cases``.
 
 Phases 4-7 also run one more round of the auto, fused_step and
 phase-7 cells under ``torch.profiler`` and print the card's idle share
@@ -79,10 +99,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and float32 FMA
-#: throughput outside the tensor cores (the kernels use no tensor core).
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 FMA
+#: throughput outside the tensor cores (the kernels use no tensor core),
+#: and the dense bf16 tensor-core rate (K7's bf16 bound).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 #: Flat and per-leaf updates round op by op like the plain version.
 UPDATE_TOL = 0.0
@@ -107,6 +129,16 @@ CODEC_TOL = 0.0
 #: to EPOCH_TOL and STEP_TOL at d=784 in phase 3.
 SPREAD_FACTOR = 4.0
 MAX_REL_LIMIT = 0.01
+#: K7 against its plain version, (atol, rtol) by input dtype.  f32: the
+#: reference's flash-attention sweep tolerance (tests/test_kernels.py).
+#: bf16: both sides compute in f32 and round once to bf16, so they differ
+#: by at most one bf16 ulp (<= 2^-7 |x|); the sweep's 4e-2 would exceed a
+#: typical output at S=4096 (~0.03 for late rows).
+FLASH_TOL = {"f32": (4e-5, 2e-5), "bf16": (4e-3, 1e-2)}
+#: Phase 9: full-width logits on the card against the CPU path or the
+#: card's plain attention, relative to max |logit|: 24 layers of f32
+#: products summed in another order.
+LOGIT_REL = 1e-4
 
 PAPER = dict(num_devices=30, devices_per_round=10, local_epochs=20,
              local_batch_size=10, learning_rate=0.01, seed=0)
@@ -149,22 +181,23 @@ def max_err(torch, a, b) -> float:
                for x, y in zip(pt.leaves(a), pt.leaves(b)))
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def kernel_checks(torch, syn, fem):
-    """Phase 3: K1-K6 against their plain versions at every shape that
-    phases 4-8 give them; returns the rows of the kernels line (launches
+    """Phase 3: K1-K7 against their plain versions at every shape that
+    phases 4-9 give them; returns the rows of the kernels line (launches
     filled in later).  A row's ``max_abs_err`` is the worst of its
     cases; its times and bound are those of its first case."""
+    from repro_torch.core import pytree as pt
     from repro_torch.core.client import _epoch_step_mask
     from repro_torch.core.server import sample_devices
     from repro_torch.data.batching import stack_device_batches
-    from repro_torch.kernels import (codec, dane_update, flatpack,
-                                     local_solve, ref)
+    from repro_torch.kernels import (codec, dane_update, flash_attention,
+                                     flatpack, local_solve, ref)
 
     dev = syn.device
     rng = np.random.default_rng(1234)
@@ -188,11 +221,18 @@ def kernel_checks(torch, syn, fem):
             ds, sample_devices(r, ds.num_devices, 10, p=ds.weights))
 
     def case(label, kernel, plain, tol, nbytes, flops, calls=100,
-             plain_repeats=5, library=None):
-        err = max_err(torch, kernel(), plain())
-        check(err <= tol, f"{label}: error {err} > {tol}")
-        b_ms, b_by = bound(nbytes, flops)
-        c = dict(shape=label, max_abs_err=err, tol=tol,
+             plain_repeats=5, library=None, rtol=0.0,
+             peak_flops=PEAK_F32_FLOPS):
+        got, want = kernel(), plain()
+        err = max_err(torch, got, want)
+        # |kernel - plain| <= tol + rtol * |plain|, elementwise
+        excess = max(float(((x.float() - y.float()).abs()
+                            - rtol * y.float().abs()).max())
+                     for x, y in zip(pt.leaves(got), pt.leaves(want)))
+        check(excess <= tol, f"{label}: error {err} exceeds atol {tol} + "
+                             f"rtol {rtol} x |plain|")
+        b_ms, b_by = bound(nbytes, flops, peak_flops)
+        c = dict(shape=label, max_abs_err=err, tol=tol, rtol=rtol,
                  ms=cuda_ms(torch, kernel, calls),
                  plain_ms=cuda_ms(torch, plain, calls,
                                   repeats=plain_repeats),
@@ -201,7 +241,7 @@ def kernel_checks(torch, syn, fem):
                              if library is not None else None))
         lib = (f"  library {c['library_ms']:.4f} ms"
                if library is not None else "")
-        print(f"  {label:52s} err {err:.3g} (tol {tol:g})  kernel "
+        print(f"  {label:52s} err {err:.3g} (tol {tol:g}, rtol {rtol:g})  kernel "
               f"{c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms{lib}  bound "
               f"{b_ms:.6f} ms ({b_by})")
         return c
@@ -351,6 +391,41 @@ def kernel_checks(torch, syn, fem):
                 f"{label}: an all-inactive slab must give +0.0")
         return c
 
+    def k7_case(label, bh, s, t_len, hd, causal, dtype, period=0,
+                gqa=None, calls=5):
+        """K7 on numpy-seeded ``(bh, s|t_len, hd)`` inputs.  ``gqa``:
+        ``(B, H, Kv)`` when the rows are GQA-folded in the model's order
+        (each slice's G*S rows are G query heads of one KV head), which
+        is how SDPA's ``enable_gqa`` takes them as (B, H, S, hd)."""
+        tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+        q = normal(bh, s, hd).to(tdt)
+        k = normal(bh, t_len, hd).to(tdt)
+        v = normal(bh, t_len, hd).to(tdt)
+        # the visible (query, key) pairs: each costs 4*hd flops
+        pos = torch.arange(s)
+        pos = pos % period if period else pos
+        pairs = bh * (int(torch.clamp(pos + 1, max=t_len).sum()) if causal
+                      else s * t_len)
+        nbytes = q.element_size() * bh * hd * (2 * s + 2 * t_len)
+        heads = (1, bh) if gqa is None else (gqa[0], gqa[1])
+        q4 = q.view(heads[0], heads[1], -1, hd)
+        k4 = k.view(heads[0], -1, t_len, hd)
+        v4 = v.view(heads[0], -1, t_len, hd)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        atol, rtol = FLASH_TOL[dtype]
+        return case(
+            f"flash_attention_3d ({bh}, {s}, {hd}) x T={t_len} {dtype}, "
+            f"{label}",
+            lambda: flash_attention.flash_attention_3d(
+                q, k, v, causal=causal, causal_period=period),
+            lambda: ref.flash_attention_3d_ref(
+                q, k, v, causal=causal, causal_period=period),
+            atol, nbytes, 4 * hd * pairs, calls=calls, plain_repeats=3,
+            rtol=rtol,
+            peak_flops=PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS,
+            library=lambda: sdpa(q4, k4, v4, is_causal=causal,
+                                 enable_gqa=gqa is not None))
+
     # K1 runs on the synthetic model's flat pack (8 rows a device); K4 on
     # its two leaves, (K, 60, 10) and (K, 10); K2 on the auto path of both
     # datasets; K3 on both fused_step runs.
@@ -388,6 +463,18 @@ def kernel_checks(torch, syn, fem):
              k6_case(rows_syn, mask[:1], "one client a rank"),
              k6_case(rows_fem, mask[:2], "FEMNIST-like pack"),
              k6_case(rows_syn, none[:5], "all 5 inactive")]),
+        # K7 at phase 9's prefill shapes, plus bf16, ragged and non-causal
+        row("flash_attention", "flash_attention.py:24",
+            "flash_attention.cu",
+            [k7_case("qwen B=1 S=4096", 16, 4096, 4096, 64, True, "f32"),
+             k7_case("qwen B=1 S=4096", 16, 4096, 4096, 64, True, "bf16"),
+             k7_case("yi-9b B=1 S=2048 GQA-folded", 4, 8 * 2048, 2048, 128,
+                     True, "f32", period=2048, gqa=(1, 32, 4)),
+             k7_case("ragged", 16, 1000, 1000, 64, True, "f32"),
+             k7_case("non-causal", 8, 512, 512, 64, False, "f32"),
+             k7_case("qwen B=2 S=1024", 32, 1024, 1024, 64, True, "f32"),
+             k7_case("qwen B=2 S=128", 32, 128, 128, 64, True, "f32",
+                     calls=20)]),
     ]
 
 
@@ -623,10 +710,12 @@ def mesh_phase(torch, syn, int8_tol: float):
     return summed
 
 
-def device_share(torch, trainer, st, label: str):
-    """One more round of ``trainer`` under ``torch.profiler``: the
-    round's host-clock time (profiler on) against the summed time of the
-    kernels and copies it ran on the card, i.e. the card's idle share."""
+def device_share(torch, fn, label: str):
+    """One more call of ``fn`` (a round, a prefill) under
+    ``torch.profiler``: its host-clock time (profiler on) against the
+    summed time of the kernels and copies it ran on the card, i.e. the
+    card's idle share.  Returns the share (None if no device time was
+    recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -634,20 +723,135 @@ def device_share(torch, trainer, st, label: str):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        st = trainer.round(st)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - start) * 1e3
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time_total for e in events) / 1e3
-    share = (f"idle share {1.0 - busy / wall:.3f}" if busy > 0
+    idle = 1.0 - busy / wall if busy > 0 else None
+    share = (f"idle share {idle:.3f}" if busy > 0
              else "idle share not measured (no device events recorded)")
     top = sorted(events, key=lambda e: -e.device_time_total)[:3]
-    print(f"    {label}: profiled round {wall:.2f} ms (host clock), "
+    print(f"    {label}: profiled call {wall:.2f} ms (host clock), "
           f"device busy {busy:.2f} ms, {share}; largest: "
           + ", ".join(f"{e.key[:32]} x{e.count} "
                       f"{e.device_time_total / 1e3:.2f} ms" for e in top))
-    return st
+    return idle
+
+
+def lm_phase(torch, counts):
+    """Phase 9: the LM stack's prefill and serve paths at full width;
+    returns its timings (ms) and idle share."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import (attention, init_params, model_specs,
+                                    param_count)
+
+    out = {}
+
+    def tokens(seed, vocab, B, S):
+        a = np.random.default_rng(seed).integers(0, vocab, (B, S))
+        return torch.from_numpy(a.astype(np.int32)).cuda()
+
+    def k7_launches(fn):
+        """``fn()`` and the K7 launches it made."""
+        before = counts["flash_attention"]
+        res = fn()
+        torch.cuda.synchronize()
+        return res, counts["flash_attention"] - before
+
+    def plain_on_card(fn):
+        """``fn()`` with the prefill's attention swapped for the plain
+        versions (on the card, for comparison only)."""
+        saved = attention.attention
+        attention.attention = attention.plain_attention
+        try:
+            return fn()
+        finally:
+            attention.attention = saved
+
+    def compare(label, got, want):
+        got, want = got.float().cpu(), want.float().cpu()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()), f"{label}: logits not finite")
+        check(err <= LOGIT_REL * scale, f"{label}: logits differ by {err} > "
+                                        f"{LOGIT_REL} x {scale}")
+        check(torch.equal(got.argmax(-1), want.argmax(-1)),
+              f"{label}: argmax differs")
+        print(f"  {label}: max |logit diff| {err:.3g} (bound {LOGIT_REL:g} x "
+              f"max |logit| {scale:.4g}); argmax equal")
+
+    def prefill_case(cfg, params, B, S, what, against_cpu=None):
+        step = make_prefill_step(cfg)
+        toks = tokens(B * S, cfg.vocab_size, B, S)
+        logits, n = k7_launches(lambda: step(params, {"tokens": toks}))
+        check(logits.shape == (B, 1, cfg.vocab_size), f"{what}: shape "
+                                                        f"{logits.shape}")
+        check(n == cfg.num_layers, f"{what}: K7 launched {n} times in one "
+                                   f"prefill, not {cfg.num_layers}")
+        if against_cpu is not None:
+            want = step(against_cpu, {"tokens": toks.cpu()})
+            compare(f"{what} B={B} S={S}, card (K7) vs CPU path", logits,
+                    want)
+            return
+        want = plain_on_card(lambda: step(params, {"tokens": toks}))
+        compare(f"{what} B={B} S={S}, K7 vs plain attention on the card",
+                logits, want)
+        ms = cuda_ms(torch, lambda: step(params, {"tokens": toks}), 1,
+                     repeats=3)
+        plain = cuda_ms(torch, lambda: plain_on_card(
+            lambda: step(params, {"tokens": toks})), 1, repeats=3)
+        out[f"{what} B={B} S={S}"] = ms
+        out[f"{what} B={B} S={S} plain attention"] = plain
+        print(f"    {ms:.2f} ms per prefill ({B * S / ms * 1e3:.0f} prompt "
+              f"tokens/s); with the plain attention {plain:.2f} ms")
+        return toks
+
+    t0 = time.perf_counter()
+    cfg = get_arch("qwen1.5-0.5b")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0))
+    params_cpu = pt.tmap(lambda x: x.cpu(), params)
+    print(f"  qwen1.5-0.5b full config: {param_count(model_specs(cfg)):,} "
+          f"params (f32), seed 0, made in {time.perf_counter() - t0:.1f} s")
+    prefill_case(cfg, params, 2, 128, "qwen1.5-0.5b", against_cpu=params_cpu)
+    prefill_case(cfg, params, 2, 1024, "qwen1.5-0.5b")
+    toks = prefill_case(cfg, params, 1, 4096, "qwen1.5-0.5b")
+    step = make_prefill_step(cfg)
+    out["idle share, qwen B=1 S=4096 prefill"] = device_share(
+        torch, lambda: step(params, {"tokens": toks}),
+        "qwen1.5-0.5b B=1 S=4096 prefill")
+
+    prompt = tokens(16, cfg.vocab_size, 2, 16)
+    before = dict(counts)
+    gen = serve.generate(params, cfg, prompt, 16, 128)
+    check(_delta(before, counts) == {}, "the decode path launched a kernel")
+    gen_cpu = serve.generate(params_cpu, cfg, prompt.cpu(), 16, 128)
+    check(torch.equal(gen.tokens.cpu(), gen_cpu.tokens),
+          f"serve: greedy tokens differ from the CPU path: "
+          f"{gen.tokens.tolist()} vs {gen_cpu.tokens.tolist()}")
+    out["serve ms per decode step (B=2)"] = gen.decode_s / 16 * 1e3
+    out["serve ms per prompt step (B=2)"] = gen.prompt_s / 16 * 1e3
+    print(f"  serve.generate, qwen1.5-0.5b full config, B=2, 16-token "
+          f"prompt, 16 new tokens, cache 128: greedy tokens equal the CPU "
+          f"path's; {out['serve ms per decode step (B=2)']:.2f} ms per "
+          f"decode step, {out['serve ms per prompt step (B=2)']:.2f} ms per "
+          f"prompt step (host clock); tokens {gen.tokens.tolist()}")
+    del params, params_cpu
+
+    t0 = time.perf_counter()
+    ycfg = dataclasses.replace(get_arch("yi-9b"), num_layers=4)
+    yparams = init_params(model_specs(ycfg), torch.Generator().manual_seed(0))
+    print(f"  yi-9b at full width, 4 of 48 layers: "
+          f"{param_count(model_specs(ycfg)):,} params (f32), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prefill_case(ycfg, yparams, 1, 2048, "yi-9b (4 layers)")
+    del yparams
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -696,7 +900,7 @@ def main() -> int:
         before = dict(counts)
         tr, st, phase_ms[algo] = run_pair(torch, syn, syn_cpu, cfg, 5,
                                           algo)
-        device_share(torch, tr, st, algo)
+        device_share(torch, lambda: tr.round(st), algo)
         print(f"    launches {_delta(before, counts)}")
 
     print("[5] feddane, 2 rounds per explicit solver mode")
@@ -723,7 +927,7 @@ def main() -> int:
         check(grew.get(kernel, 0) > 0, f"{mode}: {kernel} never launched")
         finals[mode] = st.params
         if mode == "fused_step":
-            device_share(torch, tr, st, f"feddane/{mode}")
+            device_share(torch, lambda: tr.round(st), f"feddane/{mode}")
         print(f"  {mode:11s} {phase_ms[f'feddane/{mode}']:9.2f} ms/round "
               f"(host clock)  launches {grew}")
     for k in ("w", "b"):
@@ -755,7 +959,7 @@ def main() -> int:
                             ("fused_step", "linear_logistic_step"))
              if grew.get(k)]
     print(f"    fused modes taken: {modes}  launches {grew}")
-    device_share(torch, tr, st, "femnist feddane auto")
+    device_share(torch, lambda: tr.round(st), "femnist feddane auto")
     before = dict(counts)
     _, _, phase_ms["femnist/fused_step"] = run_pair(
         torch, fem, fem_cpu, dataclasses.replace(cfg,
@@ -791,7 +995,7 @@ def main() -> int:
         before = dict(counts)
         tr, st, phase_ms[label] = run_pair(torch, syn, syn_cpu, cfg, 3,
                                            label, tol=tol)
-        device_share(torch, tr, st, label)
+        device_share(torch, lambda: tr.round(st), label)
         grew = _delta(before, counts)
         lossy = 4 if codec_name != "none" else 0
         lossy_rounds += lossy
@@ -809,12 +1013,22 @@ def main() -> int:
     on_mesh = mesh_phase(torch, syn, int8_tol["feddane"])
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
+    print("[9] LM stack inference at full width (prefill and serve)")
+    t0 = time.perf_counter()
+    build.reset_launch_counts()          # the LM path starts here
+    lm_ms = lm_phase(torch, counts)
+    lm_path = dict(counts)               # and is read here
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: v for k, v in lm_path.items() if v} }")
+
     for r in rows:
-        r["launches"] = main_path[r["name"]] + on_mesh.get(r["name"], 0)
+        r["launches"] = (main_path[r["name"]] + on_mesh.get(r["name"], 0)
+                         + lm_path[r["name"]])
         check(r["launches"] > 0, f"{r['name']} not launched on the main "
                                  f"path")
-    print(f"[9] done in {time.perf_counter() - t_start:.1f} s; phase "
-          f"ms/round {json.dumps({k: round(v, 3) for k, v in phase_ms.items()})}")
+    print(f"[10] done in {time.perf_counter() - t_start:.1f} s; phase "
+          f"ms/round {json.dumps({k: round(v, 3) for k, v in phase_ms.items()})}; "
+          f"LM {json.dumps(lm_ms)}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cases")

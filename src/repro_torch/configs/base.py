@@ -1,19 +1,171 @@
-"""Federated round configuration.
+"""Model and federated round configuration.
 
-Counterpart of ``FederatedConfig`` in ``repro/configs/base.py``: the same
-fields, defaults and validation, checked against the port's own
-registries (algorithms, scenarios, codecs).  Knobs of layers the port
-has not reached yet keep their fields (so a config reads the same in
-both packages) but values that would need those layers are refused at
-construction with a "not yet ported" error: the ``"scan"`` and
-``"buffered"`` round drivers and streaming client sources.
-``round_driver="auto"`` resolves to the python driver.  The client mesh
-(``mesh_devices``, ``edge_shards``) runs on the python driver with the
-batched engine: its ranks come from ``core.sharding.run_on_mesh``.
+``ModelConfig``, ``MoEConfig`` and ``InputShape`` are counterparts of
+``repro/configs/base.py:15-153``: the same fields, defaults, derived
+properties and ``reduced()`` preset, so an architecture reads the same in
+both packages.  The model path of the port takes the dense ``attn``
+pattern only (``models/transformer.py`` refuses the other block kinds,
+encoder-decoder models and the patch frontend as not yet ported).
+
+``FederatedConfig`` is the counterpart of the reference's
+``FederatedConfig``: the same fields, defaults and validation, checked
+against the port's own registries (algorithms, scenarios, codecs).
+Knobs of layers the port has not reached yet keep their fields (so a
+config reads the same in both packages) but values that would need
+those layers are refused at construction with a "not yet ported" error:
+the ``"scan"`` and ``"buffered"`` round drivers and streaming client
+sources.  ``round_driver="auto"`` resolves to the python driver.  The
+client mesh (``mesh_devices``, ``edge_shards``) runs on the python
+driver with the batched engine: its ranks come from
+``core.sharding.run_on_mesh``.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# Block kinds used by the layer pattern of an architecture.
+ATTN = "attn"          # full-attention transformer block (dense FFN)
+ATTN_MOE = "attn_moe"  # attention block with MoE FFN
+MAMBA = "mamba"        # Mamba SSM block (dense FFN none; mamba mixer only)
+MAMBA_MOE = "mamba_moe"  # Mamba mixer + MoE FFN (Jamba)
+SLSTM = "slstm"        # xLSTM sLSTM block
+MLSTM = "mlstm"        # xLSTM mLSTM block
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts configuration."""
+    num_experts: int
+    top_k: int
+    # Arctic-style dense FFN residual in parallel with the MoE branch.
+    dense_residual: bool = False
+    # d_ff of the parallel dense branch (0 -> reuse d_ff).
+    dense_residual_d_ff: int = 0
+    # router load-balance auxiliary loss weight
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description.
+
+    ``pattern`` is the repeating unit of block kinds; the full layer stack is
+    ``pattern`` tiled to ``num_layers`` (``num_layers % len(pattern) == 0``).
+    A homogeneous arch has ``pattern=(ATTN,)``.
+    """
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    pattern: Tuple[str, ...] = (ATTN,)
+    moe: Optional[MoEConfig] = None
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    rms_norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # --- enc-dec (audio) ---
+    encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    # --- modality frontend stubs ---
+    # "none": token ids; "frames": precomputed audio frame embeddings;
+    # "patches": precomputed vision patch embeddings prepended to tokens.
+    frontend: str = "none"
+    num_prefix_embeddings: int = 0   # VLM: number of stub patch embeddings
+    # --- SSM ---
+    ssm_state_dim: int = 16          # Mamba N
+    ssm_conv_dim: int = 4            # Mamba conv kernel
+    ssm_expand: int = 2              # Mamba E
+    # --- long-context ---
+    sliding_window: int = 0          # 0 = full attention; >0 enables SWA decode
+    # provenance
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        reps, rem = divmod(self.num_layers, len(self.pattern))
+        assert rem == 0, (
+            f"{self.name}: num_layers={self.num_layers} not a multiple of "
+            f"pattern length {len(self.pattern)}")
+        return self.pattern * reps
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe is not None
+
+    @property
+    def supports_subquadratic_decode(self) -> bool:
+        """True if long-context decode is bounded-memory for this arch."""
+        if self.encoder_decoder:
+            return False  # full cross-attention, no SWA variant in family
+        kinds = set(self.pattern)
+        if kinds <= {MAMBA, MAMBA_MOE, SLSTM, MLSTM}:
+            return True   # recurrent: O(1) state
+        return self.sliding_window > 0 or bool(
+            kinds & {MAMBA, MAMBA_MOE, SLSTM, MLSTM})
+
+    def reduced(self, *, num_layers: int = 2, d_model: int = 256,
+                num_heads: int = 4, num_kv_heads: int = 0, d_ff: int = 512,
+                vocab_size: int = 512, max_experts: int = 4) -> "ModelConfig":
+        """A smoke-test-sized variant of the same family."""
+        nkv = num_kv_heads or max(1, min(num_heads, self.num_kv_heads))
+        pattern = self.pattern
+        layers = num_layers * len(pattern)  # keep one full pattern repeat min
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, max_experts),
+                top_k=min(self.moe.top_k, 2),
+                dense_residual_d_ff=min(self.moe.dense_residual_d_ff, d_ff)
+                if self.moe.dense_residual_d_ff else 0,
+            )
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            num_layers=layers,
+            num_encoder_layers=min(self.num_encoder_layers, 2),
+            d_model=d_model,
+            num_heads=num_heads,
+            num_kv_heads=nkv,
+            head_dim=0,
+            d_ff=d_ff if self.d_ff else 0,
+            vocab_size=vocab_size,
+            moe=moe,
+            num_prefix_embeddings=min(self.num_prefix_embeddings, 8),
+            sliding_window=min(self.sliding_window, 64)
+            if self.sliding_window else 0,
+            ssm_state_dim=min(self.ssm_state_dim, 8),
+        )
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One entry of the assigned input-shape grid."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                    LONG_500K)}
+
 
 #: Solver modes of ``core/client.py`` (mirrored here: configs is a leaf
 #: layer and must not import the client).

@@ -5,11 +5,17 @@
   regression local solve;
 - ``codec`` (K5, K6): the fused codec decode + masked cohort mean, and
   the masked sum of one shard of the client mesh;
-- ``ops``: tree-level wrappers of the update kernels;
+- ``flash_attention`` (K7): blockwise online-softmax attention, causal
+  or not, with GQA-folded query rows (``causal_period``), the prefill
+  path's self-attention;
+- ``ops``: tree-level wrappers of the update kernels and the reference's
+  GQA wrapper of K7;
 - ``ref``: the plain PyTorch version of each kernel;
 - ``build``: nvcc at first use, ctypes binding, launch counters.
 """
 from repro_torch.kernels.codec import (codec_aggregate,  # noqa: E402
                                        codec_aggregate_partial)
+from repro_torch.kernels.flash_attention import flash_attention_3d
 
-__all__ = ["codec_aggregate", "codec_aggregate_partial"]
+__all__ = ["codec_aggregate", "codec_aggregate_partial",
+           "flash_attention_3d"]

@@ -1,10 +1,11 @@
-"""Public wrappers around the update kernels (K1, K4) over parameter trees.
+"""Public wrappers around the update kernels (K1, K4) over parameter
+trees, and the GQA wrapper of the attention kernel (K7).
 
-Counterpart of the ``dane_update*`` wrappers of ``repro/kernels/ops.py``.
-Each launches the CUDA kernel for tensors on the card and the plain
-version for tensors on the CPU (the choice is made in
-``kernels/dane_update.py``); launches are counted in
-``kernels.build.launch_counts``.
+Counterpart of the ``dane_update*`` and ``flash_attention`` wrappers of
+``repro/kernels/ops.py``.  Each launches the CUDA kernel for tensors on
+the card and the plain version for tensors on the CPU (the choice is
+made in ``kernels/dane_update.py`` and ``kernels/flash_attention.py``);
+launches are counted in ``kernels.build.launch_counts``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from repro_torch.core import pytree as pt
 from repro_torch.kernels import flatpack
 from repro_torch.kernels.dane_update import (LANES, dane_update_2d,
                                              dane_update_flat)
+from repro_torch.kernels.flash_attention import flash_attention_3d
 
 
 def _pad_2d(a):
@@ -81,3 +83,28 @@ def dane_update_tree_masked(w_tree, grad_tree, corr_tree, anchor_tree,
     out = dane_update_flat_masked(wf, gf, cf, af, eta, mu, valid,
                                   spec.rows)
     return flatpack.unpack_stacked(spec, out, k)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q: (B, S, H, hd); k, v: (B, T, Kv, hd) -> (B, S, H, hd).
+
+    The reference's GQA wrapper, in its own head order: query head
+    ``h = n * group + g`` reads KV head ``n`` (``repeat`` order).  Its
+    ``group`` heads of one KV head are folded into ``(B*Kv, group*S,
+    hd)`` query rows, whose sequence position the kernel recovers as
+    ``row % S`` (``causal_period``).  The model path does not use it: the
+    model's heads are in tile order (``models/attention.flash_gqa``).
+    """
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    group = H // Kv
+
+    def to3(a):
+        return a.permute(0, 2, 1, 3).reshape(B * a.shape[2], -1, hd)
+
+    q3 = q.reshape(B, S, Kv, group, hd).permute(0, 2, 3, 1, 4) \
+        .reshape(B * Kv, group * S, hd)
+    o = flash_attention_3d(q3, to3(k), to3(v), causal=causal,
+                           causal_period=S)
+    return o.reshape(B, Kv, group, S, hd).permute(0, 3, 1, 2, 4) \
+        .reshape(B, S, H, hd)

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 
 F32 = torch.float32
+#: The reference's mask value for an invisible key's score.
+NEG_INF = -1e30
 
 
 def dane_update_ref(w, grad, g_corr, anchor, *, eta: float, mu: float):
@@ -129,3 +131,41 @@ def codec_aggregate_ref(vals, scales, mask):
     cnt = _mask_count(mask.to(F32))
     return (codec_aggregate_partial_ref(vals, scales, mask)
             / torch.clamp(cnt, min=1.0))
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Materialised-scores attention, the reference's oracle
+    (``repro/kernels/ref.py:66``).  q, k, v: (B, H, S|T, hd)."""
+    S, hd = q.shape[2], q.shape[3]
+    T = k.shape[2]
+    scores = torch.einsum("bhsk,bhtk->bhst", q.to(F32) * hd ** -0.5,
+                          k.to(F32))
+    if causal:
+        dev = q.device
+        mask = (torch.arange(T, device=dev)[None, :]
+                <= torch.arange(S, device=dev)[:, None])
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bhtk->bhsk", probs, v.to(F32))
+    return out.to(q.dtype)
+
+
+def flash_attention_3d_ref(q, k, v, *, causal: bool = True,
+                           causal_period: int = 0):
+    """K7's function on ``q`` (BH, S, hd) and ``k``/``v`` (BH, T, hd):
+    materialised scores of ``q * hd^-0.5`` against ``k``, key ``j``
+    masked for row ``i`` unless ``j <= i % causal_period`` (``j <= i``
+    for period 0; every key without ``causal``), softmax and ``P v``,
+    all in f32, output in ``q``'s dtype."""
+    S, hd = q.shape[1], q.shape[2]
+    T = k.shape[1]
+    scores = torch.bmm(q.to(F32) * hd ** -0.5, k.to(F32).transpose(1, 2))
+    if causal:
+        dev = q.device
+        pos = torch.arange(S, device=dev)
+        if causal_period:
+            pos = pos % causal_period
+        mask = torch.arange(T, device=dev)[None, :] <= pos[:, None]
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.bmm(probs, v.to(F32)).to(q.dtype)

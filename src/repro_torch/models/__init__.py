@@ -1,6 +1,13 @@
-"""The paper's experiment models (PyTorch port)."""
-from repro_torch.models.param import (ParamSpec, init_params,
+"""Models of the port: the paper's experiment model (logistic
+regression, ``models/small.py``) and the dense LM stack
+(``models/transformer.py``)."""
+from repro_torch.models.param import (ParamSpec, init_params, param_count,
                                       params_from_numpy, params_to_numpy)
+from repro_torch.models.transformer import (decode_cache_specs, decode_step,
+                                            effective_cache_len,
+                                            forward_hidden, model_specs,
+                                            prefill)
 
-__all__ = ["ParamSpec", "init_params", "params_from_numpy",
-           "params_to_numpy"]
+__all__ = ["ParamSpec", "init_params", "param_count", "params_from_numpy",
+           "params_to_numpy", "model_specs", "prefill", "decode_step",
+           "decode_cache_specs", "effective_cache_len", "forward_hidden"]

@@ -64,6 +64,11 @@ def init_params(spec_tree, generator: torch.Generator,
     return pt.tmap(lambda s: _init_one(s, generator, dtype, dev), spec_tree)
 
 
+def param_count(spec_tree) -> int:
+    """Number of scalars in ``spec_tree``, from the specs alone."""
+    return int(sum(math.prod(s.shape) for s in pt.leaves(spec_tree)))
+
+
 def params_from_numpy(tree, device=None):
     """A tree of numpy arrays (or numpy scalars) as tensors on
     ``device`` -- how the reference's params and state enter the port."""

@@ -1,0 +1,218 @@
+"""Model assembly for the dense LM stack: specs, prefill and decode.
+
+Counterpart of ``repro/models/transformer.py`` for the dense ``attn``
+pattern (qwen1.5-0.5b, yi-9b, minitron-8b, phi4-mini-3.8b).  The
+parameter tree keeps the reference's keys and stacked layout
+(``embed/embedding``, ``stack/pos_0/attn/wq`` of shape ``[R, d, H, hd]``,
+...), so ``models.param.params_from_numpy`` carries the reference's
+weights across unchanged.  The layer stack is a Python loop over the
+``R`` stacked layers (the reference's ``lax.scan``), with no remat: the
+port runs inference only so far, under ``torch.inference_mode()``.
+
+Public entry points (functions over param trees):
+
+- ``model_specs(cfg)``                        parameter ParamSpec tree
+- ``forward_hidden(params, batch, cfg)``      final hidden states
+- ``prefill(params, batch, cfg)``             last-position logits
+- ``decode_step(params, batch, cache, cfg)``  one-token decode
+- ``decode_cache_specs(cfg, batch, cache_len)`` cache ParamSpec tree
+
+MoE, Mamba and xLSTM blocks, encoder-decoder models and the patch
+frontend are refused as not yet ported.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs import base as cb
+from repro_torch.configs.base import ModelConfig, _not_ported
+from repro_torch.core import pytree as pt
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models.param import ParamSpec
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for kind in cfg.pattern:
+        if kind != cb.ATTN:
+            raise _not_ported(f"{cfg.name}: block kind {kind!r}")
+    if cfg.encoder_decoder:
+        raise _not_ported(f"{cfg.name}: encoder_decoder")
+    if cfg.frontend != "none":
+        raise _not_ported(f"{cfg.name}: frontend {cfg.frontend!r}")
+
+
+def _block_specs(cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {
+        "ln1": L.norm_spec(d),
+        "attn": attn.attention_specs(d, cfg.num_heads, cfg.num_kv_heads, hd,
+                                     cfg.qkv_bias),
+        "ln2": L.norm_spec(d),
+        "ffn": L.swiglu_ffn_specs(d, cfg.d_ff),
+    }
+
+
+def _stack(spec: ParamSpec, repeats: int) -> ParamSpec:
+    return ParamSpec((repeats,) + spec.shape, ("layers",) + spec.axes,
+                     init=spec.init, scale=spec.scale)
+
+
+def _stack_specs(cfg: ModelConfig) -> dict:
+    repeats = cfg.num_layers // len(cfg.pattern)
+    return {f"pos_{p}": pt.tmap(lambda s: _stack(s, repeats),
+                                _block_specs(cfg))
+            for p, _ in enumerate(cfg.pattern)}
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    _check_ported(cfg)
+    s: dict = {
+        "embed": L.embed_specs(cfg.vocab_size, cfg.d_model),
+        "final_norm": L.norm_spec(cfg.d_model),
+        "stack": _stack_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        s["head"] = L.head_specs(cfg.d_model, cfg.vocab_size)
+    return s
+
+
+# ---------------------------------------------------------------------------
+# Prefill block application
+# ---------------------------------------------------------------------------
+
+def _apply_block(p: Params, x, cfg: ModelConfig, positions, *,
+                 causal: bool = True):
+    h = L.rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+    q, k, v = attn.qkv_project(p["attn"], h, positions, cfg.rope_theta)
+    x = x + attn.out_project(p["attn"],
+                             attn.attention(q, k, v, causal=causal))
+    h = L.rms_norm(x, p["ln2"], cfg.rms_norm_eps)
+    return x + L.swiglu_ffn(p["ffn"], h)
+
+
+def _layer(stack: Params, r: int) -> Params:
+    """Layer ``r`` of the stacked ``[R, ...]`` leaves (views)."""
+    return pt.tmap(lambda a: a[r], stack)
+
+
+def _run_stack(stack: Params, x, cfg: ModelConfig, positions, *,
+               causal: bool = True):
+    repeats = cfg.num_layers // len(cfg.pattern)
+    for r in range(repeats):
+        layer = _layer(stack, r)
+        for i, _ in enumerate(cfg.pattern):
+            x = _apply_block(layer[f"pos_{i}"], x, cfg, positions,
+                             causal=causal)
+    return x
+
+
+@torch.inference_mode()
+def forward_hidden(params: Params, batch: Dict[str, Any], cfg: ModelConfig):
+    """Final-norm hidden states (B, S, d) of ``batch["tokens"]`` (B, S)."""
+    _check_ported(cfg)
+    x = L.embed(params["embed"], batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_stack(params["stack"], x, cfg, positions, causal=True)
+    return L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def _logits(params: Params, x, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return L.unembed(params["embed"], x)
+    return L.head(params["head"], x)
+
+
+@torch.inference_mode()
+def prefill(params: Params, batch: Dict[str, Any], cfg: ModelConfig):
+    """Full-sequence forward returning the last position's logits
+    (B, 1, V).  (As in the reference, serving builds the KV cache
+    through the decode path; prefill scores the prompt.)"""
+    hidden = forward_hidden(params, batch, cfg)
+    return _logits(params, hidden[:, -1:], cfg)
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+def _cache_block_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
+    hd = cfg.resolved_head_dim
+    kv = ("batch", "seq", "kv_heads", "head_dim")
+    shape = (batch, cache_len, cfg.num_kv_heads, hd)
+    return {"k": ParamSpec(shape, kv, init="zeros"),
+            "v": ParamSpec(shape, kv, init="zeros")}
+
+
+def decode_cache_specs(cfg: ModelConfig, batch: int,
+                       cache_len: int) -> dict:
+    """Cache ParamSpec tree, stacked over the repeats like the params."""
+    _check_ported(cfg)
+    repeats = cfg.num_layers // len(cfg.pattern)
+    return {f"pos_{p}": pt.tmap(lambda s: _stack(s, repeats),
+                                _cache_block_specs(cfg, batch, cache_len))
+            for p, _ in enumerate(cfg.pattern)}
+
+
+def effective_cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Sliding-window archs cap decode KV memory at the window size."""
+    if cfg.sliding_window and seq_len > cfg.sliding_window:
+        return cfg.sliding_window
+    return seq_len
+
+
+# ---------------------------------------------------------------------------
+# Decode-step block application
+# ---------------------------------------------------------------------------
+
+def _apply_block_decode(p: Params, x, cache: Params, cfg: ModelConfig,
+                        t: int, cache_len: int):
+    """x: (B,1,d); t: absolute position.  Writes the token's K/V into
+    ``cache`` (in place) and returns the block's output."""
+    h = L.rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+    pos = torch.full((x.shape[0], 1), t, device=x.device)
+    q, k, v = attn.qkv_project(p["attn"], h, pos, cfg.rope_theta)
+    kc, vc = attn.update_cache(cache["k"], cache["v"], k, v, t)
+    o = attn.cached_attention(q, kc, vc, cache_len=cache_len)
+    x = x + attn.out_project(p["attn"], o)
+    h = L.rms_norm(x, p["ln2"], cfg.rms_norm_eps)
+    return x + L.swiglu_ffn(p["ffn"], h)
+
+
+@torch.inference_mode()
+def decode_step(params: Params, batch: Dict[str, Any], cache: Params,
+                cfg: ModelConfig):
+    """One-token decode.
+
+    ``batch``: {"tokens": (B,1) int, "t": the absolute position (an int
+    or a 0-d tensor)}.  Returns (logits (B,1,V), cache): the cache's
+    ring slot ``t % cache_len`` of every layer is written in place (the
+    reference returns an updated copy).
+    """
+    _check_ported(cfg)
+    x = L.embed(params["embed"], batch["tokens"])
+    t = int(batch["t"])
+    repeats = cfg.num_layers // len(cfg.pattern)
+    for r in range(repeats):
+        layer, layer_cache = _layer(params["stack"], r), _layer(cache, r)
+        for i, _ in enumerate(cfg.pattern):
+            lc = layer_cache[f"pos_{i}"]
+            # ring buffer: valid length saturates at capacity
+            cl = min(t + 1, lc["k"].shape[1])
+            x = _apply_block_decode(layer[f"pos_{i}"], x, lc, cfg, t, cl)
+    x = L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _logits(params, x, cfg), cache
+
+
+__all__ = [
+    "model_specs", "prefill", "decode_step", "decode_cache_specs",
+    "effective_cache_len", "forward_hidden",
+]

@@ -59,10 +59,13 @@ def test_sources_import_no_jax_and_no_reference():
 
 
 def _entry_points():
+    from repro_torch.configs import get_arch
     from repro_torch.configs.base import FederatedConfig
     from repro_torch.core import FederatedTrainer
     from repro_torch.data import make_synthetic
     from repro_torch.data.batching import FederatedData, pad_to_batches
+    from repro_torch.launch import serve
+    from repro_torch.models import model_specs
     from repro_torch.models.param import init_params, params_from_numpy
     from repro_torch.models.small import logreg_loss, logreg_specs
 
@@ -79,12 +82,17 @@ def _entry_points():
         "FederatedTrainer": lambda: FederatedTrainer(
             logreg_loss, cpu_data, FederatedConfig(num_devices=2,
                                                    devices_per_round=1)),
+        "init_params(LM)": lambda: init_params(
+            model_specs(get_arch("qwen1.5-0.5b").reduced()),
+            torch.Generator()),
+        "serve.main": lambda: serve.main(["--tokens", "1"]),
     }
 
 
 @pytest.mark.parametrize("name", ["FederatedData", "pad_to_batches",
                                   "make_synthetic", "init_params",
-                                  "params_from_numpy", "FederatedTrainer"])
+                                  "params_from_numpy", "FederatedTrainer",
+                                  "init_params(LM)", "serve.main"])
 def test_entry_points_need_the_card_unless_told(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-card path is moot")
