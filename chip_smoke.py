@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-   nvcc per source, all started together);
+   nvcc per source, all started together), printing ptxas's registers,
+   stack frame and spills of every entry;
 3. each kernel (K1-K7) at every shape phases 4-9 give it (K2 and K3 at
    both d=60 and d=784, K2 also on a rank's devices of the flat mesh
    and, with its steps cut short, of the tree, K5 at the synthetic and
@@ -26,7 +27,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    S=T=512, hd=64; (f) and (g) qwen's prefill at B=2, S=1024 and S=128
    (BH=32): f32 within atol 4e-5 / rtol 2e-5 (the reference's own sweep
    tolerance) and bf16 within 4e-3 / 1e-2 (one bf16 ulp and a margin:
-   both sides round an f32 result once), beside SDPA's time;
+   both sides round an f32 result once), beside SDPA's time.  K7's f32
+   bound is its flops at the TF32 tensor-core rate (it multiplies there,
+   in three passes), its bf16 bound at the bf16 rate;
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
@@ -99,11 +102,15 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 FMA
-#: throughput outside the tensor cores (the kernels use no tensor core),
-#: and the dense bf16 tensor-core rate (K7's bf16 bound).
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth; float32 FMA
+#: throughput outside the tensor cores (K1-K6 use no tensor core); the
+#: dense TF32 tensor-core rate (K7's float32 bound: it multiplies on the
+#: tensor cores in three TF32 passes, so the 67 TFLOP/s of the CUDA cores
+#: would put it over its own bound); the dense bf16 tensor-core rate (K7's
+#: bf16 bound).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 
 #: Flat and per-leaf updates round op by op like the plain version.
@@ -422,7 +429,7 @@ def kernel_checks(torch, syn, fem):
                 q, k, v, causal=causal, causal_period=period),
             atol, nbytes, 4 * hd * pairs, calls=calls, plain_repeats=3,
             rtol=rtol,
-            peak_flops=PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS,
+            peak_flops=PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_TF32_FLOPS,
             library=lambda: sdpa(q4, k4, v4, is_causal=causal,
                                  enable_gqa=gqa is not None))
 
@@ -877,7 +884,9 @@ def main() -> int:
     for name, log in logs.items():
         print(f"    --- {name} ---")
         for line in log.strip().splitlines():
-            if "ptxas info" in line or line.startswith("["):
+            # ptxas -v: each entry's registers and, on the line after its
+            # "Function properties", its stack frame and spills
+            if "ptxas info" in line or "spill" in line or line.startswith("["):
                 print(f"    {line.strip()}")
 
     t0 = time.perf_counter()

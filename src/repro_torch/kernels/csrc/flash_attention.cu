@@ -1,323 +1,892 @@
-// Blockwise online-softmax attention (flash attention) for Hopper (sm_90a).
+// Blockwise online-softmax attention (flash attention) for Hopper (sm_90a),
+// on the tensor cores.
 //
 // Replaces the TPU kernel K7 of src/repro/kernels/flash_attention.py:
 // _kernel (:24) launched by flash_attention_3d (:78), whose GQA wrapper is
 // kernels/ops.py:131 flash_attention.  For q (BH, S, hd) and k, v (BH, T, hd),
 // f32 or bf16 (all three alike), it computes per row i of q
 //
-//     s_j   = (q_i * hd^-0.5) . k_j              f32
+//     s_j   = (q_i * hd^-0.5) . k_j              f32 accumulation
 //     p_j   = exp(s_j - max_j s_j), masked keys 0
 //     out_i = sum_j p_j v_j / max(sum_j p_j, 1e-30)   in q's dtype
 //
 // where key j is visible to row i iff j <= pos(i) under ``causal`` (every key
 // otherwise), with pos(i) = i % period for period > 0 (the GQA group-folded
 // layout: G query heads of one KV head stacked as G*S rows) and pos(i) = i
-// for period 0.  Unlike the TPU kernel, S and T need not be multiples of a
-// block: the tails are masked here (rows past S are not written, keys past T
-// are invisible).
+// for period 0.  S and T need not be multiples of a tile: rows past S are
+// not written and keys past T are invisible.
 //
 // What bounds it on this card: operations.  4*hd flops per visible (query,
 // key) pair against 2-4 bytes per element moved once: at the model path's
 // shapes (S = T >= 1024, hd 64-128) hundreds of flops a byte, far above the
-// H100's ~20 f32 flops per byte.  The least time is the visible pairs'
-// flops over 67 TFLOP/s (f32 outside the tensor cores) or 989 TFLOP/s (bf16
-// tensor cores).
+// H100's ~295 (bf16) or ~150 (TF32) flops per byte of HBM.  The least time
+// is the visible pairs' flops over the tensor-core rate: 989 TFLOP/s dense
+// bf16, 495 TF32.
 //
-// This first design runs on the CUDA cores, in f32 for both input types (no
-// tensor core, TMA or warp specialisation yet):
-// - one block of 256 threads (16 x 16) owns 64 query rows of one bh; the
-//   grid takes the heaviest causal tiles (the last rows) first;
-// - the block walks the 64-key tiles in order, staging K and then V through
-//   one shared buffer, and the tile of probabilities P through another, so a
-//   block holds about 85 KB at hd=128 and two fit an SM;
-// - each thread owns a 4 x 4 tile of the 64 x 64 scores (rows ty+16i, keys
-//   tx+16j: the float4 reads of K hit distinct banks) and 4 rows x hd/16
-//   columns of the output accumulator, in registers;
-// - the running max and normaliser are kept per row in f32; the max is
-//   reduced over the 16 threads of a row by warp shuffles, the normaliser
-//   is kept as per-thread partial sums (the rescale is the same for all 16)
-//   and summed once at the end;
-// - key tiles wholly above the causal diagonal of the block's rows (with the
-//   period taken into account) are not visited, as the TPU kernel's pl.when
-//   skips them; a masked key inside a visited tile adds exactly 0, like the
-//   reference's where(mask, p, 0).
+// Both paths own 128 query rows of one bh per block and walk the 64-key
+// tiles of K and V in order, keeping the running max, normaliser and output
+// in f32 registers.  Key tiles wholly above the causal diagonal of a block's
+// rows (period taken into account) are not loaded; a warp or warpgroup whose
+// own rows end earlier skips the block's last tiles; within a visited tile
+// a masked key adds exactly 0.  The grid puts bh on x and the row blocks on
+// y, last rows first, so the heaviest causal blocks of every bh start first.
+//
+// bf16: wgmma from shared memory filled by TMA, warp-specialised.
+// - one producer warp keeps a ring of K and V tiles in flight (4 stages at
+//   hd <= 64, 3 at 128) with cp.async.bulk.tensor on 3-D tensor maps (hd,
+//   rows, bh), so a box never reads another slice's rows and TMA zero-fills
+//   the ragged tails (a zero-filled key scores 0, so keys past T are masked
+//   explicitly); mbarriers signal full (transaction bytes) and empty (one
+//   arrive per consumer warp);
+// - two consumer warpgroups own 64 rows each.  S = Q K^T is wgmma m64n64k16
+//   with Q and K both K-major in shared memory (128-byte swizzle, 64-byte at
+//   hd = 32; hd = 128 is stored as two 64-column panels); P is rounded to
+//   bf16 in registers, where the accumulator's layout is already wgmma's
+//   register-A layout, and O += P V is the register-A wgmma with V as the
+//   MN-major B operand, straight from the tile TMA wrote;
+// - once P is in registers the next tile's S is issued into the freed
+//   accumulator, so it runs on the tensor cores back to back with P V;
+// - the softmax runs in base 2 (ex2.approx) on the f32 accumulator, the
+//   scale * log2 e and the max's subtraction folded into one FMA; the
+//   normaliser sums the unrounded f32 p.
+//
+// f32: three-pass TF32 (3xTF32) on mma.sync, cp.async double buffering.
+// - a single TF32 product keeps 10 mantissa bits, too few for the f32
+//   tolerance at S = 4096 or for 24 layers of logits; each operand is split
+//   x = hi + lo (hi = x rounded to TF32 on its bit pattern, lo = x - hi,
+//   which the tensor core reads truncated) and each product taken as
+//   lo*hi + hi*lo + hi*hi with f32 accumulation, which drops only lo*lo
+//   (~2^-21 relative);
+// - eight warps own 16 rows each (mma.sync.m16n8k8); Q, and K and V in two
+//   buffers, sit in shared memory in f32 with rows padded by 4 floats (the
+//   fragment loads hit 32 distinct banks) and are split on the fly, in
+//   three integer and float operations an element;
+// - the P operand of P V comes straight from the S accumulator: the keys of
+//   each 8-key step are taken in the order (0, 2, 4, 6, 1, 3, 5, 7), which
+//   turns the accumulator's (2t, 2t+1) columns into the A fragment's (t,
+//   t+4) and costs only the same permutation of V's rows.  wgmma takes TF32
+//   only K-major, which would need V transposed in shared memory; mma.sync
+//   reads V as it lies;
+// - the softmax is exp(x) = 2^(x log2 e) by ex2.approx (2 ulp), the max's
+//   subtraction folded into the FMA.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBlockQ = 64;      // query rows a block owns
-constexpr int kBlockK = 64;      // keys a tile holds
-constexpr int kThreads = 256;    // 16 x 16
-constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
-constexpr int kPStride = kBlockK + 4;
+constexpr int kRows = 128;  // query rows a block owns
+constexpr int kKeys = 64;   // keys a tile holds
+
+__device__ __forceinline__ int row_pos(int row, int period) {
+  return period > 0 ? row % period : row;
+}
+
+// The causal positions rows [first, last] reach, largest and smallest.
+struct Span {
+  int max_pos, min_pos;
+};
+
+__device__ __forceinline__ Span span(int first, int last, int period) {
+  if (period > 0) {
+    if (first / period != last / period) return {period - 1, 0};
+    return {last % period, first % period};
+  }
+  return {last, first};
+}
+
+// The key tiles rows [first, last] can see.
+__device__ __forceinline__ int visible_tiles(int first, int last, int t,
+                                             int causal, int period) {
+  int n = (t + kKeys - 1) / kKeys;
+  if (causal) n = min(n, span(first, last, period).max_pos / kKeys + 1);
+  return n;
+}
+
+// 2^x (ex2.approx: 2 ulp; -inf gives +0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 on mma.sync.m16n8k8
+// ---------------------------------------------------------------------------
+namespace f32k {
+
+constexpr int kThreads = 256;  // 8 warps x 16 rows
 
 template <int HD>
 struct Layout {
-  static constexpr int kStride = HD + 4;   // row stride of the Q and K/V tiles
-  static constexpr int kFloats =
-      (kBlockQ + kBlockK) * kStride + kBlockQ * kPStride;
+  static constexpr int kStride = HD + 4;  // floats a shared row takes
+  static constexpr int kFloats = (kRows + 4 * kKeys) * kStride;
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero,
+// on the bit pattern: two integer operations, where cvt.rna.tf32 costs
+// four with its NaN check; the operands are finite), lo the exact rest,
+// which the tensor core reads truncated to TF32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  float2 a = __bfloat1622float2(p2[0]);
-  float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+// c += a b as lo*hi + hi*lo + hi*hi, the small terms first.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma(c, al, bh0, bh1);
+  mma(c, ah, bl0, bl1);
+  mma(c, ah, bh0, bh1);
 }
 
-// Rows [row0, row0 + 64) of a (rows, HD) matrix into a shared tile of
-// stride HD + 4, times ``scale``; rows at or past ``rows`` are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int rows, float scale) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + n) of a (rows, HD) slice into shared memory at stride
+// HD + 4; rows at or past ``rows`` are zero-filled.
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
+                                      int rows, int n) {
   constexpr int kC4 = HD / 4;
-  constexpr int kStride = Layout<HD>::kStride;
-  for (int idx = threadIdx.x; idx < kBlockK * kC4; idx += kThreads) {
-    int r = idx / kC4;
-    int c = (idx % kC4) * 4;
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row0 + r < rows) {
-      x = load4(src + (long long)(row0 + r) * HD + c);
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-    }
-    *reinterpret_cast<float4*>(dst + r * kStride + c) = x;
+  for (int idx = threadIdx.x; idx < n * kC4; idx += kThreads) {
+    const int r = idx / kC4, c = (idx % kC4) * 4;
+    const bool ok = row0 + r < rows;
+    cp_async16(dst + r * Layout<HD>::kStride + c,
+               src + (long long)(ok ? row0 + r : 0) * HD + c, ok);
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       int Tk, int causal, int period, float scale) {
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 2 : 1)
+attention(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o, int S, int T,
+          int causal, int period, float scale) {
   constexpr int kStride = Layout<HD>::kStride;
-  constexpr int kCols = HD / 16;              // output columns a thread owns
-  constexpr int kVec = kCols < 4 ? kCols : 4;  // as float4 (float2 at hd=32)
-  constexpr int kGroups = kCols / kVec;
+  constexpr int kND = HD / 8;  // 8-column blocks of the output
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* kvs = qs + kBlockQ * kStride;
-  float* ps = kvs + kBlockK * kStride;
+  float* ks = qs + kRows * kStride;      // two buffers of kKeys rows
+  float* vs = ks + 2 * kKeys * kStride;  // likewise
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const long long bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const long long bh = blockIdx.x;
   q += bh * S * HD;
-  k += bh * Tk * HD;
-  v += bh * Tk * HD;
+  k += bh * T * HD;
+  v += bh * T * HD;
   o += bh * S * HD;
 
-  // the key tiles this block's rows can see
-  int n_tiles = (Tk + kBlockK - 1) / kBlockK;
-  if (causal) {
-    int r_last = min(r0 + kBlockQ, S) - 1;
-    int last_pos = r_last;
-    if (period > 0) {
-      last_pos = (r0 / period != r_last / period) ? period - 1
-                                                   : r_last % period;
-    }
-    n_tiles = min(n_tiles, last_pos / kBlockK + 1);
-  }
+  const int n_tiles = visible_tiles(r0, min(r0 + kRows, S) - 1, T, causal,
+                                    period);
+  // this warp's 16 rows: thread rows a = wr0 + g and b = a + 8
+  const int wr0 = r0 + 16 * warp;
+  const int w_last = min(wr0 + 15, S - 1);
+  const bool has_rows = w_last >= wr0;
+  const Span ws = span(wr0, has_rows ? w_last : wr0, period);
+  const int row_a = wr0 + g, row_b = row_a + 8;
+  const int pos_a = row_pos(row_a, period), pos_b = row_pos(row_b, period);
 
-  load_tile<T, HD>(qs, q, r0, S, scale);
+  stage<HD>(qs, q, r0, S, kRows);
+  stage<HD>(ks, k, 0, T, kKeys);
+  stage<HD>(vs, v, 0, T, kKeys);
+  cp_commit();
 
-  float acc[4][kCols];
-  float m[4], l[4];
-  int pos[4];
+  float acc[kND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-    int row = r0 + ty + 16 * i;
-    pos[i] = period > 0 ? row % period : row;
+  for (int n = 0; n < kND; ++n)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
-  }
+    for (int j = 0; j < 4; ++j) acc[n][j] = 0.0f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();  // the last tile's P.V no longer reads kvs and ps
-    load_tile<T, HD>(kvs, k, k0, Tk, 1.0f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kStride
-                                                + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(kvs + (tx + 16 * j) * kStride
-                                                + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      stage<HD>(ks + (buf ^ 1) * kKeys * kStride, k, (t + 1) * kKeys, T,
+                kKeys);
+      stage<HD>(vs + (buf ^ 1) * kKeys * kStride, v, (t + 1) * kKeys, T,
+                kKeys);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bool seen[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int key = k0 + tx + 16 * j;
-        seen[j] = key < Tk && (!causal || key <= pos[i]);
-        if (!seen[j]) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
-      float m_new = fmaxf(m[i], mx);
-      float corr = expf(m[i] - m_new);
-      float psum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = seen[j] ? expf(s[i][j] - m_new) : 0.0f;
-        psum += p;
-        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * corr + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
-    }
-
-    __syncthreads();  // P is written and K no longer read
-    load_tile<T, HD>(kvs, v, k0, Tk, 1.0f);
     __syncthreads();
-
+    const int k0 = t * kKeys;
+    if (has_rows && (!causal || k0 <= ws.max_pos)) {
+      const float* kt = ks + buf * kKeys * kStride;
+      const float* vt = vs + buf * kKeys * kStride;
+      // S = (q * scale) K^T over this tile's 64 keys
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[n][j] = 0.0f;
 #pragma unroll 2
-    for (int c = 0; c < kBlockK; c += 4) {
-      float4 p4[4];
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        const float* qa = qs + (16 * warp + g) * kStride + 8 * kk + tq;
+        uint32_t ah[4], al[4];
+        split(qa[0] * scale, ah[0], al[0]);
+        split(qa[8 * kStride] * scale, ah[1], al[1]);
+        split(qa[4] * scale, ah[2], al[2]);
+        split(qa[8 * kStride + 4] * scale, ah[3], al[3]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kPStride
-                                                 + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float* vrow = kvs + (c + cc) * kStride + tx * kVec;
-        float vv[kCols];
-#pragma unroll
-        for (int g = 0; g < kGroups; ++g) {
-          if constexpr (kVec == 4) {
-            float4 x = *reinterpret_cast<const float4*>(vrow + g * 64);
-            vv[4 * g] = x.x;
-            vv[4 * g + 1] = x.y;
-            vv[4 * g + 2] = x.z;
-            vv[4 * g + 3] = x.w;
-          } else {
-            float2 x = *reinterpret_cast<const float2*>(vrow + g * 32);
-            vv[2 * g] = x.x;
-            vv[2 * g + 1] = x.y;
-          }
+        for (int n = 0; n < 8; ++n) {
+          const float* kb = kt + (8 * n + g) * kStride + 8 * kk + tq;
+          uint32_t bh0, bl0, bh1, bl1;
+          split(kb[0], bh0, bl0);
+          split(kb[4], bh1, bl1);
+          mma3(s[n], ah, al, bh0, bh1, bl0, bl1);
         }
+      }
+      // mask: keys past T, and above the diagonal under causal
+      if (k0 + kKeys > T || (causal && k0 + kKeys - 1 > ws.min_pos)) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float p = cc == 0 ? p4[i].x
-                  : cc == 1 ? p4[i].y
-                  : cc == 2 ? p4[i].z : p4[i].w;
+        for (int n = 0; n < 8; ++n)
 #pragma unroll
-          for (int e = 0; e < kCols; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+          for (int j = 0; j < 4; ++j) {
+            const int key = k0 + 8 * n + 2 * tq + (j & 1);
+            const int pos = j < 2 ? pos_a : pos_b;
+            if (key >= T || (causal && key > pos)) s[n][j] = -INFINITY;
+          }
+      }
+      // online softmax; a row's 64 keys lie in one quad of lanes
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      // key 0 is visible to every row, so the max is finite from tile 0 on;
+      // e^x as 2^(x log2 e), the subtraction folded into one FMA
+      const float c_a = ex2((m_a - mx_a) * kLog2e);
+      const float c_b = ex2((m_b - mx_b) * kLog2e);
+      m_a = mx_a;
+      m_b = mx_b;
+      const float ms_a = m_a * kLog2e, ms_b = m_b * kLog2e;
+      float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        s[n][0] = ex2(fmaf(s[n][0], kLog2e, -ms_a));
+        s[n][1] = ex2(fmaf(s[n][1], kLog2e, -ms_a));
+        s[n][2] = ex2(fmaf(s[n][2], kLog2e, -ms_b));
+        s[n][3] = ex2(fmaf(s[n][3], kLog2e, -ms_b));
+        sum_a += s[n][0] + s[n][1];
+        sum_b += s[n][2] + s[n][3];
+      }
+      l_a = l_a * c_a + sum_a;
+      l_b = l_b * c_b + sum_b;
+#pragma unroll
+      for (int n = 0; n < kND; ++n) {
+        acc[n][0] *= c_a;
+        acc[n][1] *= c_a;
+        acc[n][2] *= c_b;
+        acc[n][3] *= c_b;
+      }
+      // O += P V, the keys of step kk taken as 8kk + (0, 2, 4, 6, 1, 3, 5, 7)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        uint32_t ph[4], pl[4];
+        split(s[kk][0], ph[0], pl[0]);
+        split(s[kk][2], ph[1], pl[1]);
+        split(s[kk][1], ph[2], pl[2]);
+        split(s[kk][3], ph[3], pl[3]);
+        const float* vb = vt + (8 * kk + 2 * tq) * kStride + g;
+#pragma unroll
+        for (int n = 0; n < kND; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(vb[8 * n], bh0, bl0);
+          split(vb[kStride + 8 * n], bh1, bl1);
+          mma3(acc[n], ph, pl, bh0, bh1, bl0, bl1);
         }
       }
     }
+    __syncthreads();  // the next tile's loads reuse this buffer
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float d_a = fmaxf(l_a, 1e-30f), d_b = fmaxf(l_b, 1e-30f);
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off, 16);
-    int row = r0 + ty + 16 * i;
-    if (row >= S) continue;
-    float denom = fmaxf(l[i], 1e-30f);
-    T* out = o + (long long)row * HD + tx * kVec;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g)
-#pragma unroll
-      for (int e = 0; e < kVec; ++e)
-        store(out + g * 16 * kVec + e, acc[i][g * kVec + e] / denom);
+  for (int n = 0; n < kND; ++n) {
+    const int col = 8 * n + 2 * tq;
+    if (row_a < S)
+      *reinterpret_cast<float2*>(o + (long long)row_a * HD + col) =
+          make_float2(acc[n][0] / d_a, acc[n][1] / d_a);
+    if (row_b < S)
+      *reinterpret_cast<float2*>(o + (long long)row_b * HD + col) =
+          make_float2(acc[n][2] / d_b, acc[n][3] / d_b);
   }
 }
 
-template <typename T, int HD>
-int run(const void* q, const void* k, const void* v, void* o, int bh, int s,
-        int t, int causal, int period, float scale, void* stream) {
-  const size_t bytes = Layout<HD>::kFloats * sizeof(float);
+}  // namespace f32k
+
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma, one producer warp and two consumer warpgroups
+// ---------------------------------------------------------------------------
+namespace bf16k {
+
+constexpr int kConsumers = 256;      // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 32;
+
+template <int HD>
+struct Layout {
+  // one shared row of a panel is one swizzle span: 64 columns (128 bytes),
+  // or all 32 at hd = 32 (64 bytes)
+  static constexpr int kPanelCols = HD < 64 ? HD : 64;
+  static constexpr int kPanels = HD / kPanelCols;
+  static constexpr int kRowBytes = 2 * kPanelCols;
+  static constexpr int kSwizzle = kRowBytes == 128 ? 1 : 2;  // wgmma's code
+  static constexpr int kQBytes = kRows * HD * 2;
+  static constexpr int kTileBytes = kKeys * HD * 2;  // one K or V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  // the K/V ring's depth: 4 stages (64 KB) at hd <= 64, 3 (96 KB) at 128
+  static constexpr int kStages = HD <= 64 ? 4 : 3;
+  // 1024 bytes of slack to align the tiles to the swizzle atom, then the
+  // tiles, then 2 * kStages + 1 mbarriers
+  static constexpr int kBytes =
+      1024 + kQBytes + kStages * kStageBytes + 8 * (2 * kStages + 1);
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map at (c0, c1, c2) into shared memory.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle code.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(swizzle) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from touching accumulator registers across the
+// asynchronous wgmma (its results are there only after wgmma_wait).
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// D (64 x 64, f32) = A (64 x 16, bf16, shared, K-major) * B (16 x 64,
+// bf16, shared, K-major) + (accumulate ? D : 0).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 32, f32) += A (64 x 16, bf16, registers) * B (16 x 32, bf16,
+// shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16,
+// shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+attention(const __grid_constant__ CUtensorMap qmap,
+          const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap,
+          __nv_bfloat16* __restrict__ o, int S, int T, int causal,
+          int period, float scale_log2) {
+  using L = Layout<HD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kPW = L::kPanelCols;
+  constexpr int kRB = L::kRowBytes;
+  constexpr int kStepsPerPanel = kPW / 16;  // k16 steps along hd a panel
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      base + L::kQBytes + kStages * L::kStageBytes);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int bh = blockIdx.x;
+  const int n_tiles = visible_tiles(r0, min(r0 + kRows, S) - 1, T, causal,
+                                    period);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread issues every copy
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_full, L::kQBytes);
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_load(base + p * kRows * kRB, &qmap, q_full, p * kPW, r0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages, round = t / kStages;
+        if (round > 0) mbar_wait(empty + s, (round - 1) & 1);
+        mbar_expect_tx(full + s, L::kStageBytes);
+        uint8_t* kt = base + L::kQBytes + s * L::kStageBytes;
+        uint8_t* vt = kt + L::kTileBytes;
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load(kt + p * kKeys * kRB, &kmap, full + s, p * kPW,
+                   t * kKeys, bh);
+          tma_load(vt + p * kKeys * kRB, &vmap, full + s, p * kPW,
+                   t * kKeys, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows r0 + 64 wg + [0, 64)
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int row0 = r0 + 64 * wg;
+  const int last = min(row0 + 63, S - 1);
+  int my_tiles = 0, min_pos = 0;
+  if (last >= row0) {
+    my_tiles = visible_tiles(row0, last, T, causal, period);
+    min_pos = span(row0, last, period).min_pos;
+  }
+  // a thread's accumulator rows: a and b = a + 8
+  const int row_a = row0 + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int row_b = row_a + 8;
+  const int pos_a = row_pos(row_a, period), pos_b = row_pos(row_b, period);
+
+  float sacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = 0.0f;
+  float oacc[L::kPanels][kPW / 2];
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < kPW / 2; ++i) oacc[p][i] = 0.0f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
+
+  const uint32_t q_base = smem_u32(base) + 64 * wg * kRB;
+  // S = Q K^T for tile t into sacc: both K-major, 16 columns of hd a step
+  auto issue_s = [&](int t) {
+    const uint32_t k_base =
+        smem_u32(base + L::kQBytes + (t % kStages) * L::kStageBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int p = kk / kStepsPerPanel;
+      const uint32_t off = (kk % kStepsPerPanel) * 32;
+      wgmma_ss_n64(sacc,
+                   make_desc(q_base + p * kRows * kRB + off, 16, 8 * kRB,
+                             L::kSwizzle),
+                   make_desc(k_base + p * kKeys * kRB + off, 16, 8 * kRB,
+                             L::kSwizzle),
+                   kk > 0);
+    }
+    wgmma_commit();
+  };
+
+  mbar_wait(q_full, 0);
+  if (my_tiles > 0) {
+    mbar_wait(full, 0);
+    issue_s(0);
+    wgmma_wait();
+    pin(sacc);
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    if (t < my_tiles) {
+      // sacc[4i + j]: row (j < 2 ? a : b), key k0 + 8i + 2(lane%4) + (j&1);
+      // the running max m is kept in raw score units
+      const int k0 = t * kKeys;
+      if (k0 + kKeys > T || (causal && k0 + kKeys - 1 > min_pos)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int key = k0 + 8 * (e / 4) + 2 * (lane % 4) + (e & 1);
+          const int pos = (e & 2) ? pos_b : pos_a;
+          if (key >= T || (causal && key > pos)) sacc[e] = -INFINITY;
+        }
+      }
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        mx_a = fmaxf(mx_a, fmaxf(sacc[4 * i], sacc[4 * i + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      // key 0 is visible to every row, so the max is finite from tile 0 on
+      const float c_a = ex2((m_a - mx_a) * scale_log2);
+      const float c_b = ex2((m_b - mx_b) * scale_log2);
+      m_a = mx_a;
+      m_b = mx_b;
+      const float ms_a = m_a * scale_log2, ms_b = m_b * scale_log2;
+      float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        sacc[4 * i] = ex2(fmaf(sacc[4 * i], scale_log2, -ms_a));
+        sacc[4 * i + 1] = ex2(fmaf(sacc[4 * i + 1], scale_log2, -ms_a));
+        sacc[4 * i + 2] = ex2(fmaf(sacc[4 * i + 2], scale_log2, -ms_b));
+        sacc[4 * i + 3] = ex2(fmaf(sacc[4 * i + 3], scale_log2, -ms_b));
+        sum_a += sacc[4 * i] + sacc[4 * i + 1];
+        sum_b += sacc[4 * i + 2] + sacc[4 * i + 3];
+      }
+      l_a = l_a * c_a + sum_a;
+      l_b = l_b * c_b + sum_b;
+      // P in bf16, already in wgmma's register-A layout: step kk's
+      // registers are the accumulator's columns 16kk .. 16kk + 15
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sacc[8 * kk + 2 * r],
+                                sacc[8 * kk + 2 * r + 1]);
+      // sacc is free: the next tile's S runs while P V is issued
+      if (t + 1 < my_tiles) {
+        mbar_wait(full + (t + 1) % kStages, ((t + 1) / kStages) & 1);
+        issue_s(t + 1);
+      }
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+        for (int i = 0; i < kPW / 8; ++i) {
+          oacc[p][4 * i] *= c_a;
+          oacc[p][4 * i + 1] *= c_a;
+          oacc[p][4 * i + 2] *= c_b;
+          oacc[p][4 * i + 3] *= c_b;
+        }
+      // O += P V: V is the MN-major B operand, 16 keys a step
+      const uint32_t v_base =
+          smem_u32(base + L::kQBytes + s * L::kStageBytes) + L::kTileBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int p = 0; p < L::kPanels; ++p) {
+          const uint64_t dv =
+              make_desc(v_base + p * kKeys * kRB + kk * 16 * kRB,
+                        kKeys * kRB, 8 * kRB, L::kSwizzle);
+          if constexpr (kPW == 64)
+            wgmma_rs_n64(oacc[p], pa[kk], dv);
+          else
+            wgmma_rs_n32(oacc[p], pa[kk], dv);
+        }
+      wgmma_commit();
+      wgmma_wait();
+      pin(sacc);
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p) pin(oacc[p]);
+    } else {
+      mbar_wait(full + s, (t / kStages) & 1);  // released unread
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);  // this warp is done with stage s
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float d_a = fmaxf(l_a, 1e-30f), d_b = fmaxf(l_b, 1e-30f);
+  o += (long long)bh * S * HD;
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < kPW / 8; ++i) {
+      const int col = p * kPW + 8 * i + 2 * (lane % 4);
+      if (row_a < S)
+        *reinterpret_cast<uint32_t*>(o + (long long)row_a * HD + col) =
+            pack_bf16(oacc[p][4 * i] / d_a, oacc[p][4 * i + 1] / d_a);
+      if (row_b < S)
+        *reinterpret_cast<uint32_t*>(o + (long long)row_b * HD + col) =
+            pack_bf16(oacc[p][4 * i + 2] / d_b, oacc[p][4 * i + 3] / d_b);
+    }
+}
+
+}  // namespace bf16k
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled is a driver-API call; it is fetched through the
+// runtime so that the library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Returned when the driver refuses a tensor map (10000 + its CUresult).
+constexpr int kMapError = 10000;
+
+// A (hd, rows, bh) bf16 tensor as 3-D boxes of (cols, box_rows, 1).
+int make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int bh,
+             int cols, int box_rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return kMapError;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)rows * hd * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
+}
+
+dim3 grid(int bh, int s) { return dim3(bh, (s + kRows - 1) / kRows); }
+
+template <int HD>
+int run_f32(const void* q, const void* k, const void* v, void* o, int bh,
+            int s, int t, int causal, int period, float scale,
+            cudaStream_t stream) {
+  const int bytes = f32k::Layout<HD>::kFloats * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      f32k::attention<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
-  flash_attention_kernel<T, HD><<<grid, kThreads, bytes,
-                                  (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, s, t, causal, period,
-      scale);
+  f32k::attention<HD><<<grid(bh, s), f32k::kThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, s, t,
+      causal, period, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int s, int t, int hd, int causal, int period, float scale,
-             void* stream) {
-  if (bh < 1 || bh > 65535 || s < 1 || t < 1 || period < 0) {
+template <int HD>
+int run_bf16(const void* q, const void* k, const void* v, void* o, int bh,
+             int s, int t, int causal, int period, float scale,
+             cudaStream_t stream) {
+  using L = bf16k::Layout<HD>;
+  CUtensorMap qmap, kmap, vmap;
+  int rc = make_map(&qmap, q, HD, s, bh, L::kPanelCols, kRows);
+  if (rc == 0) rc = make_map(&kmap, k, HD, t, bh, L::kPanelCols, kKeys);
+  if (rc == 0) rc = make_map(&vmap, v, HD, t, bh, L::kPanelCols, kKeys);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      bf16k::attention<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  bf16k::attention<HD><<<grid(bh, s), bf16k::kThreads, L::kBytes, stream>>>(
+      qmap, kmap, vmap, (__nv_bfloat16*)o, s, t, causal, period,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+typedef int (*Runner)(const void*, const void*, const void*, void*, int, int,
+                      int, int, int, float, cudaStream_t);
+
+int dispatch(Runner r32, Runner r64, Runner r128, const void* q,
+             const void* k, const void* v, void* o, int bh, int s, int t,
+             int hd, int causal, int period, float scale, void* stream) {
+  if (bh < 1 || s < 1 || t < 1 || period < 0 ||
+      (s + kRows - 1) / kRows > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  switch (hd) {
-    case 32:
-      return run<T, 32>(q, k, v, o, bh, s, t, causal, period, scale, stream);
-    case 64:
-      return run<T, 64>(q, k, v, o, bh, s, t, causal, period, scale, stream);
-    case 128:
-      return run<T, 128>(q, k, v, o, bh, s, t, causal, period, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  Runner run = hd == 32 ? r32 : hd == 64 ? r64 : hd == 128 ? r128 : nullptr;
+  if (run == nullptr) return (int)cudaErrorInvalidValue;
+  return run(q, k, v, o, bh, s, t, causal, period, scale,
+             (cudaStream_t)stream);
 }
 
 }  // namespace
 
 // q, o: (bh, s, hd); k, v: (bh, t, hd); contiguous, 16-byte aligned.
+// Returns the launch's CUDA error code (kMapError + the driver's code when
+// a bf16 tensor map is refused).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int bh, int s,
                                    int t, int hd, int causal, int period,
                                    float scale, void* stream) {
-  return dispatch<float>(q, k, v, o, bh, s, t, hd, causal, period, scale,
-                         stream);
+  return dispatch(run_f32<32>, run_f32<64>, run_f32<128>, q, k, v, o, bh, s,
+                  t, hd, causal, period, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int bh, int s,
                                     int t, int hd, int causal, int period,
                                     float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, bh, s, t, hd, causal, period,
-                                 scale, stream);
+  return dispatch(run_bf16<32>, run_bf16<64>, run_bf16<128>, q, k, v, o, bh,
+                  s, t, hd, causal, period, scale, stream);
 }

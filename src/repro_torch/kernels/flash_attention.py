@@ -7,7 +7,8 @@ position ``i % causal_period``).  On the card it launches
 ``csrc/flash_attention.cu``; for tensors on the CPU it takes the plain
 version ``kernels/ref.flash_attention_3d_ref``.  Unlike the TPU kernel it
 takes any S and T (the CUDA kernel masks the tails), for head dims 32, 64
-and 128 in float32 or bfloat16.  The model path reaches it through
+and 128 in float32 (three-pass TF32 on the tensor cores) or bfloat16
+(wgmma from TMA-filled shared memory).  The model path reaches it through
 ``models/attention.flash_gqa``, which folds the query heads in the model's
 own order.
 """
@@ -20,8 +21,9 @@ from repro_torch.kernels.build import F, I, P
 
 #: Head dims the kernel is built for (a template parameter of the source).
 HEAD_DIMS = (32, 64, 128)
-#: Row blocks of a launch's grid are one per 64 rows, bh on the y axis.
-MAX_BH = 65535
+#: A launch's grid has bh on x and one row block per 128 rows on y.
+ROW_BLOCK = 128
+MAX_ROWS = 65535 * ROW_BLOCK
 
 _SIGNATURES = {fn: (P, P, P, P, I, I, I, I, I, I, F, P)
                for fn in ("flash_attention_f32", "flash_attention_bf16")}
@@ -45,8 +47,8 @@ def _check(q, k, v, causal_period: int) -> None:
                          f"{HEAD_DIMS}")
     if k.shape[1] < 1:
         raise ValueError(f"{what}: no keys (T = 0)")
-    if q.shape[0] > MAX_BH:
-        raise ValueError(f"{what}: BH = {q.shape[0]} > {MAX_BH}")
+    if q.shape[1] > MAX_ROWS:
+        raise ValueError(f"{what}: S = {q.shape[1]} > {MAX_ROWS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _FN:
             raise TypeError(f"{what}: {name} must be float32 or bfloat16, "

@@ -30,6 +30,9 @@ SMEM_LIMIT = 227 * 1024
 #: Batch rows K3 stages per pass; the gradient accumulates over passes.
 STEP_ROWS = 16
 
+#: K2 holds its step table in shared memory as bits, 4096 steps at a time.
+EPOCH_WINDOW_WORDS = 128
+
 #: Longest step table (E * nb) for which "auto" picks the whole-epoch
 #: kernel.  Kept from the reference (a TPU grid-length rule) so that
 #: "auto" picks the same modes; to be revisited with card numbers.
@@ -45,9 +48,16 @@ F32 = torch.float32
 
 
 def epoch_smem_bytes(d: int, C: int, B: int) -> int:
-    """K2's shared memory: running w (d*C) and b (C), the staged batch
-    (B*d floats, B labels) and the logits/residual (B*C), 4 bytes each."""
-    return 4 * (d * C + C + B * d + B * C + B)
+    """K2's shared memory: two 8-byte barriers, then 4-byte words with
+    rows padded to ``RS`` = C rounded up to 4: the running w, the
+    correction and the anchor (d*RS each), their biases (RS each), the
+    logits and the residual (B*RS each), the batch twice (2*B*d floats,
+    2*B labels: the next kept step's lands while one runs), the step
+    table's window (:data:`EPOCH_WINDOW_WORDS`) and two slots for the
+    next step."""
+    rs = -(-C // 4) * 4
+    return 16 + 4 * (3 * d * rs + 3 * rs + 2 * B * rs + 2 * B * d + 2 * B
+                     + 2 + EPOCH_WINDOW_WORDS)
 
 
 def step_smem_bytes(d: int, C: int, B: int) -> int:
@@ -192,10 +202,11 @@ def _select(w0, batches, num_epochs: int):
         return None
     d, C = w0["w"].shape
     _, nb, B = batches["x"].shape[:3]
-    if max(epoch_smem_bytes(d, C, B), step_smem_bytes(d, C, B)) \
-            > SMEM_LIMIT:
+    if step_smem_bytes(d, C, B) > SMEM_LIMIT:
         return None                 # operands exceed one block's smem
-    if num_epochs * nb <= MAX_EPOCH_STEPS:
+    # K2 holds more than K3 (correction, anchor and a second batch)
+    if num_epochs * nb <= MAX_EPOCH_STEPS \
+            and epoch_smem_bytes(d, C, B) <= SMEM_LIMIT:
         return "fused_epoch"
     return "fused_step"
 

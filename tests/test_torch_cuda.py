@@ -78,3 +78,100 @@ def test_model_attention_runs_k7_on_the_card(card, H, Kv, S):
     assert build.launch_counts["flash_attention"] == 1
     want = attn.plain_attention(q, k, v, causal=True)
     torch.testing.assert_close(got, want, atol=4e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("bh,s,t,causal,period", [
+    (3, 200, 200, True, 0),          # T not a multiple of the 64-key tile
+    (2, 1, 1, True, 0),              # one row, one key
+    (2, 1, 77, False, 0),            # one row against a ragged T
+    (2, 4 * 200, 200, True, 200),    # a 128-row block straddles a period
+])
+def test_flash_attention_tensor_core_paths(card, bh, s, t, causal, period,
+                                           hd, dtype):
+    """K7's two designs (3xTF32 mma.sync for float32, TMA + wgmma for
+    bfloat16) at every head dim, on ragged and one-row shapes and GQA-
+    folded rows whose period cuts through a block."""
+    q = _normal(7, (bh, s, hd), dtype, card)
+    k = _normal(8, (bh, t, hd), dtype, card)
+    v = _normal(9, (bh, t, hd), dtype, card)
+    build.reset_launch_counts()
+    got = flash_attention_3d(q, k, v, causal=causal, causal_period=period)
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_attention"] == 1
+    want = ref.flash_attention_3d_ref(q, k, v, causal=causal,
+                                      causal_period=period)
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+#: K2 against its plain version: the tolerance of chip_smoke.py's
+#: EPOCH_TOL (thousands of dependent float32 steps whose dot products sum
+#: in another order).
+EPOCH_TOL = 1e-4
+
+
+def _epoch_inputs(seed, K, nb, B, d, C, E, device, work=None):
+    """A K-device solve: numpy-seeded batches, anchor and correction; device
+    k keeps its first ``nb - k % 3`` batches (padding steps masked), device
+    min(3, K - 1) none; ``work`` cuts each device's kept steps to
+    ``ceil(work * kept)``, as a scenario's work cutoff does."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(K, nb, B, d)).astype(np.float32)
+    y = rng.integers(0, C, size=(K, nb, B)).astype(np.int32)
+    w0 = {"w": (0.1 * rng.normal(size=(d, C))).astype(np.float32),
+          "b": (0.1 * rng.normal(size=(C,))).astype(np.float32)}
+    corr = {"w": (0.01 * rng.normal(size=(K, d, C))).astype(np.float32),
+            "b": (0.01 * rng.normal(size=(K, C))).astype(np.float32)}
+    valid = np.zeros((K, nb), np.float32)
+    for j in range(K):
+        valid[j, :nb - j % 3] = 1.0
+    if K > 1:
+        valid[min(3, K - 1)] = 0.0
+    mask = np.tile(valid, (1, E))
+    if work is not None:
+        limit = np.ceil(work * mask.sum(axis=1))
+        mask = mask * (np.cumsum(mask, axis=1) <= limit[:, None])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return ({k: t(v) for k, v in w0.items()},
+            {k: t(v) for k, v in corr.items()},
+            {"x": t(x), "y": t(y)}, t(mask.astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,nb,B,d,C,E,work", [
+    (10, 128, 10, 60, 10, 20, None),   # synthetic(1,1), the paper config
+    (10, 64, 10, 784, 10, 20, None),   # FEMNIST-like
+    (10, 128, 10, 60, 10, 20, 0.37),   # a work cutoff
+    (1, 128, 10, 60, 10, 20, None),    # one device (a rank of the tree)
+    (3, 7, 5, 33, 18, 700, None),      # E*nb > 4096: the window moves;
+])                                     # C > 16: two class chunks
+def test_local_epoch_kernel_matches_plain(card, K, nb, B, d, C, E, work):
+    """K2's redesigned step (warp-per-row logits, prefetched batches, the
+    step table as bits) against ``local_epoch_ref`` on the card; the
+    device with no kept step keeps the anchor exactly."""
+    from repro_torch.kernels import local_solve
+
+    w0, corr, batches, mask = _epoch_inputs(11, K, nb, B, d, C, E, card,
+                                            work)
+    build.reset_launch_counts()
+    got = local_solve.local_epoch(w0, corr, batches, eta=0.01, mu=0.001,
+                                  num_epochs=E, step_mask=mask)
+    torch.cuda.synchronize()
+    assert build.launch_counts["local_epoch"] == 1
+    want = ref.local_epoch_ref(w0, corr, batches, eta=0.01, mu=0.001,
+                               num_epochs=E, step_mask=mask)
+    for name in ("w", "b"):
+        torch.testing.assert_close(got[name], want[name], atol=EPOCH_TOL,
+                                   rtol=0)
+    if K > 1:
+        idle = min(3, K - 1)
+        assert torch.equal(got["w"][idle], w0["w"])
+        assert torch.equal(got["b"][idle], w0["b"])

@@ -200,6 +200,19 @@ def test_select_matches_reference_modes(d, nb, epochs, want):
     assert jls._select(jw0, jb, epochs) == want
 
 
+def test_select_takes_the_step_kernel_where_only_it_fits():
+    """K2 holds more shared memory than K3 (the correction, the anchor
+    and a second batch): where only K3's footprint fits one block, the
+    gate picks it rather than no fused solver."""
+    d, nb, B = 1500, 10, 10
+    assert local_solve.epoch_smem_bytes(d, 10, B) > local_solve.SMEM_LIMIT
+    assert local_solve.step_smem_bytes(d, 10, B) <= local_solve.SMEM_LIMIT
+    w0 = {"w": torch.zeros(d, 10), "b": torch.zeros(10)}
+    batches = {"x": torch.zeros(2, nb, B, d),
+               "y": torch.zeros(2, nb, B, dtype=torch.int32)}
+    assert local_solve._select(w0, batches, 2) == "fused_step"
+
+
 def test_select_rejects_what_the_kernels_cannot_take():
     w0 = {"w": torch.zeros(60, 10), "b": torch.zeros(10)}
     x = torch.zeros(2, 4, 10, 60)
