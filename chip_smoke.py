@@ -11,20 +11,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    stack frame and spills of every entry;
 3. each kernel (K1-K7) at every shape phases 4-9 give it (K2 and K3 at
    both d=60 and d=784, K2 also on a rank's devices of the flat mesh
-   and, with its steps cut short, of the tree, K5 at the synthetic and
-   FEMNIST-like flat packs
+   and, with its steps cut short, of the tree; K2 and K3 also at d=2,000
+   and d=34,952 on numpy-seeded batches, K=10, nb=16, B=10: K2's global
+   tier, up to the largest model the fused gate takes; K5 at the
+   synthetic and FEMNIST-like flat packs
    and on an all-inactive cohort, K6 at a rank's slab of the flat and
    tree meshes, the FEMNIST-like pack and an all-inactive slab), on
    numpy-seeded inputs with a masked device and masked steps: held
    against its plain PyTorch version on the card, timed with CUDA events
    beside the plain version, its roofline bound (the bytes and flops the
    masks leave to do) and, for K5, K6 and K7, the one PyTorch call that
-   computes the same function.  K7 (flash attention) at (a) qwen1.5-0.5b's
-   prefill, BH=16, S=T=4096, hd=64, causal, f32; (b) (a) in bf16; (c)
-   yi-9b's GQA-folded prefill in the model's head order, B*Kv=4 slices of
-   8*2048 rows against T=2048 keys, hd=128, causal_period=2048, f32; (d)
-   a ragged length, BH=16, S=T=1000, hd=64; (e) non-causal, BH=8,
-   S=T=512, hd=64; (f) and (g) qwen's prefill at B=2, S=1024 and S=128
+   computes the same function; for K5, K6 and that call (``torch.einsum``
+   on weights made outside the timed call) also the device time of a
+   launch, from one replay of a CUDA graph of 100 launches.  K7 (flash
+   attention) at (a) qwen1.5-0.5b's prefill, BH=16, S=T=4096, hd=64,
+   causal, f32; (b) (a) in bf16; (c) yi-9b's GQA-folded prefill in the
+   model's head order, B*Kv=4 slices of 8*2048 rows against T=2048 keys,
+   hd=128, causal_period=2048, f32; (d) a ragged length, BH=16,
+   S=T=1000, hd=64; (e) non-causal, BH=8, S=T=512, hd=64; (f) and (g)
+   qwen's prefill at B=2, S=1024 and S=128
    (BH=32): f32 within atol 4e-5 / rtol 2e-5 (the reference's own sweep
    tolerance) and bf16 within 4e-3 / 1e-2 (one bf16 ulp and a margin:
    both sides round an f32 result once), beside SDPA's time.  K7's f32
@@ -118,7 +123,8 @@ UPDATE_TOL = 0.0
 #: The whole-epoch solve chains up to E*nb = 2560 dependent f32 steps whose
 #: dot products sum in another order than the plain version's cuBLAS calls.
 EPOCH_TOL = 1e-4
-#: One step: a dot product of length d (60 or 784) summed in another order.
+#: One step: a dot product of length d (60 to 34,952) summed in another
+#: order.
 STEP_TOL = 1e-5
 #: The card's fused solve (analytic gradient) against the CPU path's
 #: autodiff + flat update, over 5 rounds of 2560 steps.
@@ -182,6 +188,35 @@ def cuda_ms(torch, fn, launches: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, launches: int = 100, repeats: int = 5) -> float:
+    """Device time per call: the median over ``repeats`` of CUDA-event
+    time around one replay of a CUDA graph that captured ``launches``
+    calls of ``fn`` (a ctypes launch goes to the current stream, which is
+    the capturing one), so that no host work lies between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                      # warm-up: the library, the allocator
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return statistics.median(times)
+
+
 def max_err(torch, a, b) -> float:
     from repro_torch.core import pytree as pt
     return max(float((x.float() - y.float()).abs().max())
@@ -229,7 +264,7 @@ def kernel_checks(torch, syn, fem):
 
     def case(label, kernel, plain, tol, nbytes, flops, calls=100,
              plain_repeats=5, library=None, rtol=0.0,
-             peak_flops=PEAK_F32_FLOPS):
+             peak_flops=PEAK_F32_FLOPS, device_time=False):
         got, want = kernel(), plain()
         err = max_err(torch, got, want)
         # |kernel - plain| <= tol + rtol * |plain|, elementwise
@@ -248,6 +283,13 @@ def kernel_checks(torch, syn, fem):
                              if library is not None else None))
         lib = (f"  library {c['library_ms']:.4f} ms"
                if library is not None else "")
+        if device_time:
+            # the launch alone, without the host's part of a call
+            c["device_ms"] = graph_ms(torch, kernel, calls)
+            c["library_device_ms"] = graph_ms(torch, library, calls)
+            lib += (f"  device (graph of {calls}): kernel "
+                    f"{c['device_ms']:.4f} ms, library "
+                    f"{c['library_device_ms']:.4f} ms")
         print(f"  {label:52s} err {err:.3g} (tol {tol:g}, rtol {rtol:g})  kernel "
               f"{c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms{lib}  bound "
               f"{b_ms:.6f} ms ({b_by})")
@@ -283,7 +325,51 @@ def kernel_checks(torch, syn, fem):
             lambda: ref.dane_update_ref(w, g, c, a, eta=eta, mu=mu),
             UPDATE_TOL, 5 * 4 * w.numel(), 6 * w.numel())
 
-    def k2_case(ds, k=None, work=None, what=""):
+    # K2 in its global tier at shapes its shared tier takes: the times of
+    # both tiers on the same inputs (appended to K2's row)
+    global_at_shared = []
+
+    def epoch_case(batches, step_mask, what="", both_tiers=False):
+        """The whole E-epoch solve of ``batches`` under ``step_mask`` from
+        a numpy-seeded anchor and correction; ``both_tiers``: also in K2's
+        global tier, forced, on the same inputs."""
+        K, nb, B, d = batches["x"].shape
+        w0 = {"w": normal(d, C, scale=0.1), "b": normal(C, scale=0.1)}
+        corr = {"w": normal(K, d, C, scale=0.01),
+                "b": normal(K, C, scale=0.01)}
+        # bytes: each batch some kept step reads, the correction of each
+        # device with a kept step, the anchor, the step table, the output
+        used = (step_mask.reshape(K, E, nb) > 0).any(dim=1)
+        dC = d * C + C
+        nbytes = 4 * (int(used.sum()) * B * (d + 1)
+                      + int(used.any(dim=1).sum()) * dC + dC + K * E * nb
+                      + K * dC)
+        steps = float(step_mask.sum())
+        flops = steps * (4 * B * d * C + 8 * B * C + 6 * dC)
+        def solve_case(label):
+            return case(
+                f"local_epoch K={K} nb={nb} B={B} d={d} E={E} "
+                f"steps={int(steps)}{label}",
+                lambda: local_solve.local_epoch(
+                    w0, corr, batches, eta=eta, mu=mu, num_epochs=E,
+                    step_mask=step_mask),
+                lambda: ref.local_epoch_ref(
+                    w0, corr, batches, eta=eta, mu=mu, num_epochs=E,
+                    step_mask=step_mask),
+                EPOCH_TOL, nbytes, flops, calls=1, plain_repeats=2)
+
+        c = solve_case(what)
+        if both_tiers:
+            assert local_solve.epoch_tier(d, C, B) == "shared"
+            pick = local_solve.epoch_tier
+            local_solve.epoch_tier = lambda d, C, B: "global"
+            try:
+                global_at_shared.append(solve_case(what + ", global tier"))
+            finally:
+                local_solve.epoch_tier = pick
+        return c
+
+    def k2_case(ds, k=None, work=None, what="", both_tiers=False):
         """The whole E-epoch solve of the first selection: its padding
         steps masked and one device masked out entirely.  ``k``: only
         its first k devices, at the whole cohort's batch count, as a
@@ -300,35 +386,31 @@ def kernel_checks(torch, syn, fem):
         if work is not None:
             total = E * valid.sum(dim=1)
             limit = torch.minimum(torch.ceil(work * total), total)
-        step_mask = _epoch_step_mask(valid, E, limit).contiguous()
-        K, nb, B, d = batches["x"].shape
-        w0 = {"w": normal(d, C, scale=0.1), "b": normal(C, scale=0.1)}
-        corr = {"w": normal(K, d, C, scale=0.01),
-                "b": normal(K, C, scale=0.01)}
-        # bytes: each batch some kept step reads, the correction of each
-        # device with a kept step, the anchor, the step table, the output
-        used = (step_mask.reshape(K, E, nb) > 0).any(dim=1)
-        dC = d * C + C
-        nbytes = 4 * (int(used.sum()) * B * (d + 1)
-                      + int(used.any(dim=1).sum()) * dC + dC + K * E * nb
-                      + K * dC)
-        steps = float(step_mask.sum())
-        flops = steps * (4 * B * d * C + 8 * B * C + 6 * dC)
-        return case(
-            f"local_epoch K={K} nb={nb} B={B} d={d} E={E} "
-            f"steps={int(steps)}{what}",
-            lambda: local_solve.local_epoch(
-                w0, corr, batches, eta=eta, mu=mu, num_epochs=E,
-                step_mask=step_mask),
-            lambda: ref.local_epoch_ref(
-                w0, corr, batches, eta=eta, mu=mu, num_epochs=E,
-                step_mask=step_mask),
-            EPOCH_TOL, nbytes, flops, calls=1, plain_repeats=2)
+        return epoch_case(batches, _epoch_step_mask(valid, E, limit)
+                          .contiguous(), what, both_tiers)
 
-    def k3_case(ds):
-        """One step on a [:, j] slice of the stacked batches, as the
-        fused_step mode hands it over, with one device masked."""
-        fb, _ = first_solve_batches(ds)
+    def wide_solve(d, K=10, nb=16, B=10):
+        """Numpy-seeded stacked batches of a model past K2's shared tier:
+        device k keeps its first nb - k % 3 batches (padding steps
+        masked), device 3 none."""
+        x = normal(K, nb, B, d)
+        y = t(rng.integers(0, C, (K, nb, B)).astype(np.int32))
+        valid = np.zeros((K, nb), np.float32)
+        for j in range(K):
+            valid[j, :nb - j % 3] = 1.0
+        valid[3] = 0.0
+        return {"x": x, "y": y}, t(valid)
+
+    def k2_wide_case(d):
+        batches, valid = wide_solve(d)
+        assert local_solve.epoch_tier(d, C, batches["x"].shape[2]) == \
+            "global"
+        return epoch_case(batches, _epoch_step_mask(valid, E).contiguous(),
+                          ", numpy-seeded, global tier")
+
+    def k3_case(fb):
+        """One step on a [:, j] slice of the stacked batches ``fb``, as
+        the fused_step mode hands it over, with one device masked."""
         batch = {"x": fb["x"][:, 0], "y": fb["y"][:, 0]}
         K, B, d = batch["x"].shape
         wk = {"w": normal(K, d, C, scale=0.1), "b": normal(K, C, scale=0.1)}
@@ -365,7 +447,8 @@ def kernel_checks(torch, syn, fem):
         c = case(label, lambda: codec.codec_aggregate(vals, scales, m),
                  lambda: ref.codec_aggregate_ref(vals, scales, m),
                  CODEC_TOL, nbytes, flops,
-                 library=lambda: torch.einsum("k,krl->rl", w_over, vals))
+                 library=lambda: torch.einsum("k,krl->rl", w_over, vals),
+                 device_time=True)
         if n_act == 0:
             out = codec.codec_aggregate(vals, scales, m)
             check(bool((out == 0).all()) and not bool(
@@ -390,7 +473,8 @@ def kernel_checks(torch, syn, fem):
                  lambda: codec.codec_aggregate_partial(vals, scales, m),
                  lambda: ref.codec_aggregate_partial_ref(vals, scales, m),
                  CODEC_TOL, nbytes, flops,
-                 library=lambda: torch.einsum("k,krl->rl", w, vals))
+                 library=lambda: torch.einsum("k,krl->rl", w, vals),
+                 device_time=True)
         if n_act == 0:
             out = codec.codec_aggregate_partial(vals, scales, m)
             check(bool((out == 0).all()) and not bool(
@@ -442,21 +526,29 @@ def kernel_checks(torch, syn, fem):
                                    "b": torch.zeros(C)}).rows
     K = mask.numel()
     none = torch.zeros_like(mask)
-    return [
+    rows = [
         row("dane_update_flat", "dane_update.py:62", "dane_update.cu",
             [k1_case(rows_syn)]),
         row("dane_update_2d", "dane_update.py:27", "dane_update.cu",
-            [k4_case(K * 60 * C, "w"), k4_case(K * C, "b")]),
-        # K2 also on a rank's slab of the mesh: the flat mesh's 5 of 10
-        # devices (the masked one among them), and the tree's one device
-        # a rank with its solve cut short by the hostile scenario's work
+            [k4_case(K * 60 * C, "w"), k4_case(K * C, "b")])]
+    # K2 also on a rank's slab of the mesh: the flat mesh's 5 of 10
+    # devices (the masked one among them), and the tree's one device a
+    # rank with its solve cut short by the hostile scenario's work
+    k2_cases = [k2_case(syn, both_tiers=True), k2_case(fem, both_tiers=True),
+                k2_case(syn, k=5, what=", rows 0:5 (2-rank mesh)"),
+                k2_case(syn, k=1, work=0.37,
+                        what=", row 0, work 0.37 (10-rank tree)"),
+                # past one block's shared memory: the global tier, at d up
+                # to the reference's budget (B*d + 2*d*C <= 2^20 at C=B=10)
+                k2_wide_case(2000), k2_wide_case(34952)]
+    return rows + [
         row("local_epoch", "local_solve.py:168", "local_solve.cu",
-            [k2_case(syn), k2_case(fem),
-             k2_case(syn, k=5, what=", rows 0:5 (2-rank mesh)"),
-             k2_case(syn, k=1, work=0.37,
-                     what=", row 0, work 0.37 (10-rank tree)")]),
+            k2_cases + global_at_shared),
         row("linear_logistic_step", "local_solve.py:68", "local_solve.cu",
-            [k3_case(fem), k3_case(syn)]),
+            [k3_case(first_solve_batches(fem)[0]),
+             k3_case(first_solve_batches(syn)[0]),
+             k3_case(wide_solve(2000, nb=1)[0]),
+             k3_case(wide_solve(34952, nb=1)[0])]),
         # K5 on the synthetic flat pack (phase 7) and the FEMNIST-like one
         row("codec_aggregate", "codec.py:34", "codec.cu",
             [k5_case(rows_syn, mask, "1 of 10 masked"),

@@ -126,9 +126,16 @@ def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
 P, F, LL, I = ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong, ctypes.c_int
 
 
-def stream() -> ctypes.c_void_p:
-    """The current CUDA stream as the C launchers take it."""
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream() -> int:
+    """The current CUDA stream of the current device, as the raw handle
+    the C launchers take (during a CUDA graph's capture, the capturing
+    stream).  Read through the private ``torch._C._cuda_getCurrentRawStream``,
+    the call PyTorch's own generated kernels launch with
+    (``torch._inductor``): the public ``torch.cuda.current_stream()``
+    builds a Stream object every call, a few microseconds of a launch path
+    that takes tens.  Only the wrappers call it, for tensors already on
+    the card (CUDA is initialised)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def check_launch(rc: int, what: str) -> None:

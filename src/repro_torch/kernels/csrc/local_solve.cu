@@ -18,12 +18,22 @@
 // The TPU grid runs in order and carried the running weights (K2) or the
 // gradient accumulators (K3) in VMEM scratch from one grid step to the
 // next.  Hopper's blocks run in any order, so one block owns device k and
-// walks its steps (K2) or row blocks (K3) itself, with the state in shared
-// memory.  A masked step is skipped outright, so it keeps w and b exactly.
+// walks its steps (K2) itself.  A masked step is skipped outright, so it
+// keeps w and b exactly.  Two tiers take every shape the reference's gate
+// (B d + 2 d C <= 2^20 words) takes:
+// - the shared tier (K2 where its layout below fits 227 KB: d <= 1,030 at
+//   C = B = 10) holds w, the correction, the anchor and two batches in
+//   shared memory;
+// - the global tier (K2 beyond that, and K3 at every size) runs a device
+//   on a cluster of up to 8 blocks, each owning a slice of the features,
+//   keeps w in global memory (1.4 MB a device at d = 34,952, C = 10),
+//   reads the batch, the correction and the anchor from there, and keeps
+//   in shared memory only what does not grow with d: two tiles of w, the
+//   B x C logit partials and residual, the biases.  See cluster_step.
 //
-// What bounds K2 on this card: neither roofline.  A step is ~4 B d C flops
-// (2.4 kflop at d=60, C=B=10; 31 kflop at d=784) on a 2.4 KB (or 31 KB)
-// batch, well under a microsecond of the whole card's bytes or f32 FMAs;
+// What bounds K2's shared tier on this card: neither roofline.  A step is
+// ~4 B d C flops (2.4 kflop at d=60, C=B=10; 31 kflop at d=784) on a 2.4 KB
+// (or 31 KB) batch, well under a microsecond of the card's bytes or FMAs;
 // but the steps of one device are a chain, and only K blocks (10 of 132
 // SMs) run.  K2's time is that chain's latency, step after step.  Its
 // design shortens one step:
@@ -48,73 +58,17 @@
 //   in place; one barrier before the next step.
 // Two barriers a step instead of four.  The sums run in another order than
 // the plain version's (lane partials over f = lane mod 32, then the trees).
-// K3 keeps its first design: one thread per output, a serial dot product
-// per logit and per gradient entry, four barriers per row block.
+// What bounds the global tier: a step reads ~8 MB a device at d = 34,952
+// (x twice, w twice, the correction and the anchor, w written back) with
+// few loads in flight a thread, so memory latency, and on one block a
+// device every instruction of the step would issue on one SM.  The
+// cluster spreads both over up to 8 SMs a device.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
-static const int kThreads = 256;  // K3's block
-
-// Stage rows [0, rows) of a batch slab into shared memory.
-__device__ __forceinline__ void stage_batch(const float* __restrict__ x,
-                                            const int* __restrict__ y,
-                                            float* xs, int* ys, int rows,
-                                            int d) {
-  for (int i = threadIdx.x; i < rows * d; i += blockDim.x) xs[i] = x[i];
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) ys[i] = y[i];
-}
-
-// z[i, c] = sum_f xs[i, f] w[f, c] + b[c] for i < rows.
-__device__ __forceinline__ void logits(const float* xs, const float* w,
-                                       const float* b, float* z, int rows,
-                                       int d, int C) {
-  for (int o = threadIdx.x; o < rows * C; o += blockDim.x) {
-    const int i = o / C, c = o % C;
-    const float* xi = xs + i * d;
-    float acc = 0.0f;
-    for (int f = 0; f < d; ++f) acc = fmaf(xi[f], w[f * C + c], acc);
-    z[o] = acc + b[c];
-  }
-}
-
-// In place: logits -> (softmax - onehot(y)) / batch_total, one row a thread.
-__device__ __forceinline__ void softmax_residual(float* z, const int* ys,
-                                                 int rows, int C,
-                                                 int batch_total) {
-  const float bt = (float)batch_total;
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    float* zi = z + i * C;
-    float m = zi[0];
-    for (int c = 1; c < C; ++c) m = fmaxf(m, zi[c]);
-    float s = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      const float e = expf(zi[c] - m);
-      zi[c] = e;
-      s += e;
-    }
-    for (int c = 0; c < C; ++c) {
-      const float p = zi[c] / s;
-      zi[c] = (p - (c == ys[i] ? 1.0f : 0.0f)) / bt;
-    }
-  }
-}
-
-// Partial x^T r over the staged rows for output o = f * C + c.
-__device__ __forceinline__ float grad_w(const float* xs, const float* z,
-                                        int rows, int d, int C, int o) {
-  const int f = o / C, c = o % C;
-  float g = 0.0f;
-  for (int i = 0; i < rows; ++i) g = fmaf(xs[i * d + f], z[i * C + c], g);
-  return g;
-}
-
-__device__ __forceinline__ float grad_b(const float* z, int rows, int C,
-                                        int c) {
-  float g = 0.0f;
-  for (int i = 0; i < rows; ++i) g += z[i * C + c];
-  return g;
-}
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float sgd_prox(float w, float g, float corr,
                                           float anchor, float eta,
@@ -138,6 +92,24 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 4 bytes, or 4 zero bytes where ``n`` is 0 (nothing is read).
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one of this thread's copy groups is in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Steps [base, base + 32 kWinWords) of a device's table as bits (kept iff
@@ -523,60 +495,376 @@ __global__ void __launch_bounds__(1024) local_epoch_kernel(
     ob[(long long)k * C + c] = b[c];
 }
 
-// K3.  Grid (K,); shared: gw (d*C) | gb (C) | x (RB*d) | z (RB*C) | y (RB).
+// ---------------------------------------------------------------------------
+// The global tier: K2 where its shared-memory layout does not fit one
+// block, and K3 at every size
+// ---------------------------------------------------------------------------
+//
+// A device's step runs on a cluster of cs blocks (cs <= 8, on neighbouring
+// SMs), block q owning a slice of the features, with w in global memory.
+// One block a device would wait on L2 and issue every instruction of the
+// step on one SM; the cluster spreads both over cs SMs.  Per kept step:
+//   1. each block: partial logits over its slice, z_q = x[:, slice]
+//      w[slice, :], into its own shared memory (slice_logits);
+//   2. one cluster barrier; each block sums the partials of all cs blocks
+//      in rank order, through distributed shared memory, and adds the
+//      bias: every block holds the same logits, bit for bit; then the
+//      softmax residual r, a warp a row;
+//   3. each block updates its slice of w (slice_update) and, redundantly
+//      and identically, the bias.
+// The partials alternate between two buffers from one kept step to the
+// next, so one cluster barrier a step suffices: a block writes a buffer
+// again only after the next step's barrier, which every block passes
+// after its reads.  A batch of thousands of rows (3 B RS floats past
+// kPartialFloats) runs on one block a device, its partials and r in a
+// global scratch that the caller allocates at the size
+// global_scratch_floats reports.
+
+// Floats of one of the two w tiles a block stages in shared memory (64 KB).
+static const int kTileFloats = 16384;
+
+// Row stride of a tile of ``width`` classes (a multiple of 4): an odd
+// multiple of 4 floats, so that the float4 reads of 8 lanes on 8
+// consecutive rows fall on 32 distinct banks.
+__host__ __device__ __forceinline__ int tile_stride(int width) {
+  return ((width / 4) & 1) ? width : width + 4;
+}
+
+// The widest tile row over the 16-class chunks of RS classes.
+__host__ __device__ __forceinline__ int tile_stride_max(int RS) {
+  return RS <= 16 ? tile_stride(RS) : 20;
+}
+
+// Rows of w a tile holds (a multiple of 32).
+__host__ __device__ __forceinline__ int tile_rows(int RS) {
+  return (kTileFloats / tile_stride_max(RS)) & ~31;
+}
+
+// Start copying rows [f0, f0 + nf) of w, classes [c0, c0 + width), into
+// a tile of ``S`` floats a row (the classes past C as zeros), by the whole
+// block, as one copy group of each thread.
+__device__ __forceinline__ void stage_tile(float* tile, const float* w,
+                                           int f0, int nf, int c0,
+                                           int width, int S, int C) {
+  for (int e = threadIdx.x; e < nf * width; e += blockDim.x) {
+    const int f = e / width, c = e - f * width;
+    const bool in = c0 + c < C;
+    cp_async4_zfill(tile + f * S + c,
+                    w + (in ? (long long)(f0 + f) * C + c0 + c : 0),
+                    in ? 4 : 0);
+  }
+  cp_async_commit();
+}
+
+// zout[i * RS + c] = sum_f x[i, f] w[f, c] over the dl features of a
+// slice (x's rows ldx apart, w's C), by the whole block (NW warps), 16
+// classes at a time: the block copies F rows of w (those classes,
+// padded) into one tile with cp.async while it computes on the other;
+// warp j takes row g0 + j % rows of a group of rows and part j / rows of
+// every tile, its lanes splitting the part's features with 16 class sums
+// a lane, kept across the tiles; one reduce-scatter a row and part, then
+// each sum adds its parts in order.  w is read once (once a group of NW
+// rows when B > NW).  ``tiles``: two tiles; ``zp``: NW * 16 floats.
+// Ends with a block barrier.
+__device__ void slice_logits(const float* __restrict__ x, long long ldx,
+                             const float* w, int dl, int B, int C, int F,
+                             float* tiles, float* zp, float* zout) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int NW = blockDim.x / 32;
+  const int RS = (C + 3) & ~3;
+  const int cls = ((lane >> 4) & 1) * 8 + ((lane >> 3) & 1) * 4 +
+                  ((lane >> 2) & 1) * 2 + ((lane >> 1) & 1);
+  const int tile_floats = F * tile_stride_max(RS);
+  for (int c0 = 0; c0 < RS; c0 += 16) {
+    const int width = min(16, RS - c0);
+    const int S = tile_stride(width);
+    for (int g0 = 0; g0 < B; g0 += NW) {
+      const int rows = min(NW, B - g0);
+      const int parts = NW / rows;
+      const bool active = warp < rows * parts;
+      const int p = warp / rows;
+      const float* xi = x + (long long)(g0 + warp % rows) * ldx;
+      float acc[16];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[c] = 0.0f;
+      if (dl > 0) stage_tile(tiles, w, 0, min(F, dl), c0, width, S, C);
+      for (int f0 = 0, it = 0; f0 < dl; f0 += F, ++it) {
+        const int nf = min(F, dl - f0);
+        if (f0 + F < dl) {  // the next tile lands while this one is used
+          stage_tile(tiles + ((it + 1) & 1) * tile_floats, w, f0 + F,
+                     min(F, dl - f0 - F), c0, width, S, C);
+          cp_async_wait_one();
+        } else {
+          cp_async_wait_all();
+        }
+        __syncthreads();
+        const float* tile = tiles + (it & 1) * tile_floats;
+        if (active) {
+          const int per = (nf + parts - 1) / parts;
+          const int hi = min(nf, (p + 1) * per);
+#pragma unroll 8
+          for (int f = p * per + lane; f < hi; f += 32) {
+            const float xf = xi[f0 + f];
+            const float4* wr = reinterpret_cast<const float4*>(tile + f * S);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if (4 * q < width) {
+                const float4 w4 = wr[q];
+                acc[4 * q] = fmaf(xf, w4.x, acc[4 * q]);
+                acc[4 * q + 1] = fmaf(xf, w4.y, acc[4 * q + 1]);
+                acc[4 * q + 2] = fmaf(xf, w4.z, acc[4 * q + 2]);
+                acc[4 * q + 3] = fmaf(xf, w4.w, acc[4 * q + 3]);
+              }
+            }
+          }
+        }
+        __syncthreads();  // this tile's readers are done before it refills
+      }
+      if (active) {
+        const float s = reduce_scatter16(acc, lane);
+        if ((lane & 1) == 0) zp[warp * 16 + cls] = s;
+      }
+      __syncthreads();
+      for (int o = threadIdx.x; o < rows * width; o += blockDim.x) {
+        const int i = o / width, c = o - i * width;
+        float s = 0.0f;
+        for (int q = 0; q < parts; ++q) s += zp[(q * rows + i) * 16 + c];
+        zout[(g0 + i) * RS + c0 + c] = s;
+      }
+      __syncthreads();  // zp is free again
+    }
+  }
+}
+
+// In place: logits -> (softmax - onehot(y)) / B, a warp a row, with
+// divisions; the pad classes [C, RS) become 0.
+__device__ void residual_rows(float* r, const int* __restrict__ y, int B,
+                              int C) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int RS = (C + 3) & ~3;
+  const float bt = (float)B;
+  for (int i = warp; i < B; i += blockDim.x / 32) {
+    float* ri = r + i * RS;
+    float m = -INFINITY;
+    for (int c = lane; c < C; c += 32) m = fmaxf(m, ri[c]);
+    m = warp_max(m);
+    float s = 0.0f;
+    for (int c = lane; c < C; c += 32) s += expf(ri[c] - m);
+    s = warp_sum(s);
+    const int yi = y[i];
+    for (int c = lane; c < RS; c += 32)
+      ri[c] = c < C ? (expf(ri[c] - m) / s - (c == yi ? 1.0f : 0.0f)) / bt
+                    : 0.0f;
+  }
+}
+
+// The update of a slice of dl rows of w (x's rows ldx apart): a thread a
+// feature f, 16 classes at a time: its w, correction and anchor loaded
+// first (before any store, so they are in flight together with the x
+// column), g = sum_i x[i, f] r[i, :] over the B rows in order, then the
+// prox update written straight to w_out.  w_in and w_out may alias: a
+// thread reads and then writes only its own entries.
+__device__ void slice_update(const float* __restrict__ x, long long ldx,
+                             int dl, const float* r, const float* w_in,
+                             const float* __restrict__ cw,
+                             const float* __restrict__ w0, float* w_out,
+                             int B, int C, float eta, float mu) {
+  const int RS = (C + 3) & ~3;
+  for (int f = threadIdx.x; f < dl; f += blockDim.x) {
+    for (int c0 = 0; c0 < C; c0 += 16) {
+      const long long o = (long long)f * C + c0;
+      float wv[16], cv[16], av[16], g[16];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const bool in = c0 + c < C;
+        wv[c] = in ? w_in[o + c] : 0.0f;
+        cv[c] = in ? cw[o + c] : 0.0f;
+        av[c] = in ? w0[o + c] : 0.0f;
+        g[c] = 0.0f;
+      }
+#pragma unroll 5
+      for (int i = 0; i < B; ++i) {
+        const float xv = x[(long long)i * ldx + f];
+        const float4* ri = reinterpret_cast<const float4*>(r + i * RS + c0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (c0 + 4 * q < RS) {
+            const float4 r4 = ri[q];
+            g[4 * q] = fmaf(xv, r4.x, g[4 * q]);
+            g[4 * q + 1] = fmaf(xv, r4.y, g[4 * q + 1]);
+            g[4 * q + 2] = fmaf(xv, r4.z, g[4 * q + 2]);
+            g[4 * q + 3] = fmaf(xv, r4.w, g[4 * q + 3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+        if (c0 + c < C)
+          w_out[o + c] = sgd_prox(wv[c], g[c], cv[c], av[c], eta, mu);
+    }
+  }
+}
+
+// The slices of a device's features: block ``rank`` of ``cs`` owns
+// [*f_lo, *f_lo + *dl), in multiples of 32 (the last may be short or
+// empty).
+__host__ __device__ __forceinline__ int slice_len(int d, int cs) {
+  return ((d + cs - 1) / cs + 31) & ~31;
+}
+
+// Where a global-tier block keeps things: two tiles | zp | (K2: b, cb, b0,
+// RS each) | the partials (two buffers of B * RS) | r (B * RS).  With
+// ``scratch``, the partials and r lie in global memory instead, 3 B RS
+// floats a device.
+struct GlobalLayout {
+  float *tiles, *zp, *bias, *zpart, *r;
+  int F;
+};
+
+__device__ __forceinline__ GlobalLayout global_layout(float* smem,
+                                                      float* scratch, int k,
+                                                      int B, int C,
+                                                      int n_bias) {
+  GlobalLayout L;
+  const int RS = (C + 3) & ~3;
+  L.F = tile_rows(RS);
+  L.tiles = smem;
+  L.zp = L.tiles + 2 * L.F * tile_stride_max(RS);
+  L.bias = L.zp + blockDim.x / 2;  // 16 floats a warp
+  L.zpart = scratch ? scratch + (long long)k * 3 * B * RS
+                    : L.bias + n_bias * RS;
+  L.r = L.zpart + 2 * B * RS;
+  return L;
+}
+
+// One kept step of device k on its cluster (see the section's note):
+// w_in/b_in -> w_out/b_out, block ``rank`` updating its slice of w, rank
+// 0 writing b_out when ``write_bias``; ``zpart``: this step's buffer.
+__device__ void cluster_step(
+    cg::cluster_group& cluster, int cs, int rank, const float* __restrict__ x,
+    const int* __restrict__ y, const float* w_in, const float* b_in,
+    const float* __restrict__ cw, const float* __restrict__ cb,
+    const float* __restrict__ w0, const float* __restrict__ b0, float* w_out,
+    float* b_out, bool write_bias, const GlobalLayout& L, float* zpart,
+    int B, int d, int C, float eta, float mu) {
+  const int RS = (C + 3) & ~3;
+  const int per = slice_len(d, cs);
+  const int f_lo = min(d, rank * per), dl = min(per, d - f_lo);
+  const long long o = (long long)f_lo * C;
+  slice_logits(x + f_lo, d, w_in + o, dl, B, C, L.F, L.tiles, L.zp, zpart);
+  cluster.sync();
+  for (int e = threadIdx.x; e < B * RS; e += blockDim.x) {
+    float s = 0.0f;
+    for (int q = 0; q < cs; ++q)
+      s += (cs == 1 ? zpart : cluster.map_shared_rank(zpart, q))[e];
+    const int c = e % RS;
+    L.r[e] = s + (c < C ? b_in[c] : 0.0f);
+  }
+  __syncthreads();
+  residual_rows(L.r, y, B, C);
+  __syncthreads();
+  slice_update(x + f_lo, d, dl, L.r, w_in + o, cw + o, w0 + o, w_out + o, B,
+               C, eta, mu);
+  if (write_bias) {
+    for (int c = blockDim.x - 1 - threadIdx.x; c < C; c += blockDim.x) {
+      float g = 0.0f;
+      for (int i = 0; i < B; ++i) g += L.r[i * RS + c];
+      b_out[c] = sgd_prox(b_in[c], g, cb[c], b0[c], eta, mu);
+    }
+  }
+  __syncthreads();
+}
+
+// K2's global tier.  Grid (cs K,) in clusters of cs, a cluster a device;
+// device k's running w is its rows of ow (each block initialises and
+// updates its own slice), its bias and the correction's and anchor's
+// biases are in each block's shared memory (every block updates its copy
+// alike; rank 0 writes ob).  The step table is read from global memory
+// (all threads read the same word), and a masked step is skipped by the
+// whole cluster, so it keeps w and b exactly.
+__global__ void __launch_bounds__(512) local_epoch_global_kernel(
+    const float* __restrict__ x, const int* __restrict__ y,
+    const float* __restrict__ cw, const float* __restrict__ cb,
+    const float* __restrict__ w0, const float* __restrict__ b0,
+    const float* __restrict__ step_mask, float* ow, float* __restrict__ ob,
+    float* scratch, int nb, int B, int d, int C, int T, float eta,
+    float mu) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int k = blockIdx.x / cs;
+  const int RS = (C + 3) & ~3;
+  const GlobalLayout L = global_layout(reinterpret_cast<float*>(smem4),
+                                       scratch, k, B, C, 3);
+  float* b = L.bias;
+  float* cbs = b + RS;
+  float* b0s = cbs + RS;
+  const long long dC = (long long)d * C;
+  float* owk = ow + k * dC;
+  const int per = slice_len(d, cs);
+  const long long lo = (long long)min(d, rank * per) * C;
+  const long long hi = (long long)min(d, (rank + 1) * per) * C;
+  for (long long e = lo + threadIdx.x; e < hi; e += blockDim.x)
+    owk[e] = w0[e];
+  for (int c = threadIdx.x; c < RS; c += blockDim.x) {
+    b[c] = b0s[c] = c < C ? b0[c] : 0.0f;
+    cbs[c] = c < C ? cb[(long long)k * C + c] : 0.0f;
+  }
+  __syncthreads();
+  const float* mk = step_mask + (long long)k * T;
+  int parity = 0;
+  for (int t = 0; t < T; ++t) {
+    if (!(mk[t] > 0.0f)) continue;
+    const long long slab = (long long)k * nb + t % nb;
+    cluster_step(cluster, cs, rank, x + slab * B * d, y + slab * B, owk, b,
+                 cw + k * dC, cbs, w0, b0s, owk, b, true, L,
+                 L.zpart + parity * B * RS, B, d, C, eta, mu);
+    parity ^= 1;
+  }
+  if (rank == 0)
+    for (int c = threadIdx.x; c < C; c += blockDim.x)
+      ob[(long long)k * C + c] = b[c];
+  cluster.sync();  // no block leaves while another may read its partials
+}
+
+// K3.  Grid (cs K,) in clusters of cs, a cluster a device: one
+// cluster_step from w to ow, or, for a masked device, w copied through.
 // Device k's batch rows start at x + k * x_stride (y + k * y_stride) and
-// are contiguous within the device.
-__global__ void logistic_step_kernel(
+// are contiguous within the device.  Shared memory is O(B C), whatever d.
+__global__ void __launch_bounds__(512) logistic_step_kernel(
     const float* __restrict__ w, const float* __restrict__ bias,
     const float* __restrict__ x, long long x_stride,
     const int* __restrict__ y, long long y_stride,
     const float* __restrict__ cw, const float* __restrict__ cb,
     const float* __restrict__ w0, const float* __restrict__ b0,
     const float* __restrict__ mask, float* __restrict__ ow,
-    float* __restrict__ ob, int B, int d, int C, int RB, float eta,
+    float* __restrict__ ob, float* scratch, int B, int d, int C, float eta,
     float mu) {
-  extern __shared__ float smem[];
-  const int dC = d * C;
-  float* gw = smem;
-  float* gb = gw + dC;
-  float* xs = gb + C;
-  float* z = xs + RB * d;
-  int* ys = (int*)(z + RB * C);
-  const int k = blockIdx.x;
-  const float* wk = w + (long long)k * dC;
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int k = blockIdx.x / cs;
+  const long long dC = (long long)d * C;
+  const float* wk = w + k * dC;
   const float* bk = bias + (long long)k * C;
-  float* owk = ow + (long long)k * dC;
+  float* owk = ow + k * dC;
   float* obk = ob + (long long)k * C;
-
-  if (!(mask[k] > 0.0f)) {  // masked device: identity step
-    for (int i = threadIdx.x; i < dC; i += blockDim.x) owk[i] = wk[i];
-    for (int i = threadIdx.x; i < C; i += blockDim.x) obk[i] = bk[i];
+  if (!(mask[k] > 0.0f)) {  // masked device: identity step, by slices
+    const int per = slice_len(d, cs);
+    const long long hi = (long long)min(d, (rank + 1) * per) * C;
+    for (long long e = (long long)min(d, rank * per) * C + threadIdx.x;
+         e < hi; e += blockDim.x)
+      owk[e] = wk[e];
+    if (rank == 0)
+      for (int i = threadIdx.x; i < C; i += blockDim.x) obk[i] = bk[i];
     return;
   }
-  for (int i = threadIdx.x; i < dC; i += blockDim.x) gw[i] = 0.0f;
-  for (int i = threadIdx.x; i < C; i += blockDim.x) gb[i] = 0.0f;
-  const float* xk = x + (long long)k * x_stride;
-  const int* yk = y + (long long)k * y_stride;
-  for (int r0 = 0; r0 < B; r0 += RB) {
-    const int rows = min(RB, B - r0);
-    __syncthreads();
-    stage_batch(xk + (long long)r0 * d, yk + r0, xs, ys, rows, d);
-    __syncthreads();
-    logits(xs, wk, bk, z, rows, d, C);
-    __syncthreads();
-    softmax_residual(z, ys, rows, C, B);
-    __syncthreads();
-    for (int o = threadIdx.x; o < dC; o += blockDim.x)
-      gw[o] += grad_w(xs, z, rows, d, C, o);
-    for (int c = threadIdx.x; c < C; c += blockDim.x)
-      gb[c] += grad_b(z, rows, C, c);
-  }
-  const float* cwk = cw + (long long)k * dC;
-  const float* cbk = cb + (long long)k * C;
-  for (int o = threadIdx.x; o < dC; o += blockDim.x)
-    owk[o] = sgd_prox(wk[o], gw[o], cwk[o], w0[o], eta, mu);
-  for (int c = threadIdx.x; c < C; c += blockDim.x)
-    obk[c] = sgd_prox(bk[c], gb[c], cbk[c], b0[c], eta, mu);
+  const GlobalLayout L = global_layout(reinterpret_cast<float*>(smem4),
+                                       scratch, k, B, C, 0);
+  cluster_step(cluster, cs, rank, x + k * x_stride, y + k * y_stride, wk, bk,
+               cw + k * dC, cb + (long long)k * C, w0, b0, owk, obk,
+               rank == 0, L, L.zpart, B, d, C, eta, mu);
+  cluster.sync();  // no block leaves while another may read its partials
 }
 
 static int allow_smem(const void* fn, size_t bytes) {
@@ -610,20 +898,110 @@ extern "C" int local_epoch_f32(
   return (int)cudaGetLastError();
 }
 
+// Floats of a device's logit partials and residual (3 B RS) that a
+// global-tier block keeps in shared memory; past this they lie in global
+// scratch.
+static const long long kPartialFloats = 16384;
+
+static bool partials_in_scratch(int B, int C) {
+  return 3LL * B * ((C + 3) & ~3) > kPartialFloats;
+}
+
+// The global scratch the global-tier launchers take for K devices on
+// batches of B rows and C classes, in floats: 0 where the partials and r
+// fit in shared memory (the launchers then take a null scratch).
+extern "C" int global_scratch_floats(int K, int B, int C,
+                                     long long* floats) {
+  *floats = partials_in_scratch(B, C) ? 3LL * K * B * ((C + 3) & ~3) : 0;
+  return 0;
+}
+
+// Blocks a device: up to 8 (a portable cluster), about 256 features a
+// block at least, and no more clusters than fit the SMs at once; one
+// where the partials lie in global scratch.
+static int cluster_size(int K, int d, bool scratch) {
+  static int sms = 0;
+  if (scratch) return 1;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int cs = std::min(std::min(8, (d + 255) / 256), sms / std::max(K, 1));
+  return std::max(1, cs);
+}
+
+// Threads of a global-tier block: a warp a batch row, and a thread a
+// feature of its slice, within 4 to 16 warps.
+static int global_threads(int B, int dl) {
+  return 32 * std::min(16, std::max(4, std::max(B, (dl + 31) / 32)));
+}
+
+// Shared bytes of a global-tier block: two tiles, zp, the biases, and the
+// partials and r unless they lie in global scratch.
+static size_t global_smem(int B, int C, int threads, int n_bias,
+                          bool scratch) {
+  const size_t rs = (size_t)((C + 3) & ~3);
+  return sizeof(float) *
+         (2 * (size_t)tile_rows((int)rs) * tile_stride_max((int)rs) +
+          (size_t)threads / 2 + n_bias * rs +
+          (scratch ? 0 : 3 * (size_t)B * rs));
+}
+
+template <typename Kernel, typename... Args>
+static int launch_clusters(Kernel kernel, int K, int cs, int threads,
+                           size_t smem, void* stream, Args... args) {
+  int rc = allow_smem((const void*)kernel, smem);
+  if (rc) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(K * cs));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (rc) return rc;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int local_epoch_global_f32(
+    const void* x, const void* y, const void* cw, const void* cb,
+    const void* w0, const void* b0, const void* step_mask, void* ow,
+    void* ob, void* scratch, int K, int nb, int B, int d, int C, int T,
+    float eta, float mu, void* stream) {
+  const bool in_scratch = partials_in_scratch(B, C);
+  if (in_scratch != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
+  const int cs = cluster_size(K, d, in_scratch);
+  const int threads = global_threads(B, slice_len(d, cs));
+  return launch_clusters(
+      local_epoch_global_kernel, K, cs, threads,
+      global_smem(B, C, threads, 3, in_scratch), stream,
+      (const float*)x, (const int*)y, (const float*)cw, (const float*)cb,
+      (const float*)w0, (const float*)b0, (const float*)step_mask,
+      (float*)ow, (float*)ob, (float*)scratch, nb, B, d, C, T, eta, mu);
+}
+
 extern "C" int linear_logistic_step_f32(
     const void* w, const void* b, const void* x, long long x_stride,
     const void* y, long long y_stride, const void* cw, const void* cb,
     const void* w0, const void* b0, const void* mask, void* ow, void* ob,
-    int K, int B, int d, int C, int RB, float eta, float mu, void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)d * C + C + (size_t)RB * d + (size_t)RB * C) +
-      sizeof(int) * (size_t)RB;
-  int rc = allow_smem((const void*)logistic_step_kernel, smem);
-  if (rc) return rc;
-  logistic_step_kernel<<<K, kThreads, smem, (cudaStream_t)stream>>>(
+    void* scratch, int K, int B, int d, int C, float eta, float mu,
+    void* stream) {
+  const bool in_scratch = partials_in_scratch(B, C);
+  if (in_scratch != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
+  const int cs = cluster_size(K, d, in_scratch);
+  const int threads = global_threads(B, slice_len(d, cs));
+  return launch_clusters(
+      logistic_step_kernel, K, cs, threads,
+      global_smem(B, C, threads, 0, in_scratch), stream,
       (const float*)w, (const float*)b, (const float*)x, x_stride,
       (const int*)y, y_stride, (const float*)cw, (const float*)cb,
       (const float*)w0, (const float*)b0, (const float*)mask, (float*)ow,
-      (float*)ob, B, d, C, RB, eta, mu);
-  return (int)cudaGetLastError();
+      (float*)ob, (float*)scratch, B, d, C, eta, mu);
 }

@@ -15,9 +15,16 @@ Both compute the analytic softmax-NLL gradient rather than autodiff, so
 they match the looped reference at atol 1e-5, not bitwise.  On the card
 they launch ``csrc/local_solve.cu``; for CPU tensors they take the plain
 versions in ``kernels/ref.py``.  Selection goes through the
-``SolverSpec`` registry of ``core/client.py``.
+``SolverSpec`` registry of ``core/client.py``, by the reference's gate
+(:func:`_select`): both kernels take every workload it fuses.  K2 runs
+in one of two tiers (:func:`epoch_tier`): with its whole state in one
+block's shared memory where that fits, else with the weights in global
+memory, as K3 always runs.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -27,11 +34,14 @@ from repro_torch.kernels.build import LL, F, I, P
 #: Shared memory one block may use on an H100 (227 KB of the SM's 256 KB).
 SMEM_LIMIT = 227 * 1024
 
-#: Batch rows K3 stages per pass; the gradient accumulates over passes.
-STEP_ROWS = 16
-
 #: K2 holds its step table in shared memory as bits, 4096 steps at a time.
 EPOCH_WINDOW_WORDS = 128
+
+#: The reference's gate for the fused solvers (``MAX_FUSED_ELEMS`` of
+#: ``repro/kernels/local_solve.py``, a VMEM budget in f32 words): they
+#: take a workload while ``B*d + 2*d*C`` stays within it.  Copied, so
+#: that both packages fuse the same workloads.
+MAX_FUSED_ELEMS = 1 << 20
 
 #: Longest step table (E * nb) for which "auto" picks the whole-epoch
 #: kernel.  Kept from the reference (a TPU grid-length rule) so that
@@ -41,30 +51,56 @@ MAX_EPOCH_STEPS = 4096
 _SIGNATURES = {
     "local_epoch_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F,
                         P),
-    "linear_logistic_step_f32": (P, P, P, LL, P, LL, P, P, P, P, P, P, P, I,
+    "local_epoch_global_f32": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                               I, F, F, P),
+    "linear_logistic_step_f32": (P, P, P, LL, P, LL, P, P, P, P, P, P, P, P,
                                  I, I, I, I, F, F, P),
+    "global_scratch_floats": (I, I, I, ctypes.POINTER(ctypes.c_longlong)),
 }
 F32 = torch.float32
 
 
 def epoch_smem_bytes(d: int, C: int, B: int) -> int:
-    """K2's shared memory: two 8-byte barriers, then 4-byte words with
-    rows padded to ``RS`` = C rounded up to 4: the running w, the
-    correction and the anchor (d*RS each), their biases (RS each), the
-    logits and the residual (B*RS each), the batch twice (2*B*d floats,
-    2*B labels: the next kept step's lands while one runs), the step
-    table's window (:data:`EPOCH_WINDOW_WORDS`) and two slots for the
-    next step."""
+    """K2's shared memory in its shared tier: two 8-byte barriers, then
+    4-byte words with rows padded to ``RS`` = C rounded up to 4: the
+    running w, the correction and the anchor (d*RS each), their biases
+    (RS each), the logits and the residual (B*RS each), the batch twice
+    (2*B*d floats, 2*B labels: the next kept step's lands while one
+    runs), the step table's window (:data:`EPOCH_WINDOW_WORDS`) and two
+    slots for the next step."""
     rs = -(-C // 4) * 4
     return 16 + 4 * (3 * d * rs + 3 * rs + 2 * B * rs + 2 * B * d + 2 * B
                      + 2 + EPOCH_WINDOW_WORDS)
 
 
-def step_smem_bytes(d: int, C: int, B: int) -> int:
-    """K3's shared memory: gradient accumulators (d*C + C) plus one
-    staged pass of ``min(B, STEP_ROWS)`` rows (x, labels, residual)."""
-    rb = min(B, STEP_ROWS)
-    return 4 * (d * C + C + rb * d + rb * C + rb)
+def epoch_tier(d: int, C: int, B: int) -> str:
+    """Which K2 tier runs a ``(d, C)`` model on batches of ``B``:
+    ``"shared"`` where :func:`epoch_smem_bytes` fits one block, else
+    ``"global"`` (w, the correction and the anchor in global memory, a
+    cluster of up to 8 blocks a device, as K3 runs)."""
+    return "shared" if epoch_smem_bytes(d, C, B) <= SMEM_LIMIT else "global"
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(K: int, B: int, C: int) -> int:
+    """Floats of global scratch the global tier takes (its logit partials
+    and residual, where they outgrow its shared memory), as the C
+    launchers report it; 0: none."""
+    n = ctypes.c_longlong()
+    build.library("local_solve", _SIGNATURES).global_scratch_floats(
+        K, B, C, ctypes.byref(n))
+    return n.value
+
+
+def _scratch(K: int, B: int, C: int, device):
+    """The global tier's scratch where its launchers take one, else
+    None."""
+    n = _scratch_floats(K, B, C)
+    return torch.empty(n, dtype=F32, device=device) if n else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_f32(what: str, **tensors) -> None:
@@ -113,18 +149,16 @@ def linear_logistic_step(w, batch, corr, w0, *, eta, mu, mask):
     if x.stride()[1:] != (d, 1) or y.stride(1) != 1:
         raise ValueError("linear_logistic_step: each device's batch rows "
                          "must be contiguous")
-    if step_smem_bytes(d, C, B) > SMEM_LIMIT:
-        raise ValueError("linear_logistic_step: model too large for the "
-                         "kernel's shared memory")
     lib = build.library("local_solve", _SIGNATURES)
     ow = torch.empty_like(w["w"])
     ob = torch.empty_like(w["b"])
+    r = _scratch(K, B, C, x.device)
     rc = lib.linear_logistic_step_f32(
         w["w"].data_ptr(), w["b"].data_ptr(), x.data_ptr(), x.stride(0),
         y.data_ptr(), y.stride(0), corr["w"].data_ptr(),
         corr["b"].data_ptr(), w0["w"].data_ptr(), w0["b"].data_ptr(),
-        mask.data_ptr(), ow.data_ptr(), ob.data_ptr(), K, B, d, C,
-        min(B, STEP_ROWS), float(eta), float(mu), build.stream())
+        mask.data_ptr(), ow.data_ptr(), ob.data_ptr(), _ptr(r), K, B, d, C,
+        float(eta), float(mu), build.stream())
     build.check_launch(rc, "linear_logistic_step")
     build.launch_counts["linear_logistic_step"] += 1
     return {"w": ow, "b": ob}
@@ -159,17 +193,20 @@ def local_epoch(w0, corr, batches, *, eta, mu, num_epochs: int,
     step_mask = step_mask.to(device=x.device, dtype=F32).contiguous()
     _check_cuda("local_epoch", x.device, x=x, y=y, cw=corr["w"],
                 cb=corr["b"], w0=w0["w"], b0=w0["b"])
-    if epoch_smem_bytes(d, C, B) > SMEM_LIMIT:
-        raise ValueError("local_epoch: model too large for the kernel's "
-                         "shared memory")
     lib = build.library("local_solve", _SIGNATURES)
     ow = torch.empty((K, d, C), dtype=F32, device=x.device)
     ob = torch.empty((K, C), dtype=F32, device=x.device)
-    rc = lib.local_epoch_f32(
-        x.data_ptr(), y.data_ptr(), corr["w"].data_ptr(),
-        corr["b"].data_ptr(), w0["w"].data_ptr(), w0["b"].data_ptr(),
-        step_mask.data_ptr(), ow.data_ptr(), ob.data_ptr(), K, nb, B, d, C,
-        T, float(eta), float(mu), build.stream())
+    args = (x.data_ptr(), y.data_ptr(), corr["w"].data_ptr(),
+            corr["b"].data_ptr(), w0["w"].data_ptr(), w0["b"].data_ptr(),
+            step_mask.data_ptr(), ow.data_ptr(), ob.data_ptr())
+    if epoch_tier(d, C, B) == "shared":
+        rc = lib.local_epoch_f32(*args, K, nb, B, d, C, T, float(eta),
+                                 float(mu), build.stream())
+    else:
+        r = _scratch(K, B, C, x.device)
+        rc = lib.local_epoch_global_f32(
+            *args, _ptr(r), K, nb, B, d, C, T, float(eta), float(mu),
+            build.stream())
     build.check_launch(rc, "local_epoch")
     build.launch_counts["local_epoch"] += 1
     return {"w": ow, "b": ob}
@@ -198,15 +235,17 @@ def _is_linear_logistic(w0, batches) -> bool:
 
 
 def _select(w0, batches, num_epochs: int):
+    """The reference's rule: no fused solver past the
+    :data:`MAX_FUSED_ELEMS` budget, the whole-epoch kernel up to
+    :data:`MAX_EPOCH_STEPS` steps, else the step kernel.  Shared memory
+    decides only the tier of K2 (:func:`epoch_tier`)."""
     if not _is_linear_logistic(w0, batches):
         return None
     d, C = w0["w"].shape
     _, nb, B = batches["x"].shape[:3]
-    if step_smem_bytes(d, C, B) > SMEM_LIMIT:
-        return None                 # operands exceed one block's smem
-    # K2 holds more than K3 (correction, anchor and a second batch)
-    if num_epochs * nb <= MAX_EPOCH_STEPS \
-            and epoch_smem_bytes(d, C, B) <= SMEM_LIMIT:
+    if B * d + 2 * d * C > MAX_FUSED_ELEMS:
+        return None
+    if num_epochs * nb <= MAX_EPOCH_STEPS:
         return "fused_epoch"
     return "fused_step"
 

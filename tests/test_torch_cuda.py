@@ -152,15 +152,23 @@ def _epoch_inputs(seed, K, nb, B, d, C, E, device, work=None):
     (10, 128, 10, 60, 10, 20, 0.37),   # a work cutoff
     (1, 128, 10, 60, 10, 20, None),    # one device (a rank of the tree)
     (3, 7, 5, 33, 18, 700, None),      # E*nb > 4096: the window moves;
-])                                     # C > 16: two class chunks
+                                       # C > 16: two class chunks
+    (10, 16, 10, 2000, 10, 20, None),  # the global tier
+    (10, 16, 10, 34952, 10, 20, None),  # the largest d the gate takes
+    (3, 4, 6, 1500, 21, 3, None),      # global tier, C > 16
+    (2, 2, 600, 1200, 10, 2, None),    # partials in global scratch
+])
 def test_local_epoch_kernel_matches_plain(card, K, nb, B, d, C, E, work):
-    """K2's redesigned step (warp-per-row logits, prefetched batches, the
-    step table as bits) against ``local_epoch_ref`` on the card; the
+    """K2 in both tiers against ``local_epoch_ref`` on the card: the
+    shared tier (warp-per-row logits, prefetched batches, the step table
+    as bits) and, past one block's shared memory, the global tier; the
     device with no kept step keeps the anchor exactly."""
     from repro_torch.kernels import local_solve
 
     w0, corr, batches, mask = _epoch_inputs(11, K, nb, B, d, C, E, card,
                                             work)
+    assert local_solve.epoch_tier(d, C, B) == (
+        "shared" if d <= 784 else "global")
     build.reset_launch_counts()
     got = local_solve.local_epoch(w0, corr, batches, eta=0.01, mu=0.001,
                                   num_epochs=E, step_mask=mask)
@@ -175,3 +183,105 @@ def test_local_epoch_kernel_matches_plain(card, K, nb, B, d, C, E, work):
         idle = min(3, K - 1)
         assert torch.equal(got["w"][idle], w0["w"])
         assert torch.equal(got["b"][idle], w0["b"])
+
+
+#: K3 against its plain version: one step, a dot product of length d
+#: summed in another order (chip_smoke.py's STEP_TOL).
+STEP_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,d,C", [
+    (10, 10, 60, 10),       # synthetic(1,1)
+    (10, 10, 784, 10),      # FEMNIST-like
+    (10, 10, 2000, 10),
+    (10, 10, 34952, 10),    # the largest d the gate takes
+    (3, 7, 300, 40),        # C > 16: three class chunks
+    (2, 3300, 20, 10),      # the residual outgrows shared memory
+])
+def test_logistic_step_kernel_matches_plain(card, K, B, d, C):
+    """K3 (one step, the weights in global memory) against
+    ``linear_logistic_step_ref`` on a ``[:, j]`` slice of a stacked batch,
+    as the fused_step mode hands it over; the masked device's weights
+    come through unchanged."""
+    from repro_torch.kernels import local_solve
+
+    w0, corr, batches, _ = _epoch_inputs(12, K, 2, B, d, C, 1, card)
+    rng = np.random.default_rng(13)
+    w = {"w": torch.from_numpy((0.1 * rng.normal(size=(K, d, C))).astype(
+             np.float32)).to(card),
+         "b": torch.from_numpy((0.1 * rng.normal(size=(K, C))).astype(
+             np.float32)).to(card)}
+    batch = {"x": batches["x"][:, 1], "y": batches["y"][:, 1]}
+    mask = torch.ones(K, device=card)
+    mask[min(1, K - 1)] = 0.0
+    build.reset_launch_counts()
+    got = local_solve.linear_logistic_step(w, batch, corr, w0, eta=0.01,
+                                           mu=0.001, mask=mask)
+    torch.cuda.synchronize()
+    assert build.launch_counts["linear_logistic_step"] == 1
+    want = ref.linear_logistic_step_ref(w, batch, corr, w0, eta=0.01,
+                                        mu=0.001, mask=mask)
+    for name in ("w", "b"):
+        torch.testing.assert_close(got[name], want[name], atol=STEP_TOL,
+                                   rtol=0)
+        assert torch.equal(got[name][min(1, K - 1)], w[name][min(1, K - 1)])
+
+
+def _codec_inputs(seed, K, rows, active, device):
+    """int8-like code points with per-client scales, as a codec round
+    gives them; ``active``: the 0/1 mask as a numpy array."""
+    rng = np.random.default_rng(seed)
+    vals = np.floor(rng.uniform(-127, 128, (K, rows, 128))).astype(
+        np.float32)
+    scales = rng.uniform(1e-4, 1e-3, K).astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return t(vals), t(scales), t(active.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partial", [False, True])
+@pytest.mark.parametrize("K,rows,mask", [
+    (10, 8, "one masked"),       # chip_smoke's phase-3 shapes
+    (10, 64, "one masked"),
+    (5, 8, "one masked"),
+    (1, 8, "all active"),
+    (2, 64, "all active"),
+    (1024, 8, "sparse"),         # the most clients a launch takes
+    (1024, 700, "sparse"),       # a slab over all the SMs
+    (1024, 8, "all active"),
+    (10, 8, "all inactive"),
+    (5, 8, "all inactive"),
+])
+def test_codec_kernels_match_plain_bitwise(card, partial, K, rows, mask):
+    """K5 (the mean) and K6 (the partial sum) bitwise equal to their
+    plain versions, whose order they keep (clients in order, every
+    product and sum rounded on its own); an all-inactive cohort gives
+    +0.0, with no sign bit."""
+    from repro_torch.kernels import codec
+
+    rng = np.random.default_rng(K * rows)
+    active = {"one masked": np.arange(K) != min(3, K - 1),
+              "all active": np.ones(K, bool),
+              "sparse": rng.uniform(size=K) < 0.05,
+              "all inactive": np.zeros(K, bool)}[mask]
+    vals, scales, m = _codec_inputs(K + rows, K, rows, active, card)
+    fn, plain, name = ((codec.codec_aggregate_partial,
+                        ref.codec_aggregate_partial_ref,
+                        "codec_aggregate_partial") if partial else
+                       (codec.codec_aggregate, ref.codec_aggregate_ref,
+                        "codec_aggregate"))
+    build.reset_launch_counts()
+    got = fn(vals, scales, m)
+    torch.cuda.synchronize()
+    assert build.launch_counts[name] == 1
+    want = plain(vals, scales, m)
+    assert got.shape == (rows, 128)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    if mask == "all inactive":
+        assert torch.equal(got, torch.zeros_like(got))
+        assert not bool(torch.signbit(got).any())

@@ -201,16 +201,18 @@ def test_select_matches_reference_modes(d, nb, epochs, want):
 
 
 def test_select_takes_the_step_kernel_where_only_it_fits():
-    """K2 holds more shared memory than K3 (the correction, the anchor
-    and a second batch): where only K3's footprint fits one block, the
-    gate picks it rather than no fused solver."""
+    """Where K2's state outgrows one block's shared memory, the gate still
+    picks the reference's mode -- the whole-epoch kernel -- and K2 runs
+    its global tier (w, the correction and the anchor in global memory)
+    rather than giving the workload to the step kernel.  (The name is
+    kept from when the step kernel took these shapes.)"""
     d, nb, B = 1500, 10, 10
-    assert local_solve.epoch_smem_bytes(d, 10, B) > local_solve.SMEM_LIMIT
-    assert local_solve.step_smem_bytes(d, 10, B) <= local_solve.SMEM_LIMIT
+    assert local_solve.epoch_tier(d, 10, B) == "global"
+    assert local_solve.epoch_tier(1030, 10, B) == "shared"
     w0 = {"w": torch.zeros(d, 10), "b": torch.zeros(10)}
     batches = {"x": torch.zeros(2, nb, B, d),
                "y": torch.zeros(2, nb, B, dtype=torch.int32)}
-    assert local_solve._select(w0, batches, 2) == "fused_step"
+    assert local_solve._select(w0, batches, 2) == "fused_epoch"
 
 
 def test_select_rejects_what_the_kernels_cannot_take():
@@ -223,7 +225,80 @@ def test_select_rejects_what_the_kernels_cannot_take():
     big = {"w": torch.zeros(8000, 10), "b": torch.zeros(10)}
     assert local_solve._select(
         big, {"x": torch.zeros(1, 1, 10, 8000),
-              "y": torch.zeros(1, 1, 10, dtype=torch.int32)}, 2) is None
+              "y": torch.zeros(1, 1, 10, dtype=torch.int32)},
+        2) == "fused_epoch"                        # within the reference's
+    over = {"w": torch.zeros(34953, 10), "b": torch.zeros(10)}  # budget
+    assert local_solve._select(
+        over, {"x": torch.zeros(1, 1, 10, 34953),
+               "y": torch.zeros(1, 1, 10, dtype=torch.int32)}, 2) is None
+
+
+@pytest.mark.parametrize("d,C,B,epochs,nb", [
+    (60, 10, 10, 20, 128),        # the paper's synthetic(1,1)
+    (784, 10, 10, 20, 64),        # FEMNIST-like
+    (1031, 10, 10, 20, 5),        # past K2's shared tier
+    (2899, 10, 10, 20, 5),
+    (2900, 10, 10, 20, 5),        # past the old step kernel's
+    (34952, 10, 10, 2, 5),        # the largest d the budget takes
+    (784, 62, 10, 20, 64),        # LEAF FEMNIST's 62 classes
+    (3000, 10, 32, 2, 5),
+    (34953, 10, 10, 2, 5),        # over the budget: no fused solver
+    (60, 10, 10, 32, 128),        # E*nb = 4096: the whole-epoch kernel
+    (60, 10, 10, 17, 241),        # E*nb = 4097: the step kernel
+])
+def test_select_equals_reference_gate(d, C, B, epochs, nb):
+    """The port's gate is the reference's, word for word: the same mode
+    (or none) at every shape, whatever shared memory holds."""
+    w0 = {"w": torch.zeros(d, C, device="meta"),
+          "b": torch.zeros(C, device="meta")}
+    batches = {"x": torch.zeros(2, nb, B, d, device="meta"),
+               "y": torch.zeros(2, nb, B, dtype=torch.int32,
+                                device="meta")}
+    jw0 = {"w": jax.ShapeDtypeStruct((d, C), jnp.float32),
+           "b": jax.ShapeDtypeStruct((C,), jnp.float32)}
+    jb = {"x": jax.ShapeDtypeStruct((2, nb, B, d), jnp.float32),
+          "y": jax.ShapeDtypeStruct((2, nb, B), jnp.int32)}
+    assert local_solve._select(w0, batches, epochs) == \
+        jls._select(jw0, jb, epochs)
+
+
+@pytest.mark.parametrize("mode", ["fused_epoch", "fused_step"])
+@pytest.mark.parametrize("d", [3000, 34952])
+def test_batched_solver_fuses_past_shared_memory(d, mode):
+    """The explicit fused modes resolve and run at sizes past one block's
+    shared memory, as in the reference: the port's batched solver (plain
+    versions on the CPU) against the reference's (Pallas kernels in
+    interpret mode), K=3 devices, one masked, one with a padding batch."""
+    from repro.core import client as jclient
+    from repro.models import small as jsmall
+    from repro_torch.core import client
+    from repro_torch.models import small
+
+    K, nb, B, C, E, eta, mu = 3, 2, 10, 10, 2, 0.01, 0.001
+    rng = np.random.default_rng(d)
+    x = rng.uniform(0.0, 1.0, (K, nb, B, d)).astype(np.float32)
+    y = rng.integers(0, C, (K, nb, B)).astype(np.int32)
+    w0 = {"w": (0.01 * rng.normal(size=(d, C))).astype(np.float32),
+          "b": (0.01 * rng.normal(size=C)).astype(np.float32)}
+    corr = {"w": (0.001 * rng.normal(size=(K, d, C))).astype(np.float32),
+            "b": (0.001 * rng.normal(size=(K, C))).astype(np.float32)}
+    valid = np.array([[1, 1], [1, 0], [0, 0]], np.float32)
+    want = jclient.make_batched_solver(
+        jsmall.logreg_loss, learning_rate=eta, num_epochs=E,
+        solver=mode)(_jtree(w0), _jtree(corr), mu,
+                     {"x": jnp.asarray(x), "y": jnp.asarray(y)},
+                     jnp.asarray(valid))
+    got = client.make_batched_solver(
+        small.logreg_loss, learning_rate=eta, num_epochs=E,
+        solver=mode)(pt.tmap(_t, w0), pt.tmap(_t, corr), mu,
+                     {"x": _t(x), "y": _t(y)}, _t(valid))
+    for name in ("w", "b"):
+        np.testing.assert_allclose(got.params[name].numpy(),
+                                   np.asarray(want.params[name]), rtol=0,
+                                   atol=1e-5)
+    np.testing.assert_array_equal(got.num_steps.numpy(),
+                                  np.asarray(want.num_steps))
+    np.testing.assert_array_equal(got.params["w"][2].numpy(), w0["w"])
 
 
 def test_wrappers_check_their_inputs():
@@ -258,6 +333,36 @@ def test_codec_aggregate_matches_reference(k, rows):
                                         jnp.asarray(mask), interpret=True)):
         np.testing.assert_allclose(got, np.asarray(want), rtol=CODEC_TOL,
                                    atol=CODEC_TOL)
+
+
+@pytest.mark.parametrize("partial", [False, True])
+def test_codec_aggregate_at_most_clients_matches_reference(partial):
+    """K5 and K6 at the most clients one launch takes (K=1,024) with a
+    sparse mask, about one client in twenty active: the plain versions
+    against the reference's Pallas kernels in interpret mode."""
+    k, rows = codec.MAX_CLIENTS, 8
+    rng = np.random.default_rng(1024)
+    vals = rng.standard_normal((k, rows, 128)).astype(np.float32)
+    scales = rng.uniform(0.5, 2.0, (k,)).astype(np.float32)
+    mask = (rng.uniform(size=k) < 0.05).astype(np.float32)
+    assert 0 < mask.sum() < k / 10
+    fn, jfn = ((codec.codec_aggregate_partial, jcodec.codec_aggregate_partial)
+               if partial else (codec.codec_aggregate, jcodec.codec_aggregate))
+    got = fn(_t(vals), _t(scales), _t(mask)).numpy()
+    want = np.asarray(jfn(jnp.asarray(vals), jnp.asarray(scales),
+                          jnp.asarray(mask), interpret=True))
+    # The port adds the n active clients in order, the reference reduces
+    # all K in XLA's order: two float32 sums of n terms differ by at most
+    # 2 n u sum |term| (u = 2^-24, a contracted product included), which
+    # at n ~ 50 exceeds CODEC_TOL; the mean's division rounds once more
+    # on each side (one ulp, <= 2^-23 |x|).
+    n = int(mask.sum())
+    terms = np.abs(vals.astype(np.float64)
+                   * (scales * mask)[:, None, None]).sum(axis=0)
+    bound = 2 * n * 2.0 ** -24 * terms
+    if not partial:
+        bound = bound / n + 2.0 ** -23 * np.abs(want)
+    assert np.all(np.abs(got.astype(np.float64) - want) <= bound)
 
 
 def test_codec_aggregate_all_inactive_is_zero():
