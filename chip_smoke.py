@@ -2,6 +2,9 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one card
+    python3 chip_smoke.py --update-paths A B B A
+                                   # the DANE update's cases, in turns,
+                                   # on the checkouts at A and B
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -21,9 +24,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    against its plain PyTorch version on the card, timed with CUDA events
    beside the plain version, its roofline bound (the bytes and flops the
    masks leave to do) and, for K5, K6 and K7, the one PyTorch call that
-   computes the same function; for K5, K6 and that call (``torch.einsum``
-   on weights made outside the timed call) also the device time of a
-   launch, from one replay of a CUDA graph of 100 launches.  K7 (flash
+   computes the same function; for K1, K4, K5, K6 and K5/K6's call
+   (``torch.einsum`` on weights made outside the timed call) also the
+   device time of a launch, from one replay of a CUDA graph of 100
+   launches (``device_ms``).  K1 on the synthetic and FEMNIST-like packs;
+   K4 as the per_leaf step launches it (every leaf of the stacked
+   synthetic model, masked, in one launch) and on each leaf's (rows,
+   128) view; and one local step's whole update path in each generic
+   solver mode -- ``ops.dane_update_masked`` (per_leaf) and
+   ``ops.FlatUpdate.step`` (flat: pack g, K1, the views of w) -- with
+   the kernels a step puts on the card (``torch.profiler``) and its
+   launches: one a step in both, at most 3 kernels in flat.  K7 (flash
    attention) at (a) qwen1.5-0.5b's prefill, BH=16, S=T=4096, hd=64,
    causal, f32; (b) (a) in bf16; (c) yi-9b's GQA-folded prefill in the
    model's head order, B*Kv=4 slices of 8*2048 rows against T=2048 keys,
@@ -41,7 +52,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    round against the same config on the port's CPU path (plain
    versions): the same selections, params within tolerance;
 5. feddane for 2 rounds in each explicit solver mode: flat and per_leaf
-   bitwise equal on the card, each mode's kernel launched;
+   bitwise equal on the card, each mode's kernel launched, and one
+   update launch a step in both generic modes (as many K4 launches in
+   per_leaf as K1 launches in flat);
 6. FEMNIST-like logistic regression at full width (d=784, C=10, N=200,
    K=10, E=20), feddane, 3 rounds on "auto" plus one round on
    "fused_step", held against the CPU path to a multiple of the spread
@@ -83,7 +96,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    main path -- phases 4-7 in this process (the counters are set to 0
    just before phase 4 and read just after phase 7), phase 8's ranks
    and phase 9 (set to 0 just before it and read just after) -- error,
-   times and bound, and each checked shape under ``cases``.
+   times and bound, and each checked shape under ``cases`` (with its
+   ``device_ms`` where phase 3 took one, and the update paths' kernels
+   and launches a step).
 
 Phases 4-7 also run one more round of the auto, fused_step and
 phase-7 cells under ``torch.profiler`` and print the card's idle share
@@ -217,6 +232,21 @@ def graph_ms(torch, fn, launches: int = 100, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
+def kernels_per_call(torch, fn):
+    """Device activities (kernels, copies, sets) ``torch.profiler``
+    records for one call of ``fn`` after a warm-up call; None if it
+    records none at all."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
 def max_err(torch, a, b) -> float:
     from repro_torch.core import pytree as pt
     return max(float((x.float() - y.float()).abs().max())
@@ -238,8 +268,10 @@ def kernel_checks(torch, syn, fem):
     from repro_torch.core.client import _epoch_step_mask
     from repro_torch.core.server import sample_devices
     from repro_torch.data.batching import stack_device_batches
-    from repro_torch.kernels import (codec, dane_update, flash_attention,
-                                     flatpack, local_solve, ref)
+    from repro_torch.kernels import (build, codec, dane_update,
+                                     flash_attention, flatpack, local_solve,
+                                     ref)
+    from repro_torch.kernels import ops as kops
 
     dev = syn.device
     rng = np.random.default_rng(1234)
@@ -286,10 +318,11 @@ def kernel_checks(torch, syn, fem):
         if device_time:
             # the launch alone, without the host's part of a call
             c["device_ms"] = graph_ms(torch, kernel, calls)
-            c["library_device_ms"] = graph_ms(torch, library, calls)
             lib += (f"  device (graph of {calls}): kernel "
-                    f"{c['device_ms']:.4f} ms, library "
-                    f"{c['library_device_ms']:.4f} ms")
+                    f"{c['device_ms']:.5f} ms")
+            if library is not None:
+                c["library_device_ms"] = graph_ms(torch, library, calls)
+                lib += f", library {c['library_device_ms']:.5f} ms"
         print(f"  {label:52s} err {err:.3g} (tol {tol:g}, rtol {rtol:g})  kernel "
               f"{c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms{lib}  bound "
               f"{b_ms:.6f} ms ({b_by})")
@@ -302,28 +335,114 @@ def kernel_checks(torch, syn, fem):
                     max_abs_err=max(c["max_abs_err"] for c in cases),
                     cases=cases)
 
+    def update_bytes(per_dev):
+        """A masked step's bytes: an active device reads w, g, c, a and
+        writes out; a masked one reads w and writes it; the mask once."""
+        K = mask.numel()
+        return 4 * (per_dev * (5 * active + 2 * (K - active)) + K)
+
     def k1_case(R):
-        """One flat-mode step over K devices of R rows of 128 lanes.
-        A masked device's rows read only w; the others read all four."""
+        """One flat-mode step over K devices of R rows of 128 lanes."""
         K = mask.numel()
         w, g, c, a = (normal(K * R, 128) for _ in range(4))
-        per_dev = R * 128
-        nbytes = 4 * (per_dev * (5 * active + 2 * (K - active)) + K)
         return case(
             f"dane_update_flat ({K * R}, 128) f32, 1 of {K} masked",
             lambda: dane_update.dane_update_flat(w, g, c, a, eta, mu, mask,
                                                  R),
             lambda: ref.dane_update_flat_ref(w, g, c, a, eta, mu, mask, R),
-            UPDATE_TOL, nbytes, 6 * per_dev * active)
+            UPDATE_TOL, update_bytes(R * 128), 6 * R * 128 * active,
+            device_time=True)
 
     def k4_case(n, leaf):
-        """The per-leaf launch for a K-stacked leaf of n elements."""
+        """The unmasked launch on a K-stacked leaf's (rows, 128) view."""
         w, g, c, a = (normal(-(-n // 128), 128) for _ in range(4))
         return case(
             f"dane_update_2d ({w.shape[0]}, 128) f32, the {leaf} leaf",
             lambda: dane_update.dane_update_2d(w, g, c, a, eta, mu),
             lambda: ref.dane_update_ref(w, g, c, a, eta=eta, mu=mu),
-            UPDATE_TOL, 5 * 4 * w.numel(), 6 * w.numel())
+            UPDATE_TOL, 5 * 4 * w.numel(), 6 * w.numel(), device_time=True)
+
+    # the synthetic model stacked over the K devices, as the per_leaf and
+    # flat solver modes hold it; the step mask a strided column of a
+    # (K, nb) table, as the solver hands it over
+    K = mask.numel()
+    table = torch.ones(K, 4, device=dev)
+    table[:, 1] = mask
+    col = table[:, 1]
+
+    def tree(scale=1.0, stacked=True):
+        lead = (K,) if stacked else ()
+        return {"w": normal(*lead, 60, C, scale=scale),
+                "b": normal(*lead, C, scale=scale)}
+
+    wt, gt, ct, w0t = tree(0.1), tree(), tree(0.01), tree(0.1, False)
+    at = pt.tmap(lambda x: x.expand((K,) + x.shape).contiguous(), w0t)
+    per_dev = 60 * C + C
+
+    def k4_tree_case():
+        """The per_leaf step's launch: every leaf, masked, at once."""
+        args = [pt.leaves(x) for x in (wt, gt, ct, at)]
+        return case(
+            f"dane_update_leaves {{w: ({K}, 60, {C}), b: ({K}, {C})}} f32, "
+            f"1 of {K} masked",
+            lambda: dane_update.dane_update_leaves(*args, eta, mu, col),
+            lambda: ref.dane_update_leaves_ref(*args, eta, mu, col),
+            UPDATE_TOL, update_bytes(per_dev), 6 * per_dev * active,
+            device_time=True)
+
+    def path_case(label, kernel, plain, fn, nbytes, flops, counter):
+        """One local step's whole update path (``fn``), held to ``plain``
+        and timed like a kernel, with the device activities a step puts
+        on the card (``torch.profiler``) and the launches it counts."""
+        before = build.launch_counts[counter]
+        fn()
+        launches = build.launch_counts[counter] - before
+        c = case(label, kernel, plain, UPDATE_TOL, nbytes, flops,
+                 device_time=True)
+        c.update(kernels_a_step=kernels_per_call(torch, fn),
+                 launches_a_step=launches)
+        print(f"    a step: {c['kernels_a_step']} kernels on the card, "
+              f"{launches} {counter}")
+        return c
+
+    def per_leaf_path_case():
+        """ops.dane_update_masked, the per_leaf solver's update a step."""
+        def fn():
+            return kops.dane_update_masked(wt, gt, ct, at, eta, mu, col)
+        c = path_case(
+            f"per_leaf step's update path, 1 of {K} masked", fn,
+            lambda: ref.dane_update_leaves_ref(
+                *(pt.leaves(x) for x in (wt, gt, ct, at)), eta, mu, col),
+            fn, update_bytes(per_dev), 6 * per_dev * active,
+            "dane_update_2d")
+        check(c["launches_a_step"] == 1 and c["kernels_a_step"] == 1,
+              f"the per_leaf step took {c['launches_a_step']} launches, "
+              f"{c['kernels_a_step']} kernels")
+        return c
+
+    def flat_path_case(R):
+        """ops.FlatUpdate.step, the flat solver's update a step (pack g,
+        K1, the views of w), against packing w and g anew and the plain
+        K1; the bytes count the g pack's copy too."""
+        spec = flatpack.flat_spec(w0t)
+        first = kops.FlatUpdate(spec, ct, w0t, K)
+        upd = kops.FlatUpdate(spec, ct, w0t, K)
+
+        def plain():
+            return flatpack.unpack_stacked(spec, ref.dane_update_flat_ref(
+                flatpack.pack_stacked(spec, at, K),
+                flatpack.pack_stacked(spec, gt, K), first.corr,
+                first.anchor, eta, mu, col, R), K)
+        c = path_case(
+            f"flat step's update path ({K * R}, 128), 1 of {K} masked",
+            lambda: first.step(gt, eta, mu, col), plain,
+            lambda: upd.step(gt, eta, mu, col),
+            update_bytes(R * 128) + 8 * K * per_dev, 6 * R * 128 * active,
+            "dane_update_flat")
+        check(c["launches_a_step"] == 1 and c["kernels_a_step"] is not None
+              and c["kernels_a_step"] <= 3,
+              f"the flat step took {c['kernels_a_step']} kernels")
+        return c
 
     # K2 in its global tier at shapes its shared tier takes: the times of
     # both tiers on the same inputs (appended to K2's row)
@@ -524,13 +643,14 @@ def kernel_checks(torch, syn, fem):
                                    "b": torch.zeros(C)}).rows
     rows_fem = flatpack.flat_spec({"w": torch.zeros(784, C),
                                    "b": torch.zeros(C)}).rows
-    K = mask.numel()
     none = torch.zeros_like(mask)
     rows = [
         row("dane_update_flat", "dane_update.py:62", "dane_update.cu",
-            [k1_case(rows_syn)]),
+            [k1_case(rows_syn), k1_case(rows_fem),
+             flat_path_case(rows_syn)]),
         row("dane_update_2d", "dane_update.py:27", "dane_update.cu",
-            [k4_case(K * 60 * C, "w"), k4_case(K * C, "b")])]
+            [k4_tree_case(), k4_case(K * 60 * C, "w"), k4_case(K * C, "b"),
+             per_leaf_path_case()])]
     # K2 also on a rank's slab of the mesh: the flat mesh's 5 of 10
     # devices (the masked one among them), and the tree's one device a
     # rank with its solve cut short by the hostile scenario's work
@@ -1011,7 +1131,7 @@ def main() -> int:
     uses = {"flat": "dane_update_flat", "per_leaf": "dane_update_2d",
             "fused_step": "linear_logistic_step",
             "fused_epoch": "local_epoch"}
-    finals = {}
+    finals, grown = {}, {}
     for mode, kernel in uses.items():
         cfg = FederatedConfig(algorithm="feddane", mu=0.001,
                               local_solver=mode, **PAPER)
@@ -1024,7 +1144,7 @@ def main() -> int:
             st = tr.round(st)
         torch.cuda.synchronize()
         phase_ms[f"feddane/{mode}"] = (time.perf_counter() - start) / 2e-3
-        grew = _delta(before, counts)
+        grew = grown[mode] = _delta(before, counts)
         check(grew.get(kernel, 0) > 0, f"{mode}: {kernel} never launched")
         finals[mode] = st.params
         if mode == "fused_step":
@@ -1034,6 +1154,14 @@ def main() -> int:
     for k in ("w", "b"):
         check(torch.equal(finals["flat"][k], finals["per_leaf"][k]),
               "flat and per_leaf differ on the card")
+    # one launch a step in both generic modes: per_leaf's K4 takes every
+    # leaf at once, as flat's K1 takes the pack
+    steps = grown["flat"]["dane_update_flat"]
+    check(grown["per_leaf"]["dane_update_2d"] == steps,
+          f"per_leaf launched K4 {grown['per_leaf']['dane_update_2d']} "
+          f"times in the {steps} steps flat launched K1")
+    print(f"  one update launch a step in flat and per_leaf: {steps} in "
+          f"2 rounds each")
     for mode in ("fused_step", "fused_epoch"):
         e = max_err(torch, finals[mode], finals["flat"])
         print(f"  |{mode} - flat| = {e:.2e}")
@@ -1145,5 +1273,103 @@ def _delta(before, after):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
+def update_paths(root: str) -> dict:
+    """The DANE update's cases on the checkout at ``root`` (its own
+    ``src/repro_torch``, imported in this process): K1 on the synthetic
+    and FEMNIST-like packs, K4 on the synthetic leaves' (rows, 128)
+    views, and one local step's update in each generic solver mode over
+    the synthetic model stacked on K=10 devices, one of them masked by a
+    strided column of a step table as the solver hands it over:
+    ``ops.dane_update_masked`` (per_leaf); ``flatpack.pack_stacked`` of w
+    and g, ``ops.dane_update_flat_masked`` and ``unpack_stacked`` (flat,
+    packing every step); ``ops.FlatUpdate.step`` (flat, w kept packed)
+    where the checkout has it.  Each case's call ms (CUDA events around
+    100 calls), device ms (a CUDA graph of 100 calls), kernels a call
+    (``torch.profiler``) and a digest of its output's bits."""
+    import hashlib
+
+    import torch
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    from repro_torch.core import pytree as pt
+    from repro_torch.kernels import build, dane_update, flatpack, ops
+
+    build.build_all(("dane_update",))
+    K, C, eta, mu = 10, 10, 0.01, 0.001
+    rng = np.random.default_rng(17)
+
+    def normal(*shape):
+        return torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).cuda()
+
+    table = torch.ones(K, 4, device="cuda")
+    table[3] = 0.0
+    mask = table[:, 1]
+    cases = {}
+
+    def case(name, fn, out=None):
+        out = fn() if out is None else out
+        h = hashlib.sha256()
+        for x in pt.leaves(out):
+            h.update(x.contiguous().cpu().view(torch.uint8).numpy())
+        cases[name] = dict(call_ms=cuda_ms(torch, fn, 100),
+                           device_ms=graph_ms(torch, fn, 100),
+                           kernels=kernels_per_call(torch, fn),
+                           digest=h.hexdigest()[:16])
+
+    for rows in (8, 64):
+        w, g, c, a = (normal(K * rows, 128) for _ in range(4))
+        case(f"K1 ({K * rows}, 128)", lambda: dane_update.dane_update_flat(
+            w, g, c, a, eta, mu, mask, rows))
+    for n in (K * 60 * C, K * C):
+        w, g, c, a = (normal(-(-n // 128), 128) for _ in range(4))
+        case(f"K4 ({w.shape[0]}, 128)",
+             lambda: dane_update.dane_update_2d(w, g, c, a, eta, mu))
+    wt, gt, ct = ({"w": normal(K, 60, C), "b": normal(K, C)}
+                  for _ in range(3))
+    w0 = {"w": normal(60, C), "b": normal(C)}
+    at = pt.tmap(lambda x: x.expand((K,) + x.shape).contiguous(), w0)
+    case("per_leaf step", lambda: ops.dane_update_masked(
+        wt, gt, ct, at, eta, mu, mask))
+    spec = flatpack.flat_spec(w0)
+    corr_f = flatpack.pack_stacked(spec, ct, K)
+    anchor_f = flatpack.pack_broadcast(spec, w0, K)
+    case("flat step, packing w and g", lambda: flatpack.unpack_stacked(
+        spec, ops.dane_update_flat_masked(
+            flatpack.pack_stacked(spec, wt, K),
+            flatpack.pack_stacked(spec, gt, K), corr_f, anchor_f, eta, mu,
+            mask, spec.rows), K))
+    if hasattr(ops, "FlatUpdate"):
+        # the digest is the first step's, from the anchor
+        upd = ops.FlatUpdate(spec, ct, w0, K)
+        first = ops.FlatUpdate(spec, ct, w0, K).step(gt, eta, mu, mask)
+        case("flat step, w kept packed",
+             lambda: upd.step(gt, eta, mu, mask), out=first)
+    return dict(root=root, card=smi(), cases=cases)
+
+
+def update_paths_main(roots) -> int:
+    """``--update-paths A B B A``: :func:`update_paths` on each checkout
+    in turn, each in its own process; one JSON line each.  Equal digests
+    across checkouts are bitwise-equal results."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    for root in roots or [str(ROOT)]:
+        out = subprocess.run(
+            [sys.executable, __file__, "--update-paths-of", root],
+            capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return out.returncode
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--update-paths"]:
+        sys.exit(update_paths_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--update-paths-of"]:
+        print(json.dumps(update_paths(sys.argv[2])))
+        sys.exit(0)
     sys.exit(main())

@@ -245,11 +245,10 @@ def make_batched_solver(loss_fn: Callable, *, learning_rate: float,
 
         if mode == "fused_step":
             step_fn = local_solver_spec(loss_fn).make_step(learning_rate)
+        if mode == "flat":
+            flat = kops.FlatUpdate(flatpack.flat_spec(w0), corr, w0, K)
+        else:
             corr = pt.tmap(torch.Tensor.contiguous, corr)
-        elif mode == "flat":
-            fspec = flatpack.flat_spec(w0)
-            corr_f = flatpack.pack_stacked(fspec, corr, K)
-            anchor_f = flatpack.pack_broadcast(fspec, w0, K)
 
         w = anchor
         so_far = torch.zeros_like(done)
@@ -262,12 +261,7 @@ def make_batched_solver(loss_fn: Callable, *, learning_rate: float,
                 if mode == "fused_step":
                     w = step_fn(w, batch, corr, w0, mu, m)
                 elif mode == "flat":
-                    g = grad_fn(w, batch)
-                    wf = kops.dane_update_flat_masked(
-                        flatpack.pack_stacked(fspec, w, K),
-                        flatpack.pack_stacked(fspec, g, K),
-                        corr_f, anchor_f, learning_rate, mu, m, fspec.rows)
-                    w = flatpack.unpack_stacked(fspec, wf, K)
+                    w = flat.step(grad_fn(w, batch), learning_rate, mu, m)
                 else:                               # per_leaf
                     g = grad_fn(w, batch)
                     w = kops.dane_update_masked(

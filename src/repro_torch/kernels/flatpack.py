@@ -100,6 +100,21 @@ def unpack_stacked(spec: FlatSpec, buf, k: int) -> Any:
     return pt.unflatten(spec.treedef, leaves)
 
 
+def stacked_slots(spec: FlatSpec, buf, k: int):
+    """Each leaf's ``(K, size)`` view of a ``(K*rows, LANES)`` buffer, in
+    leaf order."""
+    flat = buf.view(k, spec.padded)
+    return [flat[:, off:off + n] for off, n in zip(spec.offsets, spec.sizes)]
+
+
+def pack_stacked_into(slots, tree) -> None:
+    """Write a K-stacked tree's leaves into their :func:`stacked_slots`
+    of a buffer, one ``copy_`` (cast to f32) per leaf; the pad is left as
+    it is."""
+    for s, x in zip(slots, pt.leaves(tree)):
+        s.copy_(x.reshape(s.shape))
+
+
 def pack_broadcast(spec: FlatSpec, tree, k: int) -> torch.Tensor:
     """Unstacked tree broadcast to K devices: ``(K*rows, LANES)``."""
     one = pack(spec, tree)

@@ -5,7 +5,9 @@ Counterpart of the ``dane_update*`` and ``flash_attention`` wrappers of
 ``repro/kernels/ops.py``.  Each launches the CUDA kernel for tensors on
 the card and the plain version for tensors on the CPU (the choice is
 made in ``kernels/dane_update.py`` and ``kernels/flash_attention.py``);
-launches are counted in ``kernels.build.launch_counts``.
+launches are counted in ``kernels.build.launch_counts``.  On the card a
+tree's update is one launch over all its leaves, unpadded; on the CPU
+each leaf is padded to ``(rows, LANES)`` as the reference pads it.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 from repro_torch.core import pytree as pt
 from repro_torch.kernels import flatpack
 from repro_torch.kernels.dane_update import (LANES, dane_update_2d,
-                                             dane_update_flat)
+                                             dane_update_flat,
+                                             dane_update_leaves)
 from repro_torch.kernels.flash_attention import flash_attention_3d
 
 
@@ -29,8 +32,20 @@ def _pad_2d(a):
     return flat.reshape(rows, LANES), n
 
 
+def _leaves_on_card(ws, treedef, grad_tree, corr_tree, anchor_tree, eta,
+                    mu, mask=None):
+    """One :func:`dane_update_leaves` launch over the leaves ``ws`` of
+    the ``w`` tree (``treedef``) and those of the other trees."""
+    return pt.unflatten(treedef, dane_update_leaves(
+        ws, pt.leaves(grad_tree), pt.leaves(corr_tree),
+        pt.leaves(anchor_tree), eta, mu, mask))
+
+
 def dane_update_array(w, grad, g_corr, anchor, eta, mu):
     """Fused update (K4) for one array of any shape."""
+    if w.is_cuda:
+        return dane_update_leaves([w], [grad], [g_corr], [anchor], eta,
+                                  mu)[0]
     w2, n = _pad_2d(w)
     g2, _ = _pad_2d(grad)
     c2, _ = _pad_2d(g_corr)
@@ -40,8 +55,12 @@ def dane_update_array(w, grad, g_corr, anchor, eta, mu):
 
 
 def dane_update(w_tree, grad_tree, corr_tree, anchor_tree, eta, mu):
-    """The fused FedDANE step leaf-wise over parameter trees (one K4
-    launch per leaf)."""
+    """The fused FedDANE step leaf-wise over parameter trees (on the
+    card one K4 launch for every leaf)."""
+    ws, treedef = pt.flatten(w_tree)
+    if ws[0].is_cuda:
+        return _leaves_on_card(ws, treedef, grad_tree, corr_tree,
+                               anchor_tree, eta, mu)
     return pt.tmap(
         lambda w, g, c, a: dane_update_array(w, g, c, a, eta, mu),
         w_tree, grad_tree, corr_tree, anchor_tree)
@@ -49,10 +68,15 @@ def dane_update(w_tree, grad_tree, corr_tree, anchor_tree, eta, mu):
 
 def dane_update_masked(w_tree, grad_tree, corr_tree, anchor_tree, eta, mu,
                        valid):
-    """The step over *device-stacked* trees with a ``(K,)`` step mask:
-    one unmasked K4 launch per leaf for all devices, then the select
+    """The step over *device-stacked* trees with a ``(K,)`` step mask
     (devices with ``valid`` not > 0 keep ``w``) -- the ``per_leaf``
-    solver mode."""
+    solver mode.  On the card ONE launch for every leaf and device, the
+    select done in the kernel; on the CPU the update per leaf, then the
+    select."""
+    ws, treedef = pt.flatten(w_tree)
+    if ws[0].is_cuda:
+        return _leaves_on_card(ws, treedef, grad_tree, corr_tree,
+                               anchor_tree, eta, mu, valid)
     new = dane_update(w_tree, grad_tree, corr_tree, anchor_tree, eta, mu)
 
     def select(n, o):
@@ -68,6 +92,55 @@ def dane_update_flat_masked(wf, gf, cf, af, eta, mu, valid,
     launch for all leaves and devices, the mask resolved in the kernel.
     Per-element arithmetic equals the per-leaf path's bitwise."""
     return dane_update_flat(wf, gf, cf, af, eta, mu, valid, rows_per_dev)
+
+
+class FlatUpdate:
+    """The ``flat`` solver mode's update over one solve of K devices.
+
+    ``w`` stays a ``(K*rows, LANES)`` f32 pack from step to step: each
+    :meth:`step` packs only the gradient (one ``copy_`` per leaf into a
+    buffer whose zero pad is written once), launches K1 into the other
+    of two pack buffers and hands out the new ``w`` tree as views of it,
+    made once per buffer (leaves stored in another dtype are cast
+    copies, written back into the pack so that it holds what the tree
+    holds).  A
+    step's tree stays valid until the step after next writes its buffer
+    again.  The first step starts from the anchor.  Bitwise equal to
+    packing ``w`` and ``g`` anew every step.
+    """
+
+    def __init__(self, spec, corr_tree, w0_tree, k: int):
+        self.spec, self.k = spec, k
+        self.corr = flatpack.pack_stacked(spec, corr_tree, k)
+        self.anchor = flatpack.pack_broadcast(spec, w0_tree, k)
+        self.w = self.anchor
+        self.g = torch.zeros_like(self.anchor)
+        self._g_slots = flatpack.stacked_slots(spec, self.g, k)
+        self._cast = [i for i, dt in enumerate(spec.dtypes)
+                        if dt != torch.float32]
+        # the two buffers, each with its w tree (views where f32) and
+        # leaf slots
+        self._bufs = []
+        for _ in range(2):
+            b = torch.empty_like(self.anchor)
+            self._bufs.append((b, flatpack.unpack_stacked(spec, b, k),
+                               flatpack.stacked_slots(spec, b, k)))
+
+    def step(self, grad_tree, eta, mu, valid):
+        """One masked step from the gradient tree; returns the new ``w``
+        tree (K-stacked leaves)."""
+        flatpack.pack_stacked_into(self._g_slots, grad_tree)
+        out, tree, slots = self._bufs[0]
+        self._bufs.reverse()
+        self.w = dane_update_flat(self.w, self.g, self.corr, self.anchor,
+                                  eta, mu, valid, self.spec.rows, out=out)
+        if not self._cast:
+            return tree
+        tree = flatpack.unpack_stacked(self.spec, out, self.k)
+        leaves = pt.leaves(tree)
+        for i in self._cast:
+            slots[i].copy_(leaves[i].reshape(slots[i].shape))
+        return tree
 
 
 def dane_update_tree_masked(w_tree, grad_tree, corr_tree, anchor_tree,

@@ -38,6 +38,20 @@ def dane_update_flat_ref(w, grad, g_corr, anchor, eta: float, mu: float,
     return torch.where(keep, out, w)
 
 
+def dane_update_leaves_ref(w_leaves, g_leaves, c_leaves, a_leaves,
+                           eta: float, mu: float, mask=None):
+    """The per_leaf step's function (``dane_update_leaves``): the update
+    per leaf, then, with a ``(K,)`` ``mask`` over the leaves' leading
+    axis, the select -- a device whose mask is not > 0 keeps ``w``."""
+    outs = [dane_update_ref(w, g, c, a, eta=eta, mu=mu)
+            for w, g, c, a in zip(w_leaves, g_leaves, c_leaves, a_leaves)]
+    if mask is None:
+        return outs
+    keep = mask.to(F32) > 0
+    return [torch.where(keep.reshape(keep.shape + (1,) * (o.dim() - 1)),
+                        o, w) for o, w in zip(outs, w_leaves)]
+
+
 def _softmax_residual(x, y, w, b, batch_total: int):
     """K-batched softmax-regression gradient pieces in the kernels'
     order: logits, max-subtract, exp, normalise, ``(p - onehot)/B``,

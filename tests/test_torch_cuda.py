@@ -285,3 +285,184 @@ def test_codec_kernels_match_plain_bitwise(card, partial, K, rows, mask):
     if mask == "all inactive":
         assert torch.equal(got, torch.zeros_like(got))
         assert not bool(torch.signbit(got).any())
+
+
+def _bits_equal(a, b) -> bool:
+    """Bitwise equality (a float compare would call -0.0 == +0.0)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 64])    # synthetic, FEMNIST-like pack
+@pytest.mark.parametrize("masked", [0, 1, 10])
+def test_dane_update_flat_kernel_matches_plain_bitwise(card, rows, masked):
+    """K1 over a (10*rows, 128) f32 pack with 0, 1 or all 10 devices
+    masked (the mask a strided column, as the solver hands it over; and
+    into a given ``out``): bitwise equal to its plain version, one
+    launch a call."""
+    from repro_torch.kernels import dane_update
+
+    K = 10
+    w, g, c, a = (_normal(40 + i, (K * rows, 128), torch.float32, card)
+                  for i in range(4))
+    table = torch.ones(K, 3, device=card)
+    table[:masked, 1] = 0.0
+    mask = table[:, 1]
+    build.reset_launch_counts()
+    got = dane_update.dane_update_flat(w, g, c, a, 0.01, 0.001, mask, rows)
+    out = torch.empty_like(w)
+    into = dane_update.dane_update_flat(w, g, c, a, 0.01, 0.001, mask, rows,
+                                        out=out)
+    torch.cuda.synchronize()
+    assert build.launch_counts["dane_update_flat"] == 2 and into is out
+    want = ref.dane_update_flat_ref(w, g, c, a, 0.01, 0.001, mask, rows)
+    assert _bits_equal(got, want) and _bits_equal(out, want)
+    assert _bits_equal(got[:masked * rows], w[:masked * rows])
+
+
+_LEAF_SHAPES = [(10, 60, 10), (10, 10), (10, 61, 7), (10, 3), (10, 1),
+                (10, 128), (10, 0)]
+
+
+def _leaves(seed, shapes, dtypes, card, offset=0):
+    """Numpy-seeded leaves; ``offset``: each a view starting ``offset``
+    elements into a larger buffer (misaligned for vector loads)."""
+    out = []
+    for i, (s, dt) in enumerate(zip(shapes, dtypes)):
+        n = int(np.prod(s))
+        buf = _normal(seed + i, (n + offset,), dt, card)
+        out.append(buf[offset:].view(s))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dane_update_leaves_kernel_matches_plain_bitwise(card, dtype, masked,
+                                                         offset):
+    """K4's tree launch on leaves whose sizes are not multiples of 4 or of
+    128 (and an empty one), aligned and misaligned for vector loads,
+    masked (device 3) or not: bitwise equal to the per-leaf plain version
+    and its select, one launch for the whole tree."""
+    from repro_torch.kernels.dane_update import dane_update_leaves
+
+    dts = [dtype] * len(_LEAF_SHAPES)
+    w, g, c, a = (_leaves(60 + 10 * i, _LEAF_SHAPES, dts, card, offset)
+                  for i in range(4))
+    mask = None
+    if masked:
+        mask = torch.ones(10, device=card)
+        mask[3] = 0.0
+    build.reset_launch_counts()
+    got = dane_update_leaves(w, g, c, a, 0.05, 0.1, mask)
+    torch.cuda.synchronize()
+    assert build.launch_counts["dane_update_2d"] == 1
+    want = ref.dane_update_leaves_ref(w, g, c, a, 0.05, 0.1, mask)
+    for x, y, w_ in zip(got, want, w):
+        assert _bits_equal(x, y)
+        if masked:
+            assert _bits_equal(x[3], w_[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [47, 1])     # the synthetic leaves' views
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dane_update_2d_kernel_matches_plain_bitwise(card, rows, dtype):
+    from repro_torch.kernels.dane_update import dane_update_2d
+
+    w, g, c, a = (_normal(80 + i, (rows, 128), dtype, card)
+                  for i in range(4))
+    build.reset_launch_counts()
+    got = dane_update_2d(w, g, c, a, 0.01, 0.001)
+    torch.cuda.synchronize()
+    assert build.launch_counts["dane_update_2d"] == 1
+    assert _bits_equal(got, ref.dane_update_ref(w, g, c, a, eta=0.01,
+                                                mu=0.001))
+
+
+@pytest.mark.cuda
+def test_dane_update_leaves_chunks_a_long_mixed_tree(card):
+    """A tree of 150 leaves, float32 and bfloat16 in turn, takes three
+    launches of at most 64 segments, bitwise equal to the plain
+    version."""
+    from repro_torch.kernels.dane_update import MAX_SEGMENTS, dane_update_leaves
+
+    n = 150
+    shapes = [(4, 1 + (7 * i) % 300) for i in range(n)]
+    dts = [torch.float32 if i % 2 else torch.bfloat16 for i in range(n)]
+    w, g, c, a = (_leaves(1000 * (i + 1), shapes, dts, card)
+                  for i in range(4))
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=card)
+    build.reset_launch_counts()
+    got = dane_update_leaves(w, g, c, a, 0.02, 0.3, mask)
+    torch.cuda.synchronize()
+    assert build.launch_counts["dane_update_2d"] == -(-n // MAX_SEGMENTS)
+    want = ref.dane_update_leaves_ref(w, g, c, a, 0.02, 0.3, mask)
+    assert all(_bits_equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_dane_update_wrappers_raise_on_the_card(card):
+    """A tensor on the card that the kernel cannot take raises: no copy,
+    no plain version."""
+    from repro_torch.kernels import dane_update
+
+    w = torch.zeros(16, 128, device=card)
+    t = torch.zeros(128, 16, device=card).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        dane_update.dane_update_2d(w, w, w, t, 0.1, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        dane_update.dane_update_flat(t, w, w, w, 0.1, 0.0,
+                                     torch.ones(2, device=card), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        dane_update.dane_update_leaves([t], [w], [w], [w], 0.1, 0.0)
+    with pytest.raises(ValueError, match="differ"):
+        dane_update.dane_update_leaves([w], [w.cpu()], [w], [w], 0.1, 0.0)
+    with pytest.raises(TypeError, match="dtype"):
+        h = w.half()
+        dane_update.dane_update_2d(h, h, h, h, 0.1, 0.0)
+
+
+@pytest.mark.cuda
+def test_flat_and_per_leaf_solves_are_bitwise_equal_on_the_card(card):
+    """Three rounds of the batched solver in the flat and per_leaf modes
+    (each round's anchor the mean of the last round's devices), K=10 with
+    a padding batch and a masked device: bitwise equal, one K1 launch a
+    step in flat and one K4 launch a step in per_leaf."""
+    from repro_torch.core import client
+    from repro_torch.core import pytree as pt
+    from repro_torch.models import small
+
+    K, nb, B, d, C, E = 10, 4, 10, 60, 10, 2
+    rng = np.random.default_rng(17)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    batches = {"x": t(rng.normal(size=(K, nb, B, d)).astype(np.float32)),
+               "y": t(rng.integers(0, C, (K, nb, B)).astype(np.int32))}
+    valid = np.ones((K, nb), np.float32)
+    valid[1, 3] = 0.0
+    valid[3] = 0.0
+    valid = t(valid)
+    corr = {"w": t(0.01 * rng.normal(size=(K, d, C)).astype(np.float32)),
+            "b": t(0.01 * rng.normal(size=(K, C)).astype(np.float32))}
+    w0 = {"w": t(0.1 * rng.normal(size=(d, C)).astype(np.float32)),
+          "b": t(0.1 * rng.normal(size=C).astype(np.float32))}
+    solve = {mode: client.make_batched_solver(
+        small.logreg_loss, learning_rate=0.01, num_epochs=E, solver=mode)
+        for mode in ("flat", "per_leaf")}
+    kernel = {"flat": "dane_update_flat", "per_leaf": "dane_update_2d"}
+    anchors = {mode: w0 for mode in solve}
+    for _ in range(3):
+        for mode, fn in solve.items():
+            build.reset_launch_counts()
+            res = fn(anchors[mode], corr, 0.001, batches, valid)
+            torch.cuda.synchronize()
+            assert build.launch_counts[kernel[mode]] == E * nb
+            anchors[mode] = pt.tmap(lambda x: x.mean(dim=0), res.params)
+        for name in ("w", "b"):
+            assert _bits_equal(anchors["flat"][name],
+                               anchors["per_leaf"][name])

@@ -109,6 +109,202 @@ def test_tree_flat_equals_per_leaf_bitwise():
         assert torch.equal(flat[name], leaf[name])
 
 
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_dane_update_leaves_matches_reference(dtype, masked):
+    """The per_leaf step's one-launch wrapper (its plain version on the
+    CPU) against the reference's per-leaf kernels in interpret mode, on
+    leaves whose sizes are not multiples of 4 or of 128; a masked device
+    keeps w bitwise."""
+    from repro_torch.kernels.dane_update import dane_update_leaves
+    k = 4
+    shapes = {"w": (k, 61, 7), "b": (k, 3), "v": (k, 1)}
+    trees = [dict(zip(shapes, _np(10 + i, *shapes.values())))
+             for i in range(4)]
+    valid = np.array([1, 0, 1, 1], np.float32)
+    if dtype == "bfloat16":
+        jt = [jax.tree_util.tree_map(
+            lambda x: jnp.asarray(x, jnp.bfloat16), t) for t in trees]
+        tt = [pt.tmap(lambda x: _t(x).to(torch.bfloat16), t)
+              for t in trees]
+    else:
+        jt = [_jtree(t) for t in trees]
+        tt = [pt.tmap(_t, t) for t in trees]
+    if masked:
+        want = jops.dane_update_masked(*jt, 0.05, 0.1, jnp.asarray(valid),
+                                       interpret=True)
+    else:
+        want = jops.dane_update(*jt, 0.05, 0.1, interpret=True)
+    got = dane_update_leaves(*(pt.leaves(t) for t in tt), 0.05, 0.1,
+                             _t(valid) if masked else None)
+    for name, leaf in zip(sorted(shapes), got):
+        assert leaf.dtype == tt[0][name].dtype
+        np.testing.assert_allclose(
+            leaf.float().numpy(),
+            np.asarray(want[name].astype(jnp.float32)), rtol=0,
+            atol=UPDATE_ATOL)
+        if masked:
+            assert torch.equal(leaf[1], tt[0][name][1])
+
+
+def _pack_every_step(spec, k, w, grads, corr, w0, eta, mu, masks):
+    """The flat step as it was written before ``ops.FlatUpdate``: pack w
+    and g anew each step, one K1 launch, unpack."""
+    corr_f = flatpack.pack_stacked(spec, corr, k)
+    anchor_f = flatpack.pack_broadcast(spec, w0, k)
+    for g_of, m in zip(grads, masks):
+        wf = ops.dane_update_flat_masked(
+            flatpack.pack_stacked(spec, w, k),
+            flatpack.pack_stacked(spec, g_of(w), k), corr_f, anchor_f, eta,
+            mu, m, spec.rows)
+        w = flatpack.unpack_stacked(spec, wf, k)
+    return w
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_flat_update_equals_packing_every_step(bf16):
+    """``ops.FlatUpdate`` keeps w packed across steps and packs only g:
+    bitwise equal to packing w and g anew each step, over 5 masked steps
+    of a tree with (with ``bf16``) a bfloat16 leaf, whose rounding the
+    kept pack must carry; a step's tree stays valid through the next
+    step."""
+    k = 3
+    leaf_dt = {"w": torch.float32,
+               "b": torch.bfloat16 if bf16 else torch.float32,
+               "z": torch.float32}
+    w0 = {n: _t(x).to(leaf_dt[n]) for n, x in
+          zip(("w", "b", "z"), _np(20, (60, 10), (10,), (3, 5)))}
+    corr = {n: _t(x).to(leaf_dt[n]) for n, x in
+            zip(("w", "b", "z"), _np(21, (k, 60, 10), (k, 10), (k, 3, 5)))}
+    spec = flatpack.flat_spec(w0)
+    masks = [_t(np.array(m, np.float32)) for m in
+             ([1, 1, 1], [1, 0, 1], [0, 0, 0], [1, 1, 0], [1, 1, 1])]
+
+    def g_of(w):                  # a gradient that depends on w
+        return pt.tmap(lambda x: (torch.sin(x.float()) * 0.3).to(x.dtype),
+                       w)
+
+    anchor = pt.tmap(lambda x: x.expand((k,) + x.shape).contiguous(), w0)
+    want = _pack_every_step(spec, k, anchor, [g_of] * 5, corr, w0, 0.05,
+                            0.2, masks)
+    upd = ops.FlatUpdate(spec, corr, w0, k)
+    w, prev = anchor, None
+    for m in masks:
+        w_next = upd.step(g_of(w), 0.05, 0.2, m)
+        if prev is not None:
+            for a, b in zip(pt.leaves(w), prev):
+                assert torch.equal(a, b)
+        w, prev = w_next, [x.clone() for x in pt.leaves(w_next)]
+    for name in w0:
+        assert w[name].dtype == leaf_dt[name]
+        assert torch.equal(w[name], want[name])
+
+
+@pytest.mark.parametrize("cutoff", [False, True])
+def test_flat_solver_keeps_w_packed_bitwise(cutoff):
+    """The flat solver mode (w kept packed) equals the per_leaf mode and
+    the pack-every-step loop bitwise over E=2 epochs, K=3 devices (one
+    with a padding batch, one masked out), with and without a step
+    cap."""
+    from repro_torch.core import client
+    from repro_torch.models import small
+
+    K, nb, B, d, C, E, eta, mu = 3, 3, 10, 60, 10, 2, 0.01, 0.001
+    rng = np.random.default_rng(5)
+    x = _t(rng.normal(size=(K, nb, B, d)).astype(np.float32))
+    y = _t(rng.integers(0, C, (K, nb, B)).astype(np.int32))
+    w0 = {"w": _t((0.1 * rng.normal(size=(d, C))).astype(np.float32)),
+          "b": _t((0.1 * rng.normal(size=C)).astype(np.float32))}
+    corr = {"w": _t((0.01 * rng.normal(size=(K, d, C))).astype(np.float32)),
+            "b": _t((0.01 * rng.normal(size=(K, C))).astype(np.float32))}
+    valid = _t(np.array([[1, 1, 1], [1, 1, 0], [0, 0, 0]], np.float32))
+    limit = _t(np.array([4, 2, 3], np.float32)) if cutoff else None
+    args = (w0, corr, mu, {"x": x, "y": y}, valid) + \
+        ((limit,) if cutoff else ())
+    got = {mode: client.make_batched_solver(
+        small.logreg_loss, learning_rate=eta, num_epochs=E,
+        with_cutoff=cutoff, solver=mode)(*args)
+        for mode in ("flat", "per_leaf")}
+
+    grad_fn = torch.func.vmap(torch.func.grad(small.logreg_loss))
+    grads, masks, so_far = [], [], torch.zeros(K)
+    for _ in range(E):
+        for j in range(nb):
+            batch = {"x": x[:, j], "y": y[:, j]}
+            grads.append(lambda w, batch=batch: grad_fn(w, batch))
+            v = valid[:, j]
+            masks.append(v if limit is None else v * (so_far < limit))
+            so_far = so_far + v
+    anchor = pt.tmap(lambda a: a.expand((K,) + a.shape).contiguous(), w0)
+    want = _pack_every_step(flatpack.flat_spec(w0), K, anchor, grads, corr,
+                            w0, eta, mu, masks)
+    for name in ("w", "b"):
+        assert torch.equal(got["flat"].params[name], want[name])
+        assert torch.equal(got["per_leaf"].params[name], want[name])
+    assert torch.equal(got["flat"].params["w"][2], anchor["w"][2])
+
+
+_W = torch.zeros(2, 5, 3)
+
+
+@pytest.mark.parametrize("args,err,match", [
+    (dict(g=[torch.zeros(2, 5, 4)]), ValueError, "differ"),
+    (dict(c=[torch.zeros(2, 5, 3, dtype=torch.float64)]), ValueError,
+     "differ"),
+    (dict(w=[_W.half()], g=[_W.half()], c=[_W.half()], a=[_W.half()]),
+     TypeError, "dtype"),
+    (dict(a=[torch.zeros(2, 5, 3, device="meta")]), ValueError, "differ"),
+    (dict(w=[_W.to("meta")], g=[_W.to("meta")], c=[_W.to("meta")],
+          a=[_W.to("meta")]), ValueError, "on meta"),
+    (dict(mask=torch.ones(3)), ValueError, "mask shape"),
+    (dict(mask=torch.ones(2, 1)), ValueError, "mask shape"),
+    (dict(g=[_W, _W]), ValueError, "leaves"),
+    (dict(w=[_W, torch.zeros(3, 5)], g=[_W, torch.zeros(3, 5)],
+          c=[_W, torch.zeros(3, 5)], a=[_W, torch.zeros(3, 5)]),
+     ValueError, "leading axis"),
+])
+def test_dane_update_leaves_checks_its_inputs(args, err, match):
+    from repro_torch.kernels.dane_update import dane_update_leaves
+    kw = dict(w=[_W], g=[_W], c=[_W], a=[_W], mask=torch.ones(2))
+    kw.update(args)
+    with pytest.raises(err, match=match) as e:
+        dane_update_leaves(kw["w"], kw["g"], kw["c"], kw["a"], 0.1, 0.0,
+                           kw["mask"])
+    assert str(e.value).startswith("dane_update_leaves: ")
+
+
+def test_update_wrappers_take_any_layout_on_cpu_and_check_out():
+    """On the CPU the plain versions take strided operands, as before the
+    segment kernel (contiguity is a rule of the card only), and give the
+    contiguous copies' bits."""
+    from repro_torch.kernels import dane_update
+    gen = torch.Generator().manual_seed(3)
+    w, g, c, a = (torch.randn(16, 128, generator=gen) for _ in range(4))
+    t = torch.randn(128, 16, generator=gen).t()
+    mask = torch.tensor([1.0, 0.0])
+    assert torch.equal(dane_update.dane_update_2d(w, g, c, t, 0.1, 0.3),
+                       dane_update.dane_update_2d(w, g, c, t.contiguous(),
+                                                  0.1, 0.3))
+    assert torch.equal(
+        dane_update.dane_update_flat(t, g, c, a, 0.1, 0.3, mask, 8),
+        dane_update.dane_update_flat(t.contiguous(), g, c, a, 0.1, 0.3,
+                                     mask, 8))
+    lt = torch.randn(2, 128, 8, generator=gen).transpose(1, 2)
+    g, c, a = (x.view(2, 8, 128) for x in (g, c, a))
+    got = dane_update.dane_update_leaves([lt], [g], [c], [a], 0.1, 0.3, mask)
+    want = dane_update.dane_update_leaves([lt.contiguous()], [g], [c], [a],
+                                          0.1, 0.3, mask)
+    assert torch.equal(got[0], want[0])
+    w = torch.zeros(16, 128)
+    with pytest.raises(ValueError, match="out must be"):
+        dane_update.dane_update_flat(w, w, w, w, 0.1, 0.0, torch.ones(2), 8,
+                                     out=torch.zeros(8, 128))
+    out = torch.full((16, 128), 7.0)
+    got = dane_update.dane_update_flat(w + 1, w, w, w, 0.5, 0.0,
+                                       torch.ones(2), 8, out=out)
+    assert got is out and bool((out == 1.0).all())
+
+
 def test_flatpack_layout_matches_reference():
     k = 3
     tree = {"w": _np(1, (k, 60, 10))[0], "b": _np(2, (k, 10))[0]}
