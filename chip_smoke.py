@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together), printing ptxas's registers,
    stack frame and spills of every entry;
-3. each kernel (K1-K7) at every shape phases 4-9 give it (K2 and K3 at
+3. each kernel (K1-K7) at every shape phases 4-10 give it (K2 and K3 at
    both d=60 and d=784, K2 also on a rank's devices of the flat mesh
    and, with its steps cut short, of the tree; K2 and K3 also at d=2,000
    and d=34,952 on numpy-seeded batches, K=10, nb=16, B=10: K2's global
@@ -27,9 +27,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    computes the same function; for K1, K4, K5, K6 and K5/K6's call
    (``torch.einsum`` on weights made outside the timed call) also the
    device time of a launch, from one replay of a CUDA graph of 100
-   launches (``device_ms``).  K1 on the synthetic and FEMNIST-like packs;
+   launches (``device_ms``).  K1 on the synthetic, FEMNIST-like,
+   Sent140 LSTM (4,800 rows) and Shakespeare LSTM (63,920 rows) packs;
    K4 as the per_leaf step launches it (every leaf of the stacked
-   synthetic model, masked, in one launch) and on each leaf's (rows,
+   synthetic model, and the 9 leaves of the stacked Shakespeare LSTM,
+   masked, each in one launch) and on each synthetic leaf's (rows,
    128) view; and one local step's whole update path in each generic
    solver mode -- ``ops.dane_update_masked`` (per_leaf) and
    ``ops.FlatUpdate.step`` (flat: pack g, K1, the views of w) -- with
@@ -67,7 +69,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    the CPU path: the same selections and masks every round, params
    within tolerance (int8 within 4x its own measured sensitivity), and
    one K5 launch per lossy round on the card;
-8. the client mesh (``core/sharding.py``) on the paper config, 3
+8. the paper's non-convex tasks (Fig. 1) through the LSTMs at full
+   width with Fig. 1's settings, on the python driver with vmap's
+   per-sample fallback switched off: Sent140-like (N=772, K=10, B=10,
+   ``sentlstm_specs(400, 25, 100)``, lr=0.1, E cut from 2 to 1) for
+   feddane (mu=0.001), fedprox (mu=1) and fedavg, 2 rounds each on
+   ``auto`` (which is ``flat``: K1 once a local step), held round by
+   round against the CPU path as phase 6 holds FEMNIST-like (the spread
+   a 1e-7 nudge of w0 on every leaf causes there), the feddane cell's
+   loss over a seeded sample of 50 devices too; Shakespeare-like (N=143,
+   ``charlstm_specs(80, 8, 256)``, lr=0.3, E=1, sample_cap cut to 32)
+   feddane 2 rounds on ``flat`` (its first round held to the CPU path)
+   and on ``per_leaf``: bitwise equal, K4 launched as often as K1 (once
+   a step over all 9 leaves); then one card-only round at sample_cap
+   512, timed on the host clock.  Each task's local step in parts: the
+   host's ``vmap(grad)`` (its idle share under the profiler) against
+   K1's time;
+9. the client mesh (``core/sharding.py``) on the paper config, 3
    rounds a cell, its ranks started by ``run_on_mesh`` on cuda:0 over
    gloo (NCCL refuses two ranks on one device): a flat mesh of 2 ranks
    for feddane and scaffold (ideal, dense) and fedavg with topk (error
@@ -80,7 +98,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    spread-based bound for int8); K6 must launch once per rank and lossy
    round and K5 never in the ranks (each rank sets its counters to 0
    just before its cells and reads them just after);
-9. the LM stack's inference path at full width, random weights from
+10. the LM stack's inference path at full width, random weights from
    seed 0, f32: qwen1.5-0.5b (24 layers, d=1024, 16 heads) through
    ``make_prefill_step`` at B=2, S=128 held against the port's CPU path,
    and at B=1, S=4096 and B=2, S=1024 against the same model on the card
@@ -92,17 +110,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU path's; yi-9b at full width cut to 4 of its 48 layers (32 heads
    on 4 KV heads), B=1, S=2048, against the card's plain attention, K7
    launched 4 times;
-10. the ``kernels`` JSON line: every kernel with its launches on the
-   main path -- phases 4-7 in this process (the counters are set to 0
-   just before phase 4 and read just after phase 7), phase 8's ranks
-   and phase 9 (set to 0 just before it and read just after) -- error,
+11. the ``kernels`` JSON line: every kernel with its launches on the
+   main path -- phases 4-8 in this process (the counters are set to 0
+   just before phase 4 and read just after phase 8), phase 9's ranks
+   and phase 10 (set to 0 just before it and read just after) -- error,
    times and bound, and each checked shape under ``cases`` (with its
    ``device_ms`` where phase 3 took one, and the update paths' kernels
    and launches a step).
 
 Phases 4-7 also run one more round of the auto, fused_step and
 phase-7 cells under ``torch.profiler`` and print the card's idle share
-in it.
+in it (phase 8: one local step of each LSTM task).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src/repro_torch`` beside this
@@ -163,7 +181,7 @@ MAX_REL_LIMIT = 0.01
 #: by at most one bf16 ulp (<= 2^-7 |x|); the sweep's 4e-2 would exceed a
 #: typical output at S=4096 (~0.03 for late rows).
 FLASH_TOL = {"f32": (4e-5, 2e-5), "bf16": (4e-3, 1e-2)}
-#: Phase 9: full-width logits on the card against the CPU path or the
+#: Phase 10: full-width logits on the card against the CPU path or the
 #: card's plain attention, relative to max |logit|: 24 layers of f32
 #: products summed in another order.
 LOGIT_REL = 1e-4
@@ -232,19 +250,23 @@ def graph_ms(torch, fn, launches: int = 100, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernels_per_call(torch, fn):
+def kernels_per_call(torch, fn, attempts: int = 3):
     """Device activities (kernels, copies, sets) ``torch.profiler``
     records for one call of ``fn`` after a warm-up call; None if it
-    records none at all."""
+    records none at all in ``attempts`` profiled calls (the profiler
+    now and then records nothing for a call that launched kernels)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n or None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            return n
+    return None
 
 
 def max_err(torch, a, b) -> float:
@@ -261,7 +283,7 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
 
 def kernel_checks(torch, syn, fem):
     """Phase 3: K1-K7 against their plain versions at every shape that
-    phases 4-9 give them; returns the rows of the kernels line (launches
+    phases 4-10 give them; returns the rows of the kernels line (launches
     filled in later).  A row's ``max_abs_err`` is the worst of its
     cases; its times and bound are those of its first case."""
     from repro_torch.core import pytree as pt
@@ -272,6 +294,8 @@ def kernel_checks(torch, syn, fem):
                                      flash_attention, flatpack, local_solve,
                                      ref)
     from repro_torch.kernels import ops as kops
+    from repro_torch.data.leaf_like import SENT_VOCAB, SHAKES_VOCAB
+    from repro_torch.models.small import charlstm_specs, sentlstm_specs
 
     dev = syn.device
     rng = np.random.default_rng(1234)
@@ -379,12 +403,16 @@ def kernel_checks(torch, syn, fem):
     at = pt.tmap(lambda x: x.expand((K,) + x.shape).contiguous(), w0t)
     per_dev = 60 * C + C
 
-    def k4_tree_case():
-        """The per_leaf step's launch: every leaf, masked, at once."""
-        args = [pt.leaves(x) for x in (wt, gt, ct, at)]
+    def k4_tree_case(label, args, per_dev):
+        """The per_leaf step's launch: every leaf of ``args`` (the w, g,
+        c and anchor leaves, K-stacked), masked, at once -- one launch."""
+        before = build.launch_counts["dane_update_2d"]
+        dane_update.dane_update_leaves(*args, eta, mu, col)
+        launches = build.launch_counts["dane_update_2d"] - before
+        check(launches == 1, f"K4 took {launches} launches for the "
+                             f"{len(args[0])} leaves of {label}")
         return case(
-            f"dane_update_leaves {{w: ({K}, 60, {C}), b: ({K}, {C})}} f32, "
-            f"1 of {K} masked",
+            f"dane_update_leaves {label} f32, 1 of {K} masked",
             lambda: dane_update.dane_update_leaves(*args, eta, mu, col),
             lambda: ref.dane_update_leaves_ref(*args, eta, mu, col),
             UPDATE_TOL, update_bytes(per_dev), 6 * per_dev * active,
@@ -636,6 +664,16 @@ def kernel_checks(torch, syn, fem):
             library=lambda: sdpa(q4, k4, v4, is_causal=causal,
                                  enable_gqa=gqa is not None))
 
+    # The LSTMs of phase 8 at full width: the Sent140 model's flat pack
+    # (480 rows a device) and the Shakespeare model's (6,392), and the
+    # Shakespeare model's 9 leaves stacked over the K devices
+    char_specs = pt.leaves(charlstm_specs(SHAKES_VOCAB))
+    char_args = [[normal(K, *sp.shape, scale=sc) for sp in char_specs]
+                 for sc in (0.1, 1.0, 0.01)]
+    char_args.append([normal(*sp.shape, scale=0.1).expand(
+        (K,) + sp.shape).contiguous() for sp in char_specs])
+    char_per_dev = sum(x[0].numel() for x in char_args[0])
+
     # K1 runs on the synthetic model's flat pack (8 rows a device); K4 on
     # its two leaves, (K, 60, 10) and (K, 10); K2 on the auto path of both
     # datasets; K3 on both fused_step runs.
@@ -647,10 +685,19 @@ def kernel_checks(torch, syn, fem):
     rows = [
         row("dane_update_flat", "dane_update.py:62", "dane_update.cu",
             [k1_case(rows_syn), k1_case(rows_fem),
-             flat_path_case(rows_syn)]),
+             flat_path_case(rows_syn),
+             k1_case(lstm_rows(sentlstm_specs(SENT_VOCAB))),
+             k1_case(lstm_rows(charlstm_specs(SHAKES_VOCAB)))]),
         row("dane_update_2d", "dane_update.py:27", "dane_update.cu",
-            [k4_tree_case(), k4_case(K * 60 * C, "w"), k4_case(K * C, "b"),
-             per_leaf_path_case()])]
+            [k4_tree_case(f"{{w: ({K}, 60, {C}), b: ({K}, {C})}}",
+                          [pt.leaves(x) for x in (wt, gt, ct, at)],
+                          per_dev),
+             k4_case(K * 60 * C, "w"), k4_case(K * C, "b"),
+             per_leaf_path_case(),
+             k4_tree_case(f"charlstm ({len(char_specs)} leaves, "
+                          f"{char_per_dev:,} a device)", char_args,
+                          char_per_dev)])]
+    del char_args
     # K2 also on a rank's slab of the mesh: the flat mesh's 5 of 10
     # devices (the masked one among them), and the tree's one device a
     # rank with its solve cut short by the hostile scenario's work
@@ -682,7 +729,7 @@ def kernel_checks(torch, syn, fem):
              k6_case(rows_syn, mask[:1], "one client a rank"),
              k6_case(rows_fem, mask[:2], "FEMNIST-like pack"),
              k6_case(rows_syn, none[:5], "all 5 inactive")]),
-        # K7 at phase 9's prefill shapes, plus bf16, ragged and non-causal
+        # K7 at phase 10's prefill shapes, plus bf16, ragged and non-causal
         row("flash_attention", "flash_attention.py:24",
             "flash_attention.cu",
             [k7_case("qwen B=1 S=4096", 16, 4096, 4096, 64, True, "f32"),
@@ -697,33 +744,59 @@ def kernel_checks(torch, syn, fem):
     ]
 
 
-def cpu_sensitivity(torch, data_cpu, cfg, nudge: float = 1e-7,
-                    rounds: int = 1):
-    """How far ``rounds`` rounds of ``cfg`` on the CPU path move when the
-    starting weights are nudged by ``nudge`` (two numpy-seeded
-    directions; the larger move), and the scale of the resulting params
-    (max |param|)."""
+def lstm_rows(specs) -> int:
+    """Rows a device of the flat pack of the model of ``specs``."""
+    import torch
+    from repro_torch.core import pytree as pt
+    from repro_torch.kernels import flatpack
+    return flatpack.flat_spec(pt.tmap(lambda sp: torch.zeros(sp.shape),
+                                      specs)).rows
+
+
+def cpu_trajectories(torch, loss_fn, data_cpu, cfg, p0, rounds: int,
+                     nudge: float = 1e-7):
+    """``rounds`` rounds of ``cfg`` on the CPU path (batched engine) from
+    ``p0`` and from ``p0`` nudged by ``nudge`` times two numpy-seeded
+    directions on every leaf.  Returns, per round, the params and
+    selections of the run from ``p0``, the larger move of the two nudged
+    runs (the spread float32 rounding can cause) and max |param|."""
     from repro_torch.core import FederatedTrainer
     from repro_torch.core import pytree as pt
+
+    runs = []
+    for seed, eps in ((7, 0.0), (7, nudge), (8, nudge)):
+        rng = np.random.default_rng(seed)
+        p = pt.tmap(lambda x: x + torch.from_numpy(
+            (eps * rng.normal(size=tuple(x.shape))).astype(np.float32)), p0)
+        tr = FederatedTrainer(loss_fn, data_cpu,
+                              dataclasses.replace(cfg, engine="batched"),
+                              device="cpu")
+        st = tr.init(p)
+        traj = []
+        for _ in range(rounds):
+            st = tr.round(st)
+            traj.append((pt.tmap(torch.clone, st.params),
+                         tr.last_selection))
+        runs.append(traj)
+    base = runs[0]
+    spread = [max(max_err(torch, base[r][0], o[r][0]) for o in runs[1:])
+              for r in range(rounds)]
+    scale = [max(float(x.abs().max()) for x in pt.leaves(b[0]))
+             for b in base]
+    return base, spread, scale
+
+
+def cpu_sensitivity(torch, data_cpu, cfg, rounds: int = 1):
+    """:func:`cpu_trajectories` of logistic regression from zeros, after
+    its last round: the spread and max |param|."""
     from repro_torch.models.param import init_params
     from repro_torch.models.small import logreg_loss, logreg_specs
 
     d = data_cpu.device_batches(0)["x"].shape[-1]
-    out = []
-    for seed, eps in ((7, 0.0), (7, nudge), (8, nudge)):
-        noise = np.random.default_rng(seed).normal(size=(d, 10))
-        tr = FederatedTrainer(logreg_loss, data_cpu,
-                              dataclasses.replace(cfg, engine="batched"),
-                              device="cpu")
-        p = init_params(logreg_specs(d, 10), torch.Generator(),
-                        device="cpu")
-        p["w"] = p["w"] + torch.from_numpy((eps * noise).astype(np.float32))
-        st = tr.init(p)
-        for _ in range(rounds):
-            st = tr.round(st)
-        out.append(st.params)
-    scale = max(float(x.abs().max()) for x in pt.leaves(out[0]))
-    return max(max_err(torch, out[0], o) for o in out[1:]), scale
+    p0 = init_params(logreg_specs(d, 10), torch.Generator(), device="cpu")
+    _, spread, scale = cpu_trajectories(torch, logreg_loss, data_cpu, cfg,
+                                        p0, rounds)
+    return spread[-1], scale[-1]
 
 
 def run_pair(torch, syn_gpu, syn_cpu, cfg, rounds: int, label: str,
@@ -780,7 +853,279 @@ def run_pair(torch, syn_gpu, syn_cpu, cfg, rounds: int, label: str,
     return gpu, sg, statistics.median(ms)
 
 
-#: Phase 8: (ranks, edges) -> [(algorithm, scenario, codec)], 3 rounds a
+#: Phase 8: the paper's non-convex tasks (Fig. 1) at full model width
+#: (the specs' defaults), with Fig. 1's settings
+#: (benchmarks/fig1_convergence.py:15,60-67): lr and E per task, mu per
+#: algorithm -- but Sent140's E cut from 2 to 1 for the script's time.
+#: Sent140-like at Table I's N=772, the global loss over a seeded sample
+#: of LOSS_DEVICES of its devices; Shakespeare-like at N=143 with each
+#: device's samples capped at the generator's default 512 for the
+#: card-only round and at SHAKES_CPU_CAP where the CPU path runs too.
+SENT140 = dict(num_devices=772, devices_per_round=10, local_epochs=1,
+               local_batch_size=10, learning_rate=0.1, seed=0)
+SHAKESPEARE = dict(num_devices=143, devices_per_round=10, local_epochs=1,
+                   local_batch_size=10, learning_rate=0.3, seed=0)
+FIG1_MU = {"feddane": 0.001, "fedprox": 1.0, "fedavg": 0.0}
+LSTM_ROUNDS = 2
+#: The Shakespeare-like CPU path takes ~37 s a round at sample_cap 64
+#: on the card's host (~38 GFLOP a local step, 8 steps and two gradient
+#: passes of 8 batches), three times over for the spread: its flat cell
+#: is held to it for this many of its rounds, at this cap (every device
+#: then has 32 samples, 4 batches).
+SHAKES_CPU_ROUNDS = 1
+SHAKES_CPU_CAP = 32
+LOSS_DEVICES = 50
+#: The card's and the CPU path's global loss at the same round, relative.
+LOSS_REL = 1e-5
+
+
+def lstm_cell(torch, label, loss_fn, data, data_cpu, cfg, p0,
+              rounds: int, cpu_rounds: int, counts):
+    """``rounds`` rounds of ``cfg`` on the card from ``p0`` (CUDA events
+    around each), the first ``cpu_rounds`` held against the CPU path: the
+    same selections, params within SPREAD_FACTOR x the spread a 1e-7
+    nudge of ``p0`` causes there (TRAJECTORY_TOL where it causes none),
+    that limit under MAX_REL_LIMIT of the params' scale.  Returns the
+    card's trainer and state, the ms of its rounds, its launches and the
+    CPU path's last compared params."""
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+
+    base, spread, scale = [], [], []
+    if cpu_rounds:
+        t0 = time.perf_counter()
+        base, spread, scale = cpu_trajectories(torch, loss_fn, data_cpu,
+                                               cfg, p0, cpu_rounds)
+        print(f"  {label}: CPU path, {cpu_rounds} round(s) x 3 runs in "
+              f"{time.perf_counter() - t0:.1f} s; a 1e-7 nudge of w0 moves "
+              f"params by {[f'{x:.2e}' for x in spread]}; max |param| "
+              f"{[f'{x:.3g}' for x in scale]}")
+    tr = FederatedTrainer(loss_fn, data, cfg)
+    st = tr.init(p0)
+    before = dict(counts)
+    ms, errs, tols = [], [], []
+    for r in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        st = tr.round(st)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        if r >= cpu_rounds:
+            continue
+        params_cpu, sel = base[r]
+        for a, b in zip(tr.last_selection, sel):
+            check(np.array_equal(a, b), f"{label}: round {r} selections "
+                                        f"differ from the CPU path's")
+        tol = SPREAD_FACTOR * spread[r] if spread[r] > 0 else TRAJECTORY_TOL
+        check(tol <= MAX_REL_LIMIT * scale[r],
+              f"{label}: limit {tol} exceeds {MAX_REL_LIMIT} x {scale[r]}")
+        errs.append(max_err(torch, pt.tmap(lambda x: x.cpu(), st.params),
+                            params_cpu))
+        tols.append(tol)
+        check(errs[-1] <= tol, f"{label}: round {r} params differ from the "
+                               f"CPU path by {errs[-1]} > {tol}")
+    launches = _delta(before, counts)
+    check(all(bool(torch.isfinite(x).all()) for x in pt.leaves(st.params)),
+          f"{label}: params not finite")
+    check(not launches.get("local_epoch") and
+          not launches.get("linear_logistic_step"),
+          f"{label}: a logistic-regression kernel launched: {launches}")
+    print(f"  {label}: ms/round {[round(m, 2) for m in ms]} (CUDA events)"
+          f"; launches {launches}")
+    if errs:
+        print(f"    selections equal the CPU path's; max |params card - "
+              f"cpu| per round {[f'{e:.2e}' for e in errs]} (limits "
+              f"{[f'{t:.2e}' for t in tols]})")
+    return tr, st, ms, launches, (base[-1][0] if base else None)
+
+
+def step_breakdown(torch, loss_fn, data, trainer, st, label: str, k1):
+    """One local step of the trainer's last solve selection at ``st``,
+    in parts: the host's ``vmap(grad)`` over the K devices' first batch
+    (CUDA events, median of 3; the card's idle share in one more call
+    under the profiler, card activity only) against K1 on the model's
+    pack (``k1``: phase 3's case, call and device ms)."""
+    from torch.func import grad, vmap
+
+    from repro_torch.core import pytree as pt
+    from repro_torch.data.batching import stack_device_batches
+
+    S = trainer.last_selection[1]
+    batches, _ = stack_device_batches(data, S)
+    batch = pt.tmap(lambda x: x[:, 0].contiguous(), batches)
+    w = pt.tmap(lambda x: x.expand((len(S),) + x.shape).contiguous(),
+                st.params)
+    fn = vmap(grad(loss_fn))
+    ms = cuda_ms(torch, lambda: fn(w, batch), 1, repeats=3)
+    device_share(torch, lambda: fn(w, batch),
+                 f"{label}: one local step's vmap(grad)", host_ops=False)
+    print(f"    a local step: vmap(grad) {ms:.2f} ms (CUDA events); K1 "
+          f"{k1['ms']:.4f} ms a call, {k1['device_ms']:.5f} ms on the "
+          f"card: {k1['ms'] / (ms + k1['ms']):.2e} of the step")
+
+
+def lstm_phase(torch, counts, k1_cases):
+    """Phase 8: Sent140-like and Shakespeare-like through the LSTMs on
+    the python driver, on the card against the CPU path; the rounds run
+    K1 (``flat``, what ``auto`` resolves to) or K4 (``per_leaf``) once a
+    local step.  vmap's per-sample fallback is switched off throughout,
+    so an op without a batching rule fails the phase.  Returns the cells'
+    ms/round; ``k1_cases``: phase 3's K1 case on each LSTM's pack (rows
+    a device -> case), for the breakdown."""
+    import torch._C._functorch as functorch
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.data.batching import FederatedData
+    from repro_torch.data.leaf_like import (SENT_VOCAB, SHAKES_VOCAB,
+                                            generate_sent140_like,
+                                            generate_shakespeare_like)
+    from repro_torch.models.param import init_params, param_count
+    from repro_torch.models.small import (charlstm_loss, charlstm_specs,
+                                          sentlstm_loss, sentlstm_specs)
+
+    out = {}
+    was = functorch._is_vmap_fallback_enabled()
+    functorch._set_vmap_fallback_enabled(False)
+    try:
+        t0 = time.perf_counter()
+        devs = generate_sent140_like(SENT140["num_devices"], seed=0)
+        sent = FederatedData(devs, 10, name="sent140_like",
+                             eval_sample=LOSS_DEVICES)
+        sent_cpu = FederatedData(devs, 10, name="sent140_like",
+                                 eval_sample=LOSS_DEVICES, device="cpu")
+        specs = sentlstm_specs(SENT_VOCAB)
+        p0 = init_params(specs, torch.Generator().manual_seed(0),
+                         device="cpu")
+        rows = lstm_rows(specs)
+        print(f"  Sent140-like: N={sent.num_devices}, "
+              f"{sent.stats()['samples']} samples, sentlstm(400, 25, 100) "
+              f"{param_count(specs):,} params ({rows} pack rows a device), "
+              f"K=10 B=10 lr={SENT140['learning_rate']} "
+              f"E={SENT140['local_epochs']} (cut from Fig. 1's 2 for the "
+              f"script's time); data in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for algo, mu in FIG1_MU.items():
+            cfg = FederatedConfig(algorithm=algo, mu=mu, **SENT140)
+            tr, st, ms, grew, p_cpu = lstm_cell(
+                torch, f"sent140 {algo} auto", sentlstm_loss, sent,
+                sent_cpu, cfg, p0, LSTM_ROUNDS, LSTM_ROUNDS, counts)
+            check(grew.get("dane_update_flat", 0) > 0 and
+                  not grew.get("dane_update_2d"),
+                  f"sent140 {algo}: auto did not run K1 alone: {grew}")
+            out[f"sent140/{algo}"] = statistics.median(ms)
+            per_round = grew["dane_update_flat"] / LSTM_ROUNDS
+            k1_ms = per_round * k1_cases[rows]["device_ms"]
+            share = k1_ms / out[f"sent140/{algo}"]
+            print(f"    K1: {per_round:g} launches a round (one a local "
+                  f"step), {k1_ms:.3f} ms of "
+                  f"device time, {share:.2e} of the round")
+            if algo == "feddane":
+                lg = tr.global_loss(st.params)
+                lc = FederatedTrainer(sentlstm_loss, sent_cpu, cfg,
+                                      device="cpu").global_loss(p_cpu)
+                check(np.isfinite(lg) and abs(lg - lc) <= LOSS_REL * abs(lc),
+                      f"sent140 feddane: global loss {lg} on the card, "
+                      f"{lc} on the CPU path")
+                print(f"    global loss over {LOSS_DEVICES} devices after "
+                      f"{LSTM_ROUNDS} rounds: card {lg:.7f}, CPU path "
+                      f"{lc:.7f}")
+                step_breakdown(torch, sentlstm_loss, sent, tr, st,
+                               "sent140 feddane", k1_cases[rows])
+            del tr, st
+        del sent, sent_cpu, devs
+
+        t0 = time.perf_counter()
+        specs = charlstm_specs(SHAKES_VOCAB)
+        rows = lstm_rows(specs)
+        p0 = init_params(specs, torch.Generator().manual_seed(0),
+                         device="cpu")
+        devs = generate_shakespeare_like(SHAKESPEARE["num_devices"], seed=0,
+                                         sample_cap=SHAKES_CPU_CAP)
+        shak = FederatedData(devs, 10, name="shakespeare_like")
+        shak_cpu = FederatedData(devs, 10, name="shakespeare_like",
+                                 device="cpu")
+        n_leaves = len(pt.leaves(specs))
+        print(f"  Shakespeare-like: N={shak.num_devices}, sample_cap "
+              f"{SHAKES_CPU_CAP} (cut from 512 for the CPU path's time), "
+              f"{shak.stats()['samples']} samples, charlstm(80, 8, 256) "
+              f"{param_count(specs):,} params in {n_leaves} leaves "
+              f"({rows} pack rows a device), K=10 B=10 "
+              f"lr={SHAKESPEARE['learning_rate']} "
+              f"E={SHAKESPEARE['local_epochs']}; data in "
+              f"{time.perf_counter() - t0:.1f} s")
+        finals, grown = {}, {}
+        for mode, cpu_rounds in (("flat", SHAKES_CPU_ROUNDS),
+                                 ("per_leaf", 0)):
+            cfg = FederatedConfig(algorithm="feddane",
+                                  mu=FIG1_MU["feddane"], local_solver=mode,
+                                  **SHAKESPEARE)
+            tr, st, ms, grown[mode], _ = lstm_cell(
+                torch, f"shakespeare feddane {mode}", charlstm_loss, shak,
+                shak_cpu, cfg, p0, LSTM_ROUNDS, cpu_rounds, counts)
+            out[f"shakespeare/{mode}"] = statistics.median(ms)
+            finals[mode] = pt.tmap(torch.clone, st.params)
+            if mode == "flat":
+                step_breakdown(torch, charlstm_loss, shak, tr, st,
+                               "shakespeare feddane flat", k1_cases[rows])
+            del tr, st
+        for a, b in zip(pt.leaves(finals["flat"]),
+                        pt.leaves(finals["per_leaf"])):
+            check(torch.equal(a, b), "shakespeare: flat and per_leaf "
+                                     "differ on the card")
+        steps = grown["flat"]["dane_update_flat"]
+        check(grown["per_leaf"].get("dane_update_2d") == steps and
+              not grown["per_leaf"].get("dane_update_flat") and
+              not grown["flat"].get("dane_update_2d"),
+              f"shakespeare: per_leaf launched K4 "
+              f"{grown['per_leaf'].get('dane_update_2d')} times in the "
+              f"{steps} steps flat launched K1")
+        print(f"  shakespeare: flat == per_leaf bitwise on the card; "
+              f"{steps} K1 launches in flat, as many K4 launches in "
+              f"per_leaf (one a step over all {n_leaves} leaves); K1 "
+              f"{k1_cases[rows]['device_ms'] * 1e3:.2f} us a launch on the "
+              f"card, {steps / LSTM_ROUNDS * k1_cases[rows]['device_ms']:.3f}"
+              f" ms a round "
+              f"of {out['shakespeare/flat']:.1f}")
+        del shak, shak_cpu, devs, finals
+
+        # one card-only round at the generator's default sample_cap
+        t0 = time.perf_counter()
+        devs = generate_shakespeare_like(SHAKESPEARE["num_devices"], seed=0)
+        full = FederatedData(devs, 10, name="shakespeare_like")
+        print(f"  Shakespeare-like at sample_cap 512: "
+              f"{full.stats()['samples']} samples; data in "
+              f"{time.perf_counter() - t0:.1f} s")
+        cfg = FederatedConfig(algorithm="feddane", mu=FIG1_MU["feddane"],
+                              **SHAKESPEARE)
+        tr = FederatedTrainer(charlstm_loss, full, cfg)
+        st = tr.init(p0)
+        before = dict(counts)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st = tr.round(st)
+        torch.cuda.synchronize()
+        out["shakespeare/auto cap 512"] = (time.perf_counter() - start) * 1e3
+        grew = _delta(before, counts)
+        check(grew.get("dane_update_flat", 0) > 0 and all(
+            bool(torch.isfinite(x).all()) for x in pt.leaves(st.params)),
+            f"shakespeare cap 512: {grew}, or params not finite")
+        print(f"  shakespeare feddane auto, sample_cap 512, one round: "
+              f"{out['shakespeare/auto cap 512']:.1f} ms (host clock); "
+              f"launches {grew}; K1 "
+              f"{grew['dane_update_flat'] * k1_cases[rows]['device_ms']:.3f}"
+              f" ms of "
+              f"device time")
+        del tr, st, full, devs
+    finally:
+        functorch._set_vmap_fallback_enabled(was)
+    torch.cuda.empty_cache()
+    return out
+
+
+#: Phase 9: (ranks, edges) -> [(algorithm, scenario, codec)], 3 rounds a
 #: cell.  The flat mesh splits K=10 into two ranks of 5 clients; the tree
 #: puts one client on each of 10 ranks under 2 edges of 5 leaves.
 MESH_CELLS = {(2, 1): [("feddane", "ideal", "none"),
@@ -836,7 +1181,7 @@ def drive(torch, trainer, rounds: int, counts=None):
 
 
 def mesh_rank(mesh, cells, rounds: int):
-    """Phase 8 on one rank of the client mesh: every cell of ``cells``
+    """Phase 9 on one rank of the client mesh: every cell of ``cells``
     through this rank's own trainer, on the rank's device."""
     import torch
     from repro_torch.core import FederatedTrainer
@@ -865,7 +1210,7 @@ def _bits(rec):
 
 
 def mesh_phase(torch, syn, int8_tol: float):
-    """Phase 8; returns the launches summed over every rank's cells."""
+    """Phase 9; returns the launches summed over every rank's cells."""
     from repro_torch.core import FederatedTrainer
     from repro_torch.core.sharding import run_on_mesh
     from repro_torch.models.small import logreg_loss
@@ -929,18 +1274,20 @@ def mesh_phase(torch, syn, int8_tol: float):
     return summed
 
 
-def device_share(torch, fn, label: str):
+def device_share(torch, fn, label: str, host_ops: bool = True):
     """One more call of ``fn`` (a round, a prefill) under
     ``torch.profiler``: its host-clock time (profiler on) against the
     summed time of the kernels and copies it ran on the card, i.e. the
-    card's idle share.  Returns the share (None if no device time was
-    recorded)."""
+    card's idle share.  ``host_ops=False`` records the card's activity
+    alone (for calls of tens of thousands of small ops, whose host-side
+    events take the profiler tens of seconds to read back).  Returns the
+    share (None if no device time was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
         start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -960,7 +1307,7 @@ def device_share(torch, fn, label: str):
 
 
 def lm_phase(torch, counts):
-    """Phase 9: the LM stack's prefill and serve paths at full width;
+    """Phase 10: the LM stack's prefill and serve paths at full width;
     returns its timings (ms) and idle share."""
     from repro_torch.configs import get_arch
     from repro_torch.core import pytree as pt
@@ -1127,7 +1474,9 @@ def main() -> int:
     print("[5] feddane, 2 rounds per explicit solver mode")
     from repro_torch.core import FederatedTrainer
     from repro_torch.models.param import init_params
-    from repro_torch.models.small import logreg_loss, logreg_specs
+    from repro_torch.data.leaf_like import SENT_VOCAB, SHAKES_VOCAB
+    from repro_torch.models.small import (charlstm_specs, logreg_loss,
+                                          logreg_specs, sentlstm_specs)
     uses = {"flat": "dane_update_flat", "per_leaf": "dane_update_2d",
             "fused_step": "linear_logistic_step",
             "fused_epoch": "local_epoch"}
@@ -1235,19 +1584,31 @@ def main() -> int:
     print(f"  K5 launches = lossy rounds on the card = {lossy_rounds} "
           f"(3 compared + 1 profiled per lossy cell)")
 
-    main_path = dict(counts)             # read just after the main path
-
-    print(f"[8] client mesh: paper config, {MESH_ROUNDS} rounds a cell")
+    print("[8] the paper's non-convex tasks: Sent140-like and "
+          "Shakespeare-like LSTMs at full width, Fig. 1's settings")
     t0 = time.perf_counter()
-    on_mesh = mesh_phase(torch, syn, int8_tol["feddane"])
+    k1 = next(r for r in rows if r["name"] == "dane_update_flat")
+    k1_cases = {
+        n: next(c for c in k1["cases"] if c["shape"].startswith(
+            f"dane_update_flat ({10 * n}, 128)"))
+        for n in (lstm_rows(sentlstm_specs(SENT_VOCAB)),
+                  lstm_rows(charlstm_specs(SHAKES_VOCAB)))}
+    phase_ms.update(lstm_phase(torch, counts, k1_cases))
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
-    print("[9] LM stack inference at full width (prefill and serve)")
+    main_path = dict(counts)             # read just after the main path
+
+    print(f"[9] client mesh: paper config, {MESH_ROUNDS} rounds a cell")
+    t0 = time.perf_counter()
+    on_mesh = mesh_phase(torch, syn, int8_tol["feddane"])
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    print("[10] LM stack inference at full width (prefill and serve)")
     t0 = time.perf_counter()
     build.reset_launch_counts()          # the LM path starts here
     lm_ms = lm_phase(torch, counts)
     lm_path = dict(counts)               # and is read here
-    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s; launches "
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s; launches "
           f"{ {k: v for k, v in lm_path.items() if v} }")
 
     for r in rows:
@@ -1255,7 +1616,7 @@ def main() -> int:
                          + lm_path[r["name"]])
         check(r["launches"] > 0, f"{r['name']} not launched on the main "
                                  f"path")
-    print(f"[10] done in {time.perf_counter() - t_start:.1f} s; phase "
+    print(f"[11] done in {time.perf_counter() - t_start:.1f} s; phase "
           f"ms/round {json.dumps({k: round(v, 3) for k, v in phase_ms.items()})}; "
           f"LM {json.dumps(lm_ms)}")
     keys = ("name", "route", "source", "replaces", "launches",

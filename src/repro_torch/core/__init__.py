@@ -15,6 +15,10 @@ _EXPORTS = {
     "AlgorithmSpec": "strategies", "register_algorithm": "strategies",
     "algorithm_spec": "strategies", "available_algorithms": "strategies",
     "ClientMesh": "sharding", "run_on_mesh": "sharding",
+    "make_exact_solver": "client", "gamma_inexactness": "client",
+    "b_dissimilarity": "theory", "rho_convex": "theory",
+    "rho_nonconvex": "theory", "rho_device_specific": "theory",
+    "corollary4_mu": "theory",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch.checkpoint.store import save_checkpoint
 from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import codecs
 from repro_torch.core import pytree as pt
@@ -60,6 +61,7 @@ from repro_torch.core.scenarios import (availability_mask, env_channels,
 from repro_torch.core.strategies import (ControlCtx, CorrCtx, algorithm_spec,
                                          init_aux, make_server_opt,
                                          runtime_state_fields)
+from repro_torch.core.theory import b_dissimilarity
 from repro_torch.data.batching import num_batches_of, stack_device_batches
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flatpack
@@ -462,8 +464,17 @@ class FederatedTrainer:
             wsum += wk
         return total / max(wsum, 1e-12)
 
+    def measure_dissimilarity(self, params) -> float:
+        """B-local dissimilarity (paper Def. 2) at ``params``, measured
+        over ALL devices' full local gradients, weighted by the devices'
+        p_k -- the heterogeneity instrumentation behind the §V
+        analysis."""
+        grads = [self.grad_fn(params, self._batches(k))
+                 for k in range(self.dataset.num_devices)]
+        return b_dissimilarity(grads, self.dataset.weights)
+
     def run(self, params, num_rounds: int, eval_every: int = 1,
-            verbose: bool = False,
+            verbose: bool = False, checkpoint_dir: Optional[str] = None,
             selections=None) -> Tuple[Dict[str, List[float]], Any]:
         """Run ``num_rounds`` rounds; returns ``(history, final_params)``
         with the reference's history keys: ``round`` / ``comm_rounds`` /
@@ -472,6 +483,9 @@ class FederatedTrainer:
         K / 0 under the ideal scenario) and the codec's honest wire bytes
         ``bytes_up`` / ``bytes_down`` (``codecs.round_bytes``).
 
+        ``checkpoint_dir``: if set, ``{"params", "round"}`` is saved
+        (``checkpoint/store.py``, the reference's format and file names)
+        every ``cfg.chunk_rounds`` rounds and after the last round.
         ``selections``: optional ``(num_rounds, 2, K)`` (or
         ``(num_rounds, K)``) int array overriding device sampling round
         by round -- row 0 feeds single-selection algorithms and FedDANE
@@ -492,6 +506,8 @@ class FederatedTrainer:
                     self._sample_queue.append(
                         phases[1] if len(phases) > 1 else phases[0])
 
+        chunk = (self.cfg.chunk_rounds if self.cfg.chunk_rounds > 0
+                 else num_rounds)
         st = self.init(params)
         n_elems = sum(x.numel() for x in pt.leaves(st.params))
         hist: Dict[str, List[float]] = {"round": [], "comm_rounds": [],
@@ -518,6 +534,12 @@ class FederatedTrainer:
                     if verbose:
                         print(f"[{self.cfg.algorithm}] round {st.round:4d} "
                               f"comm {st.comm_rounds:4d} loss {loss:.4f}")
+                if checkpoint_dir is not None and (
+                        (t + 1) % chunk == 0 or t == num_rounds - 1):
+                    save_checkpoint(checkpoint_dir,
+                                    {"params": st.params,
+                                     "round": st.round},
+                                    step=st.round)
         finally:
             # injected selections must never leak into a later run()
             self._sample_queue.clear()

@@ -23,6 +23,10 @@ Solver modes (``make_batched_solver(..., solver=...)``):
 - ``"auto"`` -- the fused kernels when the tensors are on the card and a
   registered spec accepts the workload, else ``"flat"`` (as the
   reference keeps the CPU on flat).
+
+For the paper's analysis (§IV), ``make_exact_solver`` minimizes the
+subproblem nearly exactly (long full-batch GD) and ``gamma_inexactness``
+measures how far a practical solve lands from it (Definition 1).
 """
 from __future__ import annotations
 
@@ -274,3 +278,31 @@ def make_batched_solver(loss_fn: Callable, *, learning_rate: float,
         return solve_body
     return lambda w0, corr, mu, batches, valid: \
         solve_body(w0, corr, mu, batches, valid)
+
+
+def make_exact_solver(loss_fn: Callable, *, learning_rate: float,
+                      num_iters: int = 2000) -> Callable:
+    """Near-exact subproblem minimizer (long full-batch GD) for measuring
+    the γ-inexactness of the practical solver (Definition 1).
+
+    ``solve(w0, corr, mu, batches) -> w``: ``num_iters`` steps of
+    ``w -= lr * (grad F_k(w) + corr + mu (w - w0))`` with the full local
+    gradient (the weighted mean over the device's batches)."""
+    full_grad = make_grad_fn(loss_fn)
+
+    def solve(w0, corr, mu, batches):
+        w = w0
+        for _ in range(num_iters):
+            g = pt.add(full_grad(w, batches), corr)
+            g = pt.add(g, pt.scale(pt.sub(w, w0), mu))
+            w = pt.sub(w, pt.scale(g, learning_rate))
+        return w
+
+    return solve
+
+
+def gamma_inexactness(w_inexact, w_exact, w0) -> torch.Tensor:
+    """Definition 1: ||w - w_exact|| <= gamma ||w_exact - w0||."""
+    denom = pt.norm(pt.sub(w_exact, w0))
+    return pt.norm(pt.sub(w_inexact, w_exact)) / torch.clamp(denom,
+                                                              min=1e-12)

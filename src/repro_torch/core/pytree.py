@@ -116,6 +116,17 @@ def mean(trees):
     return scale(acc, 1.0 / len(trees))
 
 
+def weighted_mean(trees, weights):
+    """``sum_i (w_i / sum(w)) * tree_i`` for a list of trees and a
+    matching list of (host) scalar weights, accumulated in list order as
+    the reference does."""
+    total = float(sum(weights))
+    acc = scale(trees[0], weights[0] / total)
+    for t, w in zip(trees[1:], weights[1:]):
+        acc = axpy(w / total, t, acc)
+    return acc
+
+
 def stack(trees):
     """Trees of one structure stacked along a new leading axis."""
     return tmap(lambda *xs: torch.stack(xs), *trees)

@@ -1,7 +1,11 @@
 """Federated data pipeline (PyTorch port)."""
 from repro_torch.data.batching import FederatedData, pad_to_batches
-from repro_torch.data.leaf_like import make_femnist_like
-from repro_torch.data.synthetic import generate_synthetic, make_synthetic
+from repro_torch.data.leaf_like import (make_femnist_like, make_sent140_like,
+                                        make_shakespeare_like)
+from repro_torch.data.synthetic import (generate_synthetic, make_synthetic,
+                                        paper_synthetic_suite)
 
 __all__ = ["FederatedData", "pad_to_batches", "make_synthetic",
-           "generate_synthetic", "make_femnist_like"]
+           "generate_synthetic", "paper_synthetic_suite",
+           "make_femnist_like", "make_sent140_like",
+           "make_shakespeare_like"]

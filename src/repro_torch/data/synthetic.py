@@ -67,3 +67,18 @@ def make_synthetic(alpha: float, beta: float, *, iid: bool = False,
         generate_synthetic(alpha, beta, iid=iid, num_devices=num_devices,
                            seed=seed),
         batch_size=batch_size, name=name, device=device)
+
+
+# The paper's four synthetic datasets (Fig. 1 top row)
+def paper_synthetic_suite(seed: int = 0, batch_size: int = 10,
+                          device=None) -> List[FederatedData]:
+    return [
+        make_synthetic(0, 0, iid=True, seed=seed, batch_size=batch_size,
+                       device=device),
+        make_synthetic(0, 0, seed=seed, batch_size=batch_size,
+                       device=device),
+        make_synthetic(0.5, 0.5, seed=seed, batch_size=batch_size,
+                       device=device),
+        make_synthetic(1, 1, seed=seed, batch_size=batch_size,
+                       device=device),
+    ]

@@ -1,6 +1,6 @@
-"""Models of the port: the paper's experiment model (logistic
-regression, ``models/small.py``) and the dense LM stack
-(``models/transformer.py``)."""
+"""Models of the port: the paper's experiment models (logistic
+regression and the two LSTMs, ``models/small.py``) and the dense LM
+stack (``models/transformer.py``)."""
 from repro_torch.models.param import (ParamSpec, init_params, param_count,
                                       params_from_numpy, params_to_numpy)
 from repro_torch.models.transformer import (decode_cache_specs, decode_step,

@@ -294,7 +294,8 @@ def _bits_equal(a, b) -> bool:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [8, 64])    # synthetic, FEMNIST-like pack
+# the synthetic, FEMNIST-like, Sent140 LSTM and Shakespeare LSTM packs
+@pytest.mark.parametrize("rows", [8, 64, 480, 6392])
 @pytest.mark.parametrize("masked", [0, 1, 10])
 def test_dane_update_flat_kernel_matches_plain_bitwise(card, rows, masked):
     """K1 over a (10*rows, 128) f32 pack with 0, 1 or all 10 devices
@@ -466,3 +467,61 @@ def test_flat_and_per_leaf_solves_are_bitwise_equal_on_the_card(card):
         for name in ("w", "b"):
             assert _bits_equal(anchors["flat"][name],
                                anchors["per_leaf"][name])
+
+
+@pytest.mark.cuda
+def test_dane_update_leaves_takes_the_charlstm_tree_in_one_launch(card):
+    """K4 over the Shakespeare LSTM's 9 leaves at full width, stacked over
+    K=10 devices, device 3 masked: one launch, bitwise equal to the
+    per-leaf plain version and its select."""
+    from repro_torch.core import pytree as pt
+    from repro_torch.kernels.dane_update import dane_update_leaves
+    from repro_torch.models.small import charlstm_specs
+
+    shapes = [(10,) + sp.shape for sp in pt.leaves(charlstm_specs(80))]
+    assert len(shapes) == 9
+    dts = [torch.float32] * len(shapes)
+    w, g, c, a = (_leaves(200 + 10 * i, shapes, dts, card)
+                  for i in range(4))
+    mask = torch.ones(10, device=card)
+    mask[3] = 0.0
+    build.reset_launch_counts()
+    got = dane_update_leaves(w, g, c, a, 0.3, 0.001, mask)
+    torch.cuda.synchronize()
+    assert build.launch_counts["dane_update_2d"] == 1
+    want = ref.dane_update_leaves_ref(w, g, c, a, 0.3, 0.001, mask)
+    for x, y, w_ in zip(got, want, w):
+        assert _bits_equal(x, y) and _bits_equal(x[3], w_[3])
+
+
+@pytest.mark.cuda
+def test_sent140_round_flat_equals_per_leaf_on_the_card(card):
+    """One feddane round of the Sent140 LSTM at full width (Fig. 1's lr
+    and E) in the flat and per_leaf modes: bitwise equal params, one K1
+    launch a local step in flat and one K4 launch a step in per_leaf."""
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.data import make_sent140_like
+    from repro_torch.models.param import init_params
+    from repro_torch.models.small import sentlstm_loss, sentlstm_specs
+
+    data = make_sent140_like(40, seed=0)
+    p0 = init_params(sentlstm_specs(400), torch.Generator().manual_seed(0))
+    out, launches = {}, {}
+    for mode in ("flat", "per_leaf"):
+        cfg = FederatedConfig(algorithm="feddane", mu=0.001, num_devices=40,
+                              devices_per_round=10, local_epochs=2,
+                              learning_rate=0.1, local_solver=mode)
+        tr = FederatedTrainer(sentlstm_loss, data, cfg)
+        build.reset_launch_counts()
+        st = tr.round(tr.init(p0))
+        torch.cuda.synchronize()
+        out[mode] = st.params
+        launches[mode] = dict(build.launch_counts)
+    assert launches["flat"]["dane_update_flat"] > 0
+    assert launches["per_leaf"]["dane_update_2d"] == \
+        launches["flat"]["dane_update_flat"]
+    assert launches["flat"]["dane_update_2d"] == 0
+    for a, b in zip(pt.leaves(out["flat"]), pt.leaves(out["per_leaf"])):
+        assert _bits_equal(a, b)

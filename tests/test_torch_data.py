@@ -104,3 +104,52 @@ def test_num_batches_of_matches_reference(datasets):
     for k in range(tds.num_devices):
         assert batching.num_batches_of(tds.device_batches(k)) == \
             jax.tree_util.tree_leaves(jds.device_batches(k))[0].shape[0]
+
+
+def test_sent140_like_arrays_bitwise():
+    _assert_devices_equal(leaf_like.generate_sent140_like(40, seed=1),
+                          jleaf.generate_sent140_like(40, seed=1))
+
+
+def test_shakespeare_like_arrays_bitwise():
+    _assert_devices_equal(
+        leaf_like.generate_shakespeare_like(10, seed=1, sample_cap=64),
+        jleaf.generate_shakespeare_like(10, seed=1, sample_cap=64))
+
+
+def test_leaf_like_constants_match_reference():
+    for name in ("FEMNIST_CLASSES", "FEMNIST_DIM", "SENT_VOCAB", "SENT_SEQ",
+                 "SHAKES_VOCAB", "SHAKES_SEQ"):
+        assert getattr(leaf_like, name) == getattr(jleaf, name)
+
+
+@pytest.mark.parametrize("make", ["make_femnist_like", "make_sent140_like",
+                                  "make_shakespeare_like"])
+def test_leaf_like_datasets_match_reference(make):
+    kw = dict(num_devices=6, seed=2)
+    if make == "make_shakespeare_like":
+        kw["sample_cap"] = 64
+    tds = getattr(leaf_like, make)(device="cpu", **kw)
+    jds = getattr(jleaf, make)(**kw)
+    assert tds.name == jds.name
+    assert tds.stats() == jds.stats() and tds.weights == jds.weights
+    for k in range(tds.num_devices):
+        tb, jb = tds.device_batches(k), jds.device_batches(k)
+        assert tb.keys() == jb.keys()
+        for key in jb:
+            assert str(tb[key].dtype).split(".")[-1] == str(jb[key].dtype)
+            np.testing.assert_array_equal(tb[key].numpy(),
+                                          np.asarray(jb[key]))
+
+
+def test_paper_synthetic_suite_matches_reference():
+    tsuite = synthetic.paper_synthetic_suite(seed=1, device="cpu")
+    jsuite = jsyn.paper_synthetic_suite(seed=1)
+    assert [d.name for d in tsuite] == [d.name for d in jsuite]
+    for tds, jds in zip(tsuite, jsuite):
+        assert tds.stats() == jds.stats() and tds.weights == jds.weights
+        for k in (0, tds.num_devices - 1):
+            for key in ("x", "y"):
+                np.testing.assert_array_equal(
+                    tds.device_batches(k)[key].numpy(),
+                    np.asarray(jds.device_batches(k)[key]))

@@ -58,11 +58,13 @@ def test_sources_import_no_jax_and_no_reference():
                     f"{path}: imports {name}"
 
 
-def _entry_points():
+def _entry_points(tmp):
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import FederatedConfig
     from repro_torch.core import FederatedTrainer
-    from repro_torch.data import make_synthetic
+    from repro_torch.data import (make_sent140_like, make_shakespeare_like,
+                                  make_synthetic)
     from repro_torch.data.batching import FederatedData, pad_to_batches
     from repro_torch.launch import serve
     from repro_torch.models import model_specs
@@ -71,6 +73,7 @@ def _entry_points():
 
     arrays = {"x": np.zeros((4, 3), np.float32),
               "y": np.zeros(4, np.int32)}
+    ckpt = save_checkpoint(str(tmp / "c.msgpack"), arrays)
     cpu_data = FederatedData([arrays] * 2, batch_size=2, device="cpu")
     return {
         "FederatedData": lambda: FederatedData([arrays], batch_size=2),
@@ -86,18 +89,25 @@ def _entry_points():
             model_specs(get_arch("qwen1.5-0.5b").reduced()),
             torch.Generator()),
         "serve.main": lambda: serve.main(["--tokens", "1"]),
+        "make_sent140_like": lambda: make_sent140_like(2),
+        "make_shakespeare_like": lambda: make_shakespeare_like(
+            2, sample_cap=32),
+        "load_checkpoint": lambda: load_checkpoint(ckpt),
     }
 
 
 @pytest.mark.parametrize("name", ["FederatedData", "pad_to_batches",
                                   "make_synthetic", "init_params",
                                   "params_from_numpy", "FederatedTrainer",
-                                  "init_params(LM)", "serve.main"])
-def test_entry_points_need_the_card_unless_told(name):
+                                  "init_params(LM)", "serve.main",
+                                  "make_sent140_like",
+                                  "make_shakespeare_like",
+                                  "load_checkpoint"])
+def test_entry_points_need_the_card_unless_told(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-card path is moot")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        _entry_points()[name]()
+        _entry_points(tmp_path)[name]()
 
 
 def test_trainer_rejects_data_on_another_device():
