@@ -85,6 +85,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    512, timed on the host clock.  Each task's local step in parts: the
    host's ``vmap(grad)`` (its idle share under the profiler) against
    K1's time;
+8b. the scanned driver (``round_driver="scan"``), each round one replay
+   of a captured CUDA graph: the paper config for feddane, fedprox and
+   fedavg, 5 rounds in one chunk on injected selections (drawn by the
+   port's sampler from a CPU generator), held to the CPU scanned driver
+   (on ``fused_epoch``, the mode ``auto`` takes on the card, in its
+   plain version) within TRAJECTORY_TOL (params; the loss relative to
+   max(1, |loss|); the rest of the history exactly), K2 launched once a
+   replay; feddane sampled on the card, 20
+   rounds in chunks of 10, run twice: bitwise equal, the selections
+   (recorded inside the graph) not all alike, ms/round of the second
+   run beside the python driver's on the same config, the card's idle
+   share over one chunk of each; feddane under ``hostile`` with int8, 3
+   rounds on injected selections and numpy-seeded environment uniforms
+   (through ``engine.scan_env_uniforms``): masks, work fractions and
+   phase-A availability bitwise equal to the CPU scanned driver, the
+   same effective K, params within phase 7's int8 limit, K5 once a
+   replay; Sent140-like feddane (phase 8's settings) on phase 8's
+   CPU-path selections, held to phase 8's limits, then timed in a
+   second run beside phase 8's python-driver rounds;
 9. the client mesh (``core/sharding.py``) on the paper config, 3
    rounds a cell, its ranks started by ``run_on_mesh`` on cuda:0 over
    gloo (NCCL refuses two ranks on one device): a flat mesh of 2 ranks
@@ -111,8 +130,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    on 4 KV heads), B=1, S=2048, against the card's plain attention, K7
    launched 4 times;
 11. the ``kernels`` JSON line: every kernel with its launches on the
-   main path -- phases 4-8 in this process (the counters are set to 0
-   just before phase 4 and read just after phase 8), phase 9's ranks
+   main path -- phases 4-8b in this process (the counters are set to 0
+   just before phase 4 and read just after phase 8b; a captured kernel
+   counts once a replay, and once for the warm-up run before its
+   capture), phase 9's ranks
    and phase 10 (set to 0 just before it and read just after) -- error,
    times and bound, and each checked shape under ``cases`` (with its
    ``device_ms`` where phase 3 took one, and the update paths' kernels
@@ -887,7 +908,7 @@ def lstm_cell(torch, label, loss_fn, data, data_cpu, cfg, p0,
     nudge of ``p0`` causes there (TRAJECTORY_TOL where it causes none),
     that limit under MAX_REL_LIMIT of the params' scale.  Returns the
     card's trainer and state, the ms of its rounds, its launches and the
-    CPU path's last compared params."""
+    CPU path's compared rounds, ``(params, selections, limit)`` each."""
     from repro_torch.core import FederatedTrainer
     from repro_torch.core import pytree as pt
 
@@ -938,7 +959,8 @@ def lstm_cell(torch, label, loss_fn, data, data_cpu, cfg, p0,
         print(f"    selections equal the CPU path's; max |params card - "
               f"cpu| per round {[f'{e:.2e}' for e in errs]} (limits "
               f"{[f'{t:.2e}' for t in tols]})")
-    return tr, st, ms, launches, (base[-1][0] if base else None)
+    return tr, st, ms, launches, [(b[0], b[1], t)
+                                  for b, t in zip(base, tols)]
 
 
 def step_breakdown(torch, loss_fn, data, trainer, st, label: str, k1):
@@ -972,8 +994,9 @@ def lstm_phase(torch, counts, k1_cases):
     K1 (``flat``, what ``auto`` resolves to) or K4 (``per_leaf``) once a
     local step.  vmap's per-sample fallback is switched off throughout,
     so an op without a batching rule fails the phase.  Returns the cells'
-    ms/round; ``k1_cases``: phase 3's K1 case on each LSTM's pack (rows
-    a device -> case), for the breakdown."""
+    ms/round and the Sent140 feddane cell's CPU-path rounds for phase 8b;
+    ``k1_cases``: phase 3's K1 case on each LSTM's pack (rows a device
+    -> case), for the breakdown."""
     import torch._C._functorch as functorch
     from repro_torch.configs.base import FederatedConfig
     from repro_torch.core import FederatedTrainer
@@ -1009,9 +1032,10 @@ def lstm_phase(torch, counts, k1_cases):
               f"{time.perf_counter() - t0:.1f} s")
         for algo, mu in FIG1_MU.items():
             cfg = FederatedConfig(algorithm=algo, mu=mu, **SENT140)
-            tr, st, ms, grew, p_cpu = lstm_cell(
+            tr, st, ms, grew, cpu_rounds = lstm_cell(
                 torch, f"sent140 {algo} auto", sentlstm_loss, sent,
                 sent_cpu, cfg, p0, LSTM_ROUNDS, LSTM_ROUNDS, counts)
+            p_cpu = cpu_rounds[-1][0]
             check(grew.get("dane_update_flat", 0) > 0 and
                   not grew.get("dane_update_2d"),
                   f"sent140 {algo}: auto did not run K1 alone: {grew}")
@@ -1034,6 +1058,10 @@ def lstm_phase(torch, counts, k1_cases):
                       f"{lc:.7f}")
                 step_breakdown(torch, sentlstm_loss, sent, tr, st,
                                "sent140 feddane", k1_cases[rows])
+                # phase 8b replays these rounds' selections on the
+                # scanned driver, held to these limits
+                handoff = dict(devs=devs, p0=p0, cfg=cfg, ms=ms,
+                               rounds=cpu_rounds)
             del tr, st
         del sent, sent_cpu, devs
 
@@ -1119,6 +1147,307 @@ def lstm_phase(torch, counts, k1_cases):
               f" ms of "
               f"device time")
         del tr, st, full, devs
+    finally:
+        functorch._set_vmap_fallback_enabled(was)
+    torch.cuda.empty_cache()
+    return out, handoff
+
+
+#: Phase 8b: the scanned driver.  The paper config's cells run one chunk
+#: of SCAN_ROUNDS; the sampled cell two chunks of SCAN_CHUNK, twice; the
+#: hostile int8 cell SCAN_HOSTILE_ROUNDS; Sent140 phase 8's LSTM_ROUNDS.
+SCAN_ROUNDS = 5
+SCAN_SAMPLED_ROUNDS = 20
+SCAN_CHUNK = 10
+SCAN_HOSTILE_ROUNDS = 3
+
+
+class ScanRecorder:
+    """Records, inside the scanned driver's round -- so inside its CUDA
+    graph on the card -- each round's selections, solve masks, work
+    fractions and phase-A availability into tensors indexed by the
+    round (the driver's counter ``ctr[1]``), by wrapping the sampler
+    and the staged scenario interpreter the round calls.  Use as a
+    context; ``bind(trainer)`` before its ``run``."""
+
+    def __init__(self, torch, rounds: int, k: int, device, phases: int):
+        self.torch, self.phases, self.trainer = torch, phases, None
+        self.sel = torch.full((rounds, 2, k), -1, dtype=torch.long,
+                              device=device)
+        self.active, self.work, self.avail = (
+            torch.full((rounds, k), -1.0, device=device) for _ in range(3))
+        self._calls = 0
+
+    def bind(self, trainer):
+        self.trainer = trainer
+        return self
+
+    def _put(self, buf, x):
+        buf.index_copy_(0, self.trainer._scanned._ctr[1:2], x.unsqueeze(0))
+
+    def __enter__(self):
+        from repro_torch.core import engine, server
+        self._saved = (server.sample_devices_onchip,
+                       engine.realize_env_staged,
+                       engine.availability_mask_staged)
+        sample, realize, avail = self._saved
+
+        def spy_sample(*a, **k):
+            sel = sample(*a, **k)
+            phase = self._calls % self.phases
+            self._calls += 1
+            self._put(self.sel[:, phase], sel)
+            return sel
+
+        def spy_env(*a):
+            env = realize(*a)
+            self._put(self.active, env.active)
+            self._put(self.work, env.work)
+            return env
+
+        def spy_avail(*a):
+            m = avail(*a)
+            self._put(self.avail, m)
+            return m
+
+        server.sample_devices_onchip = spy_sample
+        engine.realize_env_staged = spy_env
+        engine.availability_mask_staged = spy_avail
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine, server
+        (server.sample_devices_onchip, engine.realize_env_staged,
+         engine.availability_mask_staged) = self._saved
+
+    def numpy(self):
+        return {k: getattr(self, k).cpu().numpy()
+                for k in ("sel", "active", "work", "avail")}
+
+
+def _scan_cfg(**kw):
+    from repro_torch.configs.base import FederatedConfig
+    return FederatedConfig(mu=0.001, round_driver="scan", **dict(PAPER, **kw))
+
+
+def _logreg_p0(torch, device=None):
+    from repro_torch.models.param import init_params
+    from repro_torch.models.small import logreg_specs
+    return init_params(logreg_specs(60, 10), torch.Generator().manual_seed(0),
+                       device=device)
+
+
+def _timed_run(torch, trainer, rounds: int, **kw):
+    """``trainer.run`` between CUDA events: the history, params and ms a
+    round."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    hist, params = trainer.run(**kw, num_rounds=rounds)
+    end.record()
+    end.synchronize()
+    return hist, params, start.elapsed_time(end) / rounds
+
+
+def _programs(trainer) -> str:
+    drv = trainer._scanned
+    return ", ".join(f"{k}: {drv.capture_s[k]:.2f} s, launches a replay "
+                     f"{p.launches}" for k, p in drv._programs.items())
+
+
+def scan_phase(torch, counts, syn, syn_cpu, int8_tol: float, sent140):
+    """Phase 8b: the scanned driver on the card, each round a replay of
+    its captured CUDA graph.  Returns ms/round of the timed cells."""
+    import torch._C._functorch as functorch
+    from repro_torch.core import FederatedTrainer, engine, server
+    from repro_torch.core import pytree as pt
+    from repro_torch.core.scenarios import env_channels, scenario_spec
+    from repro_torch.data.batching import FederatedData
+    from repro_torch.models.small import logreg_loss, sentlstm_loss
+
+    out = {}
+    # the CPU scanned driver runs the mode the card's `auto` takes, K2,
+    # on its plain version: 6x the CPU's flat mode, for the script's time
+    on_cpu = dict(engine="batched", local_solver="fused_epoch")
+    # (a) the paper config on injected selections, drawn by the port's
+    # on-card sampler from a CPU generator seeded like the driver's
+    gen = torch.Generator().manual_seed(PAPER["seed"])
+    sel = np.stack([np.stack([server.sample_devices_onchip(
+        gen, 30, 10).numpy() for _ in range(2)]) for _ in range(SCAN_ROUNDS)])
+    for algo in ("feddane", "fedprox", "fedavg"):
+        cfg = _scan_cfg(algorithm=algo, chunk_rounds=SCAN_ROUNDS)
+        label = f"scan {algo} auto"
+        hc, pc = FederatedTrainer(
+            logreg_loss, syn_cpu, dataclasses.replace(cfg, **on_cpu),
+            device="cpu").run(_logreg_p0(torch, "cpu"), SCAN_ROUNDS,
+                              selections=sel)
+        tr = FederatedTrainer(logreg_loss, syn, cfg)
+        check(tr._resolve_driver() == "scan", f"{label}: not on scan")
+        before = dict(counts)
+        hg, pg, ms = _timed_run(torch, tr, SCAN_ROUNDS,
+                                params=_logreg_p0(torch),
+                                selections=sel)
+        grew = _delta(before, counts)
+        progs = tr._scanned._programs
+        check(progs["injected"].launches == {"local_epoch": 1},
+              f"{label}: a replay launches {progs['injected'].launches}, "
+              f"not K2 once")
+        check(grew.get("local_epoch") == SCAN_ROUNDS + 1,
+              f"{label}: {grew} (K2 once a replay plus the warm-up)")
+        err = max_err(torch, pt.tmap(lambda x: x.cpu(), pg), pc)
+        # the loss within TRAJECTORY_TOL of its own scale: feddane's loss
+        # runs to ~100 at mu=0.001, where a float32 ulp is 7.6e-6
+        dloss = float(max(abs(a - b) / max(1.0, abs(b))
+                          for a, b in zip(hg["loss"], hc["loss"])))
+        check(err <= TRAJECTORY_TOL and dloss <= TRAJECTORY_TOL,
+              f"{label}: params {err}, loss {dloss} (relative above 1) "
+              f"from the CPU scanned driver > {TRAJECTORY_TOL}")
+        check(all(hg[k] == hc[k] for k in hc if k != "loss"),
+              f"{label}: history differs from the CPU scanned driver's")
+        print(f"  {label}: {SCAN_ROUNDS} rounds, one chunk, "
+              f"{ms:.2f} ms/round with the captures (CUDA events); "
+              f"captured {_programs(tr)}")
+        print(f"    against the CPU scanned driver: max |params| "
+              f"{err:.2e}, max |loss| / max(1, |loss|) {dloss:.2e} (tol "
+              f"{TRAJECTORY_TOL:g}); launches {grew}")
+
+    # (b) sampled on the card: two runs of two chunks, bitwise equal
+    cfg = _scan_cfg(algorithm="feddane", chunk_rounds=SCAN_CHUNK)
+    tr = FederatedTrainer(logreg_loss, syn, cfg)
+    # one recorder for both runs: the graphs captured in the first write
+    # into its tensors at every replay, so it lives as long as they do
+    rec = ScanRecorder(torch, SCAN_SAMPLED_ROUNDS, 10, syn.device,
+                       2).bind(tr)
+    recs, runs = [], []
+    for r in range(2):
+        with rec:
+            t0 = time.perf_counter()
+            h, p, ms = _timed_run(torch, tr, SCAN_SAMPLED_ROUNDS,
+                                  params=_logreg_p0(torch))
+            wall = time.perf_counter() - t0
+        recs.append(rec.numpy()["sel"])
+        runs.append((h, p, ms, wall))
+    (h1, p1, _, wall1), (h2, p2, ms2, _) = runs
+    check(h1 == h2 and all(torch.equal(a, b) for a, b in
+                           zip(pt.leaves(p1), pt.leaves(p2))),
+          "scan sampled: two runs of one seed differ")
+    check(np.array_equal(recs[0], recs[1]) and (recs[0] >= 0).all(),
+          "scan sampled: the runs' selections differ")
+    distinct = len({recs[0][t].tobytes()
+                    for t in range(SCAN_SAMPLED_ROUNDS)})
+    check(distinct > 1, "scan sampled: every round selected alike")
+    check(all(np.isfinite(h1["loss"])), "scan sampled: loss not finite")
+    out["scan feddane sampled"] = ms2
+    print(f"  scan feddane sampled, {SCAN_SAMPLED_ROUNDS} rounds in chunks "
+          f"of {SCAN_CHUNK}: run 1 {wall1:.2f} s (host clock; captured "
+          f"{_programs(tr)}); run 2 {ms2:.3f} ms/round (CUDA events); "
+          f"bitwise equal; {distinct} distinct selections in "
+          f"{SCAN_SAMPLED_ROUNDS} rounds")
+    py = FederatedTrainer(logreg_loss, syn, dataclasses.replace(
+        cfg, round_driver="python"))
+    py.run(_logreg_p0(torch), 2)                       # warm-up
+    _, _, py_ms = _timed_run(torch, py, SCAN_SAMPLED_ROUNDS,
+                             params=_logreg_p0(torch))
+    out["python feddane sampled"] = py_ms
+    print(f"  the python driver, same config and card: {py_ms:.3f} ms/round"
+          f" (CUDA events, {SCAN_SAMPLED_ROUNDS} rounds)")
+    device_share(torch, lambda: tr.run(_logreg_p0(torch), SCAN_CHUNK),
+                 f"scan feddane sampled, one chunk of {SCAN_CHUNK} rounds")
+    device_share(torch, lambda: py.run(_logreg_p0(torch), SCAN_CHUNK),
+                 f"python feddane, {SCAN_CHUNK} rounds")
+
+    # (c) hostile + int8 on injected selections and env uniforms: the
+    # card against the CPU scanned driver, masks bit for bit
+    rounds = SCAN_HOSTILE_ROUNDS
+    cfg = _scan_cfg(algorithm="feddane", scenario="hostile", codec="int8",
+                    chunk_rounds=rounds)
+    rng = np.random.default_rng(0)
+    table = {c: rng.random((rounds, 30)).astype(np.float32)
+             for c in env_channels(scenario_spec("hostile"))}
+    on = {d.type: {c: torch.from_numpy(v).to(d) for c, v in table.items()}
+          for d in (syn_cpu.device, syn.device)}
+    saved = engine.scan_env_uniforms
+    engine.scan_env_uniforms = (
+        lambda gen, channels, n, t: {c: on[t.device.type][c].index_select(
+            0, t)[0] for c in channels})
+    got = {}
+    try:
+        for name, data in (("cpu", syn_cpu), ("card", syn)):
+            tr = FederatedTrainer(logreg_loss, data, dataclasses.replace(
+                cfg, **on_cpu) if name == "cpu" else cfg,
+                device=data.device)
+            before = dict(counts)
+            with ScanRecorder(torch, rounds, 10, data.device,
+                              2).bind(tr) as rec:
+                h, p = tr.run(_logreg_p0(torch, data.device), rounds,
+                              selections=sel[:rounds])
+            got[name] = (h, pt.tmap(lambda x: x.cpu(), p), rec.numpy(),
+                         _delta(before, counts), tr, rec)
+    finally:
+        engine.scan_env_uniforms = saved
+    (hc, pc, rc, *_), (hg, pg, rg, grew, tr, _) = got["cpu"], got["card"]
+    for k in ("active", "work", "avail"):
+        check(np.array_equal(rc[k].view(np.int32), rg[k].view(np.int32))
+              and (rc[k] >= 0).all(),
+              f"scan hostile int8: {k} differs from the CPU scanned driver")
+    check(hg["effective_k"] == hc["effective_k"],
+          f"scan hostile int8: effective K {hg['effective_k']} != "
+          f"{hc['effective_k']}")
+    err = max_err(torch, pg, pc)
+    check(err <= int8_tol, f"scan hostile int8: params {err} > {int8_tol}")
+    check(tr._scanned._programs["injected"].launches.get(
+        "codec_aggregate") == 1 and grew.get("codec_aggregate") == rounds + 1,
+        f"scan hostile int8: K5 launches {grew} (once a replay plus the "
+        f"warm-up)")
+    print(f"  scan feddane hostile int8, {rounds} rounds: masks, work and "
+          f"phase-A availability bitwise equal to the CPU scanned driver; "
+          f"effective K {hg['effective_k']}; max |params| {err:.2e} (tol "
+          f"{int8_tol:.2e}); captured {_programs(tr)}; launches {grew}")
+
+    # (d) Sent140-like feddane: phase 8's CPU-path selections replayed,
+    # held to phase 8's own limits
+    was = functorch._is_vmap_fallback_enabled()
+    functorch._set_vmap_fallback_enabled(False)
+    try:
+        data = FederatedData(sent140["devs"], 10, name="sent140_like",
+                             eval_sample=LOSS_DEVICES)
+        cfg = dataclasses.replace(sent140["cfg"], round_driver="scan",
+                                  chunk_rounds=LSTM_ROUNDS)
+        rounds = sent140["rounds"]
+        ssel = np.stack([np.stack(s) for _, s, _ in rounds])
+        tr = FederatedTrainer(sentlstm_loss, data, cfg)
+        before = dict(counts)
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        h1, p1, _ = _timed_run(torch, tr, len(rounds), params=sent140["p0"],
+                               selections=ssel)
+        wall1 = time.perf_counter() - t0
+        reserved = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+        grew = _delta(before, counts)
+        params_cpu, _, limit = rounds[-1]
+        err = max_err(torch, pt.tmap(lambda x: x.cpu(), p1), params_cpu)
+        check(err <= limit, f"scan sent140 feddane: params differ from "
+                            f"phase 8's CPU path by {err} > {limit}")
+        check(all(np.isfinite(h1["loss"])), "scan sent140: loss not finite")
+        k1 = tr._scanned._programs["injected"].launches.get(
+            "dane_update_flat", 0)
+        check(k1 > 0, "scan sent140: a replay launches no K1")
+        # timed apart from the captures (the LSTM's embedding gradient
+        # sums with atomics, so this run need not repeat run 1's bits)
+        h2, _, ms = _timed_run(torch, tr, len(rounds), params=sent140["p0"],
+                               selections=ssel)
+        check(all(np.isfinite(h2["loss"])), "scan sent140: loss not finite")
+        out["scan sent140 feddane"] = ms
+        print(f"  scan sent140 feddane, {len(rounds)} rounds: run 1 "
+              f"{wall1:.2f} s (host clock), captured {_programs(tr)}; run "
+              f"2 {ms:.2f} ms/round (CUDA events); phase 8's python driver "
+              f"{[round(m, 2) for m in sent140['ms']]} ms/round")
+        print(f"    max |params card - phase 8's CPU path| {err:.2e} (limit "
+              f"{limit:.2e}); loss {[round(x, 6) for x in h1['loss']]}; "
+              f"launches in run 1 {grew}; the card's reserved memory grew "
+              f"{reserved:.3f} GiB over run 1 (the stacked batches, the "
+              f"programs' pools)")
+        del tr, data
     finally:
         functorch._set_vmap_fallback_enabled(was)
     torch.cuda.empty_cache()
@@ -1593,8 +1922,16 @@ def main() -> int:
             f"dane_update_flat ({10 * n}, 128)"))
         for n in (lstm_rows(sentlstm_specs(SENT_VOCAB)),
                   lstm_rows(charlstm_specs(SHAKES_VOCAB)))}
-    phase_ms.update(lstm_phase(torch, counts, k1_cases))
+    lstm_ms, sent140 = lstm_phase(torch, counts, k1_cases)
+    phase_ms.update(lstm_ms)
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    print('[8b] the scanned driver (round_driver="scan"): one captured '
+          'CUDA graph a round')
+    t0 = time.perf_counter()
+    phase_ms.update(scan_phase(torch, counts, syn, syn_cpu,
+                               int8_tol["feddane"], sent140))
+    print(f"  phase 8b took {time.perf_counter() - t0:.1f} s")
 
     main_path = dict(counts)             # read just after the main path
 

@@ -202,7 +202,9 @@ class FederatedConfig:
     # "batched" (one stacked round through the kernels), "loop" (the
     # per-device reference), "auto": batched on the card, loop on CPU
     engine: str = "auto"
-    round_driver: str = "auto"       # python (auto resolves to it)
+    # python / scan; "auto" = scan wherever the engine is batched, except
+    # on the client mesh (core/algorithms.py)
+    round_driver: str = "auto"
     buffer_size: int = 0
     staleness_fn: str = "polynomial"
     max_staleness: int = 0
@@ -242,8 +244,16 @@ class FederatedConfig:
             raise ValueError(
                 f"unknown round_driver {self.round_driver!r}; choose "
                 f"from auto/python/scan/buffered")
-        if self.round_driver in ("scan", "buffered"):
-            raise _not_ported(f"round_driver {self.round_driver!r}")
+        if self.round_driver == "buffered":
+            raise _not_ported("round_driver 'buffered'")
+        # the scanned driver on the client mesh is not ported; "auto" may
+        # still resolve to one rank, so only a concrete int is rejected
+        # here (the trainer re-checks the resolved mesh)
+        if (self.round_driver == "scan" and _is_int(self.mesh_devices)
+                and self.mesh_devices > 1):
+            raise _not_ported(
+                f"round_driver 'scan' with mesh_devices="
+                f"{self.mesh_devices}")
         if not (_is_int(self.bits) and 2 <= self.bits <= 8):
             raise ValueError(
                 f"bits must be an int in [2, 8], got {self.bits!r}")

@@ -8,7 +8,8 @@ import importlib
 
 _EXPORTS = {
     "FederatedTrainer": "algorithms", "FederatedState": "algorithms",
-    "RoundEngine": "engine",
+    "RoundEngine": "engine", "ScannedDriver": "engine",
+    "make_scanned_run": "engine",
     "LocalResult": "client", "make_local_solver": "client",
     "make_grad_fn": "client", "make_batched_solver": "client",
     "make_batched_grad_fn": "client",

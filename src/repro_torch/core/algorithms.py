@@ -1,7 +1,7 @@
 """Federated optimization trainer (paper Alg. 1 & 2 + §V-C variants).
 
-Counterpart of ``repro/core/algorithms.py`` for the synchronous python
-driver.  ``FederatedTrainer`` interprets the registered
+Counterpart of ``repro/core/algorithms.py``.  ``FederatedTrainer``
+interprets the registered
 :class:`~repro_torch.core.strategies.AlgorithmSpec` of
 ``cfg.algorithm`` on one of two engines (``FederatedConfig.engine``):
 
@@ -12,6 +12,17 @@ driver.  ``FederatedTrainer`` interprets the registered
 - ``"auto"`` (default): batched on the card, loop on the CPU, and
   batched under the client mesh on either.
 
+``run()`` drives the rounds with one of two drivers
+(``FederatedConfig.round_driver``): ``"python"``, a host loop over
+:meth:`FederatedTrainer.round`, or ``"scan"``, the
+:class:`~repro_torch.core.engine.ScannedDriver` (on-card sampling, one
+captured CUDA graph a round on the card).  ``"auto"`` is ``"scan"``
+wherever the engine resolved to ``batched`` -- on the card, or
+``engine="batched"`` on the CPU -- as in the reference, except under the
+client mesh, which keeps ``"python"`` (the scanned driver on the mesh is
+not yet ported).  A control-variate spec with replacement runs on
+``"python"`` under either.
+
 Orthogonally, ``cfg.scenario`` selects a registered environment
 (``core/scenarios``: availability, stragglers, dropout, partial work),
 realized once per round as an ``active`` mask and ``work`` fractions
@@ -21,10 +32,11 @@ update deltas are encoded and the cohort aggregated through the codec
 kernel (K5) on both engines.  ``"ideal"`` and ``"none"`` keep the exact
 pre-scenario, pre-codec programs.
 
-Sampling and the scenario uniforms use the reference's numpy stream
-(``default_rng(cfg.seed)``, the same calls in the same order), so a
-seed gives the reference's selections and environment under either
-engine.  The trainer runs on ``device`` -- the card unless
+On the python driver, sampling and the scenario uniforms use the
+reference's numpy stream (``default_rng(cfg.seed)``, the same calls in
+the same order), so a seed gives the reference's selections and
+environment under either engine; the scanned driver draws both on its
+own device (see its docstring).  The trainer runs on ``device`` -- the card unless
 ``device="cpu"`` -- and the dataset must live there; the environment is
 realized on the host, so the card and the CPU see the same masks.
 
@@ -54,7 +66,7 @@ from repro_torch.core import codecs
 from repro_torch.core import pytree as pt
 from repro_torch.core import server, sharding
 from repro_torch.core.client import make_grad_fn, make_local_solver
-from repro_torch.core.engine import RoundEngine
+from repro_torch.core.engine import RoundEngine, ScannedDriver, new_history
 from repro_torch.core.scenarios import (availability_mask, env_channels,
                                         is_trivial, realize_env,
                                         scenario_spec)
@@ -165,6 +177,12 @@ class FederatedTrainer:
             RoundEngine(loss_fn, cfg, spec=self.spec,
                         num_devices=dataset.num_devices, mesh=self.mesh)
             if engine == "batched" else None)
+        if cfg.round_driver == "scan" and self.mesh is not None:
+            raise ValueError(
+                f"round_driver 'scan' on a client mesh of "
+                f"{self.mesh.world} ranks is not yet ported to "
+                f"repro_torch; use round_driver='python' (or 'auto')")
+        self._scanned: Optional[ScannedDriver] = None   # built lazily
         self._sample_queue: List[np.ndarray] = []       # test injection
         self._eval_loss = _make_eval_loss(loss_fn)
 
@@ -177,6 +195,19 @@ class FederatedTrainer:
         return server.sample_devices(
             self.rng, self.dataset.num_devices, self.cfg.devices_per_round,
             p=p, replace=self.cfg.sample_with_replacement)
+
+    def _resolve_driver(self) -> str:
+        """The driver ``run()`` takes (module docstring)."""
+        driver = self.cfg.round_driver
+        if driver == "auto":
+            driver = ("scan" if self.engine is not None and self.mesh is None
+                      else "python")
+        if (driver == "scan" and self.spec.control_update is not None
+                and self.cfg.sample_with_replacement):
+            # duplicated selections need sequential control updates; the
+            # scanned scatter applies them once
+            driver = "python"
+        return driver
 
     def _batches(self, k: int):
         return self.dataset.device_batches(int(k))
@@ -491,6 +522,14 @@ class FederatedTrainer:
         by round -- row 0 feeds single-selection algorithms and FedDANE
         phase A, row 1 phase B.
         """
+        if self._resolve_driver() == "scan":
+            if self._scanned is None:
+                self._scanned = ScannedDriver(
+                    self.loss_fn, self.dataset, self.cfg,
+                    engine=self.engine, device=self.device)
+            return self._scanned.run(
+                params, num_rounds, eval_every=eval_every, verbose=verbose,
+                checkpoint_dir=checkpoint_dir, selections=selections)
         if selections is not None:
             sel = np.asarray(selections)
             if sel.shape[0] < num_rounds:
@@ -510,10 +549,7 @@ class FederatedTrainer:
                  else num_rounds)
         st = self.init(params)
         n_elems = sum(x.numel() for x in pt.leaves(st.params))
-        hist: Dict[str, List[float]] = {"round": [], "comm_rounds": [],
-                                        "loss": [], "intended_k": [],
-                                        "effective_k": [], "dropped": [],
-                                        "bytes_up": [], "bytes_down": []}
+        hist = new_history()
         try:
             for t in range(num_rounds):
                 st = self.round(st)

@@ -131,15 +131,16 @@ TOPK = register_codec(CodecSpec(
 def _dp_encode(cfg, draws, idx, flat, ef):
     del draws, idx, ef
     nrm = torch.sqrt(torch.sum(flat * flat))
-    # tensor numerators: ``scalar / tensor`` would round twice
-    clip = torch.tensor(cfg.clip_norm, dtype=F32, device=flat.device)
+    # tensor numerators: ``scalar / tensor`` would round twice; filled
+    # on the device, not copied from the host, so a CUDA graph captures it
+    clip = torch.full((), cfg.clip_norm, dtype=F32, device=flat.device)
     fac = torch.clamp(clip / torch.clamp(nrm, min=1e-12), max=1.0)
     return flat * fac, flat.new_ones(()), None
 
 
 def _dp_post(cfg, draws, agg, count):
-    sigma = torch.tensor(cfg.noise_mult * cfg.clip_norm, dtype=F32,
-                         device=agg.device) / count
+    sigma = torch.full((), cfg.noise_mult * cfg.clip_norm, dtype=F32,
+                       device=agg.device) / count
     return agg + sigma * draws.noise
 
 

@@ -41,21 +41,74 @@ There is no per-algorithm code here: :class:`RoundEngine` interprets
 the registered :class:`~repro_torch.core.strategies.AlgorithmSpec`.
 PyTorch runs eagerly, so the round is a sequence of launches rather
 than one compiled program.
+
+Scanned multi-round driver
+--------------------------
+:class:`ScannedDriver` (``make_scanned_run``) is the layer above,
+counterpart of the reference's stacked-plan ``ScannedDriver``.  Where the
+reference fuses ``chunk_rounds`` rounds into one ``lax.scan`` program,
+the port captures ONE round as a CUDA graph and replays it once a round,
+so the host issues one launch where it would issue hundreds of kernels:
+
+- **on-card sampling**: selections come from
+  ``server.sample_devices_onchip`` on the driver's ``torch.Generator``
+  (registered with the graph, so every replay draws anew) and gather
+  rows of the pre-stacked all-device batch tensors, every device padded
+  to the dataset-wide ``nb_max``, so shapes stay fixed across rounds;
+  SCAFFOLD controls and error-feedback slabs are gathered and scattered
+  back (``index_copy_``) the same way.  Injected selections
+  (``selections=``) are read from a staged buffer by a second program.
+  Host and card samplers share the distribution, not the bit stream
+  (core/server.py);
+- **round-indexed values staged per chunk**: ``decay^t``, the scenario's
+  availability ``p_t`` and the codec draws depend on the round index,
+  which a captured graph would freeze, so the host computes them for
+  every round of a chunk (the same ``f32math`` on the CPU, the same
+  ``codecs.round_draws`` as the python driver) and stages them; the
+  captured round reads row ``i`` of each through an on-card counter it
+  advances itself.  The environment's uniforms are drawn in the graph
+  (:func:`scan_env_uniforms`) and realized on the card
+  (``scenarios.realize_env_staged``);
+- **in-driver eval**: the p_k-weighted global loss over the all-device
+  stacked eval tensors is a second captured program, replayed after
+  each round whose eval the host's mask asks for (the reference's
+  ``lax.cond``);
+- **chunked execution**: losses and the scenario telemetry stay on the
+  card until the chunk boundary, the only host sync, where the history
+  is emitted and checkpoints are saved.
+
+On the CPU the same round runs eagerly (the parity tests).  On the card
+a round that fails to capture or replay raises: nothing re-runs it
+eagerly.  Kernel launches are counted when a wrapper is called, so the
+driver takes a capture's launches off ``build.launch_counts`` and adds
+them back at every replay.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.core import codecs
 from repro_torch.core import pytree as pt
 from repro_torch.core import server, sharding
 from repro_torch.core.client import make_batched_grad_fn, make_batched_solver
+from repro_torch.core.scenarios import (availability_mask_staged,
+                                        env_channels, is_trivial,
+                                        realize_env_staged, scenario_spec,
+                                        staged_availability, staged_work)
 from repro_torch.core.strategies import (AlgorithmSpec, ControlCtx, CorrCtx,
-                                         algorithm_spec, make_server_opt)
-from repro_torch.kernels import flatpack
+                                         algorithm_spec, make_server_opt,
+                                         runtime_state_fields)
+from repro_torch.data.batching import stack_device_batches, stack_eval_batches
+from repro_torch.device import resolve_device
+from repro_torch.kernels import build, flatpack
 from repro_torch.kernels.codec import codec_aggregate, codec_aggregate_partial
+
+F32 = torch.float32
 
 
 def _stack_zeros(w0, k: int):
@@ -270,3 +323,476 @@ class RoundEngine:
                                      else torch.zeros((), device=eff.device))}
             return w_out, new, stats
         return w_out, new
+
+
+# -- the scanned multi-round driver -----------------------------------------
+
+def _make_stacked_eval(loss_fn: Callable, eval_batches, eval_valid,
+                       eval_weights) -> Callable:
+    """The global loss over the all-device stacked eval tensors as one
+    tensor expression: per device the mean batch loss over its *valid*
+    batches, then the p_k-weighted mean over devices -- what
+    ``FederatedTrainer.global_loss`` computes, with no Python branch on
+    data, so a CUDA graph captures it."""
+    per_batch = vmap(vmap(loss_fn, in_dims=(None, 0)), in_dims=(None, 0))
+
+    def eval_loss(p):
+        losses = per_batch(p, eval_batches)                    # (N, nb)
+        dev = ((losses * eval_valid).sum(dim=1)
+               / torch.clamp(eval_valid.sum(dim=1), min=1.0))
+        return ((eval_weights * dev).sum()
+                / torch.clamp(eval_weights.sum(), min=1e-12))
+
+    return eval_loss
+
+
+def scan_env_uniforms(gen: torch.Generator, channels: Tuple[str, ...],
+                      n: int, t: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The scanned driver's environment draw for one round: one ``(n,)``
+    float32 uniform per channel, in ``channels``' order, from ``gen``
+    (inside the captured round on the card).  ``t`` is the round index,
+    a ``(1,)`` int64 tensor on the driver's device, which this draw does
+    not read: the driver looks the function up here at every round, so
+    a test can put a table of other draws indexed by ``t`` in its
+    place."""
+    return {c: torch.rand(n, generator=gen, device=gen.device)
+            for c in channels}
+
+
+def new_history() -> Dict[str, List[float]]:
+    """The run-history dict both drivers fill (one schema)."""
+    return {"round": [], "comm_rounds": [], "loss": [], "intended_k": [],
+            "effective_k": [], "dropped": [], "bytes_up": [],
+            "bytes_down": []}
+
+
+def _assign(dst, src) -> None:
+    """Copy the tree ``src`` into the buffers of the tree ``dst``."""
+    for d, s in zip(pt.leaves(dst), pt.leaves(src)):
+        d.copy_(s)
+
+
+class _Program:
+    """One captured program: its CUDA graph and the kernel launches each
+    replay makes (counted at capture, added back at every replay)."""
+
+    def __init__(self, graph, launches: Dict[str, int]):
+        self.graph, self.launches = graph, launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, v in self.launches.items():
+            build.launch_counts[k] += v
+
+
+class ScannedDriver:
+    """The scanned multi-round driver (see the module docstring).
+
+    One instance per ``(loss_fn, dataset, cfg)``: it stacks every
+    device's train and eval batches once and exposes :meth:`run` with
+    ``FederatedTrainer.run``'s ``(history, final_params)`` contract.  On
+    the card it captures, at first use, the round with on-card sampling,
+    the round that reads injected selections, and the eval, and keeps
+    them for later runs of the same shapes.
+    """
+
+    def __init__(self, loss_fn: Callable, dataset, cfg,
+                 engine: Optional[RoundEngine] = None, device=None):
+        """``engine`` shares a trainer's :class:`RoundEngine` (by default
+        one is built from ``cfg``); ``device`` is the dataset's by
+        default.  Raises for a control-variate spec with replacement
+        (duplicated selections need sequential control updates) and for
+        the client mesh (not yet ported)."""
+        self.spec = algorithm_spec(cfg.algorithm)
+        if self.spec.control_update is not None and \
+                cfg.sample_with_replacement:
+            raise ValueError(
+                f"{cfg.algorithm} + sample_with_replacement requires "
+                f"sequential per-duplicate control updates; use the "
+                f"python driver")
+        self.cfg = cfg
+        self.dataset = dataset
+        self.device = resolve_device(
+            getattr(dataset, "device", None) if device is None else device)
+        self.num_devices = n = dataset.num_devices
+        self.engine = engine if engine is not None else RoundEngine(
+            loss_fn, cfg, spec=self.spec, num_devices=n)
+        if self.engine.mesh is not None:
+            raise ValueError(
+                "round_driver 'scan' on the client mesh is not yet ported "
+                "to repro_torch; run the mesh on round_driver='python'")
+        self.scn = scenario_spec(cfg.scenario)
+        self.scn_trivial = is_trivial(self.scn)
+        self._env_channels = env_channels(self.scn)
+        self._codec = self.engine._codec
+        self._codec_trivial = self.engine._codec_trivial
+        self.batches_all, self.valid_all = stack_device_batches(
+            dataset, np.arange(n))
+        self._eval_loss = _make_stacked_eval(loss_fn,
+                                             *stack_eval_batches(dataset))
+        w = dataset.weights
+        self.probs = (torch.tensor(w, dtype=F32, device=self.device)
+                      if cfg.weighted_sampling and w is not None else None)
+        self.k_sel = (cfg.devices_per_round if cfg.sample_with_replacement
+                      else min(cfg.devices_per_round, n))
+        self.k_intended = (n if self.spec.num_selections == 0
+                           else self.k_sel)
+        self.comm_per_round = self.spec.comm_per_round
+        self._state_fields = runtime_state_fields(self.spec, cfg)
+        frac = staged_work(self.scn, cfg, n)
+        self._frac = None if frac is None else frac.to(self.device)
+        self._all = torch.arange(n, device=self.device)
+        self.gen = torch.Generator(device=self.device)
+        #: programs captured on the card, by name ("sampled",
+        #: "injected", "eval"), and the host seconds each capture took
+        #: (its warm-up included)
+        self._programs: Dict[str, _Program] = {}
+        self.capture_s: Dict[str, float] = {}
+        self._layout = None
+        self._carry: Dict[str, Any] = {}
+        self._xs: Dict[str, torch.Tensor] = {}
+        self._ys: Dict[str, torch.Tensor] = {}
+        self._ctr = torch.zeros(2, dtype=torch.long, device=self.device)
+
+    # -- the round and the eval -------------------------------------------
+
+    def _gather(self, sel):
+        return (pt.tmap(lambda x: x.index_select(0, sel), self.batches_all),
+                self.valid_all.index_select(0, sel))
+
+    def _round(self, sampled: bool) -> None:
+        """One round on the carried state, in place: the engine's generic
+        round body plus on-card selection, gather/scatter and the
+        environment.  Reads row ``i = ctr[0]`` of the chunk's staged
+        inputs and advances the counter; no host sync."""
+        cfg, spec, eng = self.cfg, self.spec, self.engine
+        c, xs, n = self._carry, self._xs, self.num_devices
+        i, t = self._ctr[0:1], self._ctr[1:2]
+
+        def row(buf):
+            return buf.index_select(0, i)[0]
+
+        full = spec.num_selections == 0
+        s1 = s2 = None
+        if not full and sampled:
+            s1 = server.sample_devices_onchip(
+                self.gen, n, self.k_sel, p=self.probs,
+                replace=cfg.sample_with_replacement)
+            s2 = (server.sample_devices_onchip(
+                self.gen, n, self.k_sel, p=self.probs,
+                replace=cfg.sample_with_replacement)
+                if spec.num_selections == 2 else s1)
+        elif not full:
+            sel = row(xs["sel"])
+            s1, s2 = sel[0], sel[1]
+        # as the python driver maps phases: the first selection feeds the
+        # gradient gather, the solve selection is the second only for
+        # two-selection specs (and every device for full participation)
+        sel_solve = s1 if spec.num_selections < 2 else s2
+        decay = row(xs["decay"]) if spec.decay is not None else 1.0
+        if full:
+            b, v, phase_a = self.batches_all, self.valid_all, None
+        else:
+            b, v = self._gather(sel_solve)
+            phase_a = (self._gather(s1)
+                       if (spec.grad_source == "fresh"
+                           and spec.num_selections == 2) else None)
+        has_controls = "controls" in self._state_fields
+        aux_fields = [f for f in self._state_fields if f != "controls"]
+        aux = {f: c[f] for f in aux_fields}
+        if has_controls:
+            aux["c_server"] = c["c_server"]
+            aux["controls"] = (c["controls"] if full else pt.tmap(
+                lambda x: x.index_select(0, sel_solve), c["controls"]))
+        codec = self._codec
+        if not self._codec_trivial:
+            if codec.uses_rng:
+                aux["codec_draws"] = codecs.CodecDraws(
+                    row(xs["signs"]), row(xs["u"]), row(xs["noise"]))
+            if codec.error_feedback:
+                aux["ef"] = (c["ef"] if full
+                             else c["ef"].index_select(0, sel_solve))
+        stats = None
+        if self.scn_trivial:
+            params, new = eng.round(c["params"], aux, phase_a, b, v, decay)
+        else:
+            # one per-DEVICE (n,) uniform per channel (duplicates share an
+            # outcome); full-participation specs solve on every device
+            scn = self.scn
+            sel_env = self._all if full else sel_solve
+            uniforms = scan_env_uniforms(self.gen, self._env_channels, n, t)
+            p_t = row(xs["avail"]) if scn.availability is not None else None
+            env = realize_env_staged(scn, cfg, sel_env, p_t, self._frac,
+                                     uniforms)
+            active_a = None
+            if spec.grad_source == "fresh":
+                # availability gates the gather too, with the same draws
+                sel_a = sel_env if phase_a is None else s1
+                active_a = availability_mask_staged(scn, sel_a, p_t,
+                                                    uniforms)
+            params, new, stats = eng.round_env(
+                c["params"], aux, phase_a, b, v, decay, env.active,
+                env.work, active_a)
+        for f in aux_fields:
+            _assign(c[f], new[f])
+        if has_controls:
+            _assign(c["c_server"], new["c_server"])
+            if full:
+                _assign(c["controls"], new["controls"])
+            else:
+                pt.tmap(lambda d, s: d.index_copy_(0, sel_solve, s),
+                        c["controls"], new["controls"])
+        if not self._codec_trivial and codec.error_feedback:
+            if full:
+                c["ef"].copy_(new["ef"])
+            else:
+                c["ef"].index_copy_(0, sel_solve, new["ef"])
+        _assign(c["params"], params)
+        if stats is not None:
+            self._ys["effective_k"].index_copy_(
+                0, i, stats["effective_k"].reshape(1).to(F32))
+            self._ys["effective_a"].index_copy_(
+                0, i, stats["effective_a"].reshape(1).to(F32))
+        self._ctr.add_(1)
+
+    def _eval(self) -> None:
+        """The global loss at the carried params into the loss slot of
+        the round just run (``ctr[0] - 1``)."""
+        loss = self._eval_loss(self._carry["params"])
+        self._ys["loss"].index_copy_(0, self._ctr[0:1] - 1,
+                                     loss.reshape(1).to(F32))
+
+    # -- capture -----------------------------------------------------------
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        return (pt.leaves(self._carry) + list(self._ys.values())
+                + [self._ctr])
+
+    def _capture(self, name: str, fn: Callable) -> _Program:
+        """Capture ``fn`` as a CUDA graph.  It first runs once on a side
+        stream (libraries, handles and caches initialise outside the
+        capture), from a snapshot of the carried state and the generator
+        that is restored afterwards; that warm-up's launches ran and stay
+        counted.  The capture's own launches do not run, so they come off
+        the counters and return at every replay."""
+        t0 = time.perf_counter()
+        state = self._state_tensors()
+        snap = [x.clone() for x in state]
+        gen_state = self.gen.get_state()
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        for x, s in zip(state, snap):
+            x.copy_(s)
+        self.gen.set_state(gen_state)
+        del snap
+        before = dict(build.launch_counts)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.gen)
+        with torch.cuda.graph(graph):
+            fn()
+        launches = {k: build.launch_counts[k] - before[k]
+                    for k in before if build.launch_counts[k] != before[k]}
+        for k, v in launches.items():
+            build.launch_counts[k] -= v
+        torch.cuda.synchronize(self.device)
+        self.capture_s[name] = time.perf_counter() - t0
+        return _Program(graph, launches)
+
+    def _step(self, name: str, fn: Callable) -> None:
+        """Run ``fn`` once: eagerly on the CPU, as a replay of its
+        captured program on the card (captured at first use)."""
+        if self.device.type != "cuda":
+            fn()
+            return
+        prog = self._programs.get(name)
+        if prog is None:
+            prog = self._programs[name] = self._capture(name, fn)
+        prog.replay()
+
+    # -- host-side chunked run --------------------------------------------
+
+    def _emit_rounds(self, hist, off: int, hi: int, losses, eff, eff_a,
+                     eval_mask, n_elems: int, verbose: bool) -> None:
+        """Append one chunk's realized telemetry and eval points to the
+        run history."""
+        cfg = self.cfg
+        intended = self.k_intended
+        for i, t in enumerate(range(off, hi)):
+            hist["intended_k"].append(float(intended))
+            hist["effective_k"].append(float(eff[i]))
+            hist["dropped"].append(float(intended - eff[i]))
+            up, down = codecs.round_bytes(
+                self.spec, self._codec, cfg, n_elems, float(eff_a[i]),
+                float(eff[i]))
+            hist["bytes_up"].append(up)
+            hist["bytes_down"].append(down)
+            if not eval_mask[t]:
+                continue
+            hist["round"].append(t + 1)
+            hist["comm_rounds"].append((t + 1) * self.comm_per_round)
+            hist["loss"].append(float(losses[i]))
+            if verbose:
+                print(f"[{cfg.algorithm}] round {t + 1:4d} "
+                      f"comm {(t + 1) * self.comm_per_round:4d} "
+                      f"loss {float(losses[i]):.4f}")
+
+    def _init_carry(self, params) -> Dict[str, Any]:
+        """The carried state: params plus the spec's persistent state in
+        the stacked layout (controls and error feedback as ``(N, ...)``
+        stacks), as fresh tensors on the driver's device."""
+        n, cfg = self.num_devices, self.cfg
+        params = pt.tmap(lambda x: x.detach().to(self.device, copy=True),
+                         params)
+        carry: Dict[str, Any] = {"params": params}
+        for f in self._state_fields:
+            if f == "g_prev":
+                carry["g_prev"] = pt.zeros_like(params)
+            elif f == "center":
+                carry["center"] = pt.tmap(torch.clone, params)
+            elif f == "controls":
+                carry["c_server"] = pt.zeros_like(params)
+                carry["controls"] = pt.tmap(
+                    lambda x: x.new_zeros((n,) + x.shape), params)
+            elif f == "opt":
+                carry["opt"] = make_server_opt(self.spec, cfg).init(params)
+        if self._codec.error_feedback:
+            rows = flatpack.flat_spec(params).rows
+            carry["ef"] = torch.zeros((n, rows, flatpack.LANES), dtype=F32,
+                                      device=self.device)
+        return carry
+
+    def _prepare(self, params, capacity: int) -> None:
+        """Load the carry for a run from ``params``, in place when the
+        buffers (and so the captured programs that read them) fit: same
+        tree, shapes and dtypes, and staged inputs for ``capacity``
+        rounds at least.  Otherwise allocate anew and drop the
+        programs."""
+        fresh = self._init_carry(params)
+        layout = [(tuple(x.shape), x.dtype) for x in pt.leaves(fresh)]
+        layout.append(repr(pt.flatten(fresh)[1]))
+        if self._layout is not None and self._layout[0] == layout \
+                and self._layout[1] >= capacity:
+            _assign(self._carry, fresh)
+            return
+        self._programs.clear()
+        self._layout = (layout, capacity)
+        self._carry = fresh
+        dev, n, r = self.device, self.num_devices, capacity
+        self._ys = {k: torch.zeros(r, dtype=F32, device=dev)
+                    for k in ("loss", "effective_k", "effective_a")}
+        xs = {"sel": torch.zeros((r, 2, self.k_sel), dtype=torch.long,
+                                 device=dev)}
+        if self.spec.decay is not None:
+            xs["decay"] = torch.zeros(r, dtype=F32, device=dev)
+        if self.scn.availability is not None:
+            xs["avail"] = torch.zeros((r, n), dtype=F32, device=dev)
+        if self._codec.uses_rng:
+            rows = flatpack.flat_spec(fresh["params"]).rows
+            lanes = flatpack.LANES
+            xs["signs"] = torch.zeros((r, lanes), dtype=F32, device=dev)
+            xs["u"] = torch.zeros((r, self.k_intended, rows, lanes),
+                                  dtype=F32, device=dev)
+            xs["noise"] = torch.zeros((r, rows, lanes), dtype=F32,
+                                      device=dev)
+        self._xs = xs
+
+    def _stage(self, off: int, hi: int, sel, rows: int) -> None:
+        """Compute the round-indexed inputs of rounds ``off .. hi-1`` on
+        the host and copy them into the staged buffers; point the
+        counter at the chunk's first row and round."""
+        cfg, spec, xs = self.cfg, self.spec, self._xs
+        r = hi - off
+        if sel is not None and spec.num_selections > 0:
+            xs["sel"][:r].copy_(torch.from_numpy(sel[off:hi]))
+        if spec.decay is not None:
+            xs["decay"][:r].copy_(torch.tensor(
+                [spec.decay(cfg, t) for t in range(off, hi)], dtype=F32))
+        if "avail" in xs:
+            # the round index as the reference's scan body sees it:
+            # float32
+            xs["avail"][:r].copy_(torch.stack([
+                staged_availability(self.scn, cfg, self.num_devices,
+                                    torch.tensor(t, dtype=F32))
+                for t in range(off, hi)]))
+        if self._codec.uses_rng:
+            # the python driver's draws for the same round (the
+            # reference's scan and host loop share round_key(cfg, t))
+            draws = [codecs.round_draws(self._codec, cfg, t,
+                                        self.k_intended, rows, "cpu")
+                     for t in range(off, hi)]
+            for j, name in enumerate(("signs", "u", "noise")):
+                xs[name][:r].copy_(torch.stack([d[j] for d in draws]))
+        self._ctr.copy_(torch.tensor([0, off]))
+        self._ys["loss"].fill_(float("nan"))
+
+    def run(self, params, num_rounds: int, eval_every: int = 1,
+            verbose: bool = False, checkpoint_dir: Optional[str] = None,
+            selections=None) -> Tuple[Dict[str, List[float]], Any]:
+        """Chunked run; the same contract as ``FederatedTrainer.run``.
+
+        ``selections``: optional int array ``(num_rounds, 2, K)`` (or
+        ``(num_rounds, K)``, broadcast to both phases) in place of the
+        on-card sampler -- to make the drivers' sampling comparable.
+        The generator is seeded from ``cfg.seed`` at every run, so a run
+        repeats bit for bit.
+        """
+        cfg = self.cfg
+        sel = None
+        if selections is not None:
+            sel = np.asarray(selections).astype(np.int64)
+            if sel.ndim == 2:
+                sel = np.stack([sel, sel], axis=1)
+            if sel.shape[0] < num_rounds:
+                raise ValueError(
+                    f"selections covers {sel.shape[0]} rounds "
+                    f"< num_rounds={num_rounds}")
+        chunk_rounds = cfg.chunk_rounds if cfg.chunk_rounds > 0 \
+            else num_rounds
+        t_all = np.arange(num_rounds)
+        eval_mask = (t_all % eval_every == 0) | (t_all == num_rounds - 1)
+        hist = new_history()
+        intended = self.k_intended
+        n_elems = sum(x.numel() for x in pt.leaves(params))
+        gather_full = (float(intended)
+                       if self.spec.grad_source == "fresh" else 0.0)
+        self._prepare(params, min(chunk_rounds, num_rounds))
+        rows = flatpack.flat_spec(self._carry["params"]).rows
+        self.gen.manual_seed(cfg.seed)
+        name = "sampled" if sel is None else "injected"
+        for off in range(0, num_rounds, chunk_rounds):
+            hi = min(off + chunk_rounds, num_rounds)
+            self._stage(off, hi, sel, rows)
+            for t in range(off, hi):
+                self._step(name, lambda: self._round(sel is None))
+                if eval_mask[t]:
+                    self._step("eval", self._eval)
+            # chunk boundary: the only host round-trip
+            ys = {k: v[:hi - off].cpu().numpy() for k, v in self._ys.items()}
+            if self.scn_trivial:
+                eff = np.full(hi - off, intended, dtype=np.float64)
+                eff_a = np.full(hi - off, gather_full, dtype=np.float64)
+            else:
+                eff = ys["effective_k"].astype(np.float64)
+                eff_a = ys["effective_a"].astype(np.float64)
+            self._emit_rounds(hist, off, hi, ys["loss"], eff, eff_a,
+                              eval_mask, n_elems, verbose)
+            if checkpoint_dir is not None:
+                from repro_torch.checkpoint.store import save_checkpoint
+                save_checkpoint(checkpoint_dir,
+                                {"params": self._carry["params"],
+                                 "round": hi}, step=hi)
+        return hist, pt.tmap(torch.clone, self._carry["params"])
+
+
+def make_scanned_run(loss_fn: Callable, dataset, cfg,
+                     engine: Optional[RoundEngine] = None,
+                     device=None) -> ScannedDriver:
+    """Factory for the scanned multi-round driver: a
+    :class:`ScannedDriver` whose ``run(params, num_rounds, ...)`` runs
+    rounds as replays of captured programs with on-card sampling and
+    in-driver eval.  ``engine`` shares a trainer's :class:`RoundEngine`."""
+    return ScannedDriver(loss_fn, dataset, cfg, engine=engine,
+                         device=device)

@@ -3,16 +3,20 @@
 Counterpart of ``repro/core/scenarios``: one :class:`ScenarioSpec` per
 environment (``builtin.py``: ideal, bernoulli, diurnal, stragglers,
 stragglers_partial, dropout, partial_work, hostile); both engines of
-the python driver interpret them.  Register a spec and every path --
+the python driver and the scanned driver interpret them.  Register a spec and every path --
 and ``FederatedConfig.scenario`` validation -- picks it up.
 """
 from repro_torch.core.scenarios.spec import (DEADLINE_POLICIES, ENV_CHANNELS,
                                              RoundEnv, ScenarioSpec,
                                              availability_mask,
+                                             availability_mask_staged,
                                              available_scenarios,
                                              env_channels, is_trivial,
-                                             realize_env, register_scenario,
+                                             realize_env, realize_env_staged,
+                                             register_scenario,
                                              scenario_spec,
+                                             staged_availability,
+                                             staged_work,
                                              unregister_scenario)
 from repro_torch.core.scenarios import builtin  # noqa: F401  (registers)
 
@@ -20,5 +24,7 @@ __all__ = [
     "ScenarioSpec", "RoundEnv",
     "register_scenario", "unregister_scenario", "scenario_spec",
     "available_scenarios", "realize_env", "availability_mask",
+    "realize_env_staged", "availability_mask_staged",
+    "staged_availability", "staged_work",
     "env_channels", "is_trivial", "DEADLINE_POLICIES", "ENV_CHANNELS",
 ]

@@ -25,6 +25,13 @@ reference's order of operations (``f32math`` for ``exp``/``ndtri``),
 because ``u < p`` and ``lat <= deadline`` are threshold tests that one
 ulp can flip.
 
+The scanned driver realizes the environment inside its captured round
+on the card: :func:`staged_availability` and :func:`staged_work` run on
+the host (the round index enters only there), and
+:func:`realize_env_staged` / :func:`availability_mask_staged` turn the
+staged values and the round's uniforms into the same masks on any
+device.
+
 The ``"ideal"`` scenario is structurally trivial (:func:`is_trivial`):
 every path keeps its exact pre-scenario code, with no draws and no
 masks.
@@ -112,12 +119,55 @@ def realize_env(spec: ScenarioSpec, cfg, num_devices: int, sel, t,
     index and ``uniforms`` maps each channel of :func:`env_channels` to
     an (N,) float32 draw, per device.
     """
+    return realize_env_staged(spec, cfg, sel,
+                              staged_availability(spec, cfg, num_devices, t),
+                              staged_work(spec, cfg, num_devices), uniforms)
+
+
+def availability_mask(spec: ScenarioSpec, cfg, num_devices: int, sel, t,
+                      uniforms: Dict[str, Any]) -> torch.Tensor:
+    """The availability-only 0/1 mask for ``sel`` -- what gates the
+    phase-A gradient gather.  Uses the same per-device ``"avail"``
+    draw as :func:`realize_env`; all ones without an availability
+    process."""
+    return availability_mask_staged(
+        spec, sel, staged_availability(spec, cfg, num_devices, t), uniforms)
+
+
+def staged_availability(spec: ScenarioSpec, cfg, num_devices: int,
+                        t) -> Optional[torch.Tensor]:
+    """The (N,) float32 availability probabilities of round ``t`` on the
+    CPU (``None`` without an availability process): what the scanned
+    driver computes on the host for each round of a chunk and stages on
+    its device."""
+    if spec.availability is None:
+        return None
+    return _f32(spec.availability(cfg, num_devices, t))
+
+
+def staged_work(spec: ScenarioSpec, cfg,
+                num_devices: int) -> Optional[torch.Tensor]:
+    """The (N,) float32 work fractions on the CPU (``None`` without a
+    work assignment); they do not depend on the round."""
+    if spec.work_fraction is None:
+        return None
+    return _f32(spec.work_fraction(cfg, num_devices))
+
+
+def realize_env_staged(spec: ScenarioSpec, cfg, sel, p, frac,
+                       uniforms: Dict[str, Any]) -> RoundEnv:
+    """:func:`realize_env` from the round's staged availability ``p`` and
+    the work fractions ``frac`` (:func:`staged_availability`,
+    :func:`staged_work`), on the device of ``sel``, ``p``, ``frac`` and
+    ``uniforms``: no host sync, so the scanned driver's captured round
+    runs it on the card.  Every operation is exact or correctly rounded
+    in float32 (``f32math``), so the card realizes the CPU's masks bit
+    for bit."""
     sel = torch.as_tensor(sel, dtype=torch.long)
     k = sel.shape[0]
-    active = torch.ones(k, dtype=F32)
-    work = torch.ones(k, dtype=F32)
+    active = torch.ones(k, dtype=F32, device=sel.device)
+    work = torch.ones(k, dtype=F32, device=sel.device)
     if spec.availability is not None:
-        p = _f32(spec.availability(cfg, num_devices, t))
         active = active * (uniforms["avail"][sel] < p[sel])
     if spec.latency_quantile is not None:
         lat = _f32(spec.latency_quantile(cfg, uniforms["latency"][sel]))
@@ -127,27 +177,23 @@ def realize_env(spec: ScenarioSpec, cfg, num_devices: int, sel, t,
             # a tensor numerator: PyTorch takes ``scalar / tensor`` as
             # a reciprocal times the scalar, which rounds twice
             work = work * torch.clamp(
-                _f32(cfg.straggler_deadline) / torch.clamp(lat, min=1e-9),
-                0.0, 1.0)
+                torch.full_like(lat, cfg.straggler_deadline)
+                / torch.clamp(lat, min=1e-9), 0.0, 1.0)
     if spec.dropout:
         active = active * (uniforms["dropout"][sel] >= cfg.dropout_rate)
     if spec.work_fraction is not None:
-        f = _f32(spec.work_fraction(cfg, num_devices))
-        work = work * f[sel]
+        work = work * frac[sel]
     return RoundEnv(active=active.to(F32),
                     work=torch.clamp(work, 1e-6, 1.0))
 
 
-def availability_mask(spec: ScenarioSpec, cfg, num_devices: int, sel, t,
-                      uniforms: Dict[str, Any]) -> torch.Tensor:
-    """The availability-only 0/1 mask for ``sel`` -- what gates the
-    phase-A gradient gather.  Uses the same per-device ``"avail"``
-    draw as :func:`realize_env`; all ones without an availability
-    process."""
+def availability_mask_staged(spec: ScenarioSpec, sel, p,
+                             uniforms: Dict[str, Any]) -> torch.Tensor:
+    """:func:`availability_mask` from the round's staged ``p``, on the
+    device of ``sel`` (see :func:`realize_env_staged`)."""
     sel = torch.as_tensor(sel, dtype=torch.long)
     if spec.availability is None:
-        return torch.ones(sel.shape[0], dtype=F32)
-    p = _f32(spec.availability(cfg, num_devices, t))
+        return torch.ones(sel.shape[0], dtype=F32, device=sel.device)
     return (uniforms["avail"][sel] < p[sel]).to(F32)
 
 

@@ -1,9 +1,20 @@
 """Server side: device sampling and aggregation (Alg. 1/2 lines 3, 6-7, 9).
 
 Counterpart of the synchronous half of ``repro/core/server.py``.
-:func:`sample_devices` draws from the trainer's
-``np.random.default_rng(seed)`` stream with the same numpy call as the
-reference, so a seed gives exactly the reference's selections.
+There are two samplers, one per round driver:
+
+- :func:`sample_devices` (host) draws from the python driver's
+  ``np.random.default_rng(seed)`` stream with the same numpy call as
+  the reference, so a seed gives exactly the reference's selections;
+- :func:`sample_devices_onchip` (device) draws from a ``torch.Generator``
+  on the scanned driver's device, inside its captured round.
+
+As in the reference, the two draw from the same distribution (per-device
+marginals p_k; without replacement the Gumbel-top-k construction is
+numpy's sequential renormalized draw) through different bit streams, so
+the drivers' selections are not the same for a seed; each driver is
+reproducible for a fixed seed (tests/test_torch_sampling.py,
+tests/test_torch_scan.py).
 """
 from __future__ import annotations
 
@@ -27,6 +38,48 @@ def sample_devices(rng: np.random.Generator, num_devices: int, k: int,
         probs = np.asarray(p, dtype=np.float64)
         probs = probs / probs.sum()
     return rng.choice(num_devices, size=k, replace=replace, p=probs)
+
+
+def sample_devices_onchip(gen: torch.Generator, num_devices: int, k: int,
+                          p=None, replace: bool = False) -> torch.Tensor:
+    """:func:`sample_devices` on the generator's device: an int64 ``(k,)``
+    index tensor there, with no host sync and no op a CUDA graph cannot
+    capture (``gen`` must then be registered with the graph).
+
+    Without replacement: the Gumbel-top-k of ``log p`` (uniform: of the
+    Gumbel noise alone).  With replacement: the inverse CDF of ``k``
+    uniforms over the cumulative sum of ``p`` (uniform: ``randint``).
+    ``num_devices``, ``k``, ``replace`` and the presence of ``p`` are
+    fixed per call site.
+    """
+    dev = gen.device
+    if not replace:
+        k = min(k, num_devices)
+    if p is not None:
+        p = torch.as_tensor(p, dtype=torch.float32, device=dev)
+        # Population-scale guard: raw client weights can overflow (a sum
+        # of huge weights -> inf) or vanish (denormal sizes) before the
+        # normalizing division.  Pre-scale by the max ONLY in those
+        # regimes, so that in-range weights keep their exact bits
+        # (x / 1.0 is an identity in IEEE 754).
+        m = p.max()
+        p = p / torch.where((m > 1e30) | (m < 1e-30), m,
+                            torch.ones_like(m))
+        p = p / p.sum()
+    if replace:
+        if p is None:
+            return torch.randint(num_devices, (k,), generator=gen,
+                                 device=dev)
+        cdf = torch.cumsum(p, 0)
+        u = torch.rand(k, generator=gen, device=dev) * cdf[-1]
+        return torch.searchsorted(cdf, u, right=True).clamp_(
+            max=num_devices - 1)
+    u = torch.rand(num_devices, generator=gen, device=dev)
+    scores = -torch.log(-torch.log(torch.clamp(
+        u, min=torch.finfo(torch.float32).tiny)))
+    if p is not None:
+        scores = scores + torch.log(torch.clamp(p, min=1e-30))
+    return torch.topk(scores, k).indices
 
 
 def aggregate_mean(updates: List) -> object:

@@ -11,7 +11,9 @@ stack tensors that already live there.
 ``stack_device_batches`` builds the batched round engine's input: the K
 selected devices' stacks padded (by cycling whole batches) to the
 selection's largest bucket and stacked along a leading device axis,
-with a float32 ``(K, nb_max)`` validity mask.
+with a float32 ``(K, nb_max)`` validity mask; ``stack_eval_batches``
+the scanned driver's on-device global loss: every eval device's batches
+stacked the same way, with the weights p_k.
 """
 from __future__ import annotations
 
@@ -95,6 +97,34 @@ def stack_device_batches(dataset, indices, nb: Optional[int] = None
         (np.arange(nb_max)[None, :] < np.asarray(nbs)[:, None])
         .astype(np.float32))
     return stacked, valid.to(pt.leaves(stacked)[0].device)
+
+
+def stack_eval_batches(dataset) -> Tuple[dict, torch.Tensor, torch.Tensor]:
+    """Stack every eval device's batches for the scanned driver's
+    on-device global loss.
+
+    Consumes the ``dataset.eval_batches()`` protocol that
+    ``FederatedTrainer.global_loss`` iterates (so per-device eval limits
+    and samples hold alike) and returns ``(stacked, valid, weights)``:
+    leaves ``(N, nb_max, batch, ...)``, a float32 ``(N, nb_max)``
+    validity mask and the float32 ``(N,)`` weights p_k, on the stacks'
+    device.  Padded slots cycle a device's own batches and are masked
+    out, so each device's mean loss over its valid batches is the host
+    eval's.
+    """
+    weights, stacks = [], []
+    for wk, batches in dataset.eval_batches():
+        weights.append(float(wk))
+        stacks.append(batches)
+    nbs = [num_batches_of(b) for b in stacks]
+    nb_max = max(nbs)
+    stacked = pt.stack([pad_batch_stack(b, nb_max) for b in stacks])
+    dev = pt.leaves(stacked)[0].device
+    valid = torch.from_numpy(
+        (np.arange(nb_max)[None, :] < np.asarray(nbs)[:, None])
+        .astype(np.float32)).to(dev)
+    return stacked, valid, torch.tensor(weights, dtype=torch.float32,
+                                        device=dev)
 
 
 class FederatedData:

@@ -96,6 +96,23 @@ def run_cases(mesh, cases, errors, data_kw, p0, sel, rounds):
     return out
 
 
+def scan_driver_on_mesh(mesh):
+    """A scan trainer on this rank's mesh must raise; returns its message
+    (None if it built) and the driver ``auto`` resolves to here."""
+    ds = make_synthetic(1, 1, num_devices=4, seed=0, device=mesh.device)
+    kw = dict(num_devices=4, devices_per_round=2, mesh_devices="auto")
+    try:
+        FederatedTrainer(logreg_loss, ds,
+                         FederatedConfig(round_driver="scan", **kw),
+                         mesh=mesh)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        msg = None
+    tr = FederatedTrainer(logreg_loss, ds, FederatedConfig(**kw), mesh=mesh)
+    return msg, tr._resolve_driver()
+
+
 def fail_on_rank_one(mesh):
     """A rank body whose rank 1 raises while rank 0 waits in a
     collective: the launcher must stop rank 0 and raise."""

@@ -439,10 +439,14 @@ def test_bytes_formula_feddane_ideal(data):
 @pytest.mark.parametrize("engine", ["loop", "batched"])
 def test_thinned_gather_bytes_match_reference(data, engine):
     """Under bernoulli the phase-A gather counts responders, not
-    selections: fewer bytes than ideal, and exactly the reference's."""
-    ideal, _ = _run(data, "feddane", engine, "none", num_rounds=6)
+    selections: fewer bytes than ideal, and exactly the reference's
+    python driver's (the host-sampled selections and environment pin
+    the port to its python driver too)."""
+    ideal, _ = _run(data, "feddane", engine, "none", num_rounds=6,
+                    round_driver="python")
     thin, _ = _run(data, "feddane", engine, "none", num_rounds=6,
-                   scenario="bernoulli", avail_prob=0.4)
+                   scenario="bernoulli", avail_prob=0.4,
+                   round_driver="python")
     assert sum(thin["bytes_up"]) < sum(ideal["bytes_up"])
     assert min(thin["bytes_up"]) < min(ideal["bytes_up"])
     jds, _, p0 = data

@@ -525,3 +525,150 @@ def test_sent140_round_flat_equals_per_leaf_on_the_card(card):
     assert launches["flat"]["dane_update_2d"] == 0
     for a, b in zip(pt.leaves(out["flat"]), pt.leaves(out["per_leaf"])):
         assert _bits_equal(a, b)
+
+
+# -- the scanned driver: on-card sampling, captured rounds ------------------
+
+def _scan_setup(card, **over):
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.data import make_synthetic
+    from repro_torch.models.param import init_params
+    from repro_torch.models.small import logreg_specs
+
+    kw = dict(algorithm="feddane", mu=0.001, num_devices=10,
+              devices_per_round=4, local_epochs=2, learning_rate=0.01,
+              round_driver="scan", chunk_rounds=2, seed=3)
+    kw.update(over)
+    data = make_synthetic(1, 1, num_devices=10, seed=0, batch_size=10,
+                          device=card)
+    p0 = init_params(logreg_specs(60, 10), torch.Generator().manual_seed(0),
+                     device=card)
+    rng = np.random.default_rng(5)
+    sel = np.stack([np.stack([rng.choice(10, 4, replace=False)
+                              for _ in range(2)]) for _ in range(3)])
+    return FederatedConfig(**kw), data, p0, sel
+
+
+@pytest.mark.cuda
+def test_sampler_marginals_on_the_card(card):
+    """The card generator's draws: weighted without replacement against
+    numpy's sampler (two-sample chi-square, df=7 at 99.9%: 24.3) and
+    uniform against the exact K/N, at 1,000 rounds."""
+    from repro_torch.core import server
+
+    n, k, rounds = 8, 3, 1000
+    w = np.array([1, 1, 2, 3, 5, 8, 13, 21], np.float64)
+    w = w / w.sum()
+    rng = np.random.default_rng(0)
+    host = np.zeros(n)
+    for _ in range(rounds):
+        np.add.at(host, server.sample_devices(rng, n, k, p=w), 1.0)
+    for p in (w, None):
+        gen = torch.Generator(device=card).manual_seed(0)
+        pt_ = None if p is None else torch.tensor(p, dtype=torch.float32,
+                                                  device=card)
+        dev = torch.zeros(n, device=card)
+        for _ in range(rounds):
+            sel = server.sample_devices_onchip(gen, n, k, p=pt_)
+            assert sel.device.type == "cuda"
+            dev.index_add_(0, sel, torch.ones(k, device=card))
+        dev = dev.cpu().numpy()
+        assert dev.sum() == rounds * k
+        if p is None:
+            expected = rounds * k / n
+            assert np.all(np.abs(dev - expected) < 5.0 * np.sqrt(expected))
+        else:
+            tot = host + dev
+            assert float(((host - dev) ** 2 / tot).sum()) < 24.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kernel", [("auto", "local_epoch"),
+                                         ("flat", "dane_update_flat")])
+def test_captured_round_equals_eager_round(card, mode, kernel):
+    """3 rounds (two chunks) of the injected-selection program replayed
+    from its CUDA graph against the same round body run eagerly on the
+    card: bitwise equal history and params; the captured round launches
+    the solver's kernel."""
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.models.small import logreg_loss
+
+    cfg, data, p0, sel = _scan_setup(card, local_solver=mode)
+    out = []
+    for eager in (False, True):
+        tr = FederatedTrainer(logreg_loss, data, cfg)
+        assert tr._resolve_driver() == "scan"
+        if eager:
+            from repro_torch.core.engine import ScannedDriver
+            drv = tr._scanned = ScannedDriver(logreg_loss, data, cfg,
+                                              engine=tr.engine)
+            drv._step = lambda name, fn: fn()
+        out.append(tr.run(p0, 3, selections=sel))
+        torch.cuda.synchronize()
+        if not eager:
+            progs = tr._scanned._programs
+            assert set(progs) == {"injected", "eval"}
+            assert progs["injected"].launches.get(kernel, 0) > 0
+    (h1, p1), (h2, p2) = out
+    assert h1 == h2
+    for a, b in zip(pt.leaves(p1), pt.leaves(p2)):
+        assert _bits_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sampled_program_draws_anew_at_each_replay(card, monkeypatch):
+    """The sampled program's generator is registered with its graph:
+    consecutive replays select differently, and a second run (the same
+    graphs, the generator re-seeded) repeats the first bit for bit."""
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.core import server
+    from repro_torch.models.small import logreg_loss
+
+    cfg, data, p0, _ = _scan_setup(card, chunk_rounds=4)
+    tr = FederatedTrainer(logreg_loss, data, cfg)
+    rounds = 8
+    rec = torch.full((rounds, 2, 4), -1, dtype=torch.long, device=card)
+    sample, calls = server.sample_devices_onchip, []
+
+    def spy(*a, **k):
+        sel = sample(*a, **k)
+        drv = tr._scanned
+        phase = len(calls) % 2
+        calls.append(phase)
+        rec[:, phase].index_copy_(0, drv._ctr[1:2], sel.unsqueeze(0))
+        return sel
+
+    monkeypatch.setattr(server, "sample_devices_onchip", spy)
+    runs = []
+    for _ in range(2):
+        h, p = tr.run(p0, rounds)
+        runs.append((h, p, rec.cpu().numpy().copy()))
+    (h1, p1, s1), (h2, p2, s2) = runs
+    assert (s1 >= 0).all() and np.array_equal(s1, s2)
+    assert len({s1[t].tobytes() for t in range(rounds)}) > 1
+    assert h1 == h2
+    for a, b in zip(pt.leaves(p1), pt.leaves(p2)):
+        assert _bits_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_launch_counts_grow_with_replays(card):
+    """A captured kernel counts once a replay: a first run counts its
+    warm-up round and its replays, a second run its replays alone."""
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.models.small import logreg_loss
+
+    cfg, data, p0, sel = _scan_setup(card, local_solver="flat")
+    tr = FederatedTrainer(logreg_loss, data, cfg)
+    build.reset_launch_counts()
+    tr.run(p0, 3, selections=sel)
+    torch.cuda.synchronize()
+    per_round = tr._scanned._programs["injected"].launches[
+        "dane_update_flat"]
+    assert per_round > 0
+    assert build.launch_counts["dane_update_flat"] == (1 + 3) * per_round
+    build.reset_launch_counts()
+    tr.run(p0, 3, selections=sel)
+    assert build.launch_counts["dane_update_flat"] == 3 * per_round

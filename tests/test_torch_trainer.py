@@ -207,8 +207,9 @@ def test_epoch_step_mask_matches_reference():
 @pytest.mark.parametrize("algo", ["feddane", "feddane_pipelined", "fedavg",
                                   "scaffold"])
 def test_run_history_matches_reference(data, algo):
-    """``run()``: the same history keys and values, wire bytes exactly;
-    injected selections drive both."""
+    """``run()`` on the python driver: the same history keys and values,
+    wire bytes exactly; injected selections drive both (the scanned
+    driver's run is held in tests/test_torch_scan.py)."""
     jds, tds, p0 = data
     rng = np.random.default_rng(11)
     sel = np.stack([np.stack([rng.choice(6, 3, replace=False)
@@ -219,7 +220,8 @@ def test_run_history_matches_reference(data, algo):
                     eval_every=2, selections=sel)
     tt = FederatedTrainer(logreg_loss, tds,
                           FederatedConfig(algorithm=algo, engine="batched",
-                                          **KW), device="cpu")
+                                          round_driver="python", **KW),
+                          device="cpu")
     th, tp = tt.run(params_from_numpy(p0, device="cpu"), 3, eval_every=2,
                     selections=sel)
     assert th.keys() == jh.keys()
@@ -252,15 +254,55 @@ def test_init_params_zeros_for_logreg():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(codec="int8", round_driver="scan"),
+    dict(round_driver="scan", client_source="streaming"),
     dict(scenario="bernoulli", round_driver="buffered"),
-    dict(round_driver="scan"), dict(round_driver="buffered"),
+    dict(round_driver="buffered", codec="topk"),
+    dict(round_driver="buffered"),
     dict(mesh_devices=2, round_driver="scan"),
     dict(mesh_devices="auto", round_driver="buffered"),
     dict(client_source="streaming")])
 def test_config_rejects_what_is_not_ported(kw):
     with pytest.raises(ValueError, match="not yet ported"):
         FederatedConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(round_driver="scan"), dict(codec="int8", round_driver="scan"),
+    dict(mesh_devices="auto", round_driver="scan")])
+def test_config_accepts_the_scan_driver(kw):
+    """The scanned driver is ported; on the client mesh it is not, which
+    the trainer checks once ``mesh_devices`` has resolved."""
+    cfg = FederatedConfig(**kw)
+    assert cfg.round_driver == "scan"
+
+
+@pytest.mark.parametrize("engine,driver,want", [
+    ("batched", "auto", "scan"), ("loop", "auto", "python"),
+    ("auto", "auto", "python"), ("loop", "scan", "scan"),
+    ("batched", "python", "python")])
+def test_auto_driver_resolves_as_the_reference(data, engine, driver, want):
+    """``auto`` is ``scan`` wherever the engine resolved to ``batched``
+    (on the CPU: ``engine="batched"``), as the reference resolves it."""
+    _, tds, _ = data
+    tr = FederatedTrainer(logreg_loss, tds,
+                          FederatedConfig(engine=engine, round_driver=driver,
+                                          **KW), device="cpu")
+    assert tr._resolve_driver() == want
+
+
+def test_scan_trainer_on_a_mesh_raises_and_auto_stays_python(
+        monkeypatch, tmp_path):
+    """On a 2-rank CPU mesh a scan trainer raises "not yet ported" and
+    ``auto`` resolves to the python driver, on every rank."""
+    import tempfile
+
+    import _torch_mesh_child as child
+    from repro_torch.core import sharding
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    res = sharding.run_on_mesh(child.scan_driver_on_mesh, 2, device="cpu")
+    for msg, auto in res:
+        assert msg is not None and "not yet ported" in msg, msg
+        assert auto == "python"
 
 
 @pytest.mark.parametrize("kw", [
