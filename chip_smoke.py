@@ -14,7 +14,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    stack frame and spills of every entry;
 3. each kernel (K1-K7) at every shape phases 4-10 give it (K2 and K3 at
    both d=60 and d=784, K2 also on a rank's devices of the flat mesh
-   and, with its steps cut short, of the tree; K2 and K3 also at d=2,000
+   and, with its steps cut short, of the tree, and on the 1- and 3-row
+   cohorts a buffered refill solves, K3 too; K2 and K3 also at d=2,000
    and d=34,952 on numpy-seeded batches, K=10, nb=16, B=10: K2's global
    tier, up to the largest model the fused gate takes; K5 at the
    synthetic and FEMNIST-like flat packs
@@ -104,6 +105,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    replay; Sent140-like feddane (phase 8's settings) on phase 8's
    CPU-path selections, held to phase 8's limits, then timed in a
    second run beside phase 8's python-driver rounds;
+8c. the buffered driver (``round_driver="buffered"``, an event queue of
+   stale clients; ``num_rounds`` counts commits), every cell at full
+   width: the paper config's feddane, fedprox and fedavg with M=K,
+   ``ideal`` and constant weights, 3 commits, held to the card's python
+   driver and to the CPU buffered driver (on ``fused_epoch``'s plain
+   version) within TRAJECTORY_TOL, staleness 0, K2 once a commit;
+   feddane and fedavg under ``hostile`` with M=5, polynomial weights
+   and max staleness 3, 5 commits: the event stream (every history
+   list but the loss) equal to the CPU path's, params within 4x the
+   spread a 1e-7 nudge of w0 causes there, a second card run bitwise
+   equal, ms/commit and commits per unit of simulated time beside phase
+   7's python-driver ms/round, the idle share over 3 commits; feddane
+   ``hostile`` int8 M=5, 3 commits, held the same way, K5 never
+   launched (the commit reduces the decoded deltas itself); scaffold
+   with replacement, 1 commit, its duplicate clients solved in
+   occurrence layers, held to the card's python driver; Sent140-like
+   feddane (phase 8's settings), M=K, 2 commits, phase 8's selections,
+   within phase 8's limit of its card params, K1 once a local step.
+   Everywhere K2 launches once a cohort solve (refills of 1 to K rows);
 9. the client mesh (``core/sharding.py``) on the paper config, 3
    rounds a cell, its ranks started by ``run_on_mesh`` on cuda:0 over
    gloo (NCCL refuses two ranks on one device): a flat mesh of 2 ranks
@@ -130,8 +150,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    on 4 KV heads), B=1, S=2048, against the card's plain attention, K7
    launched 4 times;
 11. the ``kernels`` JSON line: every kernel with its launches on the
-   main path -- phases 4-8b in this process (the counters are set to 0
-   just before phase 4 and read just after phase 8b; a captured kernel
+   main path -- phases 4-8c in this process (the counters are set to 0
+   just before phase 4 and read just after phase 8c; a captured kernel
    counts once a replay, and once for the warm-up run before its
    capture), phase 9's ranks
    and phase 10 (set to 0 just before it and read just after) -- error,
@@ -576,10 +596,14 @@ def kernel_checks(torch, syn, fem):
         return epoch_case(batches, _epoch_step_mask(valid, E).contiguous(),
                           ", numpy-seeded, global tier")
 
-    def k3_case(fb):
+    def k3_case(fb, k=None, what=""):
         """One step on a [:, j] slice of the stacked batches ``fb``, as
-        the fused_step mode hands it over, with one device masked."""
-        batch = {"x": fb["x"][:, 0], "y": fb["y"][:, 0]}
+        the fused_step mode hands it over, with one device masked;
+        ``k``: the first k devices only (a buffered refill; the masked
+        one among them from k = 4)."""
+        m = mask if k is None else mask[:k].contiguous()
+        active = int(m.sum())
+        batch = {"x": fb["x"][:k, 0], "y": fb["y"][:k, 0]}
         K, B, d = batch["x"].shape
         wk = {"w": normal(K, d, C, scale=0.1), "b": normal(K, C, scale=0.1)}
         w0 = {"w": normal(d, C, scale=0.1), "b": normal(C, scale=0.1)}
@@ -591,11 +615,11 @@ def kernel_checks(torch, syn, fem):
         nbytes = 4 * (2 * K * dC + active * (B * (d + 1) + dC) + dC + K)
         flops = active * (4 * B * d * C + 8 * B * C + 6 * dC)
         return case(
-            f"linear_logistic_step K={K} B={B} d={d}",
+            f"linear_logistic_step K={K} B={B} d={d}{what}",
             lambda: local_solve.linear_logistic_step(
-                wk, batch, corr, w0, eta=eta, mu=mu, mask=mask),
+                wk, batch, corr, w0, eta=eta, mu=mu, mask=m),
             lambda: ref.linear_logistic_step_ref(
-                wk, batch, corr, w0, eta=eta, mu=mu, mask=mask),
+                wk, batch, corr, w0, eta=eta, mu=mu, mask=m),
             STEP_TOL, nbytes, flops)
 
     def k5_case(R, m, what):
@@ -725,7 +749,9 @@ def kernel_checks(torch, syn, fem):
     k2_cases = [k2_case(syn, both_tiers=True), k2_case(fem, both_tiers=True),
                 k2_case(syn, k=5, what=", rows 0:5 (2-rank mesh)"),
                 k2_case(syn, k=1, work=0.37,
-                        what=", row 0, work 0.37 (10-rank tree)"),
+                        what=", row 0, work 0.37 (10-rank tree, a "
+                             "buffered refill)"),
+                k2_case(syn, k=3, what=", rows 0:3 (a buffered refill)"),
                 # past one block's shared memory: the global tier, at d up
                 # to the reference's budget (B*d + 2*d*C <= 2^20 at C=B=10)
                 k2_wide_case(2000), k2_wide_case(34952)]
@@ -735,6 +761,10 @@ def kernel_checks(torch, syn, fem):
         row("linear_logistic_step", "local_solve.py:68", "local_solve.cu",
             [k3_case(first_solve_batches(fem)[0]),
              k3_case(first_solve_batches(syn)[0]),
+             k3_case(first_solve_batches(syn)[0], k=1,
+                     what=", a buffered refill of 1"),
+             k3_case(first_solve_batches(syn)[0], k=3,
+                     what=", a buffered refill of 3"),
              k3_case(wide_solve(2000, nb=1)[0]),
              k3_case(wide_solve(34952, nb=1)[0])]),
         # K5 on the synthetic flat pack (phase 7) and the FEMNIST-like one
@@ -1059,9 +1089,11 @@ def lstm_phase(torch, counts, k1_cases):
                 step_breakdown(torch, sentlstm_loss, sent, tr, st,
                                "sent140 feddane", k1_cases[rows])
                 # phase 8b replays these rounds' selections on the
-                # scanned driver, held to these limits
+                # scanned driver, held to these limits; phase 8c holds
+                # the buffered driver to the card's final params
                 handoff = dict(devs=devs, p0=p0, cfg=cfg, ms=ms,
-                               rounds=cpu_rounds)
+                               rounds=cpu_rounds,
+                               card=pt.tmap(lambda x: x.cpu(), st.params))
             del tr, st
         del sent, sent_cpu, devs
 
@@ -1447,6 +1479,292 @@ def scan_phase(torch, counts, syn, syn_cpu, int8_tol: float, sent140):
               f"launches in run 1 {grew}; the card's reserved memory grew "
               f"{reserved:.3f} GiB over run 1 (the stacked batches, the "
               f"programs' pools)")
+        del tr, data
+    finally:
+        functorch._set_vmap_fallback_enabled(was)
+    torch.cuda.empty_cache()
+    return out
+
+
+#: Phase 8c: the buffered driver's commits a cell (num_rounds counts
+#: commits): the degenerate cells, the asynchronous ones, the lossy
+#: uplink, the duplicates and the Sent140 LSTM; the async cells' idle
+#: share over BUF_PROFILED commits.  Cut for the script's time: the
+#: async and int8 cells from 10 and 5 commits (their CPU path, three
+#: runs for the nudge spread, took 49, 39 and ~25 s there), the
+#: duplicates cell from 3 (the python driver it is held to solves its
+#: duplicates one client at a time, ~25 s a round on the card).
+BUF_DEGENERATE = 3
+BUF_ASYNC = 5
+BUF_INT8 = 3
+BUF_DUP = 1
+BUF_SENT140 = 2
+BUF_PROFILED = 3
+#: The history lists of the event stream (all but the loss): the host
+#: computes them alone, so the card's run must give the CPU's exactly.
+EVENT_KEYS = ("round", "comm_rounds", "intended_k", "effective_k",
+              "dropped", "staleness_mean", "staleness_max", "buffer_wait",
+              "anchor_age", "sim_time", "bytes_up", "bytes_down")
+
+
+class BufferedRecorder:
+    """Records a buffered trainer's cohort launches (cohort, gather
+    selection) and cohort solves (the stacked ``(rows, nb)`` of each),
+    by wrapping its driver's ``_launch`` and ``_solve_cohort``: one K2
+    launch a solve under ``auto`` on logistic regression, and one K1
+    launch a local step (``nb`` steps at E=1) on the LSTM."""
+
+    def __init__(self, trainer):
+        drv = trainer._buffered
+        self.launches, self.solves = [], []
+        launch, solve = drv._launch, drv._solve_cohort
+
+        def spy_launch(cohort, s1, *a):
+            self.launches.append((np.array(cohort), None if s1 is None
+                                  else np.array(s1)))
+            return launch(cohort, s1, *a)
+
+        def spy_solve(w, corr, mu, b, v, limit):
+            self.solves.append(tuple(v.shape))
+            return solve(w, corr, mu, b, v, limit)
+
+        drv._launch, drv._solve_cohort = spy_launch, spy_solve
+
+    def clear(self):
+        self.launches.clear()
+        self.solves.clear()
+        return self
+
+
+def _buffered_cfg(**kw):
+    from repro_torch.configs.base import FederatedConfig
+    return FederatedConfig(mu=0.001, round_driver="buffered",
+                           **dict(PAPER, **kw))
+
+
+def buffered_cpu(torch, syn_cpu, cfg, commits: int, nudge: float = 1e-7):
+    """``cfg`` on the CPU path's buffered driver (``fused_epoch``, the
+    plain version of K2, the mode ``auto`` takes on the card) for
+    ``commits`` commits from the seeded zero start and from it nudged by
+    ``nudge`` times two numpy-seeded directions: the first run's history
+    and params, the larger move of the nudged runs and max |param|."""
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.models.small import logreg_loss
+
+    cfg = dataclasses.replace(cfg, local_solver="fused_epoch")
+    runs = []
+    for seed, eps in ((7, 0.0), (7, nudge), (8, nudge)):
+        rng = np.random.default_rng(seed)
+        p = pt.tmap(lambda x: x + torch.from_numpy(
+            (eps * rng.normal(size=tuple(x.shape))).astype(np.float32)),
+            _logreg_p0(torch, "cpu"))
+        runs.append(FederatedTrainer(logreg_loss, syn_cpu, cfg,
+                                     device="cpu").run(p, commits))
+    (hist, params), nudged = runs[0], runs[1:]
+    spread = max(max_err(torch, params, p) for _, p in nudged)
+    scale = max(float(x.abs().max()) for x in pt.leaves(params))
+    return hist, params, spread, scale
+
+
+def _rel_loss(a, b) -> float:
+    """Max |a - b| / max(1, |b|) over two loss histories."""
+    return float(max(abs(x - y) / max(1.0, abs(y)) for x, y in zip(a, b)))
+
+
+def buffered_phase(torch, counts, syn, syn_cpu, python_ms, sent140):
+    """Phase 8c: the buffered driver on the card.  ``python_ms``: phase
+    7's python-driver ms/round of feddane under ``hostile``; ``sent140``:
+    phase 8's handoff.  Returns ms/commit of the timed cells."""
+    import torch._C._functorch as functorch
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.data.batching import FederatedData
+    from repro_torch.models.small import logreg_loss, sentlstm_loss
+
+    out = {}
+
+    def card_run(cfg, commits, label, timed=False):
+        """The card's run of ``cfg``: history, params on the CPU, ms a
+        commit (CUDA events around ``run``), launches, recorder."""
+        tr = FederatedTrainer(logreg_loss, syn, cfg)
+        check(tr._resolve_driver() == "buffered", f"{label}: not buffered")
+        rec = BufferedRecorder(tr)
+        before = dict(counts)
+        hist, params, ms = _timed_run(torch, tr, commits,
+                                      params=_logreg_p0(torch))
+        grew = _delta(before, counts)
+        check(grew.get("local_epoch", 0) == len(rec.solves)
+              and len(rec.solves) >= len(rec.launches) > 0,
+              f"{label}: K2 launched {grew.get('local_epoch', 0)} times "
+              f"for {len(rec.solves)} cohort solves ({len(rec.launches)} "
+              f"launches)")
+        check(not grew.get("codec_aggregate"),
+              f"{label}: K5 launched in a buffered commit: {grew}")
+        check(all(np.isfinite(hist["loss"])), f"{label}: loss not finite")
+        return tr, hist, pt.tmap(lambda x: x.cpu(), params), ms, grew, rec
+
+    # (a) degenerate: M = K, ideal, constant weights -- each commit a
+    # synchronous round: the card's python driver and the CPU path's
+    # buffered driver, the same seed
+    for algo in ("feddane", "fedprox", "fedavg"):
+        t_cell = time.perf_counter()
+        label = f"buffered {algo} degenerate"
+        cfg = _buffered_cfg(algorithm=algo, buffer_size=0,
+                            staleness_fn="constant")
+        _, hg, pg, ms, grew, rec = card_run(cfg, BUF_DEGENERATE, label)
+        hp, pp = FederatedTrainer(
+            logreg_loss, syn, dataclasses.replace(
+                cfg, round_driver="python")).run(_logreg_p0(torch),
+                                                 BUF_DEGENERATE)
+        pp = pt.tmap(lambda x: x.cpu(), pp)
+        hc, pc = FederatedTrainer(
+            logreg_loss, syn_cpu, dataclasses.replace(
+                cfg, local_solver="fused_epoch"), device="cpu").run(
+            _logreg_p0(torch, "cpu"), BUF_DEGENERATE)
+        e_py, e_cpu = max_err(torch, pg, pp), max_err(torch, pg, pc)
+        l_py, l_cpu = _rel_loss(hg["loss"], hp["loss"]), _rel_loss(
+            hg["loss"], hc["loss"])
+        check(max(e_py, e_cpu, l_py, l_cpu) <= TRAJECTORY_TOL,
+              f"{label}: params {e_py} / {e_cpu}, loss {l_py} / {l_cpu} "
+              f"from the card's python driver / the CPU buffered driver "
+              f"> {TRAJECTORY_TOL}")
+        check(all(hg[k] == hc[k] for k in EVENT_KEYS),
+              f"{label}: history differs from the CPU buffered driver's")
+        check(hg["staleness_max"] == [0.0] * BUF_DEGENERATE and
+              hg["sim_time"] == [float(t + 1) for t in
+                                 range(BUF_DEGENERATE)],
+              f"{label}: staleness {hg['staleness_max']}, sim_time "
+              f"{hg['sim_time']}")
+        check(grew.get("local_epoch") == BUF_DEGENERATE,
+              f"{label}: {grew} (K2 once a commit)")
+        print(f"  {label}, {BUF_DEGENERATE} commits: {ms:.2f} ms/commit "
+              f"(CUDA events, the first run); against the card's python "
+              f"driver max |params| {e_py:.2e}, loss {l_py:.2e}; against "
+              f"the CPU buffered driver {e_cpu:.2e}, {l_cpu:.2e} (tol "
+              f"{TRAJECTORY_TOL:g}); staleness 0, sim_time "
+              f"{hg['sim_time']}; launches {grew}; the cell "
+              f"{time.perf_counter() - t_cell:.1f} s")
+
+    # (b) asynchronous: hostile, M=5, polynomial weights, max staleness 3
+    for algo in ("feddane", "fedavg"):
+        label = f"buffered {algo} hostile M=5"
+        cfg = _buffered_cfg(algorithm=algo, scenario="hostile",
+                            buffer_size=5, staleness_fn="polynomial",
+                            max_staleness=3)
+        t0 = time.perf_counter()
+        hc, pc, spread, scale = buffered_cpu(torch, syn_cpu, cfg, BUF_ASYNC)
+        tol = SPREAD_FACTOR * spread if spread > 0 else TRAJECTORY_TOL
+        print(f"  {label}: CPU path, {BUF_ASYNC} commits x 3 runs in "
+              f"{time.perf_counter() - t0:.1f} s; a 1e-7 nudge of w0 moves "
+              f"params by {spread:.2e}; max |param| {scale:.3g}; card held "
+              f"to {tol:.2e}")
+        check(tol <= MAX_REL_LIMIT * scale,
+              f"{label}: limit {tol} exceeds {MAX_REL_LIMIT} x {scale}")
+        tr, h1, p1, ms1, grew, rec = card_run(cfg, BUF_ASYNC, label)
+        solves = list(rec.solves)
+        launches = len(rec.launches)
+        _, h2, p2, ms2, _, _ = card_run(cfg, BUF_ASYNC, label)
+        check(h1 == h2 and all(torch.equal(a, b) for a, b in
+                               zip(pt.leaves(p1), pt.leaves(p2))),
+              f"{label}: two card runs differ")
+        bad = [k for k in EVENT_KEYS if h1[k] != hc[k]]
+        check(not bad, f"{label}: {bad} differ from the CPU path's")
+        err = max_err(torch, p1, pc)
+        check(err <= tol, f"{label}: params {err} > {tol}")
+        rate = BUF_ASYNC / h1["sim_time"][-1]
+        out[f"buffered {algo} hostile"] = ms2
+        print(f"    card: run 1 {ms1:.2f}, run 2 {ms2:.2f} ms/commit (CUDA "
+              f"events), bitwise equal; {rate:.3f} commits per unit of "
+              f"simulated time (sim_time {h1['sim_time'][-1]:.3f}); "
+              f"{launches} cohort launches, {len(solves)} K2 launches at K "
+              f"= {sorted({k for k, _ in solves})}; phase 7's python "
+              f"driver on feddane hostile {python_ms:.2f} ms/round")
+        print(f"    event stream equal to the CPU path's: staleness max "
+              f"{h1['staleness_max']}, dropped {h1['dropped']}; max "
+              f"|params card - cpu| {err:.2e} (limit {tol:.2e}); loss "
+              f"{[round(x, 4) for x in h1['loss']]}")
+        device_share(torch, lambda: tr.run(_logreg_p0(torch), BUF_PROFILED),
+                     f"{label}, {BUF_PROFILED} commits")
+        print(f"    the cell {time.perf_counter() - t0:.1f} s")
+
+    # (c) lossy uplink: int8 encoded at launch, decoded deltas committed
+    t_cell = time.perf_counter()
+    label = "buffered feddane hostile int8 M=5"
+    cfg = _buffered_cfg(algorithm="feddane", scenario="hostile",
+                        codec="int8", buffer_size=5)
+    hc, pc, spread, scale = buffered_cpu(torch, syn_cpu, cfg, BUF_INT8)
+    tol = SPREAD_FACTOR * spread if spread > 0 else TRAJECTORY_TOL
+    check(tol <= MAX_REL_LIMIT * scale,
+          f"{label}: limit {tol} exceeds {MAX_REL_LIMIT} x {scale}")
+    _, hg, pg, ms, grew, rec = card_run(cfg, BUF_INT8, label)
+    bad = [k for k in EVENT_KEYS if hg[k] != hc[k]]
+    check(not bad, f"{label}: {bad} differ from the CPU path's")
+    err = max_err(torch, pg, pc)
+    check(err <= tol, f"{label}: params {err} > {tol}")
+    print(f"  {label}, {BUF_INT8} commits: {ms:.2f} ms/commit; event "
+          f"stream equal to the CPU path's; max |params| {err:.2e} (limit "
+          f"{SPREAD_FACTOR:g} x the nudge spread {spread:.2e}); K5 not "
+          f"launched; launches {grew}; the cell "
+          f"{time.perf_counter() - t_cell:.1f} s")
+
+    # (d) duplicates: scaffold with replacement, occurrence layers
+    t_cell = time.perf_counter()
+    label = "buffered scaffold with replacement"
+    cfg = _buffered_cfg(algorithm="scaffold", sample_with_replacement=True)
+    _, hg, pg, ms, grew, rec = card_run(cfg, BUF_DUP, label)
+    check(len(rec.solves) > len(rec.launches),
+          f"{label}: no cohort held a client twice: {rec.solves}")
+    hp, pp = FederatedTrainer(logreg_loss, syn, dataclasses.replace(
+        cfg, round_driver="python")).run(_logreg_p0(torch), BUF_DUP)
+    err = max_err(torch, pg, pt.tmap(lambda x: x.cpu(), pp))
+    dl = _rel_loss(hg["loss"], hp["loss"])
+    check(err <= TRAJECTORY_TOL and dl <= TRAJECTORY_TOL,
+          f"{label}: params {err}, loss {dl} from the card's python "
+          f"driver > {TRAJECTORY_TOL}")
+    print(f"  {label}, {BUF_DUP} commits: {ms:.2f} ms/commit; "
+          f"{len(rec.launches)} cohort launches solved in "
+          f"{len(rec.solves)} occurrence layers (rows {[k for k, _ in rec.solves]}"
+          f"), one K2 launch each; against the card's python driver max "
+          f"|params| {err:.2e}, loss {dl:.2e}; launches {grew}; the cell "
+          f"{time.perf_counter() - t_cell:.1f} s")
+
+    # (e) the Sent140-like LSTM (phase 8's settings), M = K, ideal: the
+    # card's python driver of phase 8, the same seed and selections
+    was = functorch._is_vmap_fallback_enabled()
+    functorch._set_vmap_fallback_enabled(False)
+    try:
+        label = "buffered sent140 feddane"
+        data = FederatedData(sent140["devs"], 10, name="sent140_like",
+                             eval_sample=LOSS_DEVICES)
+        cfg = dataclasses.replace(sent140["cfg"], round_driver="buffered",
+                                  buffer_size=0)
+        tr = FederatedTrainer(sentlstm_loss, data, cfg)
+        rec = BufferedRecorder(tr)
+        before = dict(counts)
+        h, p, ms = _timed_run(torch, tr, BUF_SENT140, params=sent140["p0"])
+        grew = _delta(before, counts)
+        for (cohort, s1), (_, sel, _) in zip(rec.launches,
+                                             sent140["rounds"]):
+            check(np.array_equal(s1, sel[0]) and
+                  np.array_equal(cohort, sel[1]),
+                  f"{label}: selections differ from phase 8's")
+        limit = sent140["rounds"][BUF_SENT140 - 1][2]
+        err = max_err(torch, pt.tmap(lambda x: x.cpu(), p), sent140["card"])
+        check(err <= limit, f"{label}: params differ from phase 8's python "
+                            f"driver by {err} > {limit}")
+        steps = sum(cfg.local_epochs * nb for _, nb in rec.solves)
+        check(grew.get("dane_update_flat") == steps and
+              not grew.get("local_epoch"),
+              f"{label}: {grew} for {steps} local steps (K1 once a step)")
+        check(all(np.isfinite(h["loss"])), f"{label}: loss not finite")
+        out["buffered sent140 feddane"] = ms
+        print(f"  {label}, {BUF_SENT140} commits: {ms:.2f} ms/commit (CUDA "
+              f"events); phase 8's python driver "
+              f"{[round(m, 2) for m in sent140['ms']]} ms/round; the same "
+              f"selections; max |params - phase 8's card params| "
+              f"{err:.2e} (limit {limit:.2e}); {steps} local steps, "
+              f"launches {grew}")
         del tr, data
     finally:
         functorch._set_vmap_fallback_enabled(was)
@@ -1932,6 +2250,14 @@ def main() -> int:
     phase_ms.update(scan_phase(torch, counts, syn, syn_cpu,
                                int8_tol["feddane"], sent140))
     print(f"  phase 8b took {time.perf_counter() - t0:.1f} s")
+
+    print('[8c] the buffered driver (round_driver="buffered"): an event '
+          'queue of stale clients')
+    t0 = time.perf_counter()
+    phase_ms.update(buffered_phase(torch, counts, syn, syn_cpu,
+                                   phase_ms["feddane/hostile/none"],
+                                   sent140))
+    print(f"  phase 8c took {time.perf_counter() - t0:.1f} s")
 
     main_path = dict(counts)             # read just after the main path
 

@@ -13,11 +13,11 @@ against the port's own registries (algorithms, scenarios, codecs).
 Knobs of layers the port has not reached yet keep their fields (so a
 config reads the same in both packages) but values that would need
 those layers are refused at construction with a "not yet ported" error:
-the ``"scan"`` and ``"buffered"`` round drivers and streaming client
-sources.  ``round_driver="auto"`` resolves to the python driver.  The
-client mesh (``mesh_devices``, ``edge_shards``) runs on the python
-driver with the batched engine: its ranks come from
-``core.sharding.run_on_mesh``.
+streaming client sources, and the ``"scan"`` and ``"buffered"`` round
+drivers on a concrete ``mesh_devices`` > 1 (the trainer re-checks
+``"auto"`` once the mesh has resolved).  The client mesh
+(``mesh_devices``, ``edge_shards``) runs on the python driver with the
+batched engine: its ranks come from ``core.sharding.run_on_mesh``.
 """
 from __future__ import annotations
 
@@ -202,8 +202,8 @@ class FederatedConfig:
     # "batched" (one stacked round through the kernels), "loop" (the
     # per-device reference), "auto": batched on the card, loop on CPU
     engine: str = "auto"
-    # python / scan; "auto" = scan wherever the engine is batched, except
-    # on the client mesh (core/algorithms.py)
+    # python / scan / buffered; "auto" = scan wherever the engine is
+    # batched, except on the client mesh (core/algorithms.py)
     round_driver: str = "auto"
     buffer_size: int = 0
     staleness_fn: str = "polynomial"
@@ -244,15 +244,13 @@ class FederatedConfig:
             raise ValueError(
                 f"unknown round_driver {self.round_driver!r}; choose "
                 f"from auto/python/scan/buffered")
-        if self.round_driver == "buffered":
-            raise _not_ported("round_driver 'buffered'")
-        # the scanned driver on the client mesh is not ported; "auto" may
-        # still resolve to one rank, so only a concrete int is rejected
-        # here (the trainer re-checks the resolved mesh)
-        if (self.round_driver == "scan" and _is_int(self.mesh_devices)
-                and self.mesh_devices > 1):
+        # the scanned and buffered drivers on the client mesh are not
+        # ported; "auto" may still resolve to one rank, so only a concrete
+        # int is rejected here (the trainer re-checks the resolved mesh)
+        if (self.round_driver in ("scan", "buffered")
+                and _is_int(self.mesh_devices) and self.mesh_devices > 1):
             raise _not_ported(
-                f"round_driver 'scan' with mesh_devices="
+                f"round_driver {self.round_driver!r} with mesh_devices="
                 f"{self.mesh_devices}")
         if not (_is_int(self.bits) and 2 <= self.bits <= 8):
             raise ValueError(
@@ -282,10 +280,13 @@ class FederatedConfig:
             raise ValueError(
                 f"partial_min_work must be in (0, 1], got "
                 f"{self.partial_min_work}")
-        if self.staleness_fn not in ("constant", "polynomial"):
+        # the staleness-weight families live beside the weight map
+        # (core/server.py), like the registries above
+        from repro_torch.core.server import STALENESS_FNS
+        if self.staleness_fn not in STALENESS_FNS:
             raise ValueError(
                 f"unknown staleness_fn {self.staleness_fn!r}; choose "
-                f"from constant, polynomial")
+                f"from {', '.join(STALENESS_FNS)}")
         for knob in ("buffer_size", "max_staleness"):
             v = getattr(self, knob)
             if not (_is_int(v) and v >= 0):

@@ -9,7 +9,7 @@ import importlib
 _EXPORTS = {
     "FederatedTrainer": "algorithms", "FederatedState": "algorithms",
     "RoundEngine": "engine", "ScannedDriver": "engine",
-    "make_scanned_run": "engine",
+    "make_scanned_run": "engine", "BufferedDriver": "async_engine",
     "LocalResult": "client", "make_local_solver": "client",
     "make_grad_fn": "client", "make_batched_solver": "client",
     "make_batched_grad_fn": "client",

@@ -12,11 +12,14 @@ interprets the registered
 - ``"auto"`` (default): batched on the card, loop on the CPU, and
   batched under the client mesh on either.
 
-``run()`` drives the rounds with one of two drivers
+``run()`` drives the rounds with one of three drivers
 (``FederatedConfig.round_driver``): ``"python"``, a host loop over
-:meth:`FederatedTrainer.round`, or ``"scan"``, the
+:meth:`FederatedTrainer.round`; ``"scan"``, the
 :class:`~repro_torch.core.engine.ScannedDriver` (on-card sampling, one
-captured CUDA graph a round on the card).  ``"auto"`` is ``"scan"``
+captured CUDA graph a round on the card); or ``"buffered"``, the
+asynchronous :class:`~repro_torch.core.async_engine.BufferedDriver`
+(an event queue of stale clients, ``num_rounds`` counting server
+commits; not on the client mesh).  ``"auto"`` is ``"scan"``
 wherever the engine resolved to ``batched`` -- on the card, or
 ``engine="batched"`` on the CPU -- as in the reference, except under the
 client mesh, which keeps ``"python"`` (the scanned driver on the mesh is
@@ -58,14 +61,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from repro_torch.checkpoint.store import save_checkpoint
 from repro_torch.configs.base import FederatedConfig
 from repro_torch.core import codecs
 from repro_torch.core import pytree as pt
 from repro_torch.core import server, sharding
-from repro_torch.core.client import make_grad_fn, make_local_solver
+from repro_torch.core.async_engine import BufferedDriver
+from repro_torch.core.client import (make_eval_loss, make_grad_fn,
+                                     make_local_solver)
 from repro_torch.core.engine import RoundEngine, ScannedDriver, new_history
 from repro_torch.core.scenarios import (availability_mask, env_channels,
                                         is_trivial, realize_env,
@@ -177,14 +181,19 @@ class FederatedTrainer:
             RoundEngine(loss_fn, cfg, spec=self.spec,
                         num_devices=dataset.num_devices, mesh=self.mesh)
             if engine == "batched" else None)
-        if cfg.round_driver == "scan" and self.mesh is not None:
+        if cfg.round_driver in ("scan", "buffered") and \
+                self.mesh is not None:
             raise ValueError(
-                f"round_driver 'scan' on a client mesh of "
+                f"round_driver {cfg.round_driver!r} on a client mesh of "
                 f"{self.mesh.world} ranks is not yet ported to "
                 f"repro_torch; use round_driver='python' (or 'auto')")
         self._scanned: Optional[ScannedDriver] = None   # built lazily
+        # built here, so an unsupported configuration fails fast
+        self._buffered: Optional[BufferedDriver] = (
+            BufferedDriver(loss_fn, dataset, cfg, device=self.device)
+            if cfg.round_driver == "buffered" else None)
         self._sample_queue: List[np.ndarray] = []       # test injection
-        self._eval_loss = _make_eval_loss(loss_fn)
+        self._eval_loss = make_eval_loss(loss_fn)
 
     # -- helpers ----------------------------------------------------------
 
@@ -199,6 +208,8 @@ class FederatedTrainer:
     def _resolve_driver(self) -> str:
         """The driver ``run()`` takes (module docstring)."""
         driver = self.cfg.round_driver
+        if driver == "buffered":
+            return driver
         if driver == "auto":
             driver = ("scan" if self.engine is not None and self.mesh is None
                       else "python")
@@ -522,7 +533,14 @@ class FederatedTrainer:
         by round -- row 0 feeds single-selection algorithms and FedDANE
         phase A, row 1 phase B.
         """
-        if self._resolve_driver() == "scan":
+        driver = self._resolve_driver()
+        if driver == "buffered":
+            # num_rounds counts server commits; the history adds the
+            # per-commit staleness telemetry
+            return self._buffered.run(
+                params, num_rounds, eval_every=eval_every, verbose=verbose,
+                checkpoint_dir=checkpoint_dir, selections=selections)
+        if driver == "scan":
             if self._scanned is None:
                 self._scanned = ScannedDriver(
                     self.loss_fn, self.dataset, self.cfg,
@@ -581,13 +599,3 @@ class FederatedTrainer:
             self._sample_queue.clear()
         return hist, st.params
 
-
-def _make_eval_loss(loss_fn: Callable) -> Callable:
-    """Per-device eval loss: the mean batch loss over the device's
-    ``(nb, batch, ...)`` stack, as a 0-dim tensor on the device."""
-    per_batch = vmap(loss_fn, in_dims=(None, 0))
-
-    def f(p, b):
-        return per_batch(p, b).sum() / num_batches_of(b)
-
-    return f

@@ -163,6 +163,17 @@ def make_batched_grad_fn(loss_fn: Callable) -> Callable:
     return grads
 
 
+def make_eval_loss(loss_fn: Callable) -> Callable:
+    """Per-device eval loss: the mean batch loss over the device's
+    ``(nb, batch, ...)`` stack, as a 0-dim tensor on the device."""
+    per_batch = vmap(loss_fn, in_dims=(None, 0))
+
+    def f(p, b):
+        return per_batch(p, b).sum() / pt.leaves(b)[0].shape[0]
+
+    return f
+
+
 def _resolve_solver_mode(solver: str, loss_fn: Callable, w0, batches,
                          num_epochs: int) -> str:
     """Dispatch of the requested solver mode.  Explicit fused requests

@@ -50,11 +50,16 @@ def _linear_work_fraction(cfg, num_devices):
     """Per-device work fractions spread linearly from
     ``cfg.partial_min_work`` to 1.0 (``jnp.linspace`` in float32).
 
-    Written out as the reference's compiled linspace evaluates it:
-    ``start * (1 - i*c) + i*(stop*c)`` with ``c = 1/(N-1)`` and the last
-    product fused into the add.  It matches the reference's float32
-    values at the configurations the tests use; over N up to 4097 and
-    nine starting points about one value in sixty is an ulp off.
+    Written as ``start * (1 - i*c) + i*(stop*c)`` with ``c = 1/(N-1)``
+    and the last product fused into the add.  Measured against the
+    reference's eager ``jnp.linspace`` (what its python and buffered
+    drivers call): equal bit for bit at N = 12, 30 and 200 with
+    ``partial_min_work`` 0.3 and 0.5, and at N = 8 with 0.5; at N = 8
+    with 0.3, index 1 is one ulp above it (0.40000004 against 0.4),
+    which moves that device's step cap ``ceil(work * steps)`` up by one
+    where ``steps`` is a multiple of 5 (tests/test_torch_async.py pins
+    it).  The reference's compiled linspace differs from its eager one
+    in some values at those N.
     """
     start = torch.tensor(cfg.partial_min_work, dtype=F32)
     if num_devices == 1:

@@ -32,6 +32,13 @@ the host (the round index enters only there), and
 staged values and the round's uniforms into the same masks on any
 device.
 
+The buffered driver reads a scenario as an event queue
+(:func:`realize_event_env`): the latency draw is the client's arrival
+delay rather than a test against the deadline, availability and
+dropout mean the update is never delivered, and the work assignment
+still truncates the solve.  It runs on the CPU, from the same host
+uniforms and with the same float32 functions as :func:`realize_env`.
+
 The ``"ideal"`` scenario is structurally trivial (:func:`is_trivial`):
 every path keeps its exact pre-scenario code, with no draws and no
 masks.
@@ -122,6 +129,48 @@ def realize_env(spec: ScenarioSpec, cfg, num_devices: int, sel, t,
     return realize_env_staged(spec, cfg, sel,
                               staged_availability(spec, cfg, num_devices, t),
                               staged_work(spec, cfg, num_devices), uniforms)
+
+
+class EventEnv(NamedTuple):
+    """One cohort launch's realized environment under the event-queue
+    (buffered driver) reading of a scenario (:func:`realize_event_env`)."""
+    delivered: Any  # float (K,) 0/1 -- the finished update reaches the server
+    work: Any       # float (K,) in (0, 1] -- fraction of local steps done
+    latency: Any    # float (K,) > 0 -- completion delay, in nominal rounds
+
+
+def realize_event_env(spec: ScenarioSpec, cfg, num_devices: int, sel, t,
+                      uniforms: Dict[str, Any]) -> EventEnv:
+    """The event-queue scenario interpreter of the buffered driver.
+
+    The inputs of :func:`realize_env`, read without a round barrier: the
+    latency process is not compared with ``cfg.straggler_deadline`` but
+    IS the client's arrival delay (clamped at 1e-6); a straggler lands
+    later, so staler, and ``cfg.max_staleness`` takes the deadline's
+    place at the server.  Availability and dropout clear ``delivered``;
+    the work assignment truncates the solve.  A spec without a latency
+    process completes in exactly 1.0 nominal round, which keeps cohorts
+    aligned (the degenerate-parity configuration).
+    """
+    sel = torch.as_tensor(sel, dtype=torch.long)
+    k = sel.shape[0]
+    delivered = torch.ones(k, dtype=F32)
+    work = torch.ones(k, dtype=F32)
+    latency = torch.ones(k, dtype=F32)
+    if spec.availability is not None:
+        p = staged_availability(spec, cfg, num_devices, t)
+        delivered = delivered * (uniforms["avail"][sel] < p[sel])
+    if spec.latency_quantile is not None:
+        latency = torch.clamp(
+            _f32(spec.latency_quantile(cfg, uniforms["latency"][sel])),
+            min=1e-6)
+    if spec.dropout:
+        delivered = delivered * (uniforms["dropout"][sel]
+                                 >= cfg.dropout_rate)
+    if spec.work_fraction is not None:
+        work = work * staged_work(spec, cfg, num_devices)[sel]
+    return EventEnv(delivered=delivered.to(F32),
+                    work=torch.clamp(work, 1e-6, 1.0), latency=latency)
 
 
 def availability_mask(spec: ScenarioSpec, cfg, num_devices: int, sel, t,

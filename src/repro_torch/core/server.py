@@ -1,10 +1,11 @@
 """Server side: device sampling and aggregation (Alg. 1/2 lines 3, 6-7, 9).
 
-Counterpart of the synchronous half of ``repro/core/server.py``.
-There are two samplers, one per round driver:
+Counterpart of ``repro/core/server.py``: sampling, the synchronous
+aggregates and, for the buffered driver, the staleness weights and the
+weighted mean of a commit buffer.  There are two samplers:
 
-- :func:`sample_devices` (host) draws from the python driver's
-  ``np.random.default_rng(seed)`` stream with the same numpy call as
+- :func:`sample_devices` (host) draws from the python and buffered
+  drivers' ``np.random.default_rng(seed)`` stream with the same numpy call as
   the reference, so a seed gives exactly the reference's selections;
 - :func:`sample_devices_onchip` (device) draws from a ``torch.Generator``
   on the scanned driver's device, inside its captured round.
@@ -88,6 +89,11 @@ def aggregate_mean(updates: List) -> object:
     return pt.mean(updates)
 
 
+def aggregate_weighted(updates: List, weights: Sequence[float]) -> object:
+    """n_k-weighted aggregation (FedAvg as McMahan et al. implement it)."""
+    return pt.weighted_mean(updates, list(weights))
+
+
 def aggregate_gradients(grads: List) -> object:
     """g_t = (1/K) sum_{k in S_t} grad F_k(w^{t-1})  (Alg. 2 line 6)."""
     return pt.mean(grads)
@@ -133,6 +139,41 @@ def aggregate_stacked_masked(tree, active, fallback, mesh=None) -> object:
         return torch.where(asum > 0, s / denom, fb)
 
     return pt.tmap(mmean, tree, fallback)
+
+
+#: Staleness -> mixing-weight families of the buffered driver
+#: (``FederatedConfig.staleness_fn``); the map is :func:`staleness_weight`.
+STALENESS_FNS = ("constant", "polynomial")
+
+
+def staleness_weight(name: str, staleness) -> torch.Tensor:
+    """Mixing weight of a buffered update whose anchor is ``staleness``
+    commits old (FedBuff, Nguyen et al. 2022), as a float32 tensor of
+    ``staleness``'s shape: ``"constant"`` gives ones (the synchronous
+    mean), ``"polynomial"`` FedBuff's ``(1 + s) ** -0.5``."""
+    s = torch.as_tensor(staleness, dtype=torch.float32)
+    if name == "constant":
+        return torch.ones_like(s)
+    if name == "polynomial":
+        return (1.0 + s) ** -0.5
+    raise ValueError(
+        f"unknown staleness_fn {name!r}; choose from "
+        f"{', '.join(STALENESS_FNS)}")
+
+
+def aggregate_buffered(deltas, weights: torch.Tensor):
+    """Staleness-weighted mean of a full commit buffer: ``deltas`` has a
+    leading buffer axis M (row i a client's pseudo-gradient
+    ``anchor_i - w_i``), ``weights`` the float ``(M,)`` vector of
+    :func:`staleness_weight`.  Divides by ``max(sum(weights), 1e-12)``;
+    with constant weights this is :func:`aggregate_stacked`'s mean."""
+    wsum = torch.clamp(weights.sum(), min=1e-12)
+
+    def wmean(x):
+        w = weights.reshape(weights.shape + (1,) * (x.ndim - 1))
+        return (x * w).sum(dim=0) / wsum
+
+    return pt.tmap(wmean, deltas)
 
 
 def server_step(w0, w_agg, opt=None, opt_state=None):

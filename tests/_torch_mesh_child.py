@@ -96,14 +96,15 @@ def run_cases(mesh, cases, errors, data_kw, p0, sel, rounds):
     return out
 
 
-def scan_driver_on_mesh(mesh):
-    """A scan trainer on this rank's mesh must raise; returns its message
-    (None if it built) and the driver ``auto`` resolves to here."""
+def scan_driver_on_mesh(mesh, driver="scan"):
+    """A trainer on ``driver`` (the scanned or the buffered one) on this
+    rank's mesh must raise; returns its message (None if it built) and
+    the driver ``auto`` resolves to here."""
     ds = make_synthetic(1, 1, num_devices=4, seed=0, device=mesh.device)
     kw = dict(num_devices=4, devices_per_round=2, mesh_devices="auto")
     try:
         FederatedTrainer(logreg_loss, ds,
-                         FederatedConfig(round_driver="scan", **kw),
+                         FederatedConfig(round_driver=driver, **kw),
                          mesh=mesh)
     except ValueError as e:
         msg = str(e)

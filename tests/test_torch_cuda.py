@@ -150,7 +150,10 @@ def _epoch_inputs(seed, K, nb, B, d, C, E, device, work=None):
     (10, 128, 10, 60, 10, 20, None),   # synthetic(1,1), the paper config
     (10, 64, 10, 784, 10, 20, None),   # FEMNIST-like
     (10, 128, 10, 60, 10, 20, 0.37),   # a work cutoff
-    (1, 128, 10, 60, 10, 20, None),    # one device (a rank of the tree)
+    (1, 128, 10, 60, 10, 20, None),    # one device (a rank of the tree,
+                                       # a buffered refill of one client)
+    (3, 128, 10, 60, 10, 20, None),    # a buffered refill of three
+    (3, 128, 10, 60, 10, 20, 0.37),    # ... with a work cutoff
     (3, 7, 5, 33, 18, 700, None),      # E*nb > 4096: the window moves;
                                        # C > 16: two class chunks
     (10, 16, 10, 2000, 10, 20, None),  # the global tier
@@ -193,6 +196,8 @@ STEP_TOL = 1e-5
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,B,d,C", [
     (10, 10, 60, 10),       # synthetic(1,1)
+    (1, 10, 60, 10),        # a buffered refill of one client
+    (3, 10, 60, 10),        # ... of three
     (10, 10, 784, 10),      # FEMNIST-like
     (10, 10, 2000, 10),
     (10, 10, 34952, 10),    # the largest d the gate takes
@@ -672,3 +677,62 @@ def test_launch_counts_grow_with_replays(card):
     build.reset_launch_counts()
     tr.run(p0, 3, selections=sel)
     assert build.launch_counts["dane_update_flat"] == 3 * per_round
+
+
+# -- the buffered driver: the cohort solves on the card ---------------------
+
+def _buffered_run(device, count_launches=False):
+    """feddane under ``hostile`` on the buffered driver (N=8, K=4, M=2,
+    polynomial weights), 3 commits, solving on K2 (its plain version on
+    the CPU); returns the history, the params on the CPU and the cohort
+    launches the driver made."""
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import make_synthetic
+    from repro_torch.models.param import init_params
+    from repro_torch.models.small import logreg_loss, logreg_specs
+
+    cfg = FederatedConfig(algorithm="feddane", mu=0.001, num_devices=8,
+                          devices_per_round=4, local_epochs=2,
+                          learning_rate=0.01, seed=7,
+                          round_driver="buffered", scenario="hostile",
+                          buffer_size=2, straggler_sigma=0.8,
+                          local_solver="fused_epoch")
+    data = make_synthetic(1, 1, num_devices=8, seed=0, batch_size=10,
+                          device=device)
+    p0 = init_params(logreg_specs(60, 10), torch.Generator().manual_seed(0),
+                     device=device)
+    tr = FederatedTrainer(logreg_loss, data, cfg, device=device)
+    drv, launches = tr._buffered, []
+    launch = drv._launch
+
+    def counted(cohort, *a):
+        launches.append(len(cohort))
+        return launch(cohort, *a)
+
+    drv._launch = counted
+    hist, p = tr.run(p0, 3)
+    return hist, {k: v.cpu() for k, v in p.items()}, launches
+
+
+@pytest.mark.cuda
+def test_buffered_run_on_the_card_equals_the_cpu(card):
+    """The event stream comes from the host alone, so the card's run has
+    the CPU's telemetry exactly; the cohorts solve on K2 against its
+    plain version on the CPU (atol 1e-5), one K2 launch a cohort
+    launch."""
+    hist_c, p_c, launches_c = _buffered_run("cpu")
+    build.reset_launch_counts()
+    hist_g, p_g, launches_g = _buffered_run(card)
+    torch.cuda.synchronize()
+    assert list(hist_g) == list(hist_c)
+    for k in hist_c:
+        if k == "loss":
+            np.testing.assert_allclose(hist_g[k], hist_c[k], atol=1e-5)
+        else:
+            assert hist_g[k] == hist_c[k], k
+    for k in p_c:
+        torch.testing.assert_close(p_g[k], p_c[k], atol=1e-5, rtol=0)
+    assert launches_g == launches_c and len(launches_g) > 1
+    assert build.launch_counts["local_epoch"] == len(launches_g)
+    assert build.launch_counts["codec_aggregate"] == 0

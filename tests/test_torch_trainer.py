@@ -255,15 +255,26 @@ def test_init_params_zeros_for_logreg():
 
 @pytest.mark.parametrize("kw", [
     dict(round_driver="scan", client_source="streaming"),
-    dict(scenario="bernoulli", round_driver="buffered"),
-    dict(round_driver="buffered", codec="topk"),
-    dict(round_driver="buffered"),
+    dict(round_driver="buffered", mesh_devices=2),
+    dict(round_driver="buffered", mesh_devices=4, edge_shards=2),
+    dict(round_driver="buffered", client_source="streaming"),
     dict(mesh_devices=2, round_driver="scan"),
-    dict(mesh_devices="auto", round_driver="buffered"),
     dict(client_source="streaming")])
 def test_config_rejects_what_is_not_ported(kw):
     with pytest.raises(ValueError, match="not yet ported"):
         FederatedConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scenario="bernoulli", round_driver="buffered"),
+    dict(round_driver="buffered", codec="topk"),
+    dict(round_driver="buffered"),
+    dict(mesh_devices="auto", round_driver="buffered")])
+def test_config_accepts_the_buffered_driver(kw):
+    """The buffered driver is ported; on the client mesh it is not, which
+    the trainer checks once ``mesh_devices`` has resolved."""
+    cfg = FederatedConfig(**kw)
+    assert cfg.round_driver == "buffered"
 
 
 @pytest.mark.parametrize("kw", [
@@ -303,6 +314,21 @@ def test_scan_trainer_on_a_mesh_raises_and_auto_stays_python(
     for msg, auto in res:
         assert msg is not None and "not yet ported" in msg, msg
         assert auto == "python"
+
+
+def test_buffered_trainer_on_a_mesh_raises(monkeypatch, tmp_path):
+    """On a 2-rank CPU mesh (``mesh_devices="auto"``) a buffered trainer
+    raises "not yet ported" on every rank."""
+    import tempfile
+
+    import _torch_mesh_child as child
+    from repro_torch.core import sharding
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    res = sharding.run_on_mesh(child.scan_driver_on_mesh, 2, device="cpu",
+                               args=("buffered",))
+    for msg, _ in res:
+        assert msg is not None and "not yet ported" in msg, msg
+        assert "'buffered'" in msg
 
 
 @pytest.mark.parametrize("kw", [
