@@ -53,7 +53,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
    round against the same config on the port's CPU path (plain
-   versions): the same selections, params within tolerance;
+   versions; phases 4, 6 and 7 run it on ``CPU_SOLVER``, K2's plain
+   version, the mode ``auto`` takes on the card): the same selections,
+   params within tolerance;
 5. feddane for 2 rounds in each explicit solver mode: flat and per_leaf
    bitwise equal on the card, each mode's kernel launched, and one
    update launch a step in both generic modes (as many K4 launches in
@@ -124,6 +126,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    feddane (phase 8's settings), M=K, 2 commits, phase 8's selections,
    within phase 8's limit of its card params, K1 once a local step.
    Everywhere K2 launches once a cohort solve (refills of 1 to K rows);
+8d. the population layer (``data/shard_source.py``) at the reference's
+   acceptance settings: a streaming synthetic(1,1) source of N=10^6
+   clients on the card (seed 7, eval over 32 clients), K=10, E=1, B=10,
+   lr=0.05, mu=0.01, seed 5.  feddane 3 rounds on the python driver
+   against the CPU path (the same numpy selections, params and loss
+   within TRAJECTORY_TOL), then on the scanned driver's streaming plan
+   on those selections (run twice, bitwise; its captures, one per padded
+   batch count), a 3-commit buffered feddane against the CPU buffered
+   driver (the same event stream), and SCAFFOLD 2 rounds (at most 20
+   controls in the sparse store); K2 once a round, replay or commit;
+   each with ms/round (CUDA events), clients generated (at most
+   32 + 2 x 10 x 3), the card's peak allocated bytes above the run's
+   start (under 256 MiB) and the host's peak RSS growth.  At N=30,
+   streaming against the stacked plan with sampled selections: the
+   schedule's eager draws equal the captured round's draws bit for bit,
+   params within 1e-5.  The reference's directional cell: ``bernoulli``,
+   4 scanned rounds of fedavg, fedprox and feddane at K/N = 1e-5, the
+   final losses and whether feddane's is over 1.5x both (printed);
 9. the client mesh (``core/sharding.py``) on the paper config, 3
    rounds a cell, its ranks started by ``run_on_mesh`` on cuda:0 over
    gloo (NCCL refuses two ranks on one device): a flat mesh of 2 ranks
@@ -150,8 +170,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    on 4 KV heads), B=1, S=2048, against the card's plain attention, K7
    launched 4 times;
 11. the ``kernels`` JSON line: every kernel with its launches on the
-   main path -- phases 4-8c in this process (the counters are set to 0
-   just before phase 4 and read just after phase 8c; a captured kernel
+   main path -- phases 4-8d in this process (the counters are set to 0
+   just before phase 4 and read just after phase 8d; a captured kernel
    counts once a replay, and once for the warm-up run before its
    capture), phase 9's ranks
    and phase 10 (set to 0 just before it and read just after) -- error,
@@ -171,6 +191,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -804,9 +825,18 @@ def lstm_rows(specs) -> int:
                                       specs)).rows
 
 
+#: The CPU path's solver mode for the logistic models of phases 4-7: K2's
+#: plain version (``kernels/ref.py``), the mode ``auto`` takes on the
+#: card for the paper config, ~6x the speed of the CPU's ``flat`` mode;
+#: phases 8b-8d's CPU paths take it too.  The steps are the same SGD
+#: steps, summed in another order.
+CPU_SOLVER = "fused_epoch"
+
+
 def cpu_trajectories(torch, loss_fn, data_cpu, cfg, p0, rounds: int,
                      nudge: float = 1e-7):
-    """``rounds`` rounds of ``cfg`` on the CPU path (batched engine) from
+    """``rounds`` rounds of ``cfg`` on the CPU path (batched engine; ``cfg``
+    says its solver mode) from
     ``p0`` and from ``p0`` nudged by ``nudge`` times two numpy-seeded
     directions on every leaf.  Returns, per round, the params and
     selections of the run from ``p0``, the larger move of the two nudged
@@ -838,23 +868,26 @@ def cpu_trajectories(torch, loss_fn, data_cpu, cfg, p0, rounds: int,
 
 
 def cpu_sensitivity(torch, data_cpu, cfg, rounds: int = 1):
-    """:func:`cpu_trajectories` of logistic regression from zeros, after
-    its last round: the spread and max |param|."""
+    """:func:`cpu_trajectories` of logistic regression from zeros on
+    :data:`CPU_SOLVER`, after its last round: the spread and max
+    |param|."""
     from repro_torch.models.param import init_params
     from repro_torch.models.small import logreg_loss, logreg_specs
 
     d = data_cpu.device_batches(0)["x"].shape[-1]
     p0 = init_params(logreg_specs(d, 10), torch.Generator(), device="cpu")
-    _, spread, scale = cpu_trajectories(torch, logreg_loss, data_cpu, cfg,
-                                        p0, rounds)
+    _, spread, scale = cpu_trajectories(
+        torch, logreg_loss, data_cpu,
+        dataclasses.replace(cfg, local_solver=CPU_SOLVER), p0, rounds)
     return spread[-1], scale[-1]
 
 
 def run_pair(torch, syn_gpu, syn_cpu, cfg, rounds: int, label: str,
              tol: float = TRAJECTORY_TOL):
-    """``rounds`` rounds of ``cfg`` on the card and on the CPU path,
-    held together round by round; returns the card's trainer, its final
-    state and the median ms/round."""
+    """``rounds`` rounds of ``cfg`` on the card and on the CPU path (on
+    :data:`CPU_SOLVER` unless ``cfg`` names an explicit mode), held
+    together round by round; returns the card's trainer, its final state
+    and the median ms/round."""
     from repro_torch.core import FederatedTrainer
     from repro_torch.models.param import init_params
     from repro_torch.models.small import logreg_loss, logreg_specs
@@ -862,8 +895,10 @@ def run_pair(torch, syn_gpu, syn_cpu, cfg, rounds: int, label: str,
     d = syn_cpu.device_batches(0)["x"].shape[-1]
     gen = torch.Generator().manual_seed(0)
     gpu = FederatedTrainer(logreg_loss, syn_gpu, cfg)
+    solver = CPU_SOLVER if cfg.local_solver == "auto" else cfg.local_solver
     cpu = FederatedTrainer(logreg_loss, syn_cpu,
-                           dataclasses.replace(cfg, engine="batched"),
+                           dataclasses.replace(cfg, engine="batched",
+                                               local_solver=solver),
                            device="cpu")
     sg = gpu.init(init_params(logreg_specs(d, 10), gen))
     sc = cpu.init(init_params(logreg_specs(d, 10), gen, device="cpu"))
@@ -1772,6 +1807,332 @@ def buffered_phase(torch, counts, syn, syn_cpu, python_ms, sent140):
     return out
 
 
+#: Phase 8d: the population layer at the reference's acceptance settings
+#: (tests/_population_child.py): N=10^6 streaming synthetic(1,1), K=10,
+#: E=1, B=10, lr=0.05, mu=0.01, seed 5, the eval over 32 clients.
+POP = dict(num_devices=1_000_000, devices_per_round=10, local_epochs=1,
+           local_batch_size=10, learning_rate=0.05, mu=0.01, seed=5)
+POP_ROUNDS = 3
+POP_SCAFFOLD_ROUNDS = 2
+#: the reference's directional cell (tests/test_population.py)
+POP_DIRECTIONAL_ROUNDS = 4
+#: at most the eval sample plus two phases x K x rounds cohort fetches
+POP_MAX_CLIENTS = 32 + 2 * 10 * POP_ROUNDS
+POP_MAX_CARD_BYTES = 256 << 20
+
+
+def _proc_mb(field: str) -> float:
+    """This process's ``VmRSS`` or ``VmHWM`` in MB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) / 1024.0
+    return float("nan")
+
+
+class Footprint:
+    """The card's peak allocated bytes above what was allocated when the
+    block began (the peak counter reset there) and the host's peak RSS
+    growth over the block: ``VmHWM`` reset through
+    ``/proc/self/clear_refs`` where the kernel lets a process do that,
+    else the largest ``VmRSS`` a thread samples every millisecond."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def _sample(self):
+        page = os.sysconf("SC_PAGE_SIZE") / 2**20
+        with open("/proc/self/statm") as f:
+            while not self._stop.wait(0.001):
+                f.seek(0)
+                self._peak = max(self._peak, int(f.read().split()[1]) * page)
+
+    def __enter__(self):
+        import gc
+        import threading
+        gc.collect()
+        self.torch.cuda.synchronize()
+        self.torch.cuda.empty_cache()
+        self.base = self.torch.cuda.memory_allocated()
+        self.torch.cuda.reset_peak_memory_stats()
+        self.rss0 = self._peak = _proc_mb("VmRSS")
+        try:
+            with open("/proc/self/clear_refs", "w") as f:
+                f.write("5")
+            self.how = "VmHWM"
+        except OSError:
+            self.how = "VmRSS sampled every 1 ms"
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.card = self.torch.cuda.max_memory_allocated() - self.base
+        peak = (_proc_mb("VmHWM") if self.how == "VmHWM"
+                else max(self._peak, _proc_mb("VmRSS")))
+        self.rss = peak - self.rss0
+
+    def __str__(self):
+        return (f"card peak allocated +{self.card / 2**20:.2f} MiB; host "
+                f"peak RSS +{self.rss:.1f} MB ({self.how})")
+
+
+def _pop_source(device=None):
+    """The population cell's streaming source, on the card by default."""
+    from repro_torch.data import make_synthetic_stream
+    return make_synthetic_stream(1.0, 1.0, num_devices=POP["num_devices"],
+                                 seed=7, eval_clients=32, device=device)
+
+
+def population_phase(torch, counts):
+    """Phase 8d: the population layer.  Returns ms/round of its cells."""
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import FederatedTrainer, engine
+    from repro_torch.core import pytree as pt
+    from repro_torch.data import make_synthetic_stream
+    from repro_torch.models.small import logreg_loss
+
+    out = {}
+    on_cpu = dict(engine="batched", local_solver="fused_epoch")
+    phase_before = dict(counts)
+
+    def cpu_path(algo, rounds):
+        src = _pop_source("cpu")
+        tr = FederatedTrainer(logreg_loss, src, FederatedConfig(
+            algorithm=algo, round_driver="python", **on_cpu, **POP),
+            device="cpu")
+        st = tr.init(_logreg_p0(torch, "cpu"))
+        traj = []
+        for _ in range(rounds):
+            st = tr.round(st)
+            traj.append((pt.tmap(torch.clone, st.params),
+                         tr.last_selection, tr.global_loss(st.params)))
+        return traj, src
+
+    def clients(src, label):
+        got = src.stats()["materialized_clients"]
+        check(got <= POP_MAX_CLIENTS, f"{label}: {got} clients generated "
+                                      f"> {POP_MAX_CLIENTS}")
+        return int(got)
+
+    def fits(fp, label):
+        check(fp.card < POP_MAX_CARD_BYTES,
+              f"{label}: card peak +{fp.card} bytes >= 256 MiB")
+
+    # (a) feddane at N=10^6 on the python driver (batched on the card)
+    traj, csrc = cpu_path("feddane", POP_ROUNDS)
+    src = _pop_source()
+    tr = FederatedTrainer(logreg_loss, src, FederatedConfig(
+        algorithm="feddane", round_driver="python", **POP))
+    before = dict(counts)
+    ms, errs = [], []
+    with Footprint(torch) as fp:
+        st = tr.init(_logreg_p0(torch))
+        for r in range(POP_ROUNDS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            st = tr.round(st)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            for a, b in zip(tr.last_selection, traj[r][1]):
+                check(np.array_equal(a, b),
+                      "population python: selections differ from the CPU "
+                      "path's")
+            errs.append(max_err(torch, pt.tmap(lambda x: x.cpu(),
+                                               st.params), traj[r][0]))
+            check(errs[-1] <= TRAJECTORY_TOL,
+                  f"population python: params {errs[-1]} > "
+                  f"{TRAJECTORY_TOL}")
+        loss = tr.global_loss(st.params)
+    grew = _delta(before, counts)
+    check(grew.get("local_epoch") == POP_ROUNDS,
+          f"population python: launches {grew}, not K2 once a round")
+    check(abs(loss - traj[-1][2]) <= TRAJECTORY_TOL * max(1.0, abs(loss)),
+          f"population python: loss {loss} against {traj[-1][2]}")
+    fits(fp, "population python")
+    out["population python feddane"] = statistics.median(ms)
+    print(f"  N=10^6 feddane, python driver, {POP_ROUNDS} rounds: ms/round "
+          f"{[round(m, 2) for m in ms]} (CUDA events); the CPU path's "
+          f"selections; max |params - CPU| per round "
+          f"{[f'{e:.2e}' for e in errs]} (tol {TRAJECTORY_TOL:g}); loss "
+          f"{loss:.6f} (CPU {traj[-1][2]:.6f}); launches {grew}; "
+          f"{clients(src, 'population python')} clients generated "
+          f"(CPU {clients(csrc, 'population cpu')}); {fp}")
+
+    # (b) the scanned driver's streaming plan on the CPU path's selections
+    sel = np.stack([np.stack(t[1]) for t in traj])
+    src = _pop_source()
+    tr = FederatedTrainer(logreg_loss, src, FederatedConfig(
+        algorithm="feddane", round_driver="scan", client_source="streaming",
+        chunk_rounds=POP_ROUNDS, **POP))
+    check(tr._resolve_driver() == "scan", "population scan: not on scan")
+    before = dict(counts)
+    with Footprint(torch) as fp:
+        t0 = time.perf_counter()
+        h1, p1 = tr.run(_logreg_p0(torch), POP_ROUNDS,
+                        eval_every=POP_ROUNDS, selections=sel)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    grew = _delta(before, counts)
+    drv = tr._scanned
+    check(drv.streaming and drv.batches_all is None,
+          "population scan: not the streaming plan")
+    err = max_err(torch, pt.tmap(lambda x: x.cpu(), p1), traj[-1][0])
+    check(err <= TRAJECTORY_TOL,
+          f"population scan: params {err} from the CPU path > "
+          f"{TRAJECTORY_TOL}")
+    check(abs(h1["loss"][-1] - traj[-1][2])
+          <= TRAJECTORY_TOL * max(1.0, abs(traj[-1][2])),
+          f"population scan: loss {h1['loss']} against {traj[-1][2]}")
+    caps = drv.stream_captures
+    check(grew.get("local_epoch") == POP_ROUNDS + caps,
+          f"population scan: launches {grew} (K2 once a replay plus each "
+          f"capture's warm-up)")
+    fits(fp, "population scan")
+    h2, p2, ms = _timed_run(torch, tr, POP_ROUNDS,
+                            params=_logreg_p0(torch),
+                            eval_every=POP_ROUNDS, selections=sel)
+    check(h1 == h2 and all(torch.equal(a, b) for a, b in
+                           zip(pt.leaves(p1), pt.leaves(p2))),
+          "population scan: two runs differ")
+    out["population scan feddane"] = ms
+    print(f"  N=10^6 feddane, scanned driver (streaming), {POP_ROUNDS} "
+          f"rounds on the CPU path's selections: run 1 {wall:.2f} s (host "
+          f"clock, {caps} streaming capture(s), batch counts "
+          f"{sorted(drv._sbufs)}; captured {_programs(tr)}), run 2 "
+          f"{ms:.3f} ms/round (CUDA events), bitwise equal; max |params - "
+          f"CPU| {err:.2e}; loss {h1['loss'][-1]:.6f}; launches {grew}; "
+          f"{clients(src, 'population scan')} clients generated; {fp}")
+
+    # (c) buffered, 3 commits, against the CPU buffered driver
+    cfg = FederatedConfig(algorithm="feddane", round_driver="buffered",
+                          **POP)
+    hc, pc = FederatedTrainer(
+        logreg_loss, _pop_source("cpu"),
+        dataclasses.replace(cfg, local_solver="fused_epoch"),
+        device="cpu").run(_logreg_p0(torch, "cpu"), POP_ROUNDS)
+    src = _pop_source()
+    tr = FederatedTrainer(logreg_loss, src, cfg)
+    before = dict(counts)
+    with Footprint(torch) as fp:
+        hg, pg, ms = _timed_run(torch, tr, POP_ROUNDS,
+                                params=_logreg_p0(torch))
+    grew = _delta(before, counts)
+    err = max_err(torch, pt.tmap(lambda x: x.cpu(), pg), pc)
+    check(all(hg[k] == hc[k] for k in hc if k != "loss"),
+          "population buffered: event stream differs from the CPU path's")
+    check(err <= TRAJECTORY_TOL and _rel_loss(hg["loss"], hc["loss"])
+          <= TRAJECTORY_TOL, f"population buffered: params {err}")
+    check(grew.get("local_epoch", 0) > 0, f"population buffered: {grew}")
+    fits(fp, "population buffered")
+    out["population buffered feddane"] = ms
+    print(f"  N=10^6 feddane, buffered driver, {POP_ROUNDS} commits: "
+          f"{ms:.2f} ms/commit (CUDA events); event stream equal to the "
+          f"CPU path's; max |params - CPU| {err:.2e}; launches {grew}; "
+          f"{clients(src, 'population buffered')} clients generated; {fp}")
+
+    # (d) SCAFFOLD: the controls in the sparse store
+    traj, _ = cpu_path("scaffold", POP_SCAFFOLD_ROUNDS)
+    src = _pop_source()
+    tr = FederatedTrainer(logreg_loss, src, FederatedConfig(
+        algorithm="scaffold", round_driver="python", **POP))
+    before = dict(counts)
+    with Footprint(torch) as fp:
+        st = tr.init(_logreg_p0(torch))
+        for _ in range(POP_SCAFFOLD_ROUNDS):
+            st = tr.round(st)
+    grew = _delta(before, counts)
+    err = max_err(torch, pt.tmap(lambda x: x.cpu(), st.params),
+                  traj[-1][0])
+    check(err <= TRAJECTORY_TOL, f"population scaffold: params {err}")
+    stored = len(st.controls)
+    check(stored <= 2 * 10 and st.controls.peak_clients <= 2 * 10,
+          f"population scaffold: {stored} controls stored")
+    check(grew.get("local_epoch") == POP_SCAFFOLD_ROUNDS,
+          f"population scaffold: {grew}")
+    fits(fp, "population scaffold")
+    print(f"  N=10^6 scaffold, python driver, {POP_SCAFFOLD_ROUNDS} rounds: "
+          f"{stored} controls stored (peak {st.controls.peak_clients}); "
+          f"max |params - CPU| {err:.2e}; launches {grew}; {fp}")
+
+    # (e) streaming against stacked on the card, sampled selections
+    small = make_synthetic_stream(1, 1)
+    staged = []
+    stage = engine.ScannedDriver._stream_stage
+
+    def spy_stage(self, off, rows, wire_rows):
+        staged.extend(np.stack([r["s1"], r["sel_solve"]]) for r in rows)
+        return stage(self, off, rows, wire_rows)
+
+    runs = {}
+    before = dict(counts)
+    for plan in ("streaming", "stacked"):
+        cfg = FederatedConfig(algorithm="feddane", round_driver="scan",
+                              client_source=plan, chunk_rounds=POP_ROUNDS,
+                              **dict(POP, num_devices=30))
+        tr = FederatedTrainer(logreg_loss, small, cfg)
+        rec = None
+        if plan == "streaming":
+            engine.ScannedDriver._stream_stage = spy_stage
+            try:
+                h, p = tr.run(_logreg_p0(torch), POP_ROUNDS)
+            finally:
+                engine.ScannedDriver._stream_stage = stage
+        else:
+            # the stacked plan draws inside its captured round
+            rec = ScanRecorder(torch, POP_ROUNDS, 10, small.device,
+                               2).bind(tr)
+            with rec:
+                h, p = tr.run(_logreg_p0(torch), POP_ROUNDS)
+            rec = rec.numpy()["sel"]
+        runs[plan] = (h, pt.tmap(lambda x: x.cpu(), p), rec, tr._scanned)
+    (hs, ps, _, ds), (ht, pt_, rt, dt) = runs["streaming"], runs["stacked"]
+    sel_s = np.stack(staged)
+    check(ds.streaming and not dt.streaming, "population N=30: plans")
+    check(np.array_equal(sel_s, rt) and (rt >= 0).all(),
+          "population N=30: streaming selections differ from the stacked "
+          "plan's (eager draws against graph replays)")
+    err = max_err(torch, ps, pt_)
+    check(err <= 1e-5, f"population N=30: params {err} > 1e-5")
+    check(all(hs[k] == ht[k] for k in ht if k != "loss"),
+          "population N=30: history differs")
+    print(f"  N=30 feddane, {POP_ROUNDS} sampled rounds: the streaming "
+          f"schedule's eager draws equal the stacked plan's in-graph draws "
+          f"bit for bit ({len({s.tobytes() for s in sel_s})} distinct); max "
+          f"|params streaming - stacked| {err:.2e} (tol 1e-5); launches "
+          f"{_delta(before, counts)}")
+
+    # (f) the paper's finding at K/N = 1e-5 under bernoulli
+    src = _pop_source()
+    finals = {}
+    before = dict(counts)
+    for algo in ("fedavg", "fedprox", "feddane"):
+        cfg = FederatedConfig(algorithm=algo, round_driver="scan",
+                              chunk_rounds=POP_DIRECTIONAL_ROUNDS,
+                              scenario="bernoulli", **POP)
+        h, _ = FederatedTrainer(logreg_loss, src, cfg).run(
+            _logreg_p0(torch), POP_DIRECTIONAL_ROUNDS,
+            eval_every=POP_DIRECTIONAL_ROUNDS)
+        finals[algo] = h["loss"][-1]
+        check(np.isfinite(finals[algo]), f"population {algo}: not finite")
+    worse = all(finals["feddane"] > 1.5 * finals[a]
+                for a in ("fedavg", "fedprox"))
+    print(f"  N=10^6 bernoulli, {POP_DIRECTIONAL_ROUNDS} scanned rounds "
+          f"(K/N = 1e-5): final loss "
+          f"{ {k: round(v, 4) for k, v in finals.items()} }; feddane > 1.5x "
+          f"both: {'yes' if worse else 'no'}; launches "
+          f"{_delta(before, counts)}")
+    print(f"  phase 8d launches {_delta(phase_before, counts)}")
+    torch.cuda.empty_cache()
+    return out
+
+
 #: Phase 9: (ranks, edges) -> [(algorithm, scenario, codec)], 3 rounds a
 #: cell.  The flat mesh splits K=10 into two ranks of 5 clients; the tree
 #: puts one client on each of 10 ranks under 2 edges of 5 leaves.
@@ -2258,6 +2619,12 @@ def main() -> int:
                                    phase_ms["feddane/hostile/none"],
                                    sent140))
     print(f"  phase 8c took {time.perf_counter() - t0:.1f} s")
+
+    print("[8d] the population layer: streaming client shards at "
+          "N=10^6 on all three drivers")
+    t0 = time.perf_counter()
+    phase_ms.update(population_phase(torch, counts))
+    print(f"  phase 8d took {time.perf_counter() - t0:.1f} s")
 
     main_path = dict(counts)             # read just after the main path
 

@@ -13,9 +13,11 @@ against the port's own registries (algorithms, scenarios, codecs).
 Knobs of layers the port has not reached yet keep their fields (so a
 config reads the same in both packages) but values that would need
 those layers are refused at construction with a "not yet ported" error:
-streaming client sources, and the ``"scan"`` and ``"buffered"`` round
-drivers on a concrete ``mesh_devices`` > 1 (the trainer re-checks
-``"auto"`` once the mesh has resolved).  The client mesh
+the ``"scan"`` and ``"buffered"`` round drivers on a concrete
+``mesh_devices`` > 1 (the trainer re-checks ``"auto"`` once the mesh has
+resolved), and ``client_source="streaming"`` there too.  A streaming
+source (``data.shard_source.ClientShardSource``) runs on all three
+drivers in one process.  The client mesh
 (``mesh_devices``, ``edge_shards``) runs on the python driver with the
 batched engine: its ranks come from ``core.sharding.run_on_mesh``.
 """
@@ -252,6 +254,12 @@ class FederatedConfig:
             raise _not_ported(
                 f"round_driver {self.round_driver!r} with mesh_devices="
                 f"{self.mesh_devices}")
+        # nor is a streaming source on the client mesh (same rule)
+        if (self.client_source == "streaming"
+                and _is_int(self.mesh_devices) and self.mesh_devices > 1):
+            raise _not_ported(
+                f"client_source 'streaming' with mesh_devices="
+                f"{self.mesh_devices}")
         if not (_is_int(self.bits) and 2 <= self.bits <= 8):
             raise ValueError(
                 f"bits must be an int in [2, 8], got {self.bits!r}")
@@ -327,8 +335,6 @@ class FederatedConfig:
             raise ValueError(
                 f"unknown client_source {self.client_source!r}; choose "
                 f"from auto/stacked/streaming")
-        if self.client_source == "streaming":
-            raise _not_ported("client_source 'streaming'")
 
 
 def one_shot_config(num_devices: int, *, local_epochs: int = 50,

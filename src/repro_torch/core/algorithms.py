@@ -35,6 +35,13 @@ update deltas are encoded and the cohort aggregated through the codec
 kernel (K5) on both engines.  ``"ideal"`` and ``"none"`` keep the exact
 pre-scenario, pre-codec programs.
 
+A streaming dataset (``data/shard_source.py``, ``weights=None``) runs
+on all three drivers: sampling is uniform, cohorts are fetched from the
+source, SCAFFOLD controls and error feedback live in sparse stores keyed
+by client id, and the global loss runs over the source's bounded eval
+sample; nothing on the python driver touches all N clients' data
+(``measure_dissimilarity`` refuses a source).  Not on the client mesh.
+
 On the python driver, sampling and the scenario uniforms use the
 reference's numpy stream (``default_rng(cfg.seed)``, the same calls in
 the same order), so a seed gives the reference's selections and
@@ -79,6 +86,7 @@ from repro_torch.core.strategies import (ControlCtx, CorrCtx, algorithm_spec,
                                          runtime_state_fields)
 from repro_torch.core.theory import b_dissimilarity
 from repro_torch.data.batching import num_batches_of, stack_device_batches
+from repro_torch.data.shard_source import resolve_streaming
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flatpack
 from repro_torch.kernels.codec import codec_aggregate
@@ -187,6 +195,13 @@ class FederatedTrainer:
                 f"round_driver {cfg.round_driver!r} on a client mesh of "
                 f"{self.mesh.world} ranks is not yet ported to "
                 f"repro_torch; use round_driver='python' (or 'auto')")
+        #: the dataset is a streaming source (``data/shard_source.py``)
+        self.streaming = resolve_streaming(cfg.client_source, dataset)
+        if self.streaming and self.mesh is not None:
+            raise ValueError(
+                f"a streaming client source on a client mesh of "
+                f"{self.mesh.world} ranks is not yet ported to "
+                f"repro_torch; run it in one process")
         self._scanned: Optional[ScannedDriver] = None   # built lazily
         # built here, so an unsupported configuration fails fast
         self._buffered: Optional[BufferedDriver] = (
@@ -511,6 +526,12 @@ class FederatedTrainer:
         over ALL devices' full local gradients, weighted by the devices'
         p_k -- the heterogeneity instrumentation behind the §V
         analysis."""
+        if self.streaming:
+            raise ValueError(
+                "measure_dissimilarity takes every client's full gradient "
+                "and its p_k; a streaming source holds neither (sampling "
+                "over it is uniform, and touching all N clients is what "
+                "it avoids): measure it on source.materialize() at small N")
         grads = [self.grad_fn(params, self._batches(k))
                  for k in range(self.dataset.num_devices)]
         return b_dissimilarity(grads, self.dataset.weights)

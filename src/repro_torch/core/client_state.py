@@ -49,6 +49,8 @@ class SparseClientState:
         self.num_clients = int(num_clients)
         self.template = template
         self._store: Dict[int, Any] = {}
+        #: high-water mark of stored clients: O(cohorts), never O(N)
+        self.peak_clients = 0
 
     def _check(self, k: int) -> int:
         k = int(k)
@@ -62,6 +64,12 @@ class SparseClientState:
 
     def __setitem__(self, k: int, value: Any) -> None:
         self._store[self._check(k)] = value
+        self.peak_clients = max(self.peak_clients, len(self._store))
+
+    def evict(self, k: int) -> None:
+        """Drop client k's row: it reads the template again, as a dense
+        row reset to zeros would."""
+        self._store.pop(self._check(k), None)
 
     def __len__(self) -> int:
         return len(self._store)

@@ -77,6 +77,34 @@ so the host issues one launch where it would issue hundreds of kernels:
   card until the chunk boundary, the only host sync, where the history
   is emitted and checkpoints are saved.
 
+The streaming plan
+------------------
+Over a :class:`~repro_torch.data.shard_source.ClientShardSource`
+(``client_source="streaming"``, or ``"auto"`` with a source) nothing
+O(N) is stacked -- the counterpart of the reference's streaming
+``ScannedDriver``.  Each chunk:
+
+- **schedule pass**: the round's draws made eagerly on the driver's
+  generator, in the order the stacked round makes them (``s1``, ``s2``,
+  the environment's uniforms), the environment realized on the driver's
+  device (work fractions eagerly, as the reference's streaming schedule
+  does), and one host sync for the chunk's selections and masks.  A
+  stateful spec (SCAFFOLD controls, error feedback) ends the chunk
+  before the first round whose cohort repeats a client of the chunk,
+  and the generator goes back to that round's state;
+- **staging**: only the chunk's cohorts, from the source, padded to one
+  chunk-wide batch count ``nb`` (the reference's ``_pad_cohort``), with
+  the cohorts' rows of the sparse stores (``controls_store``, ``ef_store``) and the
+  realized masks, into staged buffers of that ``nb``;
+- **the streaming round**: the engine's round on row ``i`` of the
+  staged buffers, captured once per distinct ``nb`` (at most one per
+  power-of-two bucket); the carry holds global state only, and the
+  updated per-client rows go out through row ``i`` of the outputs, which
+  the host scatters into the stores at the chunk boundary.
+
+Streaming and stacked plans over one source draw the same numbers from
+the same generator (eagerly or in a replay), so they select alike.
+
 On the CPU the same round runs eagerly (the parity tests).  On the card
 a round that fails to capture or replay raises: nothing re-runs it
 eagerly.  Kernel launches are counted when a wrapper is called, so the
@@ -86,6 +114,7 @@ them back at every replay.
 from __future__ import annotations
 
 import time
+from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -103,7 +132,10 @@ from repro_torch.core.scenarios import (availability_mask_staged,
 from repro_torch.core.strategies import (AlgorithmSpec, ControlCtx, CorrCtx,
                                          algorithm_spec, make_server_opt,
                                          runtime_state_fields)
-from repro_torch.data.batching import stack_device_batches, stack_eval_batches
+from repro_torch.core.client_state import SparseClientState
+from repro_torch.data.batching import (num_batches_of, stack_device_batches,
+                                       stack_eval_batches)
+from repro_torch.data.shard_source import resolve_streaming
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, flatpack
 from repro_torch.kernels.codec import codec_aggregate, codec_aggregate_partial
@@ -426,8 +458,17 @@ class ScannedDriver:
         self._env_channels = env_channels(self.scn)
         self._codec = self.engine._codec
         self._codec_trivial = self.engine._codec_trivial
-        self.batches_all, self.valid_all = stack_device_batches(
-            dataset, np.arange(n))
+        #: the streaming plan (module docstring): only the chunk's
+        #: cohorts are staged.  Full-participation specs touch every
+        #: client every round, so they take the stacked plan on either
+        #: kind of dataset
+        self.streaming = (resolve_streaming(cfg.client_source, dataset)
+                          and self.spec.num_selections > 0)
+        if self.streaming:
+            self.batches_all = self.valid_all = None
+        else:
+            self.batches_all, self.valid_all = stack_device_batches(
+                dataset, np.arange(n))
         self._eval_loss = _make_stacked_eval(loss_fn,
                                              *stack_eval_batches(dataset))
         w = dataset.weights
@@ -439,9 +480,12 @@ class ScannedDriver:
                            else self.k_sel)
         self.comm_per_round = self.spec.comm_per_round
         self._state_fields = runtime_state_fields(self.spec, cfg)
-        frac = staged_work(self.scn, cfg, n)
+        # the reference's stacked chunk evaluates the work fractions
+        # compiled; its streaming schedule realizes them eagerly
+        frac = staged_work(self.scn, cfg, n, compiled=not self.streaming)
         self._frac = None if frac is None else frac.to(self.device)
-        self._all = torch.arange(n, device=self.device)
+        self._all = (torch.arange(n, device=self.device)
+                     if self.spec.num_selections == 0 else None)
         self.gen = torch.Generator(device=self.device)
         #: programs captured on the card, by name ("sampled",
         #: "injected", "eval"), and the host seconds each capture took
@@ -453,6 +497,12 @@ class ScannedDriver:
         self._xs: Dict[str, torch.Tensor] = {}
         self._ys: Dict[str, torch.Tensor] = {}
         self._ctr = torch.zeros(2, dtype=torch.long, device=self.device)
+        #: streaming: the staged cohort buffers of each padded batch
+        #: count (one captured round each) and the sparse stores of the
+        #: per-client state, keyed by client id
+        self._sbufs: Dict[int, Dict[str, Any]] = {}
+        self.controls_store: Optional[SparseClientState] = None
+        self.ef_store: Optional[SparseClientState] = None
 
     # -- the round and the eval -------------------------------------------
 
@@ -562,11 +612,65 @@ class ScannedDriver:
         self._ys["loss"].index_copy_(0, self._ctr[0:1] - 1,
                                      loss.reshape(1).to(F32))
 
+    def _stream_round(self, nb: int) -> None:
+        """One streaming round on the carried global state, in place:
+        the engine's round body on row ``i = ctr[0]`` of the staged
+        cohort buffers of batch count ``nb`` (batches, state rows, the
+        realized environment); the updated per-client rows go to row
+        ``i`` of the outputs, for the host to scatter back.  No
+        selection, no gather, no draw: the schedule pass made them."""
+        cfg, spec, eng = self.cfg, self.spec, self.engine
+        c, xs, sb, ys = self._carry, self._xs, self._sbufs[nb], self._ys
+        i = self._ctr[0:1]
+
+        def row(buf):
+            return buf.index_select(0, i)[0]
+
+        b, v = pt.tmap(row, sb["b"]), row(sb["v"])
+        phase_a = ((pt.tmap(row, sb["ba"]), row(sb["va"]))
+                   if "ba" in sb else None)
+        decay = row(xs["decay"]) if spec.decay is not None else 1.0
+        aux_fields = [f for f in self._state_fields if f != "controls"]
+        aux = {f: c[f] for f in aux_fields}
+        has_controls = "controls" in self._state_fields
+        if has_controls:
+            aux["c_server"] = c["c_server"]
+            aux["controls"] = pt.tmap(row, sb["controls"])
+        codec = self._codec
+        if not self._codec_trivial:
+            if codec.uses_rng:
+                aux["codec_draws"] = codecs.CodecDraws(
+                    row(xs["signs"]), row(xs["u"]), row(xs["noise"]))
+            if codec.error_feedback:
+                aux["ef"] = row(sb["ef"])
+        stats = None
+        if self.scn_trivial:
+            params, new = eng.round(c["params"], aux, phase_a, b, v, decay)
+        else:
+            params, new, stats = eng.round_env(
+                c["params"], aux, phase_a, b, v, decay, row(sb["active"]),
+                row(sb["work"]),
+                row(sb["active_a"]) if "active_a" in sb else None)
+        for f in aux_fields:
+            _assign(c[f], new[f])
+        if has_controls:
+            _assign(c["c_server"], new["c_server"])
+            pt.tmap(lambda d, x: d.index_copy_(0, i, x.unsqueeze(0)),
+                    ys["controls"], new["controls"])
+        if not self._codec_trivial and codec.error_feedback:
+            ys["ef"].index_copy_(0, i, new["ef"].unsqueeze(0))
+        _assign(c["params"], params)
+        if stats is not None:
+            ys["effective_k"].index_copy_(
+                0, i, stats["effective_k"].reshape(1).to(F32))
+            ys["effective_a"].index_copy_(
+                0, i, stats["effective_a"].reshape(1).to(F32))
+        self._ctr.add_(1)
+
     # -- capture -----------------------------------------------------------
 
     def _state_tensors(self) -> List[torch.Tensor]:
-        return (pt.leaves(self._carry) + list(self._ys.values())
-                + [self._ctr])
+        return pt.leaves(self._carry) + pt.leaves(self._ys) + [self._ctr]
 
     def _capture(self, name: str, fn: Callable) -> _Program:
         """Capture ``fn`` as a CUDA graph.  It first runs once on a side
@@ -642,8 +746,12 @@ class ScannedDriver:
     def _init_carry(self, params) -> Dict[str, Any]:
         """The carried state: params plus the spec's persistent state in
         the stacked layout (controls and error feedback as ``(N, ...)``
-        stacks), as fresh tensors on the driver's device."""
+        stacks), as fresh tensors on the driver's device.  Streaming
+        carries the global state only; the per-client state starts in
+        fresh sparse stores (``controls_store``, ``ef_store``)."""
         n, cfg = self.num_devices, self.cfg
+        if self.streaming:
+            n = 0                   # no (N, ...) stacks in the carry
         params = pt.tmap(lambda x: x.detach().to(self.device, copy=True),
                          params)
         carry: Dict[str, Any] = {"params": params}
@@ -654,14 +762,23 @@ class ScannedDriver:
                 carry["center"] = pt.tmap(torch.clone, params)
             elif f == "controls":
                 carry["c_server"] = pt.zeros_like(params)
-                carry["controls"] = pt.tmap(
-                    lambda x: x.new_zeros((n,) + x.shape), params)
+                if self.streaming:
+                    self.controls_store = SparseClientState(
+                        self.num_devices, pt.zeros_like(params))
+                else:
+                    carry["controls"] = pt.tmap(
+                        lambda x: x.new_zeros((n,) + x.shape), params)
             elif f == "opt":
                 carry["opt"] = make_server_opt(self.spec, cfg).init(params)
         if self._codec.error_feedback:
-            rows = flatpack.flat_spec(params).rows
-            carry["ef"] = torch.zeros((n, rows, flatpack.LANES), dtype=F32,
-                                      device=self.device)
+            if self.streaming:
+                self.ef_store = codecs.init_ef(
+                    self._codec, flatpack.flat_spec(params),
+                    self.num_devices, self.device)
+            else:
+                rows = flatpack.flat_spec(params).rows
+                carry["ef"] = torch.zeros((n, rows, flatpack.LANES),
+                                          dtype=F32, device=self.device)
         return carry
 
     def _prepare(self, params, capacity: int) -> None:
@@ -678,20 +795,33 @@ class ScannedDriver:
             _assign(self._carry, fresh)
             return
         self._programs.clear()
+        self._sbufs = {}
         self._layout = (layout, capacity)
         self._carry = fresh
         dev, n, r = self.device, self.num_devices, capacity
+        rows = flatpack.flat_spec(fresh["params"]).rows
+        lanes = flatpack.LANES
         self._ys = {k: torch.zeros(r, dtype=F32, device=dev)
                     for k in ("loss", "effective_k", "effective_a")}
-        xs = {"sel": torch.zeros((r, 2, self.k_sel), dtype=torch.long,
-                                 device=dev)}
+        xs = {}
+        if self.streaming:
+            # the rounds' updated per-client rows, scattered by the host
+            k = self.k_sel
+            if "controls" in self._state_fields:
+                self._ys["controls"] = pt.tmap(
+                    lambda x: x.new_zeros((r, k) + x.shape),
+                    fresh["params"])
+            if self._codec.error_feedback:
+                self._ys["ef"] = torch.zeros((r, k, rows, lanes),
+                                             dtype=F32, device=dev)
+        else:
+            xs["sel"] = torch.zeros((r, 2, self.k_sel), dtype=torch.long,
+                                    device=dev)
+            if self.scn.availability is not None:
+                xs["avail"] = torch.zeros((r, n), dtype=F32, device=dev)
         if self.spec.decay is not None:
             xs["decay"] = torch.zeros(r, dtype=F32, device=dev)
-        if self.scn.availability is not None:
-            xs["avail"] = torch.zeros((r, n), dtype=F32, device=dev)
         if self._codec.uses_rng:
-            rows = flatpack.flat_spec(fresh["params"]).rows
-            lanes = flatpack.LANES
             xs["signs"] = torch.zeros((r, lanes), dtype=F32, device=dev)
             xs["u"] = torch.zeros((r, self.k_intended, rows, lanes),
                                   dtype=F32, device=dev)
@@ -728,6 +858,146 @@ class ScannedDriver:
         self._ctr.copy_(torch.tensor([0, off]))
         self._ys["loss"].fill_(float("nan"))
 
+    # -- the streaming plan -------------------------------------------------
+
+    def _schedule(self, off: int, hi: int, sel,
+                  stateful: bool) -> List[Dict[str, np.ndarray]]:
+        """The streaming chunk's schedule pass: rounds ``off .. hi-1``'s
+        draws, eagerly on the driver's generator in the order the
+        stacked round makes them (``s1``, ``s2``, the environment's
+        uniforms), the environment realized on the driver's device, and
+        ONE host sync for the chunk's selections and masks.  A stateful
+        spec's chunk ends before the first round whose cohort repeats a
+        client of the chunk (its state rows would be stale); the
+        generator then goes back to that round's state, so the next
+        chunk redraws it and no draw is lost."""
+        cfg, spec, dev = self.cfg, self.spec, self.device
+        n, two = self.num_devices, spec.num_selections == 2
+        fresh = spec.grad_source == "fresh"
+        states, parts = [], []
+        for t in range(off, hi):
+            states.append(self.gen.get_state())
+            if sel is None:
+                s1 = server.sample_devices_onchip(
+                    self.gen, n, self.k_sel, p=self.probs,
+                    replace=cfg.sample_with_replacement)
+                s2 = (server.sample_devices_onchip(
+                    self.gen, n, self.k_sel, p=self.probs,
+                    replace=cfg.sample_with_replacement) if two else s1)
+            else:
+                s1, s2 = (torch.from_numpy(sel[t, 0]).to(dev),
+                          torch.from_numpy(sel[t, 1]).to(dev))
+            sel_solve = s2 if two else s1
+            row = [s1.double(), sel_solve.double()]
+            if not self.scn_trivial:
+                scn = self.scn
+                uniforms = scan_env_uniforms(
+                    self.gen, self._env_channels, n,
+                    torch.tensor([t], device=dev))
+                p_t = staged_availability(scn, cfg, n,
+                                          torch.tensor(t, dtype=F32))
+                p_t = None if p_t is None else p_t.to(dev)
+                env = realize_env_staged(scn, cfg, sel_solve, p_t,
+                                         self._frac, uniforms)
+                row += [env.active.double(), env.work.double()]
+                if fresh:
+                    row.append(availability_mask_staged(
+                        scn, s1 if two else sel_solve, p_t,
+                        uniforms).double())
+            parts.append(torch.stack(row))
+        host = torch.stack(parts).cpu().numpy()      # the one sync
+        names = ["s1", "sel_solve", "active", "work", "active_a"]
+        rows: List[Dict[str, np.ndarray]] = []
+        seen: set = set()
+        for j, t in enumerate(range(off, hi)):
+            r = {names[q]: host[j, q] for q in range(host.shape[1])}
+            r["s1"] = r["s1"].astype(np.int64)
+            r["sel_solve"] = r["sel_solve"].astype(np.int64)
+            for q in ("active", "work", "active_a"):
+                if q in r:
+                    r[q] = r[q].astype(np.float32)
+            ids = set(r["sel_solve"].tolist())
+            if stateful and rows and not seen.isdisjoint(ids):
+                self.gen.set_state(states[j])
+                break
+            seen |= ids
+            rows.append(r)
+        return rows
+
+    def _stream_stage(self, off: int, rows: List[Dict[str, np.ndarray]],
+                      wire_rows: int) -> int:
+        """Stage the chunk's cohorts, the sparse stores' rows and the
+        realized environment into the staged buffers of the chunk's
+        batch count ``nb`` (its largest client's), and the round-indexed
+        inputs as the stacked plan does; returns ``nb``.  Every client
+        is cycled out to ``nb`` with its steps past its own masked (the
+        reference's ``_pad_cohort``), so the trajectory is the unpadded
+        one."""
+        spec = self.spec
+        two = spec.grad_source == "fresh" and spec.num_selections == 2
+        cohorts = [r["sel_solve"] for r in rows]
+        if two:
+            cohorts += [r["s1"] for r in rows]
+        nb = max(num_batches_of(self.dataset.device_batches(int(k)))
+                 for c in cohorts for k in c)
+        stacks = [stack_device_batches(self.dataset, c, nb=nb)
+                  for c in cohorts]
+        sb = self._sbufs.get(nb)
+        if sb is None:
+            sb = self._sbufs[nb] = self._stream_buffers(nb, stacks[0][0],
+                                                        two)
+        phases = [("", 0)] + ([("a", len(rows))] if two else [])
+        for j, r in enumerate(rows):
+            for q, first in phases:
+                b, v = stacks[first + j]
+                pt.tmap(lambda d, x: d[j].copy_(x), sb["b" + q], b)
+                sb["v" + q][j].copy_(v)
+            if self.controls_store is not None:
+                pt.tmap(lambda d, x: d[j].copy_(x), sb["controls"],
+                        self.controls_store.gather(r["sel_solve"]))
+            if self.ef_store is not None:
+                sb["ef"][j].copy_(self.ef_store.gather(r["sel_solve"]))
+            for q in ("active", "work", "active_a"):
+                if q in sb:
+                    sb[q][j].copy_(torch.from_numpy(r[q]))
+        self._stage(off, off + len(rows), None, wire_rows)
+        return nb
+
+    def _stream_buffers(self, nb: int, example, two: bool
+                        ) -> Dict[str, Any]:
+        """The staged inputs of batch count ``nb`` for a chunk's rounds:
+        fixed tensors the captured streaming round of ``nb`` reads."""
+        r, k = self._layout[1], self.k_sel
+        dev, spec = self.device, self.spec
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=F32, device=dev)
+
+        def cohort(x):
+            return x.new_zeros((r, k, nb) + tuple(x.shape[2:]))
+
+        sb: Dict[str, Any] = {"b": pt.tmap(cohort, example),
+                              "v": zeros(r, k, nb)}
+        if two:
+            sb["ba"], sb["va"] = pt.tmap(cohort, example), zeros(r, k, nb)
+        params = self._carry["params"]
+        if self.controls_store is not None:
+            sb["controls"] = pt.tmap(lambda x: x.new_zeros((r, k) + x.shape),
+                                     params)
+        if self.ef_store is not None:
+            sb["ef"] = zeros(r, k, flatpack.flat_spec(params).rows,
+                             flatpack.LANES)
+        if not self.scn_trivial:
+            sb["active"], sb["work"] = zeros(r, k), zeros(r, k)
+            if spec.grad_source == "fresh":
+                sb["active_a"] = zeros(r, k)
+        return sb
+
+    @property
+    def stream_captures(self) -> int:
+        """Captured streaming rounds: one per padded batch count seen."""
+        return sum(1 for k in self._programs if k.startswith("stream:"))
+
     def run(self, params, num_rounds: int, eval_every: int = 1,
             verbose: bool = False, checkpoint_dir: Optional[str] = None,
             selections=None) -> Tuple[Dict[str, List[float]], Any]:
@@ -761,16 +1031,36 @@ class ScannedDriver:
         self._prepare(params, min(chunk_rounds, num_rounds))
         rows = flatpack.flat_spec(self._carry["params"]).rows
         self.gen.manual_seed(cfg.seed)
-        name = "sampled" if sel is None else "injected"
-        for off in range(0, num_rounds, chunk_rounds):
+        stateful = (self.controls_store is not None
+                    or self.ef_store is not None)
+        off = 0
+        while off < num_rounds:
             hi = min(off + chunk_rounds, num_rounds)
-            self._stage(off, hi, sel, rows)
+            if self.streaming:
+                sched = self._schedule(off, hi, sel, stateful)
+                hi = off + len(sched)
+                nb = self._stream_stage(off, sched, rows)
+                name, body = f"stream:{nb}", partial(self._stream_round, nb)
+            else:
+                self._stage(off, hi, sel, rows)
+                name = "sampled" if sel is None else "injected"
+                body = partial(self._round, sel is None)
             for t in range(off, hi):
-                self._step(name, lambda: self._round(sel is None))
+                self._step(name, body)
                 if eval_mask[t]:
                     self._step("eval", self._eval)
-            # chunk boundary: the only host round-trip
-            ys = {k: v[:hi - off].cpu().numpy() for k, v in self._ys.items()}
+            # chunk boundary: the only host round-trip; the streaming
+            # plan's state rows go back into the sparse stores
+            ys = {k: self._ys[k][:hi - off].cpu().numpy()
+                  for k in ("loss", "effective_k", "effective_a")}
+            for j, r in enumerate(sched if self.streaming else ()):
+                if self.controls_store is not None:
+                    self.controls_store.scatter(
+                        r["sel_solve"],
+                        pt.tmap(lambda x: x[j].clone(), self._ys["controls"]))
+                if self.ef_store is not None:
+                    self.ef_store.scatter(r["sel_solve"],
+                                          self._ys["ef"][j].clone())
             if self.scn_trivial:
                 eff = np.full(hi - off, intended, dtype=np.float64)
                 eff_a = np.full(hi - off, gather_full, dtype=np.float64)
@@ -784,6 +1074,7 @@ class ScannedDriver:
                 save_checkpoint(checkpoint_dir,
                                 {"params": self._carry["params"],
                                  "round": hi}, step=hi)
+            off = hi
         return hist, pt.tmap(torch.clone, self._carry["params"])
 
 

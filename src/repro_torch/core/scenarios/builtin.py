@@ -46,29 +46,100 @@ def _lognormal_latency(cfg, u):
 
 # -- work assignment --------------------------------------------------------
 
-def _linear_work_fraction(cfg, num_devices):
-    """Per-device work fractions spread linearly from
-    ``cfg.partial_min_work`` to 1.0 (``jnp.linspace`` in float32).
+#: Threads of the host that runs the reference.  XLA:CPU splits a large
+#: elementwise fusion into parallel tasks by its host's core count, and
+#: that split changes which values of the linspace below come out of
+#: constant-folded code; the reference's values at the N where it
+#: splits (see :func:`_xla_partitions`) are those of an 8-thread host.
+XLA_CPU_THREADS = 8
 
-    Written as ``start * (1 - i*c) + i*(stop*c)`` with ``c = 1/(N-1)``
-    and the last product fused into the add.  Measured against the
-    reference's eager ``jnp.linspace`` (what its python and buffered
-    drivers call): equal bit for bit at N = 12, 30 and 200 with
-    ``partial_min_work`` 0.3 and 0.5, and at N = 8 with 0.5; at N = 8
-    with 0.3, index 1 is one ulp above it (0.40000004 against 0.4),
-    which moves that device's step cap ``ceil(work * steps)`` up by one
-    where ``steps`` is a multiple of 5 (tests/test_torch_async.py pins
-    it).  The reference's compiled linspace differs from its eager one
-    in some values at those N.
+
+def _xla_partitions(n: int, compiled: bool) -> int:
+    """Parallel tasks XLA:CPU's cost model gives the linspace fusion of
+    ``n`` outputs: the eager form (start and stop are parameters) is
+    compute-bound, ``45 n + 76`` cost units against 100,000 a task, at
+    most one task a thread; the compiled form (constants) is bound by
+    its ``4 n`` output bytes against 256 KiB a task, at most
+    ``ceil(sqrt(threads))`` tasks."""
+    if compiled:
+        return min(math.ceil(math.sqrt(XLA_CPU_THREADS)),
+                   max(1, 4 * n // 262144))
+    return min(XLA_CPU_THREADS, max(1, (45 * n + 76) // 100000))
+
+
+def _xla_linspace(start: float, n: int, compiled: bool) -> torch.Tensor:
+    """``jnp.linspace(start, 1.0, n)`` in float32 as XLA:CPU evaluates
+    it, eagerly (``compiled=False``) or constant-folded into a compiled
+    program (``compiled=True``).
+
+    XLA rewrites the linspace as ``s (1 - i c) + i (1 c)`` with
+    ``c = fl(1/(n-1))``; its LLVM backend then contracts multiplies
+    into adds (FMA) wherever a product has one use, and folds whatever
+    it knows at compile time.  So each value is one of two formulas:
+
+    - where the code knows ``i`` at compile time (the fully unrolled
+      kernel below 353 outputs, the tail of the vector loop in the last
+      parallel task when its length differs from the others'), ``1 - i
+      c`` is folded, correctly rounded: eager ``fma(i, c, s K)``
+      (``fma(s, K, c)`` at ``i = 1`` below 35 outputs, where the kernel
+      is scalar and ``1 c`` folds away), compiled the plain
+      ``i c + s K``;
+    - where ``i`` is a run-time value (the vector loop, 32 values an
+      iteration, and the tails of the other parallel tasks): eager
+      ``fma(i, c, s fma(-i, c, 1))``; compiled ``fma(s, K, i c)``, whose
+      ``i c`` has two uses and so is not fused into ``1 - i c``.
+
+    Read off the compiled programs (``_linspace.lower(...).compile()``
+    and its LLVM IR) and checked bit for bit against the reference for
+    every n from 2 to 1,024 and n = 10^6 at start 0.1, 0.3 and 0.5
+    (tests/test_torch_work_fraction*.py).  Where the parallel split
+    applies (:func:`_xla_partitions` > 1) the compiled form is exact at
+    the sampled n those tests list and the eager form misses a few
+    values at three of them, pinned there (ROADMAP.md, fault F4).
     """
-    start = torch.tensor(cfg.partial_min_work, dtype=F32)
-    if num_devices == 1:
-        return start.reshape(1)
-    div = num_devices - 1
+    s = torch.tensor(start, dtype=F32)
+    if n == 1:
+        return s.reshape(1)
+    div = n - 1
     c = torch.tensor(1.0, dtype=F32) / div
     i = torch.arange(div, dtype=F32)
-    out = f32math.fma(i, c, start * (1.0 - i * c))      # stop = 1.0
+    ic = i * c
+    k = 1.0 - ic
+    if compiled:
+        runtime_v = f32math.fma(s.expand(div), k, ic)
+        folded_v = ic + s * k
+    else:
+        runtime_v = f32math.fma(i, c, s * f32math.fma(-i, c, 1.0))
+        folded_v = f32math.fma(i, c, s * k)
+        if div > 1 and n <= 34:
+            folded_v[1] = f32math.fma(s, k[1], c)
+    runtime = torch.zeros(div, dtype=torch.bool)
+    if n >= 353:
+        tasks = _xla_partitions(n, compiled)
+        size = n // tasks
+        last = n - (tasks - 1) * size - 1      # the last task's formula values
+        own_code = tasks == 1 or last != size
+        for p in range(tasks):
+            lo = p * size
+            m = size if p < tasks - 1 else last
+            runtime[lo:lo + 32 * (m // 32)] = True
+            if not (own_code and p == tasks - 1):
+                runtime[lo:lo + m] = True
+    out = torch.where(runtime, runtime_v, folded_v)
     return torch.cat([out, torch.ones(1, dtype=F32)])
+
+
+def _linear_work_fraction(cfg, num_devices):
+    """Per-device work fractions spread linearly from
+    ``cfg.partial_min_work`` to 1.0: the reference's ``jnp.linspace``
+    as its python and buffered drivers evaluate it, eagerly.  The
+    ``compiled`` attribute gives the values its scanned driver's
+    compiled chunk computes (:func:`_xla_linspace`)."""
+    return _xla_linspace(cfg.partial_min_work, num_devices, compiled=False)
+
+
+_linear_work_fraction.compiled = lambda cfg, num_devices: _xla_linspace(
+    cfg.partial_min_work, num_devices, compiled=True)
 
 
 # -- the registry -----------------------------------------------------------

@@ -70,7 +70,9 @@ class ScenarioSpec:
       later than ``cfg.straggler_deadline``.
     - ``dropout``: each device drops mid-round w.p. ``cfg.dropout_rate``.
     - ``work_fraction(cfg, num_devices) -> (N,)``: deterministic
-      per-device fraction of local work; ``None`` = full work.
+      per-device fraction of local work; ``None`` = full work.  It may
+      carry a ``compiled`` attribute of the same signature: the values
+      inside the reference's compiled chunk (:func:`staged_work`).
 
     Callables return float32 tensors (or values ``torch.as_tensor``
     turns into them) on the CPU.
@@ -194,13 +196,19 @@ def staged_availability(spec: ScenarioSpec, cfg, num_devices: int,
     return _f32(spec.availability(cfg, num_devices, t))
 
 
-def staged_work(spec: ScenarioSpec, cfg,
-                num_devices: int) -> Optional[torch.Tensor]:
+def staged_work(spec: ScenarioSpec, cfg, num_devices: int,
+                compiled: bool = False) -> Optional[torch.Tensor]:
     """The (N,) float32 work fractions on the CPU (``None`` without a
-    work assignment); they do not depend on the round."""
+    work assignment); they do not depend on the round.  ``compiled``:
+    the values the reference computes inside its compiled scan chunk,
+    where the callable has a ``compiled`` form (the built-in linspace
+    does: XLA evaluates it differently eagerly and compiled)."""
     if spec.work_fraction is None:
         return None
-    return _f32(spec.work_fraction(cfg, num_devices))
+    fn = spec.work_fraction
+    if compiled:
+        fn = getattr(fn, "compiled", fn)
+    return _f32(fn(cfg, num_devices))
 
 
 def realize_env_staged(spec: ScenarioSpec, cfg, sel, p, frac,

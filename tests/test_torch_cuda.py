@@ -736,3 +736,124 @@ def test_buffered_run_on_the_card_equals_the_cpu(card):
     assert launches_g == launches_c and len(launches_g) > 1
     assert build.launch_counts["local_epoch"] == len(launches_g)
     assert build.launch_counts["codec_aggregate"] == 0
+
+
+# -- the population layer: streaming on the card ----------------------------
+
+@pytest.mark.cuda
+def test_eager_draws_equal_graph_replays(card):
+    """The registered generator gives the same numbers drawn eagerly as
+    drawn by replays of a captured program that makes the same calls
+    (the streaming schedule draws eagerly what the stacked plan draws
+    inside its graph), and the replays advance the generator as the
+    eager draws do."""
+    from repro_torch.core import server
+
+    n, k = 1000, 10
+    gen = torch.Generator(device=card)
+
+    def draws():
+        return torch.cat([server.sample_devices_onchip(gen, n, k),
+                          server.sample_devices_onchip(gen, n, k),
+                          (torch.rand(n, generator=gen, device=card)
+                           * 1e6).long()])
+
+    gen.manual_seed(7)
+    eager = [draws() for _ in range(4)]
+    gen.manual_seed(7)
+    out = torch.zeros_like(eager[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        state = gen.get_state()
+        draws()                                   # warm-up
+        gen.set_state(state)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out.copy_(draws())
+    gen.manual_seed(7)
+    replayed = []
+    for _ in range(4):
+        graph.replay()
+        replayed.append(out.clone())
+    assert all(torch.equal(a, b) for a, b in zip(eager, replayed))
+    after = draws()                           # eager again, after replays
+    gen.manual_seed(7)
+    for _ in range(4):
+        draws()
+    assert torch.equal(after, draws())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,scenario", [("feddane", "ideal"),
+                                           ("scaffold", "ideal"),
+                                           ("feddane", "bernoulli")])
+def test_streaming_equals_stacked_on_the_card(card, algo, scenario):
+    """The scanned driver's streaming plan against its stacked plan on
+    one streaming source, sampled on the card: the selections bitwise
+    (the schedule's eager draws, the stacked round's in-graph draws),
+    the history's participation exactly, params within 1e-5; one
+    streaming capture per padded batch count."""
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import FederatedTrainer, engine, server
+    from repro_torch.core import pytree as pt
+    from repro_torch.data import make_synthetic_stream
+    from repro_torch.models.param import init_params
+    from repro_torch.models.small import logreg_loss, logreg_specs
+
+    src = make_synthetic_stream(1, 1, num_devices=30, seed=0)
+    p0 = init_params(logreg_specs(60, 10), torch.Generator().manual_seed(0),
+                     device=card)
+    rounds = 4
+    staged = []
+    stage = engine.ScannedDriver._stream_stage
+
+    def spy_stage(self, off, rows, wire_rows):
+        staged.extend(np.stack([r["s1"], r["sel_solve"]]) for r in rows)
+        return stage(self, off, rows, wire_rows)
+
+    out = {}
+    for plan in ("streaming", "stacked"):
+        cfg = FederatedConfig(algorithm=algo, num_devices=30,
+                              devices_per_round=10, local_epochs=1,
+                              learning_rate=0.05, mu=0.01, seed=5,
+                              round_driver="scan", client_source=plan,
+                              chunk_rounds=2, scenario=scenario,
+                              avail_prob=0.7)
+        tr = FederatedTrainer(logreg_loss, src, cfg)
+        rec = torch.full((rounds, 2, 10), -1, dtype=torch.long, device=card)
+        calls = []
+        sample = server.sample_devices_onchip
+
+        def spy(*a, **k):
+            sel = sample(*a, **k)
+            phase = len(calls) % 2 if algo == "feddane" else 0
+            calls.append(phase)
+            rec[:, phase].index_copy_(0, tr._scanned._ctr[1:2],
+                                      sel.unsqueeze(0))
+            if algo != "feddane":
+                rec[:, 1].index_copy_(0, tr._scanned._ctr[1:2],
+                                      sel.unsqueeze(0))
+            return sel
+
+        engine.ScannedDriver._stream_stage = spy_stage
+        server.sample_devices_onchip = spy if plan == "stacked" else sample
+        try:
+            h, p = tr.run(p0, rounds)
+        finally:
+            engine.ScannedDriver._stream_stage = stage
+            server.sample_devices_onchip = sample
+        torch.cuda.synchronize()
+        out[plan] = (h, p, rec.cpu().numpy(), tr._scanned)
+    (hs, ps, _, ds), (ht, pt_, rt, dt) = out["streaming"], out["stacked"]
+    assert ds.streaming and not dt.streaming
+    assert 1 <= ds.stream_captures == len(ds._sbufs) <= 5
+    assert np.array_equal(np.stack(staged), rt) and (rt >= 0).all()
+    assert {k: v for k, v in hs.items() if k != "loss"} == \
+        {k: v for k, v in ht.items() if k != "loss"}
+    np.testing.assert_allclose(hs["loss"], ht["loss"], atol=1e-5)
+    for a, b in zip(pt.leaves(ps), pt.leaves(pt_)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-5)

@@ -63,8 +63,9 @@ def _entry_points(tmp):
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import FederatedConfig
     from repro_torch.core import FederatedTrainer
-    from repro_torch.data import (make_sent140_like, make_shakespeare_like,
-                                  make_synthetic)
+    from repro_torch.data import (make_femnist_stream, make_sent140_like,
+                                  make_shakespeare_like, make_synthetic,
+                                  make_synthetic_stream)
     from repro_torch.data.batching import FederatedData, pad_to_batches
     from repro_torch.launch import serve
     from repro_torch.models import model_specs
@@ -93,6 +94,9 @@ def _entry_points(tmp):
         "make_shakespeare_like": lambda: make_shakespeare_like(
             2, sample_cap=32),
         "load_checkpoint": lambda: load_checkpoint(ckpt),
+        "make_synthetic_stream": lambda: make_synthetic_stream(
+            num_devices=10**6),
+        "make_femnist_stream": lambda: make_femnist_stream(10**6),
     }
 
 
@@ -102,7 +106,8 @@ def _entry_points(tmp):
                                   "init_params(LM)", "serve.main",
                                   "make_sent140_like",
                                   "make_shakespeare_like",
-                                  "load_checkpoint"])
+                                  "load_checkpoint", "make_synthetic_stream",
+                                  "make_femnist_stream"])
 def test_entry_points_need_the_card_unless_told(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-card path is moot")

@@ -254,15 +254,28 @@ def test_init_params_zeros_for_logreg():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(round_driver="scan", client_source="streaming"),
+    dict(client_source="streaming", mesh_devices=2),
     dict(round_driver="buffered", mesh_devices=2),
     dict(round_driver="buffered", mesh_devices=4, edge_shards=2),
-    dict(round_driver="buffered", client_source="streaming"),
+    dict(client_source="streaming", mesh_devices=4, edge_shards=2),
     dict(mesh_devices=2, round_driver="scan"),
-    dict(client_source="streaming")])
+    dict(client_source="streaming", round_driver="python",
+         mesh_devices=2)])
 def test_config_rejects_what_is_not_ported(kw):
     with pytest.raises(ValueError, match="not yet ported"):
         FederatedConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(round_driver="scan", client_source="streaming"),
+    dict(round_driver="buffered", client_source="streaming"),
+    dict(client_source="streaming"),
+    dict(client_source="streaming", mesh_devices="auto")])
+def test_config_accepts_streaming(kw):
+    """Streaming sources are ported on every driver in one process; on
+    the client mesh they are not, which the trainer checks once
+    ``mesh_devices`` has resolved."""
+    assert FederatedConfig(**kw).client_source == "streaming"
 
 
 @pytest.mark.parametrize("kw", [
