@@ -144,19 +144,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    params within 1e-5.  The reference's directional cell: ``bernoulli``,
    4 scanned rounds of fedavg, fedprox and feddane at K/N = 1e-5, the
    final losses and whether feddane's is over 1.5x both (printed);
-9. the client mesh (``core/sharding.py``) on the paper config, 3
-   rounds a cell, its ranks started by ``run_on_mesh`` on cuda:0 over
-   gloo (NCCL refuses two ranks on one device): a flat mesh of 2 ranks
-   for feddane and scaffold (ideal, dense) and fedavg with topk (error
-   feedback carried across the ranks), and a tree of 10 ranks under 2
-   edges (one client a rank) for feddane under ``hostile`` with int8.
-   Every rank must end with bitwise-equal params, loss history and
+9. the client mesh (``core/sharding.py``) on the paper config, its
+   ranks started by ``run_on_mesh`` on cuda:0 over gloo (NCCL refuses
+   two ranks on one device), on all three drivers: a flat mesh of 2
+   ranks for the python driver (feddane and scaffold, ideal and dense,
+   and fedavg with topk, its error feedback carried across the ranks; 3
+   rounds), the scanned driver (feddane sampled on the card, 5 rounds;
+   scaffold on numpy-seeded selections, 3 rounds, ``sharded`` 1.0),
+   the buffered driver (feddane under ``hostile``, M=5, 5 commits: its
+   refills of one client pad to two rows) and the N=10^6 streaming
+   source of phase 8d (feddane on the python and scanned drivers, 2
+   rounds: each rank generates at most the 32 eval clients and its 5
+   of each phase and round); and a tree of 10 ranks under 2 edges (one
+   client a rank) for feddane under ``hostile`` with int8 on the python
+   and scanned drivers (3 rounds) and degenerate on the buffered driver
+   (3 commits).  The scanned cells run twice, bitwise equal: the
+   captures (each round program CUDA-graph segments split at its
+   all-reduces, at least two), then the timed replays.  Every rank must
+   end with bitwise-equal params, loss history, selections, masks and
    per-client state; each cell is held against the single-process card
-   path of the same config and seed (the same selections, masks and
-   effective K every round; params within phase 4's bound, or phase 7's
-   spread-based bound for int8); K6 must launch once per rank and lossy
-   round and K5 never in the ranks (each rank sets its counters to 0
-   just before its cells and reads them just after);
+   run of the same driver and seed (the same selections, masks and
+   effective K every round, the buffered event stream; params within
+   phase 4's bound, or phase 7's spread-based bound for int8); K2 must
+   launch, K6 once per rank and lossy round (a replay, or a capture's
+   warm-up) and K5 never in the ranks (each rank sets its counters to 0
+   just before each cell and reads them just after).  Each cell prints
+   ms/round (ms/commit) on rank 0 beside the single process, the
+   segments and all-reduces of each captured program, and K2 and K6
+   launches summed over the ranks;
 10. the LM stack's inference path at full width, random weights from
    seed 0, f32: qwen1.5-0.5b (24 layers, d=1024, 16 heads) through
    ``make_prefill_step`` at B=2, S=128 held against the port's CPU path,
@@ -189,6 +204,7 @@ script, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -197,6 +213,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -2133,20 +2150,45 @@ def population_phase(torch, counts):
     return out
 
 
-#: Phase 9: (ranks, edges) -> [(algorithm, scenario, codec)], 3 rounds a
-#: cell.  The flat mesh splits K=10 into two ranks of 5 clients; the tree
-#: puts one client on each of 10 ranks under 2 edges of 5 leaves.
-MESH_CELLS = {(2, 1): [("feddane", "ideal", "none"),
-                       ("scaffold", "ideal", "none"),
-                       ("fedavg", "ideal", "topk")],
-              (10, 2): [("feddane", "hostile", "int8")]}
+#: Phase 9: (ranks, edges) -> cells (driver, algorithm, scenario, codec).
+#: The flat mesh splits K=10 into two ranks of 5 clients; the tree puts
+#: one client on each of 10 ranks under 2 edges of 5 leaves.  Drivers:
+#: ``python`` (``MESH_ROUNDS`` rounds), ``scan`` (sampled on the card,
+#: run twice: the captures, then the timed replays), ``scan_injected``
+#: (numpy-seeded selections), ``buffered`` (``hostile``: M=5), and the
+#: N=10^6 streaming source of phase 8d (``POP``) on ``stream_python`` and
+#: ``stream_scan``.
+MESH_CELLS = {(2, 1): [("python", "feddane", "ideal", "none"),
+                       ("python", "scaffold", "ideal", "none"),
+                       ("python", "fedavg", "ideal", "topk"),
+                       ("scan", "feddane", "ideal", "none"),
+                       ("scan_injected", "scaffold", "ideal", "none"),
+                       ("buffered", "feddane", "hostile", "none"),
+                       ("stream_python", "feddane", "ideal", "none"),
+                       ("stream_scan", "feddane", "ideal", "none")],
+              (10, 2): [("python", "feddane", "hostile", "int8"),
+                        ("scan", "feddane", "hostile", "int8"),
+                        ("buffered", "feddane", "ideal", "none")]}
 MESH_ROUNDS = 3
+#: rounds (commits) of each driver's cells; the (2, 1) scan cell runs 5
+MESH_SCAN_ROUNDS = {(2, 1): 5, (10, 2): 3}
+MESH_BUF_COMMITS = {"hostile": 5, "ideal": 3}
+MESH_STREAM_ROUNDS = 2
+MESH_BUF_M = 5
 
 
-def mesh_config(algo: str, scenario: str, codec_name: str, **kw):
+def mesh_config(driver: str, algo: str, scenario: str, codec_name: str,
+                **kw):
     from repro_torch.configs.base import FederatedConfig
-    return FederatedConfig(algorithm=algo, mu=0.001, scenario=scenario,
-                           codec=codec_name, **PAPER, **kw)
+    if driver.startswith("stream"):
+        return FederatedConfig(algorithm=algo, round_driver=driver[7:],
+                               client_source="streaming", **POP, **kw)
+    extra = dict(buffer_size=MESH_BUF_M) if (
+        driver == "buffered" and scenario == "hostile") else {}
+    return FederatedConfig(
+        algorithm=algo, mu=0.001, scenario=scenario, codec=codec_name,
+        round_driver={"scan_injected": "scan"}.get(driver, driver),
+        **PAPER, **extra, **kw)
 
 
 def drive(torch, trainer, rounds: int, counts=None):
@@ -2188,71 +2230,231 @@ def drive(torch, trainer, rounds: int, counts=None):
     return rec
 
 
-def mesh_rank(mesh, cells, rounds: int):
+class SampleSpy:
+    """Records every draw of the host and card samplers while active, in
+    order, as numpy (the streaming plans draw eagerly)."""
+
+    def __init__(self):
+        self.sel = []
+
+    def __enter__(self):
+        from repro_torch.core import server
+        self._saved = (server.sample_devices, server.sample_devices_onchip)
+
+        def spy(fn):
+            def f(*a, **k):
+                out = fn(*a, **k)
+                self.sel.append(out.cpu().numpy() if hasattr(out, "cpu")
+                                else np.array(out))
+                return out
+            return f
+
+        server.sample_devices, server.sample_devices_onchip = map(
+            spy, self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import server
+        server.sample_devices, server.sample_devices_onchip = self._saved
+
+
+def replay_breakdown(torch, drv) -> Optional[Tuple[float, float, float,
+                                                    int]]:
+    """One more replay of the scanned driver ``drv``'s round program on
+    its first staged row, step by step between host syncs: the host ms
+    in its CUDA-graph segments, in the all-reduces between them, and in
+    the largest all-reduce step with its bytes (on feddane the cohort's
+    batch gather); the replay's launches are not counted: it only
+    measures.  ``None`` where nothing was captured (the CPU)."""
+    names = [k for k in drv._programs if k != "eval"]
+    if not names:
+        return None
+    drv._ctr.zero_()
+    seg = red = big_ms = 0.0
+    big = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for kind, nbytes in drv._programs[names[0]].graph.replay_steps():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dt, t0 = (t1 - t0) * 1e3, t1
+        if kind == "segment":
+            seg += dt
+            continue
+        red += dt
+        if nbytes > big:
+            big, big_ms = nbytes, dt
+    return seg, red, big_ms, big
+
+
+def mesh_cell(torch, cell, rounds: int, mesh=None, counts=None):
+    """One phase-9 cell on this rank of ``mesh`` (or in one process with
+    ``mesh=None``): a record of its selections, masks, effective K, loss,
+    params, ms per round (or commit) and, given ``counts``, the launches
+    of the cell (the counters set to 0 just before it, read just after),
+    with the segments of each captured program."""
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.data import make_synthetic
+    from repro_torch.models.small import logreg_loss
+
+    driver, algo, scenario, codec_name = cell
+    kw = ({} if mesh is None else dict(mesh_devices=mesh.world,
+                                       edge_shards=mesh.edge_shards))
+    cfg = mesh_config(driver, algo, scenario, codec_name, **kw)
+    streaming = driver.startswith("stream")
+    dev = None if mesh is None else mesh.device
+    data = (_pop_source(dev) if streaming else make_synthetic(
+        1, 1, num_devices=30, seed=0, batch_size=10, device=dev))
+    tr = FederatedTrainer(logreg_loss, data, cfg, mesh=mesh)
+    if driver == "python":
+        return drive(torch, tr, rounds, counts)
+    if counts is not None:
+        for k in counts:
+            counts[k] = 0                 # this rank's cell starts here
+    rec = {"masks": None, "segments": None}
+    p0 = _logreg_p0(torch, tr.device)
+    fp = Footprint(torch) if streaming else contextlib.nullcontext()
+    if driver == "stream_python":
+        with fp, SampleSpy() as spy:
+            rec.update(drive(torch, tr, rounds))
+        rec["sel"] = spy.sel
+        rec["ms_all"] = rec["ms"]
+    elif driver == "buffered":
+        bufrec = BufferedRecorder(tr)
+        hist, params, ms = _timed_run(torch, tr, rounds, params=p0)
+        rec.update(sel=[[np.asarray(c), s1] for c, s1 in bufrec.launches],
+                   solves=bufrec.solves, ms_all=[ms],
+                   events={k: hist[k] for k in EVENT_KEYS})
+    else:
+        # the scanned driver: run 1 captures its programs, run 2 replays
+        # them, timed; both bitwise equal
+        sel = None
+        if driver == "scan_injected":
+            rng = np.random.default_rng(PAPER["seed"])
+            sel = np.stack([np.stack([rng.choice(30, 10, replace=False)
+                                      for _ in range(2)])
+                            for _ in range(rounds)])
+        recorder = (SampleSpy() if streaming else ScanRecorder(
+            torch, rounds, 10, tr.device, 2).bind(tr))
+        runs = []
+        with fp:
+            for _ in range(2):
+                if streaming:
+                    recorder.sel.clear()
+                with recorder:
+                    runs.append(_timed_run(torch, tr, rounds, params=p0,
+                                           selections=sel))
+        (hist, params, _), (h2, p2, ms) = runs
+        check(hist == h2 and all(torch.equal(a, b) for a, b in zip(
+            pt.leaves(params), pt.leaves(p2))),
+            f"mesh {cell}: two runs differ")
+        if sel is not None:
+            rec["sel"] = list(sel)
+        elif streaming:
+            rec["sel"] = recorder.sel
+        else:
+            got = recorder.numpy()
+            rec["sel"] = list(got["sel"])
+            if scenario != "ideal":
+                rec["masks"] = [(got["avail"][t], got["active"][t])
+                                for t in range(rounds)]
+        rec["ms_all"] = [ms]
+        rec["sharded"] = hist.get("sharded")
+        rec["segments"] = {k: (p.graph.segments, p.graph.collectives)
+                           for k, p in tr._scanned._programs.items()}
+        rec["breakdown"] = replay_breakdown(torch, tr._scanned)
+    if driver != "stream_python":
+        rec.update(eff_k=hist["effective_k"], loss=hist["loss"],
+                   params={k: v.cpu().numpy() for k, v in params.items()})
+    rec["ms"] = rec.pop("ms_all")
+    if streaming:
+        rec["clients"] = int(data.materialized_clients)
+        rec["card_mib"] = fp.card / 2**20
+    if counts is not None:
+        rec["launches"] = dict(counts)    # and is read here
+    return rec
+
+
+def mesh_rank(mesh, cells, shape):
     """Phase 9 on one rank of the client mesh: every cell of ``cells``
     through this rank's own trainer, on the rank's device."""
     import torch
-    from repro_torch.core import FederatedTrainer
-    from repro_torch.data import make_synthetic
     from repro_torch.kernels import build
-    from repro_torch.models.small import logreg_loss
+    return [mesh_cell(torch, cell, _mesh_rounds(cell, shape), mesh,
+                      build.launch_counts) for cell in cells]
 
-    syn = make_synthetic(1, 1, num_devices=30, seed=0, batch_size=10,
-                         device=mesh.device)
-    out = []
-    for algo, scenario, codec_name in cells:
-        cfg = mesh_config(algo, scenario, codec_name,
-                          mesh_devices=mesh.world,
-                          edge_shards=mesh.edge_shards)
-        tr = FederatedTrainer(logreg_loss, syn, cfg, mesh=mesh)
-        out.append(drive(torch, tr, rounds, build.launch_counts))
-    return out
+
+def _mesh_rounds(cell, shape) -> int:
+    driver, _, scenario, _ = cell
+    if driver == "buffered":
+        return MESH_BUF_COMMITS[scenario]
+    if driver.startswith("stream"):
+        return MESH_STREAM_ROUNDS
+    if driver == "scan":
+        return MESH_SCAN_ROUNDS[shape]
+    return MESH_ROUNDS
 
 
 def _bits(rec):
     """A record's results as bytes, for bitwise comparison across ranks."""
     import pickle
-    return pickle.dumps({k: rec[k] for k in ("params", "loss", "controls",
-                                             "ef", "sel", "masks",
-                                             "eff_k")})
+    return pickle.dumps({k: rec.get(k) for k in (
+        "params", "loss", "controls", "ef", "sel", "masks", "eff_k",
+        "events", "sharded")})
 
 
-def mesh_phase(torch, syn, int8_tol: float):
+def _same_masks(a, b) -> bool:
+    """Two records' masks equal: ``None``, or per round ``None`` or a
+    (phase-A availability, solve mask) pair."""
+    if a is None or b is None:
+        return a is None and b is None
+    return len(a) == len(b) and all(
+        (pa is None and pb is None) or (
+            pa is not None and pb is not None and all(
+                (x is None and y is None) or np.array_equal(x, y)
+                for x, y in zip(pa, pb)))
+        for pa, pb in zip(a, b))
+
+
+def mesh_phase(torch, int8_tol: float):
     """Phase 9; returns the launches summed over every rank's cells."""
-    from repro_torch.core import FederatedTrainer
     from repro_torch.core.sharding import run_on_mesh
-    from repro_torch.models.small import logreg_loss
 
     print("    the ranks share cuda:0 over gloo: NCCL refuses two ranks "
           "on one device, and this run has one card")
     summed = {}
     for (d, e), cells in MESH_CELLS.items():
         t0 = time.perf_counter()
-        res = run_on_mesh(mesh_rank, d, e, args=(cells, MESH_ROUNDS),
+        res = run_on_mesh(mesh_rank, d, e, args=(cells, (d, e)),
                           device="cuda:0", backend="gloo")
         print(f"  {d} ranks under {e} edge(s): {time.perf_counter() - t0:.1f}"
               f" s, the ranks' start included")
-        for i, (algo, scenario, codec_name) in enumerate(cells):
-            label = f"mesh {d}x{e} {algo}/{scenario}/{codec_name}"
+        for i, cell in enumerate(cells):
+            driver, algo, scenario, codec_name = cell
+            rounds = _mesh_rounds(cell, (d, e))
+            label = f"mesh {d}x{e} {driver} {algo}/{scenario}/{codec_name}"
             recs = [r[i] for r in res]
             for r, rec in enumerate(recs[1:], 1):
                 check(_bits(rec) == _bits(recs[0]),
                       f"{label}: rank {r} differs from rank 0")
-            one = drive(torch, FederatedTrainer(
-                logreg_loss, syn, mesh_config(algo, scenario, codec_name)),
-                MESH_ROUNDS)
+            one = mesh_cell(torch, cell, rounds)
             got = recs[0]
-            for t in range(MESH_ROUNDS):
-                check(all(np.array_equal(a, b) for a, b in
-                          zip(got["sel"][t], one["sel"][t])),
-                      f"{label}: round {t} selections differ")
-                gm, om = got["masks"][t], one["masks"][t]
-                check((gm is None) == (om is None) and (gm is None or all(
-                    (a is None and b is None) or np.array_equal(a, b)
-                    for a, b in zip(gm, om))),
-                      f"{label}: round {t} masks differ")
+            check(len(got["sel"]) == len(one["sel"]) and all(
+                np.array_equal(np.asarray(a), np.asarray(b))
+                for x, y in zip(got["sel"], one["sel"])
+                for a, b in zip(x if isinstance(x, list) else [x],
+                                y if isinstance(y, list) else [y])
+                if a is not None or b is not None),
+                f"{label}: selections differ from the single process")
+            check(_same_masks(got["masks"], one["masks"]),
+                  f"{label}: masks differ from the single process")
             check(got["eff_k"] == one["eff_k"],
                   f"{label}: effective K {got['eff_k']} != {one['eff_k']}")
+            if "events" in one:
+                check(got["events"] == one["events"],
+                      f"{label}: event stream differs from the single "
+                      f"process's")
             err = max(float(np.abs(got["params"][k] - one["params"][k])
                             .max()) for k in got["params"])
             tol = int8_tol if codec_name == "int8" else TRAJECTORY_TOL
@@ -2261,24 +2463,69 @@ def mesh_phase(torch, syn, int8_tol: float):
             check(all(np.isfinite(got["loss"])), f"{label}: loss not finite")
             launches = {k: sum(r["launches"][k] for r in recs)
                         for k in recs[0]["launches"]}
-            lossy = MESH_ROUNDS if codec_name != "none" else 0
+            # K6 once a lossy round (a replay, and each capture's warm-up)
+            # on every rank, K5 never
+            lossy = 0
+            if codec_name != "none":
+                lossy = (MESH_ROUNDS if driver == "python"
+                         else 1 + 2 * rounds)
             check(launches["codec_aggregate_partial"] == d * lossy,
                   f"{label}: {launches['codec_aggregate_partial']} K6 "
                   f"launches, not {d} ranks x {lossy} lossy rounds")
             check(launches["codec_aggregate"] == 0,
                   f"{label}: K5 launched in the ranks")
+            check(launches["local_epoch"] > 0, f"{label}: K2 never launched")
+            if driver.startswith("scan"):
+                check(got["sharded"] == [1.0] * rounds,
+                      f"{label}: sharded {got['sharded']}")
+                rounds_prog = [v for k, v in got["segments"].items()
+                               if k != "eval"]
+                check(rounds_prog and all(s >= 2 for s, _ in rounds_prog),
+                      f"{label}: round not split at its collectives "
+                      f"{got['segments']}")
+            if driver == "buffered":
+                for (cohort, _), rows in zip(one["sel"], got["solves"]):
+                    check(rows[0] == -(-len(cohort) // d),
+                          f"{label}: a cohort of {len(cohort)} solved as "
+                          f"{rows[0]} rows a rank")
+            if driver.startswith("stream"):
+                bound = 32 + MESH_STREAM_ROUNDS * 2 * 10 // d
+                worst = max(r["clients"] for r in recs)
+                check(worst <= bound, f"{label}: a rank generated {worst} "
+                                      f"clients > {bound}")
             for k, v in launches.items():
                 summed[k] = summed.get(k, 0) + v
-            print(f"  {label}: ms/round (rank 0) "
-                  f"{[round(m, 2) for m in got['ms']]} (median "
-                  f"{statistics.median(got['ms']):.2f}); single process "
-                  f"{[round(m, 2) for m in one['ms']]}")
+            unit = "commit" if driver == "buffered" else "round"
+            print(f"  {label}: ms/{unit} (rank 0) "
+                  f"{[round(m, 3) for m in got['ms']]} (median "
+                  f"{statistics.median(got['ms']):.3f}); single process "
+                  f"{[round(m, 3) for m in one['ms']]}")
             print(f"    {d} ranks bitwise equal; selections, masks and "
                   f"effective K {got['eff_k']} equal the single process; "
                   f"max |params mesh - single| {err:.2e} (tol {tol:.3g}); "
                   f"loss {[round(x, 6) for x in got['loss']]}")
-            print(f"    launches over the ranks "
-                  f"{ {k: v for k, v in launches.items() if v} }")
+            extra = ""
+            if got.get("breakdown") is not None:
+                extra += (f"; (segments, all-reduces) a replay "
+                          f"{got['segments']}; one replay step by step "
+                          f"(host clock): segments "
+                          f"{got['breakdown'][0]:.3f} ms, all-reduces "
+                          f"{got['breakdown'][1]:.3f} ms, of which the "
+                          f"largest step ({got['breakdown'][3]} bytes) "
+                          f"{got['breakdown'][2]:.3f} ms (single process "
+                          f"{one['breakdown'][0]:.3f} ms)")
+            if driver == "buffered":
+                extra += (f"; cohort sizes {[len(c) for c, _ in one['sel']]}"
+                          f", rows a rank {[r[0] for r in got['solves']]}")
+            if driver.startswith("stream"):
+                extra += (f"; clients generated a rank "
+                          f"{[r['clients'] for r in recs]} (single "
+                          f"{one['clients']}); card peak a rank +"
+                          f"{[round(r['card_mib'], 2) for r in recs]} MiB")
+            print(f"    K2 {launches['local_epoch']} and K6 "
+                  f"{launches['codec_aggregate_partial']} launches over the "
+                  f"ranks; all { {k: v for k, v in launches.items() if v} }"
+                  f"{extra}")
     return summed
 
 
@@ -2630,7 +2877,7 @@ def main() -> int:
 
     print(f"[9] client mesh: paper config, {MESH_ROUNDS} rounds a cell")
     t0 = time.perf_counter()
-    on_mesh = mesh_phase(torch, syn, int8_tol["feddane"])
+    on_mesh = mesh_phase(torch, int8_tol["feddane"])
     print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
     print("[10] LM stack inference at full width (prefill and serve)")

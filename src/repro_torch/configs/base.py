@@ -10,16 +10,11 @@ encoder-decoder models and the patch frontend as not yet ported).
 ``FederatedConfig`` is the counterpart of the reference's
 ``FederatedConfig``: the same fields, defaults and validation, checked
 against the port's own registries (algorithms, scenarios, codecs).
-Knobs of layers the port has not reached yet keep their fields (so a
-config reads the same in both packages) but values that would need
-those layers are refused at construction with a "not yet ported" error:
-the ``"scan"`` and ``"buffered"`` round drivers on a concrete
-``mesh_devices`` > 1 (the trainer re-checks ``"auto"`` once the mesh has
-resolved), and ``client_source="streaming"`` there too.  A streaming
-source (``data.shard_source.ClientShardSource``) runs on all three
-drivers in one process.  The client mesh
-(``mesh_devices``, ``edge_shards``) runs on the python driver with the
-batched engine: its ranks come from ``core.sharding.run_on_mesh``.
+Every round driver and client source it names is ported: a streaming
+source (``data.shard_source.ClientShardSource``) and the client mesh
+(``mesh_devices``, ``edge_shards``, with the batched engine; its ranks
+come from ``core.sharding.run_on_mesh``) run on all three drivers,
+alone or together.
 """
 from __future__ import annotations
 
@@ -205,7 +200,7 @@ class FederatedConfig:
     # per-device reference), "auto": batched on the card, loop on CPU
     engine: str = "auto"
     # python / scan / buffered; "auto" = scan wherever the engine is
-    # batched, except on the client mesh (core/algorithms.py)
+    # batched (core/algorithms.py)
     round_driver: str = "auto"
     buffer_size: int = 0
     staleness_fn: str = "polynomial"
@@ -246,20 +241,6 @@ class FederatedConfig:
             raise ValueError(
                 f"unknown round_driver {self.round_driver!r}; choose "
                 f"from auto/python/scan/buffered")
-        # the scanned and buffered drivers on the client mesh are not
-        # ported; "auto" may still resolve to one rank, so only a concrete
-        # int is rejected here (the trainer re-checks the resolved mesh)
-        if (self.round_driver in ("scan", "buffered")
-                and _is_int(self.mesh_devices) and self.mesh_devices > 1):
-            raise _not_ported(
-                f"round_driver {self.round_driver!r} with mesh_devices="
-                f"{self.mesh_devices}")
-        # nor is a streaming source on the client mesh (same rule)
-        if (self.client_source == "streaming"
-                and _is_int(self.mesh_devices) and self.mesh_devices > 1):
-            raise _not_ported(
-                f"client_source 'streaming' with mesh_devices="
-                f"{self.mesh_devices}")
         if not (_is_int(self.bits) and 2 <= self.bits <= 8):
             raise ValueError(
                 f"bits must be an int in [2, 8], got {self.bits!r}")

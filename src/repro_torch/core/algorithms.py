@@ -16,14 +16,13 @@ interprets the registered
 (``FederatedConfig.round_driver``): ``"python"``, a host loop over
 :meth:`FederatedTrainer.round`; ``"scan"``, the
 :class:`~repro_torch.core.engine.ScannedDriver` (on-card sampling, one
-captured CUDA graph a round on the card); or ``"buffered"``, the
-asynchronous :class:`~repro_torch.core.async_engine.BufferedDriver`
-(an event queue of stale clients, ``num_rounds`` counting server
-commits; not on the client mesh).  ``"auto"`` is ``"scan"``
-wherever the engine resolved to ``batched`` -- on the card, or
-``engine="batched"`` on the CPU -- as in the reference, except under the
-client mesh, which keeps ``"python"`` (the scanned driver on the mesh is
-not yet ported).  A control-variate spec with replacement runs on
+captured CUDA graph a round on the card, split at its collectives on
+the client mesh); or ``"buffered"``, the asynchronous
+:class:`~repro_torch.core.async_engine.BufferedDriver` (an event queue
+of stale clients, ``num_rounds`` counting server commits).  ``"auto"``
+is ``"scan"`` wherever the engine resolved to ``batched`` -- on the
+card, under the client mesh, or ``engine="batched"`` on the CPU -- as
+in the reference.  A control-variate spec with replacement runs on
 ``"python"`` under either.
 
 Orthogonally, ``cfg.scenario`` selects a registered environment
@@ -40,7 +39,9 @@ on all three drivers: sampling is uniform, cohorts are fetched from the
 source, SCAFFOLD controls and error feedback live in sparse stores keyed
 by client id, and the global loss runs over the source's bounded eval
 sample; nothing on the python driver touches all N clients' data
-(``measure_dissimilarity`` refuses a source).  Not on the client mesh.
+(``measure_dissimilarity`` refuses a source).  On the client mesh each
+rank generates only its rows of a cohort (the cohort's batch count
+comes from the clients' sizes, ``num_batches``).
 
 On the python driver, sampling and the scenario uniforms use the
 reference's numpy stream (``default_rng(cfg.seed)``, the same calls in
@@ -58,8 +59,10 @@ evaluates exactly as the single process does, then solves only its K/D
 rows of the cohort: the stacks are padded to the whole cohort's batch
 count, so every rank takes the same solver mode and shapes.  Per-client
 state (SCAFFOLD controls, codec error feedback) stays full-N on every
-rank: after a round each rank's updated rows reach all ranks
-(``sharding.gather_rows``) and every rank scatters the same K rows.
+rank on this driver: after a round each rank's updated rows reach all
+ranks (``sharding.gather_rows``) and every rank scatters the same K
+rows.  The scanned and buffered drivers take the mesh from the trainer
+(their docstrings say how they split the work).
 """
 from __future__ import annotations
 
@@ -189,23 +192,13 @@ class FederatedTrainer:
             RoundEngine(loss_fn, cfg, spec=self.spec,
                         num_devices=dataset.num_devices, mesh=self.mesh)
             if engine == "batched" else None)
-        if cfg.round_driver in ("scan", "buffered") and \
-                self.mesh is not None:
-            raise ValueError(
-                f"round_driver {cfg.round_driver!r} on a client mesh of "
-                f"{self.mesh.world} ranks is not yet ported to "
-                f"repro_torch; use round_driver='python' (or 'auto')")
         #: the dataset is a streaming source (``data/shard_source.py``)
         self.streaming = resolve_streaming(cfg.client_source, dataset)
-        if self.streaming and self.mesh is not None:
-            raise ValueError(
-                f"a streaming client source on a client mesh of "
-                f"{self.mesh.world} ranks is not yet ported to "
-                f"repro_torch; run it in one process")
         self._scanned: Optional[ScannedDriver] = None   # built lazily
         # built here, so an unsupported configuration fails fast
         self._buffered: Optional[BufferedDriver] = (
-            BufferedDriver(loss_fn, dataset, cfg, device=self.device)
+            BufferedDriver(loss_fn, dataset, cfg, device=self.device,
+                           mesh=self.mesh)
             if cfg.round_driver == "buffered" else None)
         self._sample_queue: List[np.ndarray] = []       # test injection
         self._eval_loss = make_eval_loss(loss_fn)
@@ -226,8 +219,7 @@ class FederatedTrainer:
         if driver == "buffered":
             return driver
         if driver == "auto":
-            driver = ("scan" if self.engine is not None and self.mesh is None
-                      else "python")
+            driver = "scan" if self.engine is not None else "python"
         if (driver == "scan" and self.spec.control_update is not None
                 and self.cfg.sample_with_replacement):
             # duplicated selections need sequential control updates; the
@@ -244,7 +236,8 @@ class FederatedTrainer:
         so that every rank takes the same solver mode and shapes."""
         if self.mesh is None:
             return stack_device_batches(self.dataset, S)
-        nb = max(num_batches_of(self._batches(k)) for k in S)
+        # a streaming source tells the counts without generating clients
+        nb = max(self.dataset.num_batches(k) for k in S)
         return stack_device_batches(self.dataset, S[lo:hi], nb=nb)
 
     def init(self, params) -> FederatedState:
@@ -378,9 +371,8 @@ class FederatedTrainer:
                 # every rank's updated rows, on every rank
                 for f in ("controls", "ef"):
                     if f in aux_new:
-                        aux_new[f] = pt.tmap(
-                            lambda x: sharding.gather_rows(x, self.mesh),
-                            aux_new[f])
+                        aux_new[f] = sharding.gather_rows(aux_new[f],
+                                                          self.mesh)
             self._scatter_aux(st, aux_new, S2)
             if not self._codec_trivial and self.codec.error_feedback:
                 st.ef.scatter(S2, aux_new["ef"])

@@ -1,7 +1,6 @@
 """FedBuff-style asynchronous buffered round driver (the fourth driver).
 
-Counterpart of ``repro/core/async_engine.py`` in one process (the client
-mesh on this driver is not yet ported).  The synchronous drivers wait
+Counterpart of ``repro/core/async_engine.py``.  The synchronous drivers wait
 for every selected client, then step.  :class:`BufferedDriver`
 (``FederatedConfig.round_driver="buffered"``) has no round barrier and
 reads the scenario's latency process as an event queue (Nguyen et al.
@@ -33,7 +32,7 @@ last writer wins, with ``c_server`` taking ``sum(c_delta)/N`` a commit;
 prox centers and ``decay`` advance on the commit counter.  Under
 ``sample_with_replacement`` a control-variate spec solves a client that
 appears twice in one cohort in sequential occurrence layers
-(:meth:`BufferedDriver._solve_duplicates`), as the python driver does.
+(:meth:`BufferedDriver._solve`), as the python driver does.
 
 Each cohort solve is one call of ``client.make_batched_solver`` on the
 trainer's device: on the card K2 under ``auto`` (paper logistic
@@ -50,6 +49,18 @@ scenario channel), and event times are float64 host sums ordered by
 selections, arrival times, commit order and staleness.  Lossy codecs
 draw from ``codecs.round_draws(spec, cfg, version, m, rows)`` where the
 reference keys ``round_key(cfg, version)``.
+
+On the client mesh (``mesh``, a
+:class:`~repro_torch.core.sharding.ClientMesh`) every rank runs the same
+host event queue from the same seed.  A cohort of m clients pads to
+``ceil(m/D)·D`` rows (padded rows: all-zero valid masks); each rank
+stacks and solves its rows only, and the results come back through
+``sharding.gather_rows`` before the per-flight slicing, so every rank
+holds every flight.  Phase A's gradient sums are summed over the ranks.
+The commit buffer pads to a multiple of D as well, its padded rows
+weighing 0, and the weighted numerator and weight sum are summed over
+the ranks (``server.aggregate_buffered``).  Duplicates under a
+control-variate spec solve in occurrence layers here too.
 
 Degenerate parity (tests/test_torch_async.py): with ``buffer_size == K``,
 a scenario without latency and fresh anchors every commit is a
@@ -75,7 +86,7 @@ from repro_torch.core.scenarios import (env_channels, is_trivial,
                                         staged_availability)
 from repro_torch.core.strategies import (ControlCtx, CorrCtx, algorithm_spec,
                                          init_aux, make_server_opt)
-from repro_torch.data.batching import num_batches_of, stack_device_batches
+from repro_torch.data.batching import stack_device_batches
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flatpack import (LANES, flat_spec, pack,
                                           pack_broadcast, pack_stacked,
@@ -145,14 +156,16 @@ class BufferedDriver:
     the CPU).
     """
 
-    def __init__(self, loss_fn: Callable, dataset, cfg, device=None):
-        """Raises for a config whose client mesh resolves to more than
-        one rank.  The cohorts always run on the batched solver."""
-        ranks = sharding.resolve_mesh_devices(cfg.mesh_devices)
-        if ranks > 1:
-            raise ValueError(
-                f"round_driver 'buffered' on a client mesh of {ranks} "
-                f"ranks is not yet ported to repro_torch")
+    def __init__(self, loss_fn: Callable, dataset, cfg, device=None,
+                 mesh=None):
+        """``mesh``: this rank's
+        :class:`~repro_torch.core.sharding.ClientMesh` when
+        ``cfg.mesh_devices`` asks for the client mesh (checked as the
+        trainer checks it).  The cohorts always run on the batched
+        solver."""
+        #: the client mesh (core/sharding.py), or None: one process
+        self.mesh = sharding.mesh_for(cfg, mesh)
+        self._shards = sharding.num_shards(self.mesh)
         self.spec = algorithm_spec(cfg.algorithm)
         self.dataset = dataset
         self.cfg = cfg
@@ -170,6 +183,12 @@ class BufferedDriver:
         else:
             self._pool = min(cfg.devices_per_round, n)
         self._m = cfg.buffer_size or self._pool
+        #: the commit buffer's rows: on the mesh padded up to a multiple
+        #: of the rank count, the padding weighing 0 at every commit
+        self._m_pad = -(-self._m // self._shards) * self._shards
+        #: one batch of zeros in the dataset's layout: the rows a rank
+        #: pads its part of a cohort with on the mesh
+        self._zero_batch = None
         # client->server codec: encode at cohort LAUNCH (the client's
         # error feedback updates when it transmits); the flight carries
         # its DECODED delta, so staging and commit are codec-blind; the
@@ -197,12 +216,13 @@ class BufferedDriver:
         server-side post-aggregate gets the variant that takes the
         commit's codec draws and update count; otherwise the exact
         codec-free commit."""
-        opt, codec, cfg = self._server_opt, self._codec, self.cfg
+        opt, codec, cfg, mesh = (self._server_opt, self._codec, self.cfg,
+                                 self.mesh)
         self._commit_takes_draws = (not self._codec_trivial
                                     and codec.post_aggregate is not None)
         if self._commit_takes_draws:
             def commit(w, opt_state, buf, weights, draws, count):
-                pg = server.aggregate_buffered(buf, weights)
+                pg = server.aggregate_buffered(buf, weights, mesh)
                 fspec = flat_spec(w)
                 flat = codec.post_aggregate(cfg, draws, pack(fspec, pg),
                                             torch.clamp(count, min=1.0))
@@ -210,7 +230,7 @@ class BufferedDriver:
                 return server.server_step(w, pt.sub(w, pg), opt, opt_state)
         else:
             def commit(w, opt_state, buf, weights):
-                pg = server.aggregate_buffered(buf, weights)
+                pg = server.aggregate_buffered(buf, weights, mesh)
                 return server.server_step(w, pt.sub(w, pg), opt, opt_state)
         return commit
 
@@ -266,54 +286,121 @@ class BufferedDriver:
         return self._solver(w, corr, mu, b, v,
                             torch.from_numpy(limit).to(self.device))
 
-    def _solve_duplicates(self, cohort, w, aux, b, v, limit, g_local,
-                          corr_for, mu):
-        """Sequential per-duplicate solves for control-variate specs under
-        ``sample_with_replacement``.
+    def _stack_rows(self, ids, nb: int, rows: int, example: int):
+        """``ids``' batch stacks at ``nb`` batches, then zero rows (an
+        all-zero valid mask: identity steps, zero gradients) up to
+        ``rows``: a rank's part of a cohort padded to the mesh.  Client
+        ``example`` of the cohort gives the zero rows' layout when the
+        rank holds no row of its own."""
+        parts = ([stack_device_batches(self.dataset, ids, nb=nb)]
+                 if len(ids) else [])
+        pad = rows - len(ids)
+        if pad == 0:
+            return parts[0]
+        if self._zero_batch is None:
+            like = (pt.tmap(lambda x: x[0], parts[0][0]) if parts
+                    else self.dataset.device_batches(example))
+            self._zero_batch = pt.tmap(lambda x: torch.zeros_like(x[0]),
+                                       like)
+        parts.append((
+            pt.tmap(lambda z: z.expand((pad, nb) + z.shape).clone(),
+                    self._zero_batch),
+            torch.zeros((pad, nb), dtype=torch.float32, device=self.device)))
+        if len(parts) == 1:
+            return parts[0]
+        (b, v), (zb, zv) = parts
+        return (pt.tmap(lambda x, z: torch.cat([x, z]), b, zb),
+                torch.cat([v, zv]))
 
-        Cohort position ``i`` belongs to occurrence layer ``L`` = the
-        number of earlier positions holding the same client; the layers
-        are solved in order, each reading the control the previous layer
-        refreshed (the python driver's per-duplicate semantics; the
-        corrections read the launch-time ``c_server``).  Returns the
-        params, new controls and control deltas as ``(m, ...)`` stacks
-        in cohort-position order.
-        """
-        spec, cfg = self.spec, self.cfg
+    def _gather_grad(self, w, gather: np.ndarray):
+        """Phase A's mean gradient over the selection ``gather``.  On the
+        client mesh the selection pads to a multiple of the rank count
+        with zero rows (zero gradients), each rank sums its rows'
+        gradients and the sums are summed over the ranks
+        (``tree_psum``) before the division by the count."""
+        g = len(gather)
+        lo, hi = sharding.shard_rows(-(-g // self._shards) * self._shards,
+                                     self.mesh)
+        nb = max(self.dataset.num_batches(k) for k in gather)
+        b, v = self._stack_rows(gather[lo:min(hi, g)], nb, hi - lo,
+                                int(gather[0]))
+        grads = self._grads(w, b, v)
+        if self.mesh is None:
+            return pt.tmap(lambda x: x.mean(dim=0), grads)
+        sums = sharding.tree_psum(pt.tmap(lambda x: x.sum(dim=0), grads),
+                                  self.mesh)
+        return pt.tmap(lambda x: x / float(g), sums)
+
+    def _solve(self, cohort: np.ndarray, w, aux, limit, corr_for, mu):
+        """The cohort solve: ``(params, g_local, c_new, c_delta)`` as
+        ``(m, ...)`` stacks in cohort order, on every rank (``None``
+        where the spec keeps none).
+
+        On the client mesh the cohort pads to a multiple of the rank
+        count; each rank stacks, corrects and solves its rows only
+        (padded rows: all-zero valid masks, a step cap of 0), and the
+        results come back through one ``sharding.gather_rows``.  A
+        control-variate spec whose cohort holds a client twice
+        (``sample_with_replacement``) solves in occurrence layers:
+        cohort position ``i`` belongs to layer ``L`` = the number of
+        earlier positions holding the same client, and each layer reads
+        the controls the previous layer refreshed (the python driver's
+        per-duplicate semantics; the corrections read the launch-time
+        ``c_server``)."""
+        spec, cfg, mesh = self.spec, self.cfg, self.mesh
         m = len(cohort)
+        ctl = spec.control_update is not None
         zeros = pt.zeros_like(w)
-        live = {int(k): aux["controls"].get(int(k), zeros) for k in cohort}
+        live = ({int(k): aux["controls"].get(int(k), zeros) for k in cohort}
+                if ctl else {})
         occ = np.zeros((m,), np.int64)
-        seen: Dict[int, int] = {}
-        for i, k in enumerate(cohort):
-            occ[i] = seen.get(int(k), 0)
-            seen[int(k)] = int(occ[i]) + 1
-        rows_p: List[Any] = [None] * m
-        rows_cn: List[Any] = [None] * m
-        rows_cd: List[Any] = [None] * m
-        for layer in range(int(occ.max()) + 1):
+        if ctl:
+            seen: Dict[int, int] = {}
+            for i, k in enumerate(cohort):
+                occ[i] = seen.get(int(k), 0)
+                seen[int(k)] = int(occ[i]) + 1
+        layers = int(occ.max()) + 1
+        nb = max(self.dataset.num_batches(k) for k in cohort)
+        keys = ("params", "g_local", "c_new", "c_delta")
+        out: Dict[str, List[Any]] = {}
+        for layer in range(layers):
             idx = np.nonzero(occ == layer)[0]
-            sel = torch.from_numpy(idx).to(self.device)
-            c_stack = pt.stack([live[int(cohort[i])] for i in idx])
-            b_l = pt.tmap(lambda x: x.index_select(0, sel), b)
-            v_l = v.index_select(0, sel)
-            g_l = (pt.tmap(lambda x: x.index_select(0, sel), g_local)
-                   if g_local is not None else None)
-            corr = corr_for(c_stack, g_l, len(idx))
-            res = self._solve_cohort(w, corr, mu, b_l, v_l,
-                                     None if limit is None else limit[idx])
-            inv_steps = 1.0 / (torch.clamp(res.num_steps, min=1)
-                               * cfg.learning_rate)
-            c_new = spec.control_update(ControlCtx(
-                c_local=c_stack, c_server=aux["c_server"], w0=w,
-                w_new=res.params, inv_steps=inv_steps))
-            c_delta = pt.sub(c_new, c_stack)
+            ml = len(idx)
+            lo, hi = sharding.shard_rows(
+                -(-ml // self._shards) * self._shards, mesh)
+            mine = idx[lo:min(hi, ml)]
+            pad = (hi - lo) - len(mine)
+            b, v = self._stack_rows(cohort[mine], nb, hi - lo,
+                                    int(cohort[0]))
+            g_rows = self._grads(w, b, v) if spec.local_grad else None
+            c_stack = (pt.stack([live[int(cohort[i])] for i in mine]
+                                + [zeros] * pad) if ctl else None)
+            lim = (None if limit is None else np.concatenate(
+                [limit[mine], np.zeros((pad,), limit.dtype)]))
+            res = self._solve_cohort(w, corr_for(c_stack, g_rows, hi - lo),
+                                     mu, b, v, lim)
+            parts = {"params": res.params}
+            if spec.updates_g_prev:
+                parts["g_local"] = g_rows
+            if ctl:
+                inv_steps = 1.0 / (torch.clamp(res.num_steps, min=1)
+                                   * cfg.learning_rate)
+                c_new = spec.control_update(ControlCtx(
+                    c_local=c_stack, c_server=aux["c_server"], w0=w,
+                    w_new=res.params, inv_steps=inv_steps))
+                parts["c_new"] = c_new
+                parts["c_delta"] = pt.sub(c_new, c_stack)
+            parts = sharding.gather_rows(parts, mesh)
+            if layers == 1:
+                # the cohort in order, then the mesh's padded rows
+                return tuple(pt.tmap(lambda x: x[:m], parts[key])
+                             if key in parts else None for key in keys)
             for j, i in enumerate(idx):
-                rows_p[i] = pt.index(res.params, j)
-                rows_cn[i] = pt.index(c_new, j)
-                rows_cd[i] = pt.index(c_delta, j)
-                live[int(cohort[i])] = rows_cn[i]
-        return pt.stack(rows_p), pt.stack(rows_cn), pt.stack(rows_cd)
+                for key, x in parts.items():
+                    out.setdefault(key, [None] * m)[i] = pt.index(x, j)
+                live[int(cohort[i])] = out["c_new"][i]
+        return tuple(pt.stack(out[key]) if key in out else None
+                     for key in keys)
 
     # -- the cohort launch ------------------------------------------------
 
@@ -356,14 +443,9 @@ class BufferedDriver:
                                 < p[gather]]
             gather_n = float(len(gather))
             if len(gather) > 0:
-                gb, gv = stack_device_batches(self.dataset, gather)
-                g_global = pt.tmap(lambda x: x.mean(dim=0),
-                                   self._grads(w, gb, gv))
+                g_global = self._gather_grad(w, gather)
         elif spec.grad_source == "stale":
             g_global = aux.get("g_prev")
-
-        b, v = stack_device_batches(self.dataset, cohort)
-        g_local = self._grads(w, b, v) if spec.local_grad else None
 
         def corr_for(c_stack_, g_local_, mm):
             if spec.correction is not None and not (
@@ -378,37 +460,16 @@ class BufferedDriver:
         if self._has_work:
             # the step caps on the host, in the reference's numpy dtypes
             # (float32 valid counts and work fractions)
-            nbs = np.asarray([num_batches_of(self.dataset.device_batches(
-                int(k))) for k in cohort])
+            nbs = np.asarray([self.dataset.num_batches(k)
+                              for k in cohort])
             valid = (np.arange(nbs.max())[None, :] < nbs[:, None]).astype(
                 np.float32)
             total = cfg.local_epochs * valid.sum(axis=1)
             wf = work if work is not None else np.ones((m,))
             limit = np.minimum(total, np.ceil(wf * total)).astype(np.int32)
 
-        c_new = c_delta = None
-        if (spec.control_update is not None
-                and len(np.unique(cohort)) < m):
-            # a client twice in one cohort (replacement sampling):
-            # sequential occurrence-layer solves
-            res_params, c_new, c_delta = self._solve_duplicates(
-                cohort, w, aux, b, v, limit, g_local, corr_for, mu)
-        else:
-            c_stack = None
-            if spec.control_update is not None:
-                zeros = pt.zeros_like(w)
-                c_stack = pt.stack([aux["controls"].get(int(k), zeros)
-                                    for k in cohort])
-            res = self._solve_cohort(w, corr_for(c_stack, g_local, m), mu,
-                                     b, v, limit)
-            res_params = res.params
-            if spec.control_update is not None:
-                inv_steps = 1.0 / (torch.clamp(res.num_steps, min=1)
-                                   * cfg.learning_rate)
-                c_new = spec.control_update(ControlCtx(
-                    c_local=c_stack, c_server=aux["c_server"], w0=w,
-                    w_new=res_params, inv_steps=inv_steps))
-                c_delta = pt.sub(c_new, c_stack)
+        res_params, g_local, c_new, c_delta = self._solve(
+            cohort, w, aux, limit, corr_for, mu)
 
         # codec encode at launch, slots 0..m-1; the flight carries the
         # DECODED delta (post_decode is linear, so per client is valid);
@@ -512,7 +573,7 @@ class BufferedDriver:
                if self._codec.uplink_bytes is not None else dense)
         grad_up = dense if spec.updates_g_prev else 0.0
         rows = flat_spec(w).rows
-        buffer = _CommitBuffer(w, self._m)
+        buffer = _CommitBuffer(w, self._m_pad)
         pending: List[_Flight] = []       # metadata of the staged updates
         inflight: List[_Flight] = []      # heap by (done, seq)
         version = 0                       # commits so far
@@ -552,16 +613,19 @@ class BufferedDriver:
                 [version - f.anchor_version for f in pending], np.float32)
             weights = server.staleness_weight(
                 cfg.staleness_fn, torch.from_numpy(stal)).to(dev)
+            # the mesh's padded buffer rows weigh 0
+            wpad = (weights if self._m_pad == self._m else torch.cat(
+                [weights, weights.new_zeros(self._m_pad - self._m)]))
             if self._commit_takes_draws:
                 draws = codecs.round_draws(self._codec, cfg, version, 0,
                                            rows, dev)
                 count = torch.full((), float(len(pending)),
                                    dtype=torch.float32, device=dev)
                 w, opt_state = self._commit_fn(w, opt_state, buffer.swap(),
-                                               weights, draws, count)
+                                               wpad, draws, count)
             else:
                 w, opt_state = self._commit_fn(w, opt_state, buffer.swap(),
-                                               weights)
+                                               wpad)
             if spec.updates_g_prev:
                 aux["g_prev"] = server.aggregate_buffered(
                     pt.stack([f.g_local for f in pending]), weights)

@@ -77,6 +77,32 @@ so the host issues one launch where it would issue hundreds of kernels:
   card until the chunk boundary, the only host sync, where the history
   is emitted and checkpoints are saved.
 
+The client mesh
+---------------
+On the mesh (the engine's ``mesh``) every rank runs the same driver
+from the same seed, so selections, environments and replicated state
+are equal on every rank, and solves its K/D rows of each cohort:
+
+- **layout**: where D divides N, each rank keeps only its N/D clients'
+  all-device stacks (train and eval rows, SCAFFOLD controls, error
+  feedback); otherwise they are replicated, with a warning.  The run
+  history's ``sharded`` records which, a value a round (the reference's
+  telemetry); streaming records 1.0;
+- **gather and scatter**: a cohort's rows leave a sharded layout in one
+  exchange (``sharding.gather_selected``: each rank fills the rows it
+  holds into zero ``(K, ...)`` stacks, one all-reduce step, the rank
+  keeps its rows), and updated rows go back the same way, each rank
+  writing the ids it holds (``sharding.scatter_selected``);
+- **eval**: each rank's rows' weighted losses, summed over the ranks;
+- **capture**: the round contains all-reduces, which gloo runs through
+  the host, so the program is captured as CUDA-graph segments split at
+  them (``sharding.SegmentedGraph``) and replayed segment by segment
+  with the all-reduces between; the warm-up issues them eagerly;
+- **streaming**: the schedule pass is the same on every rank; a rank
+  stages (and so generates) only its rows of each cohort, and the
+  updated state rows reach every rank's stores through
+  ``sharding.gather_rows`` at the chunk boundary.
+
 The streaming plan
 ------------------
 Over a :class:`~repro_torch.data.shard_source.ClientShardSource`
@@ -105,15 +131,16 @@ O(N) is stacked -- the counterpart of the reference's streaming
 Streaming and stacked plans over one source draw the same numbers from
 the same generator (eagerly or in a replay), so they select alike.
 
-On the CPU the same round runs eagerly (the parity tests).  On the card
-a round that fails to capture or replay raises: nothing re-runs it
-eagerly.  Kernel launches are counted when a wrapper is called, so the
-driver takes a capture's launches off ``build.launch_counts`` and adds
-them back at every replay.
+On the CPU the same round runs eagerly (the parity tests), collectives
+and all.  On the card a round that fails to capture or replay raises:
+nothing re-runs it eagerly.  Kernel launches are counted when a wrapper
+is called, so the driver takes a capture's launches off
+``build.launch_counts`` and adds them back at every replay.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -133,7 +160,7 @@ from repro_torch.core.strategies import (AlgorithmSpec, ControlCtx, CorrCtx,
                                          algorithm_spec, make_server_opt,
                                          runtime_state_fields)
 from repro_torch.core.client_state import SparseClientState
-from repro_torch.data.batching import (num_batches_of, stack_device_batches,
+from repro_torch.data.batching import (stack_device_batches,
                                        stack_eval_batches)
 from repro_torch.data.shard_source import resolve_streaming
 from repro_torch.device import resolve_device
@@ -229,9 +256,9 @@ class RoundEngine:
             agg = codec_aggregate(vals, scales, mask)
             cnt = mask.sum()
         else:
-            num = sharding.tree_psum(
-                codec_aggregate_partial(vals, scales, mask), self.mesh)
-            cnt = sharding.tree_psum(mask.sum(), self.mesh)
+            num, cnt = sharding.tree_psum(
+                (codec_aggregate_partial(vals, scales, mask), mask.sum()),
+                self.mesh)
             agg = num / torch.clamp(cnt, min=1.0)
         # the post stages read the round's shared draws, so every rank
         # applies the same transform
@@ -324,10 +351,9 @@ class RoundEngine:
                     a = active.reshape(active.shape + (1,) * (n.ndim - 1))
                     return torch.where(a > 0, n, o)
                 c_new = pt.tmap(keep, c_new, aux["controls"])
-                delta_sum = pt.tmap(
-                    lambda n, o: sharding.tree_psum((n - o).sum(dim=0),
-                                                    mesh),
-                    c_new, aux["controls"])
+                delta_sum = sharding.tree_psum(pt.tmap(
+                    lambda n, o: (n - o).sum(dim=0), c_new,
+                    aux["controls"]), mesh)
                 new["c_server"] = pt.tmap(
                     lambda cs, d: cs + d / float(self.num_devices),
                     aux["c_server"], delta_sum)
@@ -360,20 +386,36 @@ class RoundEngine:
 # -- the scanned multi-round driver -----------------------------------------
 
 def _make_stacked_eval(loss_fn: Callable, eval_batches, eval_valid,
-                       eval_weights) -> Callable:
+                       eval_weights, mesh=None) -> Callable:
     """The global loss over the all-device stacked eval tensors as one
     tensor expression: per device the mean batch loss over its *valid*
     batches, then the p_k-weighted mean over devices -- what
     ``FederatedTrainer.global_loss`` computes, with no Python branch on
-    data, so a CUDA graph captures it."""
+    data, so a CUDA graph captures it.
+
+    ``mesh``: where the rank count divides the eval rows, each rank
+    keeps its rows only, and the weighted sum of its rows is summed over
+    the ranks (``tree_psum``) before the division by the whole weight
+    sum; otherwise every rank evaluates every row."""
     per_batch = vmap(vmap(loss_fn, in_dims=(None, 0)), in_dims=(None, 0))
+    rows = eval_weights.shape[0]
+    if mesh is None or rows % sharding.num_shards(mesh) != 0:
+        mesh = None
+    else:
+        wsum = torch.clamp(eval_weights.sum(), min=1e-12)
+        lo, hi = sharding.shard_rows(rows, mesh)
+        eval_batches, eval_valid, eval_weights = pt.tmap(
+            lambda x: x[lo:hi].clone(),
+            (eval_batches, eval_valid, eval_weights))
 
     def eval_loss(p):
         losses = per_batch(p, eval_batches)                    # (N, nb)
         dev = ((losses * eval_valid).sum(dim=1)
                / torch.clamp(eval_valid.sum(dim=1), min=1.0))
-        return ((eval_weights * dev).sum()
-                / torch.clamp(eval_weights.sum(), min=1e-12))
+        if mesh is None:
+            return ((eval_weights * dev).sum()
+                    / torch.clamp(eval_weights.sum(), min=1e-12))
+        return sharding.tree_psum((eval_weights * dev).sum(), mesh) / wsum
 
     return eval_loss
 
@@ -405,10 +447,13 @@ def _assign(dst, src) -> None:
 
 
 class _Program:
-    """One captured program: its CUDA graph and the kernel launches each
-    replay makes (counted at capture, added back at every replay)."""
+    """One captured program: its graph segments
+    (:class:`~repro_torch.core.sharding.SegmentedGraph`, one segment
+    without the client mesh) and the kernel launches each replay makes
+    (counted at capture, added back at every replay)."""
 
-    def __init__(self, graph, launches: Dict[str, int]):
+    def __init__(self, graph: sharding.SegmentedGraph,
+                 launches: Dict[str, int]):
         self.graph, self.launches = graph, launches
 
     def replay(self) -> None:
@@ -421,7 +466,8 @@ class ScannedDriver:
     """The scanned multi-round driver (see the module docstring).
 
     One instance per ``(loss_fn, dataset, cfg)``: it stacks every
-    device's train and eval batches once and exposes :meth:`run` with
+    device's train and eval batches once (on the client mesh, where D
+    divides N, its rows of them) and exposes :meth:`run` with
     ``FederatedTrainer.run``'s ``(history, final_params)`` contract.  On
     the card it captures, at first use, the round with on-card sampling,
     the round that reads injected selections, and the eval, and keeps
@@ -431,10 +477,12 @@ class ScannedDriver:
     def __init__(self, loss_fn: Callable, dataset, cfg,
                  engine: Optional[RoundEngine] = None, device=None):
         """``engine`` shares a trainer's :class:`RoundEngine` (by default
-        one is built from ``cfg``); ``device`` is the dataset's by
-        default.  Raises for a control-variate spec with replacement
-        (duplicated selections need sequential control updates) and for
-        the client mesh (not yet ported)."""
+        one is built from ``cfg``) and with it the client mesh;
+        ``device`` is the dataset's by default.  Raises for a
+        control-variate spec with replacement (duplicated selections need
+        sequential control updates) and, on the mesh, for a selection
+        size (every device, for full participation) that does not split
+        evenly over the ranks."""
         self.spec = algorithm_spec(cfg.algorithm)
         if self.spec.control_update is not None and \
                 cfg.sample_with_replacement:
@@ -449,10 +497,17 @@ class ScannedDriver:
         self.num_devices = n = dataset.num_devices
         self.engine = engine if engine is not None else RoundEngine(
             loss_fn, cfg, spec=self.spec, num_devices=n)
-        if self.engine.mesh is not None:
-            raise ValueError(
-                "round_driver 'scan' on the client mesh is not yet ported "
-                "to repro_torch; run the mesh on round_driver='python'")
+        #: the client mesh (core/sharding.py), the engine's
+        self.mesh = mesh = self.engine.mesh
+        self.k_sel = (cfg.devices_per_round if cfg.sample_with_replacement
+                      else min(cfg.devices_per_round, n))
+        if mesh is not None:
+            if self.spec.num_selections == 0:
+                sharding.check_divisible(
+                    n, mesh, "num_devices (full-participation spec)")
+            else:
+                sharding.check_divisible(self.k_sel, mesh,
+                                         "devices_per_round")
         self.scn = scenario_spec(cfg.scenario)
         self.scn_trivial = is_trivial(self.scn)
         self._env_channels = env_channels(self.scn)
@@ -464,18 +519,41 @@ class ScannedDriver:
         #: kind of dataset
         self.streaming = (resolve_streaming(cfg.client_source, dataset)
                           and self.spec.num_selections > 0)
+        #: this rank's rows ``[lo, hi)`` of a cohort (all of them without
+        #: a mesh)
+        self._krows = sharding.shard_rows(
+            n if self.spec.num_selections == 0 else self.k_sel, mesh)
+        #: on the mesh: whether each rank keeps only its N/D clients'
+        #: all-device stacks (train and eval rows, controls, error
+        #: feedback) -- where D divides N; otherwise they are replicated.
+        #: Streaming builds no all-device stacks and records 1.0, as the
+        #: reference does
+        self._layout_sharded = mesh is not None and (
+            self.streaming or n % sharding.num_shards(mesh) == 0)
         if self.streaming:
             self.batches_all = self.valid_all = None
         else:
+            ids, nb = np.arange(n), None
+            if mesh is not None and not self._layout_sharded:
+                warnings.warn(
+                    f"mesh layout fallback: num_devices={n} is not "
+                    f"divisible by mesh_devices={mesh.world}; the "
+                    f"all-client stacks are replicated on every rank "
+                    f"(cohorts still shard); the run history records "
+                    f"sharded=0.0", stacklevel=2)
+            elif mesh is not None:
+                # the rank's rows, padded to the dataset-wide batch count
+                nb = max(dataset.num_batches(k) for k in ids)
+                lo, hi = sharding.shard_rows(n, mesh)
+                ids = ids[lo:hi]
             self.batches_all, self.valid_all = stack_device_batches(
-                dataset, np.arange(n))
-        self._eval_loss = _make_stacked_eval(loss_fn,
-                                             *stack_eval_batches(dataset))
+                dataset, ids, nb=nb)
+        self._eval_loss = _make_stacked_eval(
+            loss_fn, *stack_eval_batches(dataset),
+            mesh=mesh if self._layout_sharded else None)
         w = dataset.weights
         self.probs = (torch.tensor(w, dtype=F32, device=self.device)
                       if cfg.weighted_sampling and w is not None else None)
-        self.k_sel = (cfg.devices_per_round if cfg.sample_with_replacement
-                      else min(cfg.devices_per_round, n))
         self.k_intended = (n if self.spec.num_selections == 0
                            else self.k_sel)
         self.comm_per_round = self.spec.comm_per_round
@@ -506,15 +584,38 @@ class ScannedDriver:
 
     # -- the round and the eval -------------------------------------------
 
-    def _gather(self, sel):
-        return (pt.tmap(lambda x: x.index_select(0, sel), self.batches_all),
-                self.valid_all.index_select(0, sel))
+    def _mine(self, x):
+        """This rank's rows of a global ``(K, ...)`` cohort tensor."""
+        lo, hi = self._krows
+        return x if self.mesh is None else x[lo:hi]
+
+    def _pick(self, requests) -> List[Any]:
+        """This rank's rows of ``x[sel]`` for every ``(tree, sel)`` of
+        ``requests``, ``tree`` all-device stacks: an index on one process
+        or a replicated layout, one exchange
+        (``sharding.gather_selected``) for all of them on a sharded
+        one."""
+        if self._layout_sharded:
+            return sharding.gather_selected(requests, self.mesh)
+        return [pt.tmap(lambda x: x.index_select(0, self._mine(sel)), tree)
+                for tree, sel in requests]
+
+    def _put(self, trees, sel, rows) -> None:
+        """Write a cohort's updated rows (this rank's, ``rows``) back into
+        the all-device stacks ``trees`` at ``sel``."""
+        if self._layout_sharded:
+            sharding.scatter_selected(trees, sel, rows, self.mesh)
+            return
+        pt.tmap(lambda d, x: d.index_copy_(0, sel, x), trees,
+                sharding.gather_rows(rows, self.mesh))
 
     def _round(self, sampled: bool) -> None:
         """One round on the carried state, in place: the engine's generic
         round body plus on-card selection, gather/scatter and the
         environment.  Reads row ``i = ctr[0]`` of the chunk's staged
-        inputs and advances the counter; no host sync."""
+        inputs and advances the counter; no host sync.  On the mesh the
+        rank takes its rows of the cohort (:meth:`_pick`) and writes them
+        back (:meth:`_put`)."""
         cfg, spec, eng = self.cfg, self.spec, self.engine
         c, xs, n = self._carry, self._xs, self.num_devices
         i, t = self._ctr[0:1], self._ctr[1:2]
@@ -540,28 +641,40 @@ class ScannedDriver:
         # two-selection specs (and every device for full participation)
         sel_solve = s1 if spec.num_selections < 2 else s2
         decay = row(xs["decay"]) if spec.decay is not None else 1.0
-        if full:
-            b, v, phase_a = self.batches_all, self.valid_all, None
-        else:
-            b, v = self._gather(sel_solve)
-            phase_a = (self._gather(s1)
-                       if (spec.grad_source == "fresh"
-                           and spec.num_selections == 2) else None)
         has_controls = "controls" in self._state_fields
         aux_fields = [f for f in self._state_fields if f != "controls"]
         aux = {f: c[f] for f in aux_fields}
+        codec = self._codec
+        ef = not self._codec_trivial and codec.error_feedback
+        # the per-client state the round reads: SCAFFOLD's controls and
+        # the codec's error feedback
+        state = {}
+        if has_controls:
+            state["controls"] = c["controls"]
+        if ef:
+            state["ef"] = c["ef"]
+        if full:
+            # (on the mesh the all-device stacks hold the rank's rows)
+            b, v, phase_a, rows = (self.batches_all, self.valid_all, None,
+                                   state)
+        else:
+            two = spec.grad_source == "fresh" and spec.num_selections == 2
+            picked = self._pick(
+                [((self.batches_all, self.valid_all, state), sel_solve)]
+                + ([((self.batches_all, self.valid_all), s1)] if two
+                   else []))
+            b, v, rows = picked[0]
+            phase_a = tuple(picked[1]) if two else None
         if has_controls:
             aux["c_server"] = c["c_server"]
-            aux["controls"] = (c["controls"] if full else pt.tmap(
-                lambda x: x.index_select(0, sel_solve), c["controls"]))
-        codec = self._codec
+            aux["controls"] = rows["controls"]
         if not self._codec_trivial:
             if codec.uses_rng:
                 aux["codec_draws"] = codecs.CodecDraws(
-                    row(xs["signs"]), row(xs["u"]), row(xs["noise"]))
-            if codec.error_feedback:
-                aux["ef"] = (c["ef"] if full
-                             else c["ef"].index_select(0, sel_solve))
+                    row(xs["signs"]), self._mine(row(xs["u"])),
+                    row(xs["noise"]))
+            if ef:
+                aux["ef"] = rows["ef"]
         stats = None
         if self.scn_trivial:
             params, new = eng.round(c["params"], aux, phase_a, b, v, decay)
@@ -578,25 +691,20 @@ class ScannedDriver:
             if spec.grad_source == "fresh":
                 # availability gates the gather too, with the same draws
                 sel_a = sel_env if phase_a is None else s1
-                active_a = availability_mask_staged(scn, sel_a, p_t,
-                                                    uniforms)
+                active_a = self._mine(availability_mask_staged(
+                    scn, sel_a, p_t, uniforms))
             params, new, stats = eng.round_env(
-                c["params"], aux, phase_a, b, v, decay, env.active,
-                env.work, active_a)
+                c["params"], aux, phase_a, b, v, decay,
+                self._mine(env.active), self._mine(env.work), active_a)
         for f in aux_fields:
             _assign(c[f], new[f])
         if has_controls:
             _assign(c["c_server"], new["c_server"])
-            if full:
-                _assign(c["controls"], new["controls"])
-            else:
-                pt.tmap(lambda d, s: d.index_copy_(0, sel_solve, s),
-                        c["controls"], new["controls"])
-        if not self._codec_trivial and codec.error_feedback:
-            if full:
-                c["ef"].copy_(new["ef"])
-            else:
-                c["ef"].index_copy_(0, sel_solve, new["ef"])
+        updated = {f: new[f] for f in state}
+        if updated and full:
+            _assign(state, updated)
+        elif updated:
+            self._put(state, sel_solve, updated)
         _assign(c["params"], params)
         if stats is not None:
             self._ys["effective_k"].index_copy_(
@@ -640,7 +748,8 @@ class ScannedDriver:
         if not self._codec_trivial:
             if codec.uses_rng:
                 aux["codec_draws"] = codecs.CodecDraws(
-                    row(xs["signs"]), row(xs["u"]), row(xs["noise"]))
+                    row(xs["signs"]), self._mine(row(xs["u"])),
+                    row(xs["noise"]))
             if codec.error_feedback:
                 aux["ef"] = row(sb["ef"])
         stats = None
@@ -673,7 +782,8 @@ class ScannedDriver:
         return pt.leaves(self._carry) + pt.leaves(self._ys) + [self._ctr]
 
     def _capture(self, name: str, fn: Callable) -> _Program:
-        """Capture ``fn`` as a CUDA graph.  It first runs once on a side
+        """Capture ``fn`` as a CUDA graph (segments split at its
+        collectives on the mesh).  It first runs once on a side
         stream (libraries, handles and caches initialise outside the
         capture), from a snapshot of the carried state and the generator
         that is restored afterwards; that warm-up's launches ran and stay
@@ -693,9 +803,8 @@ class ScannedDriver:
         self.gen.set_state(gen_state)
         del snap
         before = dict(build.launch_counts)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.gen)
-        with torch.cuda.graph(graph):
+        graph = sharding.SegmentedGraph(self.mesh, (self.gen,))
+        with graph.capture(self.device):
             fn()
         launches = {k: build.launch_counts[k] - before[k]
                     for k in before if build.launch_counts[k] != before[k]}
@@ -725,6 +834,8 @@ class ScannedDriver:
         cfg = self.cfg
         intended = self.k_intended
         for i, t in enumerate(range(off, hi)):
+            if self.mesh is not None:
+                hist["sharded"].append(1.0 if self._layout_sharded else 0.0)
             hist["intended_k"].append(float(intended))
             hist["effective_k"].append(float(eff[i]))
             hist["dropped"].append(float(intended - eff[i]))
@@ -752,6 +863,8 @@ class ScannedDriver:
         n, cfg = self.num_devices, self.cfg
         if self.streaming:
             n = 0                   # no (N, ...) stacks in the carry
+        elif self._layout_sharded:
+            n //= self.mesh.world   # the rank's rows of them
         params = pt.tmap(lambda x: x.detach().to(self.device, copy=True),
                          params)
         carry: Dict[str, Any] = {"params": params}
@@ -805,8 +918,9 @@ class ScannedDriver:
                     for k in ("loss", "effective_k", "effective_a")}
         xs = {}
         if self.streaming:
-            # the rounds' updated per-client rows, scattered by the host
-            k = self.k_sel
+            # the rounds' updated per-client rows (the rank's, on the
+            # mesh), scattered by the host
+            k = self._krows[1] - self._krows[0]
             if "controls" in self._state_fields:
                 self._ys["controls"] = pt.tmap(
                     lambda x: x.new_zeros((r, k) + x.shape),
@@ -938,9 +1052,12 @@ class ScannedDriver:
         cohorts = [r["sel_solve"] for r in rows]
         if two:
             cohorts += [r["s1"] for r in rows]
-        nb = max(num_batches_of(self.dataset.device_batches(int(k)))
+        # the batch count from the clients' sizes: a rank of the mesh
+        # generates only its rows of each cohort
+        lo, hi = self._krows
+        nb = max(self.dataset.num_batches(k)
                  for c in cohorts for k in c)
-        stacks = [stack_device_batches(self.dataset, c, nb=nb)
+        stacks = [stack_device_batches(self.dataset, c[lo:hi], nb=nb)
                   for c in cohorts]
         sb = self._sbufs.get(nb)
         if sb is None:
@@ -952,14 +1069,15 @@ class ScannedDriver:
                 b, v = stacks[first + j]
                 pt.tmap(lambda d, x: d[j].copy_(x), sb["b" + q], b)
                 sb["v" + q][j].copy_(v)
+            mine = r["sel_solve"][lo:hi]
             if self.controls_store is not None:
                 pt.tmap(lambda d, x: d[j].copy_(x), sb["controls"],
-                        self.controls_store.gather(r["sel_solve"]))
+                        self.controls_store.gather(mine))
             if self.ef_store is not None:
-                sb["ef"][j].copy_(self.ef_store.gather(r["sel_solve"]))
+                sb["ef"][j].copy_(self.ef_store.gather(mine))
             for q in ("active", "work", "active_a"):
                 if q in sb:
-                    sb[q][j].copy_(torch.from_numpy(r[q]))
+                    sb[q][j].copy_(torch.from_numpy(r[q][lo:hi]))
         self._stage(off, off + len(rows), None, wire_rows)
         return nb
 
@@ -967,7 +1085,7 @@ class ScannedDriver:
                         ) -> Dict[str, Any]:
         """The staged inputs of batch count ``nb`` for a chunk's rounds:
         fixed tensors the captured streaming round of ``nb`` reads."""
-        r, k = self._layout[1], self.k_sel
+        r, k = self._layout[1], self._krows[1] - self._krows[0]
         dev, spec = self.device, self.spec
 
         def zeros(*shape):
@@ -998,6 +1116,31 @@ class ScannedDriver:
         """Captured streaming rounds: one per padded batch count seen."""
         return sum(1 for k in self._programs if k.startswith("stream:"))
 
+    def _stream_scatter(self, sched) -> None:
+        """The chunk's updated per-client rows back into the sparse
+        stores; on the mesh every rank's rows reach every rank first
+        (one ``sharding.gather_rows``), so each rank's stores hold the
+        whole cohorts."""
+        r = len(sched)
+        outs = {}
+        if self.controls_store is not None:
+            outs["controls"] = self._ys["controls"]
+        if self.ef_store is not None:
+            outs["ef"] = self._ys["ef"]
+        if self.mesh is not None:
+            # (rounds, K/D, ...) -> (K, rounds, ...): gather the cohort axis
+            outs = pt.tmap(lambda x: x.transpose(0, 1), sharding.gather_rows(
+                pt.tmap(lambda x: x[:r].transpose(0, 1).contiguous(), outs),
+                self.mesh))
+        for j, row in enumerate(sched):
+            if self.controls_store is not None:
+                self.controls_store.scatter(
+                    row["sel_solve"],
+                    pt.tmap(lambda x: x[j].clone(), outs["controls"]))
+            if self.ef_store is not None:
+                self.ef_store.scatter(row["sel_solve"],
+                                      outs["ef"][j].clone())
+
     def run(self, params, num_rounds: int, eval_every: int = 1,
             verbose: bool = False, checkpoint_dir: Optional[str] = None,
             selections=None) -> Tuple[Dict[str, List[float]], Any]:
@@ -1024,6 +1167,9 @@ class ScannedDriver:
         t_all = np.arange(num_rounds)
         eval_mask = (t_all % eval_every == 0) | (t_all == num_rounds - 1)
         hist = new_history()
+        if self.mesh is not None:
+            # layout telemetry, a value a round (the reference's)
+            hist["sharded"] = []
         intended = self.k_intended
         n_elems = sum(x.numel() for x in pt.leaves(params))
         gather_full = (float(intended)
@@ -1053,14 +1199,8 @@ class ScannedDriver:
             # plan's state rows go back into the sparse stores
             ys = {k: self._ys[k][:hi - off].cpu().numpy()
                   for k in ("loss", "effective_k", "effective_a")}
-            for j, r in enumerate(sched if self.streaming else ()):
-                if self.controls_store is not None:
-                    self.controls_store.scatter(
-                        r["sel_solve"],
-                        pt.tmap(lambda x: x[j].clone(), self._ys["controls"]))
-                if self.ef_store is not None:
-                    self.ef_store.scatter(r["sel_solve"],
-                                          self._ys["ef"][j].clone())
+            if self.streaming and stateful:
+                self._stream_scatter(sched)
             if self.scn_trivial:
                 eff = np.full(hi - off, intended, dtype=np.float64)
                 eff_a = np.full(hi - off, gather_full, dtype=np.float64)

@@ -111,9 +111,7 @@ def aggregate_stacked(tree, mesh=None) -> object:
     the same row count.  ``None`` is the single-process program.
     """
     out = pt.tmap(lambda x: x.mean(dim=0), tree)
-    if mesh is not None:
-        out = pt.tmap(lambda x: sharding.tree_pmean(x, mesh), out)
-    return out
+    return sharding.tree_pmean(out, mesh)
 
 
 def aggregate_stacked_masked(tree, active, fallback, mesh=None) -> object:
@@ -130,15 +128,16 @@ def aggregate_stacked_masked(tree, active, fallback, mesh=None) -> object:
     no-active-device decision are exact however the active clients
     fall over the ranks.
     """
-    asum = sharding.tree_psum(active.sum(), mesh)
+    def msum(x):
+        return (x * active.reshape(active.shape + (1,) * (x.ndim - 1))
+                ).sum(dim=0)
+
+    # the count and every leaf's partial sum in one collective step
+    asum, sums = sharding.tree_psum((active.sum(), pt.tmap(msum, tree)),
+                                    mesh)
     denom = torch.clamp(asum, min=1.0)
-
-    def mmean(x, fb):
-        a = active.reshape(active.shape + (1,) * (x.ndim - 1))
-        s = sharding.tree_psum((x * a).sum(dim=0), mesh)
-        return torch.where(asum > 0, s / denom, fb)
-
-    return pt.tmap(mmean, tree, fallback)
+    return pt.tmap(lambda s, fb: torch.where(asum > 0, s / denom, fb),
+                   sums, fallback)
 
 
 #: Staleness -> mixing-weight families of the buffered driver
@@ -161,12 +160,25 @@ def staleness_weight(name: str, staleness) -> torch.Tensor:
         f"{', '.join(STALENESS_FNS)}")
 
 
-def aggregate_buffered(deltas, weights: torch.Tensor):
+def aggregate_buffered(deltas, weights: torch.Tensor, mesh=None):
     """Staleness-weighted mean of a full commit buffer: ``deltas`` has a
     leading buffer axis M (row i a client's pseudo-gradient
     ``anchor_i - w_i``), ``weights`` the float ``(M,)`` vector of
     :func:`staleness_weight`.  Divides by ``max(sum(weights), 1e-12)``;
-    with constant weights this is :func:`aggregate_stacked`'s mean."""
+    with constant weights this is :func:`aggregate_stacked`'s mean.
+
+    ``mesh``: M is a multiple of the rank count (padded rows weigh 0);
+    each rank reduces its M/D rows, and the weighted numerator and the
+    weight sum are summed over the ranks (``tree_psum``) before the one
+    division, so padded rows drop out of both sums."""
+    if mesh is not None:
+        lo, hi = sharding.shard_rows(weights.shape[0], mesh)
+        w = weights[lo:hi]
+        wsum, nums = sharding.tree_psum((w.sum(), pt.tmap(
+            lambda x: (x[lo:hi] * w.reshape(w.shape + (1,) * (x.ndim - 1))
+                       ).sum(dim=0), deltas)), mesh)
+        wsum = torch.clamp(wsum, min=1e-12)
+        return pt.tmap(lambda x: x / wsum, nums)
     wsum = torch.clamp(weights.sum(), min=1e-12)
 
     def wmean(x):

@@ -20,7 +20,14 @@ and each rank runs the same round on its own rows:
 Only ``all_reduce`` is used: gloo runs it on CUDA tensors as well as on
 CPU tensors, and NCCL runs it too.  :func:`gather_rows` is an
 all-reduce of a zero-padded ``(K, ...)`` stack in which each rank fills
-its own rows.
+its own rows; :func:`gather_selected` and :func:`scatter_selected` move
+a cohort's rows out of and back into ``(N, ...)`` stacks whose rows are
+spread over the ranks, with one all-reduce each.
+
+A captured round contains collectives: :class:`SegmentedGraph` captures
+it on the card as CUDA-graph segments split at them (gloo's all-reduce
+of a CUDA tensor passes through the host, so no graph can hold it) and
+replays segments and all-reduces in capture order.
 
 :func:`run_on_mesh` starts the ranks.  Rank ``r`` takes ``cuda:r`` when
 there are at least D cards, over NCCL; more ranks than cards need
@@ -33,18 +40,22 @@ equal the process group's world size, ``"auto"`` is the world size.
 """
 from __future__ import annotations
 
+import gc
 import os
 import pickle
 import shutil
 import tempfile
 import traceback
-from dataclasses import dataclass
+from contextlib import contextmanager
+from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from repro_torch.core import pytree as pt
 
 #: How long a rank waits in a collective (or for the others to join)
 #: before it fails, and with it the whole mesh.
@@ -73,6 +84,10 @@ class ClientMesh:
     device: torch.device
     leaf_groups: Tuple[Any, ...] = ()
     edge_groups: Tuple[Any, ...] = ()
+    #: the :class:`SegmentedGraph` capturing on this rank, if any (one
+    #: slot): the collective helpers record into it instead of running
+    capturing: List[Any] = field(default_factory=list, compare=False,
+                                 repr=False)
 
     @property
     def leaves(self) -> int:
@@ -187,42 +202,220 @@ def _levels(mesh: ClientMesh):
             (mesh.edge_groups[mesh.leaf], mesh.edge_shards))
 
 
-def tree_psum(x: torch.Tensor, mesh: Optional[ClientMesh]) -> torch.Tensor:
-    """Sum of ``x`` over every rank, through the aggregation tree (leaf
-    ranks within their edge, then edge partials); ``x`` itself is left
+def _world(mesh: ClientMesh):
+    """The one level of a reduction over every rank at once."""
+    return ((None, mesh.world),)
+
+
+def _all_reduce(tensors: Sequence[torch.Tensor], mesh: ClientMesh,
+                levels) -> None:
+    """Sum each of ``tensors`` over the ranks in place, level by level
+    (every tensor at a level, then the next level).  Inside a
+    :class:`SegmentedGraph` capture the all-reduces are recorded as one
+    step between two segments instead."""
+    ops = tuple((t, group) for group, _ in levels for t in tensors)
+    if mesh.capturing:
+        mesh.capturing[0].record(ops)
+        return
+    _run(ops)
+
+
+def _run(ops) -> None:
+    for t, group in ops:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+
+
+def tree_psum(x, mesh: Optional[ClientMesh]):
+    """Sum of ``x`` (a tensor or a tree of them) over every rank, through
+    the aggregation tree (leaf ranks within their edge, then edge
+    partials), every leaf in one collective step; ``x`` itself is left
     untouched.  Without a mesh, ``x``."""
     if mesh is None:
         return x
-    out = x.clone()
-    for group, _ in _levels(mesh):
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out
+    leaves, treedef = pt.flatten(x)
+    out = [t.clone() for t in leaves]
+    _all_reduce(out, mesh, _levels(mesh))
+    return pt.unflatten(treedef, out)
 
 
-def tree_pmean(x: torch.Tensor, mesh: Optional[ClientMesh]) -> torch.Tensor:
-    """Mean of ``x`` over every rank: at each level of the tree the sum
-    divided by that level's group size (mean of edge means).  Exact to
-    float association, every rank holding the same client count."""
+def tree_pmean(x, mesh: Optional[ClientMesh]):
+    """Mean of ``x`` (a tensor or a tree) over every rank: at each level
+    of the tree the sum divided by that level's group size (mean of edge
+    means).  Exact to float association, every rank holding the same
+    client count."""
     if mesh is None:
         return x
-    out = x.clone()
-    for group, size in _levels(mesh):
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        out = out / size
-    return out
+    leaves, treedef = pt.flatten(x)
+    out = [t.clone() for t in leaves]
+    for level in _levels(mesh):
+        _all_reduce(out, mesh, (level,))
+        out = [t / level[1] for t in out]
+    return pt.unflatten(treedef, out)
 
 
-def gather_rows(x: torch.Tensor, mesh: Optional[ClientMesh]) -> torch.Tensor:
+def gather_rows(x, mesh: Optional[ClientMesh]):
     """Every rank's ``(K/D, ...)`` rows as the whole ``(K, ...)`` stack,
-    on every rank: an all-reduce of a zero-padded stack in which each
-    rank fills its own rows (adding zeros changes no value)."""
+    on every rank, for a tensor or every leaf of a tree at once: an
+    all-reduce of a zero-padded stack in which each rank fills its own
+    rows (adding zeros changes no value)."""
     if mesh is None:
         return x
-    kl = x.shape[0]
-    full = x.new_zeros((kl * mesh.world,) + tuple(x.shape[1:]))
-    full[mesh.rank * kl:(mesh.rank + 1) * kl] = x
-    dist.all_reduce(full, op=dist.ReduceOp.SUM)
-    return full
+    leaves, treedef = pt.flatten(x)
+    full = []
+    for t in leaves:
+        kl = t.shape[0]
+        f = t.new_zeros((kl * mesh.world,) + tuple(t.shape[1:]))
+        f[mesh.rank * kl:(mesh.rank + 1) * kl] = t
+        full.append(f)
+    _all_reduce(full, mesh, _world(mesh))
+    return pt.unflatten(treedef, full)
+
+
+def _owned(sel: torch.Tensor, n: int, mesh: ClientMesh):
+    """Which ids of ``sel`` this rank's ``n`` rows hold (rank r holds ids
+    ``[r n, (r+1) n)``), and their local rows (clamped where not)."""
+    lo = mesh.rank * n
+    return (sel >= lo) & (sel < lo + n), (sel - lo).clamp(0, n - 1)
+
+
+def _bcast(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
+
+
+def gather_selected(requests, mesh: ClientMesh) -> List[Any]:
+    """This rank's K/D rows of ``x[sel]`` for every ``(stacks, sel)`` of
+    ``requests`` and every leaf ``x`` of ``stacks``: ``(N/D, ...)``
+    stacks whose rows are spread over the ranks (rank r holds ids
+    ``[r N/D, (r+1) N/D)``), ``sel`` a cohort's K global ids, equal on
+    every rank.  One exchange for all of them: each rank fills the rows
+    it holds into zero ``(K, ...)`` stacks, one all-reduce step sums the
+    stacks (adding zeros changes no value), and the rank keeps its rows
+    of each cohort.  Returns one tree per request."""
+    full, parts = [], []
+    for stacks, sel in requests:
+        leaves, treedef = pt.flatten(stacks)
+        owned, idx = _owned(sel, leaves[0].shape[0], mesh)
+        full += [torch.where(_bcast(owned, x), x.index_select(0, idx),
+                             torch.zeros((), dtype=x.dtype,
+                                         device=x.device))
+                 for x in leaves]
+        parts.append((treedef, len(leaves), shard_rows(sel.shape[0], mesh)))
+    _all_reduce(full, mesh, _world(mesh))
+    out, at = [], 0
+    for treedef, count, (lo, hi) in parts:
+        out.append(pt.unflatten(treedef,
+                                [f[lo:hi] for f in full[at:at + count]]))
+        at += count
+    return out
+
+
+def scatter_selected(stacks, sel: torch.Tensor, rows,
+                     mesh: ClientMesh) -> None:
+    """The inverse of :func:`gather_selected`, in place: ``rows`` (this
+    rank's K/D rows of the cohort ``sel``) reach every rank
+    (:func:`gather_rows`), and each rank writes the rows whose ids it
+    holds into its leaves of ``stacks``.  An id selected twice keeps its
+    last row, as ``index_copy_`` on the CPU keeps it."""
+    full = pt.leaves(gather_rows(rows, mesh))
+    leaves = pt.leaves(stacks)
+    n = leaves[0].shape[0]
+    owned, idx = _owned(sel, n, mesh)
+    order = torch.arange(sel.shape[0], device=sel.device)
+    pos = torch.full((n,), -1, dtype=order.dtype, device=sel.device)
+    pos.scatter_reduce_(0, idx, torch.where(owned, order, -1), "amax")
+    hit, src = pos >= 0, pos.clamp(min=0)
+    for x, f in zip(leaves, full):
+        x.copy_(torch.where(_bcast(hit, x), f.index_select(0, src), x))
+
+
+class SegmentedGraph:
+    """A program captured on the card as CUDA-graph segments split at its
+    collectives.
+
+    While :meth:`capture` is active, each collective helper of this
+    module ends the open segment, records its all-reduces (in place, on
+    the tensors it reduces, every level of the tree in turn) and begins
+    the next segment in the same memory pool, so the static tensors of
+    one segment stay valid in the next.  :meth:`replay` runs segments and
+    recorded all-reduces in capture order on the current stream.  Without
+    a mesh the program is one segment, one CUDA graph.  Nothing in a
+    segment may read a tensor back to the host.
+    """
+
+    def __init__(self, mesh: Optional[ClientMesh], generators=()):
+        self.mesh = mesh
+        self._gens = tuple(generators)
+        self._pool = torch.cuda.graph_pool_handle()
+        self._steps: List[Any] = []       # CUDAGraph or all-reduce ops
+        self._open = None
+
+    @property
+    def segments(self) -> int:
+        """CUDA graphs in the program."""
+        return sum(1 for s in self._steps if not isinstance(s, tuple))
+
+    @property
+    def collectives(self) -> int:
+        """All-reduces a replay makes (every level and tensor)."""
+        return sum(len(s) for s in self._steps if isinstance(s, tuple))
+
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for gen in self._gens:
+            graph.register_generator_state(gen)
+        graph.capture_begin(pool=self._pool)
+        self._open = graph
+
+    def _end(self) -> None:
+        graph, self._open = self._open, None
+        graph.capture_end()
+        self._steps.append(graph)
+
+    def record(self, ops) -> None:
+        """End the open segment, keep ``ops`` ((tensor, group) pairs),
+        begin the next segment."""
+        self._end()
+        self._steps.append(ops)
+        self._begin()
+
+    @contextmanager
+    def capture(self, device):
+        """Capture what runs inside the block, on a side stream of
+        ``device``."""
+        torch.cuda.synchronize(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        stream = torch.cuda.Stream(device=device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        slot = self.mesh.capturing if self.mesh is not None else []
+        with torch.cuda.stream(stream):
+            self._begin()
+            slot.append(self)
+            try:
+                yield self
+            finally:
+                slot.remove(self)
+                if self._open is not None:
+                    self._end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+
+    def replay_steps(self) -> Iterator[Tuple[str, int]]:
+        """Replay step by step: after each step, its kind
+        (``"segment"``, a CUDA graph, or ``"all_reduce"``, the
+        all-reduces recorded between two segments) and the bytes it
+        all-reduces (0 for a segment)."""
+        for step in self._steps:
+            if isinstance(step, tuple):
+                _run(step)
+                yield "all_reduce", sum(t.numel() * t.element_size()
+                                        for t, _ in step)
+            else:
+                step.replay()
+                yield "segment", 0
+
+    def replay(self) -> None:
+        for _ in self.replay_steps():
+            pass
 
 
 # -- the launcher ------------------------------------------------------------

@@ -36,9 +36,7 @@ def pad_to_batches(arrays: Dict[str, np.ndarray], batch_size: int,
                    device=None) -> Dict[str, torch.Tensor]:
     dev = resolve_device(device)
     n = next(iter(arrays.values())).shape[0]
-    nb = max(1, math.ceil(n / batch_size))
-    if bucket:
-        nb = _next_pow2(nb)
+    nb = batch_count(n, batch_size, bucket)
     target = nb * batch_size
     idx = np.arange(target) % n           # cycle the device's own examples
     out = {}
@@ -52,6 +50,14 @@ def pad_to_batches(arrays: Dict[str, np.ndarray], batch_size: int,
 def num_batches_of(batches) -> int:
     """Leading (num_batches) dim of one device's padded batch stack."""
     return pt.leaves(batches)[0].shape[0]
+
+
+def batch_count(n: int, batch_size: int, bucket: bool = True) -> int:
+    """The batch count :func:`pad_to_batches` gives ``n`` examples: a
+    rank of the client mesh pads its rows of a cohort to the count of
+    the whole cohort, told from the clients' sizes alone."""
+    nb = max(1, math.ceil(n / batch_size))
+    return _next_pow2(nb) if bucket else nb
 
 
 def pad_batch_stack(batches, nb: int):
@@ -156,6 +162,10 @@ class FederatedData:
 
     def device_batches(self, k: int):
         return self._batches[k]
+
+    def num_batches(self, k: int) -> int:
+        """Device ``k``'s batch count."""
+        return num_batches_of(self._batches[k])
 
     def device_batches_padded(self, k: int, nb: int):
         """``device_batches(k)`` cycled out to ``nb >= num_batches``.

@@ -36,8 +36,8 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import pytree as pt
-from repro_torch.data.batching import (FederatedData, pad_batch_stack,
-                                       pad_to_batches)
+from repro_torch.data.batching import (FederatedData, batch_count,
+                                       pad_batch_stack, pad_to_batches)
 from repro_torch.device import resolve_device
 
 #: Seed-sequence domain tags: per-client streams, dataset-shared
@@ -117,6 +117,11 @@ class ClientShardSource:
     def _client_arrays(self, k: int) -> Dict[str, np.ndarray]:
         raise NotImplementedError
 
+    def _draw_size(self, rng: np.random.Generator) -> int:
+        """A client's sample count: the first draw of its stream, which
+        :meth:`_client_arrays` makes first too."""
+        raise NotImplementedError
+
     # -- the dataset protocol ---------------------------------------------
 
     def device_batches(self, k: int):
@@ -168,6 +173,16 @@ class ClientShardSource:
             b = self.device_batches(int(k))
             yield float(self.size_of(int(k))), b
 
+    def num_batches(self, k: int) -> int:
+        """Client k's batch count from its size alone, without generating
+        its arrays (no materialization): a rank of the client mesh pads
+        its rows of a cohort to the whole cohort's count."""
+        k = int(k)
+        n = self._sizes.get(k)
+        if n is None:
+            n = self._sizes[k] = self._draw_size(self.client_rng(k))
+        return batch_count(n, self.batch_size)
+
     def size_of(self, k: int) -> int:
         """Client k's sample count (materializes the client on the first
         ask; touched clients' sizes are kept)."""
@@ -218,11 +233,14 @@ class SyntheticShardSource(ClientShardSource):
         self._w_shared = shared.normal(0, 1, (self._nf, self._nc))
         self._b_shared = shared.normal(0, 1, self._nc)
 
+    def _draw_size(self, rng: np.random.Generator) -> int:
+        return int(np.clip(rng.lognormal(4.0, 2.0) + self.min_samples,
+                           self.min_samples, 1000))
+
     def _client_arrays(self, k: int) -> Dict[str, np.ndarray]:
         from repro_torch.data.synthetic import _softmax
         rng = self.client_rng(k)
-        n = int(np.clip(rng.lognormal(4.0, 2.0) + self.min_samples,
-                        self.min_samples, 1000))
+        n = self._draw_size(rng)
         u = rng.normal(0, self.alpha)
         if self.iid:
             W, b = self._w_shared, self._b_shared
@@ -266,10 +284,13 @@ class FemnistShardSource(ClientShardSource):
                               for b in base])
         self._templates = templates / templates.std() * 2.0
 
+    def _draw_size(self, rng: np.random.Generator) -> int:
+        return int(np.clip(rng.lognormal(self._size_mu, self._size_sigma),
+                           8, 5000))
+
     def _client_arrays(self, k: int) -> Dict[str, np.ndarray]:
         rng = self.client_rng(k)
-        n = int(np.clip(rng.lognormal(self._size_mu, self._size_sigma),
-                        8, 5000))
+        n = self._draw_size(rng)
         class_probs = rng.dirichlet(
             np.full(self._nc, self.class_concentration))
         y = rng.choice(self._nc, size=n, p=class_probs)

@@ -11,6 +11,8 @@ with ``draws`` replaces ``codecs.round_draws`` by the parent's
 per-round table (the reference's ``jax.random`` draws for all K slots),
 of which each rank takes its own slots.  ``errors`` are config kwargs
 whose trainer build must raise; the child returns each message.
+``driver_on_mesh`` builds a trainer on the scanned or the buffered
+driver on the mesh.
 
 Imports torch and repro_torch only: the ranks never load JAX.
 """
@@ -96,22 +98,20 @@ def run_cases(mesh, cases, errors, data_kw, p0, sel, rounds):
     return out
 
 
-def scan_driver_on_mesh(mesh, driver="scan"):
+def driver_on_mesh(mesh, driver="scan"):
     """A trainer on ``driver`` (the scanned or the buffered one) on this
-    rank's mesh must raise; returns its message (None if it built) and
-    the driver ``auto`` resolves to here."""
+    rank's mesh: the driver its ``run`` takes (the scanned driver built
+    too) and the driver ``auto`` resolves to here."""
+    from repro_torch.core.engine import ScannedDriver
     ds = make_synthetic(1, 1, num_devices=4, seed=0, device=mesh.device)
     kw = dict(num_devices=4, devices_per_round=2, mesh_devices="auto")
-    try:
-        FederatedTrainer(logreg_loss, ds,
-                         FederatedConfig(round_driver=driver, **kw),
-                         mesh=mesh)
-    except ValueError as e:
-        msg = str(e)
-    else:
-        msg = None
-    tr = FederatedTrainer(logreg_loss, ds, FederatedConfig(**kw), mesh=mesh)
-    return msg, tr._resolve_driver()
+    cfg = FederatedConfig(round_driver=driver, **kw)
+    tr = FederatedTrainer(logreg_loss, ds, cfg, mesh=mesh)
+    if driver == "scan":
+        ScannedDriver(logreg_loss, ds, cfg, engine=tr.engine)
+    auto = FederatedTrainer(logreg_loss, ds, FederatedConfig(**kw),
+                            mesh=mesh)
+    return tr._resolve_driver(), auto._resolve_driver()
 
 
 def fail_on_rank_one(mesh):

@@ -857,3 +857,54 @@ def test_streaming_equals_stacked_on_the_card(card, algo, scenario):
     for a, b in zip(pt.leaves(ps), pt.leaves(pt_)):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=1e-5)
+
+
+# -- the scanned driver on the client mesh: segments split at collectives ----
+
+@pytest.mark.cuda
+def test_segmented_mesh_replay_equals_eager_rounds(card, monkeypatch,
+                                                   tmp_path):
+    """On 2 gloo ranks sharing the card: the scanned driver's mesh round,
+    captured as CUDA-graph segments split at its collectives and replayed
+    with the all-reduces between them, equals the same rounds run eagerly
+    on the card, bitwise (history and params), for feddane on injected
+    selections and for feddane under ``hostile`` with int8, sampled on
+    the card over two chunks.  Each round program has several segments,
+    the eval two (its psum); both ranks end bitwise equal."""
+    import tempfile
+
+    import _torch_mesh_drivers_child as child
+    from repro_torch.core import sharding
+    from repro_torch.models.param import init_params, params_to_numpy
+    from repro_torch.models.small import logreg_specs
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    kw = dict(algorithm="feddane", mu=0.001, num_devices=16,
+              devices_per_round=8, local_epochs=2, learning_rate=0.01,
+              seed=3, round_driver="scan")
+    rng = np.random.default_rng(5)
+    sel = np.stack([np.stack([rng.choice(16, 8, replace=False)
+                              for _ in range(2)]) for _ in range(3)])
+    cases = {
+        "feddane": dict(kw=kw, data=("dense", 16), rounds=3, sel=sel),
+        "hostile_int8": dict(kw=dict(kw, scenario="hostile", codec="int8",
+                                     chunk_rounds=2),
+                             data=("dense", 16), rounds=3, sel=None)}
+    p0 = params_to_numpy(init_params(logreg_specs(60, 10),
+                                     torch.Generator().manual_seed(0)))
+    res = sharding.run_on_mesh(child.segmented_vs_eager, 2,
+                               args=(cases, p0), device="cuda:0",
+                               backend="gloo")
+    for name in cases:
+        (rep, eager), other = res[0][name], res[1][name]
+        assert rep["hist"] == eager["hist"], name
+        for k in rep["params"]:
+            assert np.array_equal(rep["params"][k].view(np.int32),
+                                  eager["params"][k].view(np.int32)), name
+            assert np.array_equal(rep["params"][k].view(np.int32),
+                                  other[0]["params"][k].view(np.int32))
+        progs = rep["programs"]
+        rounds = [v for k, v in progs.items() if k != "eval"]
+        assert rounds and all(seg >= 3 for seg, _ in rounds), progs
+        assert progs["eval"] == (2, 1), progs
+        assert eager["programs"] == {}

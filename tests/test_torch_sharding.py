@@ -151,7 +151,7 @@ def reference(p0):
 
 def _cases(mesh_devices, edge_shards):
     mesh = dict(mesh_devices=mesh_devices, edge_shards=edge_shards,
-                local_solver="fused_epoch", **KW)
+                local_solver="fused_epoch", round_driver="python", **KW)
     cases = {}
     for case in list(ALGOS) + list(SCENARIOS) + list(CODECS):
         algo, extra = _extra(case)

@@ -261,9 +261,16 @@ def test_init_params_zeros_for_logreg():
     dict(mesh_devices=2, round_driver="scan"),
     dict(client_source="streaming", round_driver="python",
          mesh_devices=2)])
-def test_config_rejects_what_is_not_ported(kw):
-    with pytest.raises(ValueError, match="not yet ported"):
-        FederatedConfig(**kw)
+def test_config_accepts_mesh_drivers(kw):
+    """Every driver and streaming sources are ported on the client mesh
+    (flat and tree); what stays refused is refused elsewhere: the loop
+    engine on a mesh (``test_torch_sharding.py::
+    test_config_rejects_bad_meshes``) and a K the ranks do not divide
+    (at the trainer, ``::test_mesh_trainer_rejects``)."""
+    cfg = FederatedConfig(**kw)
+    assert cfg.mesh_devices == kw["mesh_devices"]
+    with pytest.raises(ValueError, match="engine='loop'"):
+        FederatedConfig(**dict(kw, engine="loop"))
 
 
 @pytest.mark.parametrize("kw", [
@@ -272,9 +279,8 @@ def test_config_rejects_what_is_not_ported(kw):
     dict(client_source="streaming"),
     dict(client_source="streaming", mesh_devices="auto")])
 def test_config_accepts_streaming(kw):
-    """Streaming sources are ported on every driver in one process; on
-    the client mesh they are not, which the trainer checks once
-    ``mesh_devices`` has resolved."""
+    """Streaming sources are ported on every driver, in one process and
+    on the client mesh."""
     assert FederatedConfig(**kw).client_source == "streaming"
 
 
@@ -284,8 +290,7 @@ def test_config_accepts_streaming(kw):
     dict(round_driver="buffered"),
     dict(mesh_devices="auto", round_driver="buffered")])
 def test_config_accepts_the_buffered_driver(kw):
-    """The buffered driver is ported; on the client mesh it is not, which
-    the trainer checks once ``mesh_devices`` has resolved."""
+    """The buffered driver is ported, on the client mesh too."""
     cfg = FederatedConfig(**kw)
     assert cfg.round_driver == "buffered"
 
@@ -294,8 +299,7 @@ def test_config_accepts_the_buffered_driver(kw):
     dict(round_driver="scan"), dict(codec="int8", round_driver="scan"),
     dict(mesh_devices="auto", round_driver="scan")])
 def test_config_accepts_the_scan_driver(kw):
-    """The scanned driver is ported; on the client mesh it is not, which
-    the trainer checks once ``mesh_devices`` has resolved."""
+    """The scanned driver is ported, on the client mesh too."""
     cfg = FederatedConfig(**kw)
     assert cfg.round_driver == "scan"
 
@@ -314,34 +318,31 @@ def test_auto_driver_resolves_as_the_reference(data, engine, driver, want):
     assert tr._resolve_driver() == want
 
 
-def test_scan_trainer_on_a_mesh_raises_and_auto_stays_python(
+def test_scan_trainer_on_a_mesh_builds_and_auto_resolves_to_scan(
         monkeypatch, tmp_path):
-    """On a 2-rank CPU mesh a scan trainer raises "not yet ported" and
-    ``auto`` resolves to the python driver, on every rank."""
+    """On a 2-rank CPU mesh a scan trainer (and its scanned driver)
+    builds, and ``auto`` resolves to the scanned driver on every rank, as
+    the reference resolves it wherever the engine is batched."""
     import tempfile
 
     import _torch_mesh_child as child
     from repro_torch.core import sharding
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
-    res = sharding.run_on_mesh(child.scan_driver_on_mesh, 2, device="cpu")
-    for msg, auto in res:
-        assert msg is not None and "not yet ported" in msg, msg
-        assert auto == "python"
+    res = sharding.run_on_mesh(child.driver_on_mesh, 2, device="cpu")
+    assert res == [("scan", "scan")] * 2
 
 
-def test_buffered_trainer_on_a_mesh_raises(monkeypatch, tmp_path):
+def test_buffered_trainer_on_a_mesh_builds(monkeypatch, tmp_path):
     """On a 2-rank CPU mesh (``mesh_devices="auto"``) a buffered trainer
-    raises "not yet ported" on every rank."""
+    builds on every rank and runs the buffered driver."""
     import tempfile
 
     import _torch_mesh_child as child
     from repro_torch.core import sharding
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
-    res = sharding.run_on_mesh(child.scan_driver_on_mesh, 2, device="cpu",
+    res = sharding.run_on_mesh(child.driver_on_mesh, 2, device="cpu",
                                args=("buffered",))
-    for msg, _ in res:
-        assert msg is not None and "not yet ported" in msg, msg
-        assert "'buffered'" in msg
+    assert res == [("buffered", "scan")] * 2
 
 
 @pytest.mark.parametrize("kw", [
@@ -349,8 +350,8 @@ def test_buffered_trainer_on_a_mesh_raises(monkeypatch, tmp_path):
     dict(mesh_devices=2), dict(mesh_devices="auto"),
     dict(mesh_devices=4, edge_shards=2, codec="int8")])
 def test_config_accepts_the_client_mesh(kw):
-    """The client mesh runs on the python driver: the config takes it
-    (the ranks are checked against it when the trainer is built)."""
+    """The config takes the client mesh (the ranks are checked against
+    it when the trainer is built)."""
     cfg = FederatedConfig(**kw)
     assert cfg.mesh_devices == kw["mesh_devices"]
 
