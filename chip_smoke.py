@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together), printing ptxas's registers,
    stack frame and spills of every entry;
-3. each kernel (K1-K7) at every shape phases 4-10 give it (K2 and K3 at
+3. each kernel (K1-K7) at every shape phases 4-11 give it (K2 and K3 at
    both d=60 and d=784, K2 also on a rank's devices of the flat mesh
    and, with its steps cut short, of the tree, and on the 1- and 3-row
    cohorts a buffered refill solves, K3 too; K2 and K3 also at d=2,000
@@ -44,11 +44,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    hd=128, causal_period=2048, f32; (d) a ragged length, BH=16,
    S=T=1000, hd=64; (e) non-causal, BH=8, S=T=512, hd=64; (f) and (g)
    qwen's prefill at B=2, S=1024 and S=128
-   (BH=32): f32 within atol 4e-5 / rtol 2e-5 (the reference's own sweep
+   (BH=32), and, writing the row log-sum-exp as training does, (a)'s
+   shape and the trainer's local-step fold (K*B*H = 128 slices of S=64):
+   f32 within atol 4e-5 / rtol 2e-5 (the reference's own sweep
    tolerance) and bf16 within 4e-3 / 1e-2 (one bf16 ulp and a margin:
    both sides round an f32 result once), beside SDPA's time.  K7's f32
    bound is its flops at the TF32 tensor-core rate (it multiplies there,
-   in three passes), its bf16 bound at the bf16 rate;
+   in three passes), its bf16 bound at the bf16 rate.  K7's backward (a
+   kernel of the port, no TPU counterpart), causal, from the forward
+   kernel's lse, against the explicit formula on the card (the worst of
+   dq, dk, dv, K7's tolerances) at (h) the train step, BH=16, S=T=4096,
+   hd=64, f32; (i) the trainer's local-step fold, BH=128 (K*B*H =
+   2*4*16), S=T=64; (i') its phase-A fold, BH=512 (K*nb*B*H); (j)
+   yi-9b's GQA fold ((c)'s shape, period 2048, hd=128); (k) ragged,
+   S=T=1000; (l) (h) in bf16: beside its bound (5 products of 2*hd
+   flops a visible pair, TF32 or bf16 rate), the plain version and
+   ``torch.autograd.grad`` through SDPA (its backward).  K1 and K4 also
+   at the trainer's qwen1.5-0.5b pack (K=2 devices of 463,987,712
+   params: one flat launch; the tree's 14 leaves in one launch);
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
@@ -184,12 +197,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU path's; yi-9b at full width cut to 4 of its 48 layers (32 heads
    on 4 KV heads), B=1, S=2048, against the card's plain attention, K7
    launched 4 times;
-11. the ``kernels`` JSON line: every kernel with its launches on the
+11. LM training at full width, qwen1.5-0.5b, random weights from seed
+   0, f32: (a) ``loss_fn`` and its gradient at B=1, S=64 against the
+   CPU path (the loss within LOGIT_REL relative, each leaf within
+   GRAD_REL of its max |g|), K7 once forward and once backward a layer;
+   (b) ``make_feddane_round_step`` at train_4k's S=4096, B=1,
+   remat="full", 3 steps on one batch: the loss falls, params within
+   TRAIN_STEP_TOL of the same steps with the plain attention on the
+   card, ms a step (CUDA events), the card's peak bytes, K7 4x24
+   forward and 2x24 backward launches a step; one step each of
+   ``make_fedavg_step`` and the pipelined step; (c) ``launch/train.py``'s
+   ``main`` with ``--full-size``: feddane N=8, K=LM_TRAIN_K (2: K=4
+   does not fit the card), E=1, B=4, S=64, 16 samples a device, 2
+   rounds on ``auto`` (= flat, K1 once a local step; K7 exactly 24
+   forward and 24 backward launches a local step, all K clients folded),
+   held to the same run with the plain attention on the card (the same
+   selections, params within TRAJECTORY_TOL), then 1 round on
+   ``per_leaf``, bitwise equal to flat's first (K4 once a local step);
+   ms/round (CUDA events), the card's peak bytes, the idle share of one
+   local step; (d) pods as clients: one pod, E=1 against
+   ``make_feddane_round_step`` within POD_TOL; 2 pods x 2 local steps, 1
+   round, finite;
+12. the ``kernels`` JSON line: every kernel with its launches on the
    main path -- phases 4-8d in this process (the counters are set to 0
    just before phase 4 and read just after phase 8d; a captured kernel
    counts once a replay, and once for the warm-up run before its
-   capture), phase 9's ranks
-   and phase 10 (set to 0 just before it and read just after) -- error,
+   capture), phase 9's ranks, phase 10 and phase 11 (each set to 0 just
+   before it and read just after) -- error,
    times and bound, and each checked shape under ``cases`` (with its
    ``device_ms`` where phase 3 took one, and the update paths' kernels
    and launches a step).
@@ -264,6 +298,23 @@ FLASH_TOL = {"f32": (4e-5, 2e-5), "bf16": (4e-3, 1e-2)}
 #: card's plain attention, relative to max |logit|: 24 layers of f32
 #: products summed in another order.
 LOGIT_REL = 1e-4
+
+#: Phase 11: the LM trainer's devices a round.  K=4 does not fit the
+#: 80 GB card: phase A's (K, nb) per-batch gradients of the 464 M-param
+#: model alone take K*nb*1.73 GiB, and a K=4 round on an H100 80GB ran
+#: out of memory with 62.7 GiB allocated; K=2 peaks at 43.6-46.7 GiB.
+LM_TRAIN_K = 2
+#: Phase 11: a full-width gradient leaf on the card against the CPU path
+#: (or the card's plain attention), relative to the leaf's max |g|: 24
+#: layers of f32 products and K7's 3xTF32 sums in another order.
+GRAD_REL = 1e-4
+#: Phase 11: params after the train_4k steps, K7 against the plain
+#: attention on the card (absolute; the steps move params by ~eta |g|,
+#: which the check requires to be 10 times larger).
+TRAIN_STEP_TOL = 1e-6
+#: Phase 11: the pod round with one pod and E=1 against the FedDANE
+#: step, the reference's own bar (tests/test_podfed.py).
+POD_TOL = 2e-5
 
 PAPER = dict(num_devices=30, devices_per_round=10, local_epochs=20,
              local_batch_size=10, learning_rate=0.01, seed=0)
@@ -437,6 +488,15 @@ def kernel_checks(torch, syn, fem):
                     replaces=f"src/repro/kernels/{replaces}",
                     max_abs_err=max(c["max_abs_err"] for c in cases),
                     cases=cases)
+
+    def row_bwd(cases):
+        """K7's backward: a kernel of the port with no TPU counterpart
+        (the reference differentiates its XLA attention, never K7)."""
+        return dict(row("flash_attention_bwd", "", "flash_attention_bwd.cu",
+                        cases),
+                    replaces="none: no TPU kernel (the reference trains "
+                             "through its XLA attention, "
+                             "src/repro/models/attention.py:232)")
 
     def update_bytes(per_dev):
         """A masked step's bytes: an active device reads w, g, c, a and
@@ -713,7 +773,7 @@ def kernel_checks(torch, syn, fem):
         return c
 
     def k7_case(label, bh, s, t_len, hd, causal, dtype, period=0,
-                gqa=None, calls=5):
+                gqa=None, calls=5, lse=False):
         """K7 on numpy-seeded ``(bh, s|t_len, hd)`` inputs.  ``gqa``:
         ``(B, H, Kv)`` when the rows are GQA-folded in the model's order
         (each slice's G*S rows are G query heads of one KV head), which
@@ -737,8 +797,9 @@ def kernel_checks(torch, syn, fem):
         return case(
             f"flash_attention_3d ({bh}, {s}, {hd}) x T={t_len} {dtype}, "
             f"{label}",
-            lambda: flash_attention.flash_attention_3d(
-                q, k, v, causal=causal, causal_period=period),
+            lambda: flash_attention.flash_attention_3d_fwd(
+                q, k, v, causal=causal, causal_period=period,
+                with_lse=lse)[0],
             lambda: ref.flash_attention_3d_ref(
                 q, k, v, causal=causal, causal_period=period),
             atol, nbytes, 4 * hd * pairs, calls=calls, plain_repeats=3,
@@ -746,6 +807,96 @@ def kernel_checks(torch, syn, fem):
             peak_flops=PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_TF32_FLOPS,
             library=lambda: sdpa(q4, k4, v4, is_causal=causal,
                                  enable_gqa=gqa is not None))
+
+    def k7_bwd_case(label, bh, s, t_len, hd, dtype, period=0, gqa=None,
+                    calls=5):
+        """The K7 backward on numpy-seeded ``(bh, s|t_len, hd)`` inputs
+        and cotangent, causal, from the forward kernel's lse: held to
+        the explicit formula on the card (the worst of dq, dk and dv);
+        its bound is 5 products of 2*hd flops a visible pair; the
+        library call is ``torch.autograd.grad`` through SDPA (its
+        backward alone, the forward recorded once)."""
+        tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+        q = normal(bh, s, hd).to(tdt)
+        k = normal(bh, t_len, hd).to(tdt)
+        v = normal(bh, t_len, hd).to(tdt)
+        do = normal(bh, s, hd).to(tdt)
+        o, lse = flash_attention.flash_attention_3d_fwd(
+            q, k, v, causal=True, causal_period=period, with_lse=True)
+        pos = torch.arange(s)
+        pos = pos % period if period else pos
+        pairs = bh * int(torch.clamp(pos + 1, max=t_len).sum())
+        # q, k, v, o, dO and lse read once; dq, dk, dv written once
+        nbytes = q.element_size() * bh * hd * (4 * s + 4 * t_len) \
+            + 4 * bh * s
+        heads = (1, bh) if gqa is None else (gqa[0], gqa[1])
+        q4 = q.view(heads[0], heads[1], -1, hd).detach().requires_grad_(True)
+        k4, v4 = (x.view(heads[0], -1, t_len, hd).detach().requires_grad_(
+            True) for x in (k, v))
+        out4 = torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=gqa is not None)
+        do4 = do.view(out4.shape)
+        atol, rtol = FLASH_TOL[dtype]
+        return case(
+            f"flash_attention_3d_bwd ({bh}, {s}, {hd}) x T={t_len} {dtype}, "
+            f"{label}",
+            lambda: flash_attention.flash_attention_3d_bwd(
+                q, k, v, o, do, lse, causal=True, causal_period=period),
+            lambda: ref.flash_attention_3d_bwd_ref(
+                q, k, v, o, do, lse, causal=True, causal_period=period),
+            atol, nbytes, 10 * hd * pairs, calls=calls, plain_repeats=3,
+            rtol=rtol,
+            peak_flops=PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_TF32_FLOPS,
+            library=lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                retain_graph=True))
+
+    def qwen_update_cases():
+        """K1 over the trainer's qwen1.5-0.5b flat pack (LM_TRAIN_K
+        devices, all active, as a local step's mask) and K4 over the
+        stacked qwen tree's leaves in one launch, on inputs from a
+        seeded card generator (numpy would take minutes for ~10^9
+        draws); no device-time graph (each call allocates its output)."""
+        from repro_torch.configs import get_arch
+        from repro_torch.models import model_specs
+        Kq = LM_TRAIN_K
+        gen = torch.Generator(device=dev).manual_seed(23)
+        specs = pt.leaves(model_specs(get_arch("qwen1.5-0.5b")))
+        per = sum(int(np.prod(sp.shape)) for sp in specs)
+        rows_q = flatpack.flat_spec(
+            [torch.zeros(sp.shape, device="meta") for sp in specs]).rows
+        on = torch.ones(Kq, device=dev)
+
+        def randn(*shape, scale=1.0):
+            return scale * torch.randn(*shape, generator=gen, device=dev)
+
+        w, g, c, a = (randn(Kq * rows_q, 128, scale=sc)
+                      for sc in (0.1, 1.0, 0.01, 0.1))
+        out = [case(f"dane_update_flat ({Kq * rows_q}, 128) f32, the qwen "
+                    f"pack, {Kq} devices",
+                    lambda: dane_update.dane_update_flat(w, g, c, a, eta, mu,
+                                                         on, rows_q),
+                    lambda: ref.dane_update_flat_ref(w, g, c, a, eta, mu, on,
+                                                     rows_q),
+                    UPDATE_TOL, 4 * (5 * Kq * rows_q * 128 + Kq),
+                    6 * Kq * rows_q * 128, calls=5, plain_repeats=1)]
+        del w, g, c, a
+        args = [[randn(Kq, *sp.shape, scale=sc) for sp in specs]
+                for sc in (0.1, 1.0, 0.01, 0.1)]
+        before = build.launch_counts["dane_update_2d"]
+        dane_update.dane_update_leaves(*args, eta, mu, on)
+        check(build.launch_counts["dane_update_2d"] - before == 1,
+              f"K4 took more than one launch for the {len(specs)} qwen "
+              f"leaves")
+        out.append(case(
+            f"dane_update_leaves qwen tree ({len(specs)} leaves, {per:,} a "
+            f"device) f32, {Kq} devices",
+            lambda: dane_update.dane_update_leaves(*args, eta, mu, on),
+            lambda: ref.dane_update_leaves_ref(*args, eta, mu, on),
+            UPDATE_TOL, 4 * (5 * Kq * per + Kq), 6 * Kq * per, calls=5,
+            plain_repeats=1))
+        del args
+        torch.cuda.empty_cache()
+        return out
 
     # The LSTMs of phase 8 at full width: the Sent140 model's flat pack
     # (480 rows a device) and the Shakespeare model's (6,392), and the
@@ -765,12 +916,13 @@ def kernel_checks(torch, syn, fem):
     rows_fem = flatpack.flat_spec({"w": torch.zeros(784, C),
                                    "b": torch.zeros(C)}).rows
     none = torch.zeros_like(mask)
+    qwen_k1, qwen_k4 = qwen_update_cases()
     rows = [
         row("dane_update_flat", "dane_update.py:62", "dane_update.cu",
             [k1_case(rows_syn), k1_case(rows_fem),
              flat_path_case(rows_syn),
              k1_case(lstm_rows(sentlstm_specs(SENT_VOCAB))),
-             k1_case(lstm_rows(charlstm_specs(SHAKES_VOCAB)))]),
+             k1_case(lstm_rows(charlstm_specs(SHAKES_VOCAB))), qwen_k1]),
         row("dane_update_2d", "dane_update.py:27", "dane_update.cu",
             [k4_tree_case(f"{{w: ({K}, 60, {C}), b: ({K}, {C})}}",
                           [pt.leaves(x) for x in (wt, gt, ct, at)],
@@ -779,7 +931,7 @@ def kernel_checks(torch, syn, fem):
              per_leaf_path_case(),
              k4_tree_case(f"charlstm ({len(char_specs)} leaves, "
                           f"{char_per_dev:,} a device)", char_args,
-                          char_per_dev)])]
+                          char_per_dev), qwen_k4])]
     del char_args
     # K2 also on a rank's slab of the mesh: the flat mesh's 5 of 10
     # devices (the masked one among them), and the tree's one device a
@@ -829,7 +981,29 @@ def kernel_checks(torch, syn, fem):
              k7_case("non-causal", 8, 512, 512, 64, False, "f32"),
              k7_case("qwen B=2 S=1024", 32, 1024, 1024, 64, True, "f32"),
              k7_case("qwen B=2 S=128", 32, 128, 128, 64, True, "f32",
-                     calls=20)]),
+                     calls=20),
+             # phase 11's train step (S=4096) and the trainer's folded
+             # launches (S=64): K*B*H rows of a local step, K*nb*B*H of
+             # phase A's gradients
+             k7_case("qwen train_4k B=1 S=4096, with lse",
+                     16, 4096, 4096, 64, True, "f32", lse=True),
+             k7_case(f"trainer, a local step (K={LM_TRAIN_K}, B=4, 16 "
+                     f"heads), with lse", LM_TRAIN_K * 64, 64, 64, 64, True,
+                     "f32", calls=20, lse=True)]),
+        dict(row_bwd(
+            [k7_bwd_case("(h) qwen train_4k B=1 S=4096", 16, 4096, 4096, 64,
+                         "f32"),
+             k7_bwd_case(f"(i) trainer, a local step (K={LM_TRAIN_K}, B=4,"
+                         f" 16 heads)", LM_TRAIN_K * 64, 64, 64, 64, "f32",
+                         calls=20),
+             k7_bwd_case(f"(i') trainer, phase A (K={LM_TRAIN_K}, nb=4, "
+                         f"B=4, 16 heads)", LM_TRAIN_K * 256, 64, 64, 64,
+                         "f32", calls=20),
+             k7_bwd_case("(j) yi-9b B=1 S=2048 GQA-folded", 4, 8 * 2048,
+                         2048, 128, "f32", period=2048, gqa=(1, 32, 4)),
+             k7_bwd_case("(k) ragged", 16, 1000, 1000, 64, "f32"),
+             k7_bwd_case("(l) qwen train_4k B=1 S=4096", 16, 4096, 4096, 64,
+                         "bf16")])),
     ]
 
 
@@ -2675,6 +2849,315 @@ def lm_phase(torch, counts):
     return out
 
 
+def train_phase(torch, counts):
+    """Phase 11: LM training at full width (qwen1.5-0.5b, random weights
+    from seed 0, f32): the loss's gradient, the three train steps, the
+    federated trainer through ``launch/train.py`` and pods as clients;
+    returns its timings (ms), peak bytes and idle share."""
+    from torch.func import grad, vmap
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.data.batching import stack_device_batches
+    from repro_torch.kernels import flatpack
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import podfed, steps, train
+    from repro_torch.models import (attention, init_params, model_specs,
+                                    transformer)
+
+    out = {}
+    cfg = get_arch("qwen1.5-0.5b")
+    L = cfg.num_layers
+    k7 = ("flash_attention", "flash_attention_bwd")
+
+    def tokens(seed, B, S):
+        a = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  (B, S + 1))
+        t = torch.from_numpy(a.astype(np.int32)).cuda()
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+    def plain_on_card(fn):
+        saved = attention.attention
+        attention.attention = attention.plain_attention
+        try:
+            return fn()
+        finally:
+            attention.attention = saved
+
+    def launches(fn):
+        before = dict(counts)
+        res = fn()
+        torch.cuda.synchronize()
+        return res, _delta(before, counts)
+
+    def leaf_diff(a, b):
+        return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+                   for x, y in zip(pt.leaves(a), pt.leaves(b)))
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0))
+
+    # (a) the loss and its gradient against the CPU path
+    b = tokens(65, 1, 64)
+    lf = lambda p, b: transformer.loss_fn(p, b, cfg, remat="none")  # noqa
+    (loss, g), n = launches(lambda: steps.value_and_grad(
+        lambda p: lf(p, b), params))
+    check(n.get("flash_attention") == L and n.get("flash_attention_bwd") == L,
+          f"(a) loss grad: K7 launches {n}, not {L} and {L}")
+    params_cpu = pt.tmap(lambda x: x.cpu(), params)
+    loss_c, g_c = steps.value_and_grad(
+        lambda p: lf(p, pt.tmap(lambda x: x.cpu(), b)), params_cpu)
+    del params_cpu
+    rel = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    check(rel <= LOGIT_REL, f"(a) loss {float(loss)} vs CPU {float(loss_c)}")
+    worst = max(float((x.cpu() - y).abs().max()) / float(y.abs().max())
+                for x, y in zip(pt.leaves(g), pt.leaves(g_c)))
+    check(worst <= GRAD_REL, f"(a) a gradient leaf differs by {worst} x its "
+                             f"max |g| > {GRAD_REL}")
+    print(f"  (a) qwen loss_fn B=1 S=64: {float(loss):.6f} (CPU path "
+          f"{float(loss_c):.6f}, rel {rel:.2e} <= {LOGIT_REL:g}); worst "
+          f"gradient leaf {worst:.2e} x its max |g| (<= {GRAD_REL:g}); K7 "
+          f"{L} forward + {L} backward launches")
+    del g, g_c
+
+    # (b) the train steps at train_4k's S=4096, B=1, remat "full"
+    b = tokens(4096, 1, 4096)
+    zeros = pt.tmap(torch.zeros_like, params)
+    step = steps.make_feddane_round_step(cfg, eta=1e-3, mu=0.01,
+                                         remat="full")
+
+    def three_steps(record):
+        st, losses = {"params": params, "anchor": params, "g_t": zeros}, []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (st, m), n = launches(lambda: step(st, b))
+            end.record()
+            end.synchronize()
+            losses.append(float(m["loss"]))
+            record.append((start.elapsed_time(end), n))
+        return st, losses
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = []
+    st, losses = three_steps(rec)
+    peak = peak_gib()
+    # two gradients a step, each a forward, its recomputation and a backward
+    for ms, n in rec:
+        check(n.get("flash_attention") == 4 * L
+              and n.get("flash_attention_bwd") == 2 * L,
+              f"(b) a feddane step launched K7 {n}, not {4 * L} forward "
+              f"and {2 * L} backward")
+    check(losses[-1] < losses[0], f"(b) the loss did not fall: {losses}")
+    rec_plain = []
+    st_plain, losses_plain = plain_on_card(lambda: three_steps(rec_plain))
+    diff = leaf_diff(st["params"], st_plain["params"])
+    moved = leaf_diff(st["params"], params)
+    check(diff <= TRAIN_STEP_TOL and moved >= 10 * TRAIN_STEP_TOL,
+          f"(b) params K7 vs plain attention differ by {diff} (moved "
+          f"{moved}); limit {TRAIN_STEP_TOL}")
+    out["train_4k feddane ms a step"] = [r[0] for r in rec]
+    out["train_4k feddane, plain attention, ms a step"] = [
+        r[0] for r in rec_plain]
+    out["train_4k feddane peak GiB"] = peak
+    print(f"  (b) make_feddane_round_step train_4k B=1 S=4096 remat=full: "
+          f"losses {losses} (plain attention {losses_plain}); ms a step "
+          f"{[round(r[0], 2) for r in rec]} (plain attention "
+          f"{[round(r[0], 2) for r in rec_plain]}); card peak {peak:.2f} "
+          f"GiB; K7 "
+          f"{4 * L} forward (a forward and its recomputation per gradient) "
+          f"+ {2 * L} backward launches a step; params vs plain attention "
+          f"{diff:.2e} (<= {TRAIN_STEP_TOL:g}; the steps moved them "
+          f"{moved:.2e})")
+    del st_plain
+    for name in ("fedavg", "feddane_pipelined"):
+        stp = steps.STEP_BUILDERS[name](cfg, eta=1e-3, remat="full")
+        state = ({"params": st["params"]} if name == "fedavg" else st)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        (new, m), n = launches(lambda: stp(state, b))
+        end.record()
+        end.synchronize()
+        check(np.isfinite(float(m["loss"])) and n.get("flash_attention") ==
+              2 * L and n.get("flash_attention_bwd") == L,
+              f"(b) {name}: loss {float(m['loss'])}, K7 launches {n}")
+        out[f"train_4k {name} ms a step"] = start.elapsed_time(end)
+        print(f"      {name}: one step {start.elapsed_time(end):.2f} ms, loss "
+              f"{float(m['loss']):.5f}, K7 {2 * L} + {L} launches")
+        del new
+    del st, state, zeros
+    torch.cuda.empty_cache()
+
+    # (c) the federated trainer through launch/train.py's main path
+    argv = ["--full-size", "--num-devices", "8", "--devices-per-round",
+            str(LM_TRAIN_K), "--local-epochs", "1", "--batch-size", "4",
+            "--seq-len", "64", "--samples-per-device", "16", "--seed", "0"]
+    step_counts, first_round, drawn = [], [], []
+    orig_step, orig_init = kops.FlatUpdate.step, kops.FlatUpdate.__init__
+    orig_round, orig_sample = (FederatedTrainer.round,
+                               FederatedTrainer._sample)
+
+    def spy_init(self, *a, **kw):
+        step_counts.append([dict(counts)])
+        return orig_init(self, *a, **kw)
+
+    def spy_step(self, *a, **kw):
+        step_counts[-1].append(dict(counts))
+        return orig_step(self, *a, **kw)
+
+    def spy_round(self, st):
+        new = orig_round(self, st)
+        if not first_round:
+            first_round.append(pt.tmap(torch.clone, new.params))
+        return new
+
+    def spy_sample(self):
+        sel = orig_sample(self)
+        drawn.append(np.asarray(sel).tolist())
+        return sel
+
+    def run(extra, spy=False):
+        if spy:
+            kops.FlatUpdate.step, kops.FlatUpdate.__init__ = spy_step, \
+                spy_init
+            FederatedTrainer.round = spy_round
+        FederatedTrainer._sample = spy_sample
+        try:
+            return train.main(argv + extra)
+        finally:
+            kops.FlatUpdate.step, kops.FlatUpdate.__init__ = orig_step, \
+                orig_init
+            FederatedTrainer.round, FederatedTrainer._sample = \
+                orig_round, orig_sample
+
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (res, n) = launches(lambda: run(["--rounds", "2"], spy=True))
+    peak = peak_gib()
+    sel_auto, drawn[:] = list(drawn), []
+    local_steps = sum(len(c) - 1 for c in step_counts)
+    check(n.get("dane_update_flat") == local_steps == 2 * 4,
+          f"(c) auto: {n.get('dane_update_flat')} K1 launches in "
+          f"{local_steps} local steps (2 rounds of E=1 x nb=4)")
+    for solve in step_counts:
+        for a, c in zip(solve, solve[1:]):
+            d = _delta(a, c)
+            check(d.get("flash_attention") == L
+                  and d.get("flash_attention_bwd") == L,
+                  f"(c) a local step of K={LM_TRAIN_K} launched K7 {d}, "
+                  f"not {L} forward and {L} backward")
+    out["trainer ms/round"] = res.round_ms
+    out["trainer peak GiB"] = peak
+    print(f"  (c) train.main --full-size, feddane N=8 K={LM_TRAIN_K} E=1 B=4 "
+          f"S=64, 2 rounds on auto: losses {res.losses}; ms/round "
+          f"{[round(x, 1) for x in res.round_ms]} (CUDA events); card peak "
+          f"{peak:.2f} GiB; {local_steps} local steps, each K1 once and K7 "
+          f"{L} forward + {L} backward for all {LM_TRAIN_K} clients; round "
+          f"launches {n}")
+    auto_params, auto_losses = res.state.params, res.losses
+    res_plain = plain_on_card(lambda: run(["--rounds", "2"]))
+    out["trainer ms/round, plain attention"] = res_plain.round_ms
+    check(drawn == sel_auto, f"(c) selections differ with the plain "
+                             f"attention: {drawn} vs {sel_auto}")
+    diff = leaf_diff(auto_params, res_plain.state.params)
+    del res_plain
+    flat_first = first_round[0]
+    drawn[:] = []
+    (res_leaf, n) = launches(lambda: run(["--rounds", "1", "--local-solver",
+                                          "per_leaf"]))
+    check(drawn == sel_auto[:len(drawn)], "(c) per_leaf selections differ")
+    check(all(torch.equal(x, y) for x, y in zip(
+        pt.leaves(res_leaf.state.params), pt.leaves(flat_first))),
+        "(c) per_leaf's round differs from flat's")
+    check(n.get("dane_update_2d") == 4 and not n.get("dane_update_flat"),
+          f"(c) per_leaf launched {n}, not K4 once a local step")
+    moved = leaf_diff(auto_params, flat_first)
+    check(diff <= TRAJECTORY_TOL and moved >= 10 * TRAJECTORY_TOL,
+          f"(c) params K7 vs plain attention differ by {diff} (the second "
+          f"round moved them {moved}); limit {TRAJECTORY_TOL}")
+    out["trainer ms/round, per_leaf"] = res_leaf.round_ms
+    print(f"      plain attention on the card: the same selections "
+          f"{sel_auto}, params within {diff:.2e} (<= {TRAJECTORY_TOL:g}; "
+          f"round 2 moved them {moved:.2e}), ms/round "
+          f"{[round(x, 1) for x in out['trainer ms/round, plain attention']]}"
+          f"; per_leaf 1 round bitwise equal to flat's, K4 "
+          f"{n.get('dane_update_2d')} launches ({res_leaf.round_ms[0]:.1f} "
+          f"ms)")
+    trainer = res_leaf.trainer
+    p0 = res_leaf.state.params
+    del res, res_leaf, auto_params, flat_first, first_round[:]
+    torch.cuda.empty_cache()
+
+    # the idle share of one local step: K clients' vmap(grad) and K1
+    batches, _ = stack_device_batches(trainer.dataset,
+                                      np.array(sel_auto[0][:LM_TRAIN_K]))
+    batch = pt.tmap(lambda x: x[:, 0], batches)
+    w = pt.tmap(lambda x: x.expand((LM_TRAIN_K,) + x.shape).contiguous(), p0)
+    upd = kops.FlatUpdate(flatpack.flat_spec(p0), pt.tmap(torch.zeros_like, w),
+                          p0, LM_TRAIN_K)
+    grad_fn = vmap(grad(train.make_lm_loss(cfg)))
+    on = torch.ones(LM_TRAIN_K, device=pt.leaves(p0)[0].device)
+    one_step = lambda: upd.step(grad_fn(w, batch), 0.05, 0.01, on)  # noqa
+    one_step()
+    out["idle share, trainer local step"] = device_share(
+        torch, one_step, f"qwen trainer local step (K={LM_TRAIN_K})")
+    del w, upd, batches, batch, trainer, p0
+    torch.cuda.empty_cache()
+
+    # (d) pods as clients
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0))
+
+    def pods(n):
+        return pt.tmap(lambda x: x.unsqueeze(0).expand((n,) + x.shape)
+                       .contiguous(), params)
+
+    b = tokens(7, 1, 64)
+    fn, _ = podfed.make_podfed_round_step(cfg, local_steps=1, eta=1e-2,
+                                          mu=0.01, remat="none")
+    one = pods(1)
+    new, m = fn({"params": one, "anchor": one,
+                 "g_t": pt.tmap(torch.zeros_like, one)},
+                {k: v[None, None] for k, v in b.items()})
+    g_anchor = steps.value_and_grad(lambda p: lf(p, b), params)[1]
+    want, _ = steps.make_feddane_round_step(cfg, eta=1e-2, mu=0.01,
+                                            remat="none")(
+        {"params": params, "anchor": params, "g_t": g_anchor}, b)
+    diff = max(float((x[0] - y).abs().max()) for x, y in zip(
+        pt.leaves(new["params"]), pt.leaves(want["params"])))
+    check(diff <= POD_TOL, f"(d) one pod, E=1 vs the feddane step: {diff}")
+    del new, want, g_anchor, one
+    two = pods(2)
+    bb = {k: torch.stack([v, torch.roll(v, 1, dims=1)])[:, None].expand(
+        2, 2, *v.shape).contiguous() for k, v in b.items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn2, _ = podfed.make_podfed_round_step(cfg, local_steps=2, eta=1e-2,
+                                           mu=0.01, remat="full")
+    (new, m), n = launches(lambda: fn2(
+        {"params": two, "anchor": two,
+         "g_t": pt.tmap(torch.zeros_like, two)}, bb))
+    end.record()
+    end.synchronize()
+    finite = all(bool(torch.isfinite(x).all()) for x in pt.leaves(new))
+    check(finite and np.isfinite(float(m["loss"])),
+          "(d) 2 pods x 2 steps: not finite")
+    out["podfed 2 pods x 2 steps ms"] = start.elapsed_time(end)
+    print(f"  (d) podfed: one pod, E=1 against make_feddane_round_step "
+          f"{diff:.2e} (<= {POD_TOL:g}); 2 pods x 2 local steps, 1 round: "
+          f"finite, loss {float(m['loss']):.5f}, "
+          f"{start.elapsed_time(end):.1f} ms, launches {n}")
+    del new, two, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2888,14 +3371,23 @@ def main() -> int:
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s; launches "
           f"{ {k: v for k, v in lm_path.items() if v} }")
 
+    print("[11] LM training at full width: qwen1.5-0.5b's loss, train "
+          "steps, federated trainer and pods as clients")
+    t0 = time.perf_counter()
+    build.reset_launch_counts()          # the training path starts here
+    train_out = train_phase(torch, counts)
+    train_path = dict(counts)            # and is read here
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: v for k, v in train_path.items() if v} }")
+
     for r in rows:
         r["launches"] = (main_path[r["name"]] + on_mesh.get(r["name"], 0)
-                         + lm_path[r["name"]])
+                         + lm_path[r["name"]] + train_path[r["name"]])
         check(r["launches"] > 0, f"{r['name']} not launched on the main "
                                  f"path")
-    print(f"[11] done in {time.perf_counter() - t_start:.1f} s; phase "
+    print(f"[12] done in {time.perf_counter() - t_start:.1f} s; phase "
           f"ms/round {json.dumps({k: round(v, 3) for k, v in phase_ms.items()})}; "
-          f"LM {json.dumps(lm_ms)}")
+          f"LM {json.dumps(lm_ms)}; training {json.dumps(train_out)}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cases")

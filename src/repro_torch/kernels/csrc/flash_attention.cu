@@ -14,7 +14,12 @@
 // otherwise), with pos(i) = i % period for period > 0 (the GQA group-folded
 // layout: G query heads of one KV head stacked as G*S rows) and pos(i) = i
 // for period 0.  S and T need not be multiples of a tile: rows past S are
-// not written and keys past T are invisible.
+// not written and keys past T are invisible.  Given an ``lse`` pointer, both
+// paths also write each row's f32 log-sum-exp of its masked, scaled scores,
+//
+//     lse_i = log sum_j exp(s_j),   (bh, s) floats,
+//
+// which the backward (csrc/flash_attention_bwd.cu) recomputes P from.
 //
 // What bounds it on this card: operations.  4*hd flops per visible (query,
 // key) pair against 2-4 bytes per element moved once: at the model path's
@@ -113,6 +118,7 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -192,8 +198,9 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int row0,
 template <int HD>
 __global__ void __launch_bounds__(kThreads, HD <= 64 ? 2 : 1)
 attention(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int S, int T,
-          int causal, int period, float scale) {
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int S, int T, int causal, int period,
+          float scale) {
   constexpr int kStride = Layout<HD>::kStride;
   constexpr int kND = HD / 8;  // 8-column blocks of the output
   extern __shared__ float4 smem4[];
@@ -209,6 +216,7 @@ attention(const float* __restrict__ q, const float* __restrict__ k,
   k += bh * T * HD;
   v += bh * T * HD;
   o += bh * S * HD;
+  if (lse != nullptr) lse += bh * S;
 
   const int n_tiles = visible_tiles(r0, min(r0 + kRows, S) - 1, T, causal,
                                     period);
@@ -357,6 +365,11 @@ attention(const float* __restrict__ q, const float* __restrict__ k,
     if (row_b < S)
       *reinterpret_cast<float2*>(o + (long long)row_b * HD + col) =
           make_float2(acc[n][2] / d_b, acc[n][3] / d_b);
+  }
+  // the scores were scaled before the max: lse = m + log l
+  if (lse != nullptr && tq == 0) {
+    if (row_a < S) lse[row_a] = m_a + logf(d_a);
+    if (row_b < S) lse[row_b] = m_b + logf(d_b);
   }
 }
 
@@ -542,8 +555,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 attention(const __grid_constant__ CUtensorMap qmap,
           const __grid_constant__ CUtensorMap kmap,
           const __grid_constant__ CUtensorMap vmap,
-          __nv_bfloat16* __restrict__ o, int S, int T, int causal,
-          int period, float scale_log2) {
+          __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+          int T, int causal, int period, float scale_log2) {
   using L = Layout<HD>;
   constexpr int kStages = L::kStages;
   constexpr int kPW = L::kPanelCols;
@@ -759,6 +772,12 @@ attention(const __grid_constant__ CUtensorMap qmap,
         *reinterpret_cast<uint32_t*>(o + (long long)row_b * HD + col) =
             pack_bf16(oacc[p][4 * i + 2] / d_b, oacc[p][4 * i + 3] / d_b);
     }
+  // m is in raw score units: lse = (m scale log2 e + log2 l) ln 2
+  if (lse != nullptr && lane % 4 == 0) {
+    lse += (long long)bh * S;
+    if (row_a < S) lse[row_a] = (m_a * scale_log2 + log2f(d_a)) * kLn2;
+    if (row_b < S) lse[row_b] = (m_b * scale_log2 + log2f(d_b)) * kLn2;
+  }
 }
 
 }  // namespace bf16k
@@ -820,8 +839,8 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int bh,
 dim3 grid(int bh, int s) { return dim3(bh, (s + kRows - 1) / kRows); }
 
 template <int HD>
-int run_f32(const void* q, const void* k, const void* v, void* o, int bh,
-            int s, int t, int causal, int period, float scale,
+int run_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+            int bh, int s, int t, int causal, int period, float scale,
             cudaStream_t stream) {
   const int bytes = f32k::Layout<HD>::kFloats * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -829,15 +848,15 @@ int run_f32(const void* q, const void* k, const void* v, void* o, int bh,
       bytes);
   if (err != cudaSuccess) return (int)err;
   f32k::attention<HD><<<grid(bh, s), f32k::kThreads, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, s, t,
-      causal, period, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, s,
+      t, causal, period, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int run_bf16(const void* q, const void* k, const void* v, void* o, int bh,
-             int s, int t, int causal, int period, float scale,
-             cudaStream_t stream) {
+int run_bf16(const void* q, const void* k, const void* v, void* o,
+             float* lse, int bh, int s, int t, int causal, int period,
+             float scale, cudaStream_t stream) {
   using L = bf16k::Layout<HD>;
   CUtensorMap qmap, kmap, vmap;
   int rc = make_map(&qmap, q, HD, s, bh, L::kPanelCols, kRows);
@@ -849,44 +868,45 @@ int run_bf16(const void* q, const void* k, const void* v, void* o, int bh,
       L::kBytes);
   if (err != cudaSuccess) return (int)err;
   bf16k::attention<HD><<<grid(bh, s), bf16k::kThreads, L::kBytes, stream>>>(
-      qmap, kmap, vmap, (__nv_bfloat16*)o, s, t, causal, period,
+      qmap, kmap, vmap, (__nv_bfloat16*)o, lse, s, t, causal, period,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
-typedef int (*Runner)(const void*, const void*, const void*, void*, int, int,
-                      int, int, int, float, cudaStream_t);
+typedef int (*Runner)(const void*, const void*, const void*, void*, float*,
+                      int, int, int, int, int, float, cudaStream_t);
 
 int dispatch(Runner r32, Runner r64, Runner r128, const void* q,
-             const void* k, const void* v, void* o, int bh, int s, int t,
-             int hd, int causal, int period, float scale, void* stream) {
+             const void* k, const void* v, void* o, void* lse, int bh, int s,
+             int t, int hd, int causal, int period, float scale,
+             void* stream) {
   if (bh < 1 || s < 1 || t < 1 || period < 0 ||
       (s + kRows - 1) / kRows > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   Runner run = hd == 32 ? r32 : hd == 64 ? r64 : hd == 128 ? r128 : nullptr;
   if (run == nullptr) return (int)cudaErrorInvalidValue;
-  return run(q, k, v, o, bh, s, t, causal, period, scale,
+  return run(q, k, v, o, (float*)lse, bh, s, t, causal, period, scale,
              (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// q, o: (bh, s, hd); k, v: (bh, t, hd); contiguous, 16-byte aligned.
-// Returns the launch's CUDA error code (kMapError + the driver's code when
+// q, o: (bh, s, hd); k, v: (bh, t, hd); contiguous, 16-byte aligned; lse:
+// null, or (bh, s) floats for the rows' log-sum-exp.  Returns the launch's CUDA error code (kMapError + the driver's code when
 // a bf16 tensor map is refused).
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int bh, int s,
-                                   int t, int hd, int causal, int period,
-                                   float scale, void* stream) {
-  return dispatch(run_f32<32>, run_f32<64>, run_f32<128>, q, k, v, o, bh, s,
-                  t, hd, causal, period, scale, stream);
+                                   const void* v, void* o, void* lse, int bh,
+                                   int s, int t, int hd, int causal,
+                                   int period, float scale, void* stream) {
+  return dispatch(run_f32<32>, run_f32<64>, run_f32<128>, q, k, v, o, lse,
+                  bh, s, t, hd, causal, period, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int bh, int s,
-                                    int t, int hd, int causal, int period,
-                                    float scale, void* stream) {
-  return dispatch(run_bf16<32>, run_bf16<64>, run_bf16<128>, q, k, v, o, bh,
-                  s, t, hd, causal, period, scale, stream);
+                                    const void* v, void* o, void* lse,
+                                    int bh, int s, int t, int hd, int causal,
+                                    int period, float scale, void* stream) {
+  return dispatch(run_bf16<32>, run_bf16<64>, run_bf16<128>, q, k, v, o,
+                  lse, bh, s, t, hd, causal, period, scale, stream);
 }

@@ -26,6 +26,11 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import LL, F, I, P
 
 LANES = 128
+#: The most elements of one device a masked launch takes (the kernel
+#: finds an element's device with a 32-bit count; the pack as a whole is
+#: indexed in 64 bits, so K devices of up to this many elements each,
+#: over 2^31 in all, launch as one).
+MAX_PER_DEV = 2 ** 31 - 1
 #: Arrays one launch takes (the kernel's parameter table); longer lists
 #: launch in chunks of this many.
 MAX_SEGMENTS = 64
@@ -145,6 +150,11 @@ def dane_update_flat(w, grad, g_corr, anchor, eta, mu, mask,
         raise ValueError(f"dane_update_flat: {total_rows} rows are not a "
                          f"whole number of {rows_per_dev}-row devices")
     k = total_rows // rows_per_dev
+    if rows_per_dev * LANES > MAX_PER_DEV:
+        raise ValueError(f"dane_update_flat: a device's segment of "
+                         f"{rows_per_dev * LANES:,} elements exceeds "
+                         f"{MAX_PER_DEV:,}, the kernel's 32-bit "
+                         f"per-device count")
     if out is not None and not (out.shape == w.shape and out.dtype == F32
                                 and out.device == w.device
                                 and out.is_contiguous()):

@@ -164,22 +164,62 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     return out.to(q.dtype)
 
 
+def _scores_3d(q, k, causal: bool, causal_period: int):
+    """K7's masked f32 scores ``q * hd^-0.5`` against ``k`` (BH, S, T)
+    and the visibility mask (None without ``causal``)."""
+    S, hd = q.shape[1], q.shape[2]
+    T = k.shape[1]
+    scores = torch.bmm(q.to(F32) * hd ** -0.5, k.to(F32).transpose(1, 2))
+    if not causal:
+        return scores, None
+    dev = q.device
+    pos = torch.arange(S, device=dev)
+    if causal_period:
+        pos = pos % causal_period
+    mask = torch.arange(T, device=dev)[None, :] <= pos[:, None]
+    return torch.where(mask, scores, NEG_INF), mask
+
+
 def flash_attention_3d_ref(q, k, v, *, causal: bool = True,
-                           causal_period: int = 0):
+                           causal_period: int = 0, with_lse: bool = False):
     """K7's function on ``q`` (BH, S, hd) and ``k``/``v`` (BH, T, hd):
     materialised scores of ``q * hd^-0.5`` against ``k``, key ``j``
     masked for row ``i`` unless ``j <= i % causal_period`` (``j <= i``
     for period 0; every key without ``causal``), softmax and ``P v``,
-    all in f32, output in ``q``'s dtype."""
-    S, hd = q.shape[1], q.shape[2]
-    T = k.shape[1]
-    scores = torch.bmm(q.to(F32) * hd ** -0.5, k.to(F32).transpose(1, 2))
-    if causal:
-        dev = q.device
-        pos = torch.arange(S, device=dev)
-        if causal_period:
-            pos = pos % causal_period
-        mask = torch.arange(T, device=dev)[None, :] <= pos[:, None]
-        scores = torch.where(mask, scores, NEG_INF)
+    all in f32, output in ``q``'s dtype.  ``with_lse``: also the f32
+    row log-sum-exp of the masked scores, (BH, S), as ``(out, lse)``."""
+    scores, _ = _scores_3d(q, k, causal, causal_period)
     probs = torch.softmax(scores, dim=-1)
-    return torch.bmm(probs, v.to(F32)).to(q.dtype)
+    out = torch.bmm(probs, v.to(F32)).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1)
+
+
+def flash_attention_3d_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                               causal_period: int = 0):
+    """The K7 backward's function: ``(dq, dk, dv)`` of K7's output ``o``
+    under the cotangent ``do``, from the forward's row log-sum-exp
+    ``lse`` (BH, S), by the explicit formula in f32:
+
+        P  = exp(q k^T * hd^-0.5 - lse), invisible keys 0
+        D  = rowsum(do * o)
+        dv = P^T do;  dP = do v^T;  dS = P * (dP - D)
+        dq = dS k * hd^-0.5;  dk = dS^T q * hd^-0.5
+
+    each in its input's dtype.  Under a ``causal_period`` the G folded
+    query rows of a slice all reach the same keys, so dk and dv sum over
+    them as written."""
+    hd = q.shape[2]
+    scale = hd ** -0.5
+    scores, mask = _scores_3d(q, k, causal, causal_period)
+    p = torch.exp(scores - lse.to(F32)[:, :, None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    dof = do.to(F32)
+    d = (dof * o.to(F32)).sum(dim=-1, keepdim=True)
+    dv = torch.bmm(p.transpose(1, 2), dof)
+    ds = p * (torch.bmm(dof, v.to(F32).transpose(1, 2)) - d)
+    dq = torch.bmm(ds, k.to(F32)) * scale
+    dk = torch.bmm(ds.transpose(1, 2), q.to(F32)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

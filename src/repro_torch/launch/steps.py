@@ -1,10 +1,25 @@
 """Step functions of the LM stack and the shapes of their inputs.
 
-Counterpart of the inference half of ``repro/launch/steps.py``:
-``make_prefill_step`` and ``make_decode_step`` (the programs a server
-runs), ``prefill_batch_specs`` and ``decode_batch_specs`` (their batches)
-and ``abstract_decode_cache`` (the KV cache), as shapes and dtypes.  The
-train steps wait for the training slice.
+Counterpart of ``repro/launch/steps.py``:
+
+- train_4k -> ``make_feddane_round_step``: one FedDANE round
+  participation -- phase A's gradient at the server anchor, then one
+  DANE-subproblem step from the current params with the server gradient
+  ``g_t`` carried in the train state (the technique's two extra
+  model-sized buffers, anchor and g_t); ``make_fedavg_step`` (no
+  correction, one forward and backward) and
+  ``make_feddane_pipelined_step`` (§V-C: the stale correction, one
+  forward and backward) beside it, all three in ``STEP_BUILDERS``;
+- ``make_prefill_step`` and ``make_decode_step``, the programs a server
+  runs;
+- the shapes and dtypes of their inputs: ``train_state_specs`` /
+  ``abstract_train_state``, ``train_batch_specs``,
+  ``prefill_batch_specs``, ``decode_batch_specs``,
+  ``abstract_decode_cache``.
+
+The train steps take gradients with ``torch.autograd.grad`` (so every
+remat policy works; on the card attention goes through K7 and its
+backward), return new state dicts and never write into their inputs.
 """
 from __future__ import annotations
 
@@ -23,6 +38,35 @@ class ShapeDtype:
     """A tensor's shape and dtype (the reference's ``ShapeDtypeStruct``)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+
+
+# ---------------------------------------------------------------------------
+# Train state and batches
+# ---------------------------------------------------------------------------
+
+def train_state_specs(cfg: ModelConfig, algo: str = "feddane") -> dict:
+    """ParamSpec tree of the train state: FedDANE carries anchor and g_t
+    beside the params."""
+    p = transformer.model_specs(cfg)
+    if algo == "fedavg":
+        return {"params": p}
+    return {"params": p, "anchor": p, "g_t": p}
+
+
+def abstract_train_state(cfg: ModelConfig, algo: str = "feddane",
+                         dtype=torch.bfloat16) -> dict:
+    return pt.tmap(lambda s: ShapeDtype(s.shape, dtype),
+                   train_state_specs(cfg, algo))
+
+
+def train_batch_specs(cfg: ModelConfig, shape: InputShape
+                      ) -> Dict[str, ShapeDtype]:
+    """Tokens and labels, (B, S) int32; the audio and patch frontends
+    are refused as not yet ported."""
+    transformer._check_ported(cfg)
+    bs = (shape.global_batch, shape.seq_len)
+    return {"tokens": ShapeDtype(bs, torch.int32),
+            "labels": ShapeDtype(bs, torch.int32)}
 
 
 def prefill_batch_specs(cfg: ModelConfig, shape: InputShape
@@ -57,3 +101,81 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     def step(params, batch, cache):
         return transformer.decode_step(params, batch, cache, cfg)
     return step
+
+
+# ---------------------------------------------------------------------------
+# Train steps
+# ---------------------------------------------------------------------------
+
+def value_and_grad(lf: Callable, params):
+    """``(lf(params), d lf / d params)`` by ``torch.autograd.grad`` on
+    detached copies of the leaves: the loss detached, the gradient a new
+    tree, ``params`` untouched."""
+    leaves, treedef = pt.flatten(params)
+    xs = [x.detach().requires_grad_(True) for x in leaves]
+    loss = lf(pt.unflatten(treedef, xs))
+    grads = torch.autograd.grad(loss, xs)
+    return loss.detach(), pt.unflatten(treedef, list(grads))
+
+
+def _dane_step(w, g, corr, anchor, eta: float, mu: float):
+    """``w - eta (g + corr + mu (w - anchor))`` (Alg. 2 line 7, one SGD
+    step), in the reference's order of tree ops."""
+    dane_grad = pt.add(pt.add(g, corr), pt.scale(pt.sub(w, anchor), mu))
+    return pt.sub(w, pt.scale(dane_grad, eta))
+
+
+def make_feddane_round_step(cfg: ModelConfig, *, eta: float = 1e-3,
+                            mu: float = 0.01, remat: str = "full"
+                            ) -> Callable:
+    """One FedDANE round participation (module docstring)."""
+
+    def step(state, batch):
+        lf = lambda p: transformer.loss_fn(p, batch, cfg, remat=remat)
+        # phase A (Alg. 2 lines 5-6): the gradient at the server anchor
+        _, g_anchor = value_and_grad(lf, state["anchor"])
+        # the correction: server g_t against this client's anchor gradient
+        corr = pt.sub(state["g_t"], g_anchor)
+        # phase B (line 7): one step of the inexact DANE subproblem
+        loss, g = value_and_grad(lf, state["params"])
+        new_params = _dane_step(state["params"], g, corr, state["anchor"],
+                                eta, mu)
+        return ({"params": new_params, "anchor": new_params,
+                 "g_t": g_anchor}, {"loss": loss})
+
+    return step
+
+
+def make_fedavg_step(cfg: ModelConfig, *, eta: float = 1e-3,
+                     remat: str = "full") -> Callable:
+    def step(state, batch):
+        lf = lambda p: transformer.loss_fn(p, batch, cfg, remat=remat)
+        loss, g = value_and_grad(lf, state["params"])
+        return ({"params": pt.sub(state["params"], pt.scale(g, eta))},
+                {"loss": loss})
+    return step
+
+
+def make_feddane_pipelined_step(cfg: ModelConfig, *, eta: float = 1e-3,
+                                mu: float = 0.01, remat: str = "full"
+                                ) -> Callable:
+    """§V-C variant: the stale gradient correction, ONE forward and
+    backward a round."""
+
+    def step(state, batch):
+        lf = lambda p: transformer.loss_fn(p, batch, cfg, remat=remat)
+        loss, g = value_and_grad(lf, state["params"])
+        corr = pt.sub(state["g_t"], g)        # stale server g_t vs current
+        new_params = _dane_step(state["params"], g, corr, state["anchor"],
+                                eta, mu)
+        return ({"params": new_params, "anchor": new_params, "g_t": g},
+                {"loss": loss})
+
+    return step
+
+
+STEP_BUILDERS = {
+    "feddane": make_feddane_round_step,
+    "fedavg": make_fedavg_step,
+    "feddane_pipelined": make_feddane_pipelined_step,
+}

@@ -5,9 +5,10 @@ from repro_torch.models.param import (ParamSpec, init_params, param_count,
                                       params_from_numpy, params_to_numpy)
 from repro_torch.models.transformer import (decode_cache_specs, decode_step,
                                             effective_cache_len,
-                                            forward_hidden, model_specs,
-                                            prefill)
+                                            forward_hidden, loss_fn,
+                                            model_specs, prefill)
 
 __all__ = ["ParamSpec", "init_params", "param_count", "params_from_numpy",
            "params_to_numpy", "model_specs", "prefill", "decode_step",
-           "decode_cache_specs", "effective_cache_len", "forward_hidden"]
+           "decode_cache_specs", "effective_cache_len", "forward_hidden",
+           "loss_fn"]

@@ -4,9 +4,12 @@ Counterpart of ``repro/models/attention.py``.  Layouts are the
 reference's: q (B, S, H, hd), k/v (B, T, Kv, hd), query head
 ``h = g * Kv + n`` reading KV head ``n`` (``_group``, tile order).
 
-- ``attention`` is the prefill path's self-attention.  On the card it runs
-  the hand-written kernel K7 (``kernels/flash_attention.py``) through
-  :func:`flash_gqa`, at any length; on the CPU it takes
+- ``attention`` is the self-attention of prefill and of the training
+  loss.  On the card it runs the hand-written kernel K7
+  (``kernels/flash_attention.py``) through :func:`flash_gqa`, at any
+  length, and under autograd K7's backward kernel (the fold's permutes
+  and reshapes carry the gradient and ``vmap`` through); on the CPU it
+  takes
   :func:`plain_attention`, the reference's dispatch to the plain
   ``full_attention`` or ``chunked_attention`` by its ``CHUNK_THRESHOLD``
   and chunk rule.  Nothing falls back to the plain versions on the card.
@@ -211,8 +214,8 @@ def plain_attention(q, k, v, *, causal: bool, window: int = 0):
 
 
 def attention(q, k, v, *, causal: bool, window: int = 0):
-    """Self-attention of the prefill path: K7 on the card, the plain
-    versions on the CPU."""
+    """Self-attention of prefill and training: K7 (and its backward) on
+    the card, the plain versions on the CPU."""
     if q.device.type == "cuda":
         if window:
             raise ValueError("attention: K7 takes no sliding window; the "

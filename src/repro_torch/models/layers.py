@@ -1,7 +1,9 @@
-"""Shared layers of the LM stack: RMSNorm, SwiGLU FFN, embeddings.
+"""Shared layers of the LM stack: RMSNorm, SwiGLU FFN, embeddings and
+the chunked cross-entropy.
 
 Counterpart of ``repro/models/layers.py`` (``rms_norm``, ``norm_spec``,
-``swiglu_ffn(_specs)``, ``embed(_specs)``, ``unembed``, ``head(_specs)``).
+``swiglu_ffn(_specs)``, ``embed(_specs)``, ``unembed``, ``head(_specs)``,
+``chunked_softmax_xent``).
 Each layer is a function of ``(params_dict, inputs)`` over tensors, and
 each spec builder returns the matching :class:`ParamSpec` tree, with the
 reference's shapes and axis names.  Plain PyTorch on every device: the
@@ -10,6 +12,7 @@ reference computes these outside any Pallas kernel too.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.param import ParamSpec
 
@@ -62,3 +65,46 @@ def head_specs(d_model: int, vocab: int) -> dict:
 
 def head(params, x):
     return x @ params["w"]
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy, chunked over the sequence so full logits are never resident.
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(hidden, w_or_emb, labels, transpose: bool):
+    """Summed token cross-entropy of one chunk and its count of labels
+    that are not -1, both f32 scalars."""
+    logits = hidden @ (w_or_emb.T if transpose else w_or_emb)
+    logits = logits.to(F32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(F32)
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def chunked_softmax_xent(hidden, w_or_emb, labels, *, transpose: bool,
+                         chunk: int = 512, remat: bool = True):
+    """Mean token cross-entropy with seq-chunked logit materialisation.
+
+    ``hidden``: (B, S, d); ``w_or_emb``: the tied ``(V, d)`` embedding
+    (``transpose``) or the ``(d, V)`` head; ``labels``: (B, S) with -1 =
+    ignore.  As in the reference, one chunk when ``S % chunk`` or
+    ``S <= chunk``; else the chunks' sums add up in f32, in order.  With
+    ``remat`` each chunk is checkpointed (``torch.utils.checkpoint``), so
+    the backward keeps one (B, chunk, V) logits block at a time; the
+    reference always rematerialises, but ``torch.func.grad`` refuses
+    checkpoints, so the trainer's loss passes ``remat=False``.
+    """
+    B, S, _ = hidden.shape
+    if S % chunk != 0 or S <= chunk:
+        loss, denom = _xent_chunk(hidden, w_or_emb, labels, transpose)
+        return loss / torch.clamp(denom, min=1.0)
+    loss = denom = None
+    for c0 in range(0, S, chunk):
+        args = (hidden[:, c0:c0 + chunk], w_or_emb, labels[:, c0:c0 + chunk],
+                transpose)
+        l, n = (checkpoint(_xent_chunk, *args, use_reentrant=False) if remat
+                else _xent_chunk(*args))
+        loss, denom = (l, n) if loss is None else (loss + l, denom + n)
+    return loss / torch.clamp(denom, min=1.0)

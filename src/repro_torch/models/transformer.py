@@ -1,4 +1,4 @@
-"""Model assembly for the dense LM stack: specs, prefill and decode.
+"""Model assembly for the dense LM stack: specs, loss, prefill and decode.
 
 Counterpart of ``repro/models/transformer.py`` for the dense ``attn``
 pattern (qwen1.5-0.5b, yi-9b, minitron-8b, phi4-mini-3.8b).  The
@@ -6,13 +6,22 @@ parameter tree keeps the reference's keys and stacked layout
 (``embed/embedding``, ``stack/pos_0/attn/wq`` of shape ``[R, d, H, hd]``,
 ...), so ``models.param.params_from_numpy`` carries the reference's
 weights across unchanged.  The layer stack is a Python loop over the
-``R`` stacked layers (the reference's ``lax.scan``), with no remat: the
-port runs inference only so far, under ``torch.inference_mode()``.
+``R`` stacked layers (the reference's ``lax.scan``), each layer under the
+reference's remat policy: ``"none"``; ``"full"``, a
+``torch.utils.checkpoint`` of the layer (recompute everything from its
+input); ``"dots"``, a selective checkpoint that keeps the matrix
+products (``aten.mm``, the reference's dots without batch dims) and
+recomputes the rest.  All three give the same values.  Checkpoints need
+plain ``torch.autograd``: ``torch.func.grad`` refuses them, so the
+federated trainer's loss runs with ``remat="none"``, as the reference's
+``launch/train.py`` does.  ``prefill`` and ``decode_step`` run under
+``torch.inference_mode()``.
 
 Public entry points (functions over param trees):
 
 - ``model_specs(cfg)``                        parameter ParamSpec tree
-- ``forward_hidden(params, batch, cfg)``      final hidden states
+- ``forward_hidden(params, batch, cfg, remat)`` final hidden states
+- ``loss_fn(params, batch, cfg, remat)``      mean token cross-entropy
 - ``prefill(params, batch, cfg)``             last-position logits
 - ``decode_step(params, batch, cache, cfg)``  one-token decode
 - ``decode_cache_specs(cfg, batch, cache_len)`` cache ParamSpec tree
@@ -22,9 +31,12 @@ frontend are refused as not yet ported.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs import base as cb
 from repro_torch.configs.base import ModelConfig, _not_ported
@@ -104,25 +116,71 @@ def _layer(stack: Params, r: int) -> Params:
     return pt.tmap(lambda a: a[r], stack)
 
 
+#: Remat policies of ``forward_hidden`` / ``loss_fn`` (module docstring).
+REMAT_POLICIES = ("none", "full", "dots")
+#: What the ``"dots"`` policy keeps: the matrix products without a batch
+#: dim (a (B, S, d) @ (d, n) projection folds to one ``mm``).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the remat ``policy`` (module docstring)."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, list(_DOTS)))
+    raise ValueError(f"remat policy {policy!r}; pick one of "
+                     f"{REMAT_POLICIES}")
+
+
 def _run_stack(stack: Params, x, cfg: ModelConfig, positions, *,
-               causal: bool = True):
+               causal: bool = True, remat: str = "none"):
     repeats = cfg.num_layers // len(cfg.pattern)
     for r in range(repeats):
         layer = _layer(stack, r)
-        for i, _ in enumerate(cfg.pattern):
-            x = _apply_block(layer[f"pos_{i}"], x, cfg, positions,
-                             causal=causal)
+
+        def body(y, layer=layer):
+            for i, _ in enumerate(cfg.pattern):
+                y = _apply_block(layer[f"pos_{i}"], y, cfg, positions,
+                                 causal=causal)
+            return y
+
+        x = _remat(body, remat)(x)
     return x
 
 
-@torch.inference_mode()
-def forward_hidden(params: Params, batch: Dict[str, Any], cfg: ModelConfig):
-    """Final-norm hidden states (B, S, d) of ``batch["tokens"]`` (B, S)."""
+def forward_hidden(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
+                   remat: str = "none"):
+    """Final-norm hidden states (B, S, d) of ``batch["tokens"]`` (B, S),
+    each layer under the ``remat`` policy."""
     _check_ported(cfg)
     x = L.embed(params["embed"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(params["stack"], x, cfg, positions, causal=True)
+    x = _run_stack(params["stack"], x, cfg, positions, causal=True,
+                   remat=remat)
     return L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def loss_fn(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
+            remat: str = "full"):
+    """Mean token cross-entropy of ``batch`` ({"tokens", "labels"}, both
+    (B, S); label -1 = ignore) through the tied embedding or the head,
+    chunked over the sequence (each chunk checkpointed unless ``remat``
+    is ``"none"``).  The dense blocks add no auxiliary loss (the
+    reference's ``aux`` is 0 for them)."""
+    hidden = forward_hidden(params, batch, cfg, remat)
+    if cfg.tie_embeddings:
+        return L.chunked_softmax_xent(
+            hidden, params["embed"]["embedding"], batch["labels"],
+            transpose=True, remat=remat != "none")
+    return L.chunked_softmax_xent(hidden, params["head"]["w"],
+                                  batch["labels"], transpose=False,
+                                  remat=remat != "none")
 
 
 def _logits(params: Params, x, cfg: ModelConfig):
@@ -214,5 +272,5 @@ def decode_step(params: Params, batch: Dict[str, Any], cache: Params,
 
 __all__ = [
     "model_specs", "prefill", "decode_step", "decode_cache_specs",
-    "effective_cache_len", "forward_hidden",
+    "effective_cache_len", "forward_hidden", "loss_fn",
 ]

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import flash_attention_3d
 from repro_torch.models import attention as attn
 
@@ -908,3 +909,100 @@ def test_segmented_mesh_replay_equals_eager_rounds(card, monkeypatch,
         assert rounds and all(seg >= 3 for seg, _ in rounds), progs
         assert progs["eval"] == (2, 1), progs
         assert eager["programs"] == {}
+
+
+# ---------------------------------------------------------------------------
+# K7's backward and LM training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,t,hd,causal,period,dtype", [
+    (3, 200, 200, 64, True, 0, torch.float32),       # ragged tails
+    (2, 4 * 200, 200, 128, True, 200, torch.float32),  # GQA-folded rows
+    (2, 3 * 90, 60, 32, True, 90, torch.float32),    # T under the period
+    (3, 100, 77, 32, False, 0, torch.float32),
+    (3, 130, 130, 64, True, 0, torch.bfloat16),
+    (2, 1, 1, 128, True, 0, torch.float32),
+])
+def test_flash_attention_backward_matches_plain(card, bh, s, t, hd, causal,
+                                                period, dtype):
+    """The K7 backward (one launch) against the explicit formula on the
+    card, from the forward kernel's lse; K7's own tolerance."""
+    q = _normal(11, (bh, s, hd), dtype, card)
+    k = _normal(12, (bh, t, hd), dtype, card)
+    v = _normal(13, (bh, t, hd), dtype, card)
+    do = _normal(14, (bh, s, hd), dtype, card)
+    o, lse = fa.flash_attention_3d_fwd(q, k, v, causal=causal,
+                                       causal_period=period, with_lse=True)
+    _, want_lse = ref.flash_attention_3d_ref(q, k, v, causal=causal,
+                                             causal_period=period,
+                                             with_lse=True)
+    torch.testing.assert_close(lse, want_lse, atol=4e-5, rtol=2e-5)
+    build.reset_launch_counts()
+    got = fa.flash_attention_3d_bwd(q, k, v, o, do, lse, causal=causal,
+                                    causal_period=period)
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_attention_bwd"] == 1
+    want = ref.flash_attention_3d_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                          causal_period=period)
+    atol, rtol = TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_vmap_grad_folds_into_one_launch_each(card):
+    """``vmap(grad)`` over 3 clients: one forward and one backward
+    launch, each client's gradient equal to its own ``grad``."""
+    from torch.func import grad, vmap
+    q, k, v = (_normal(15 + i, (3, 4, 100, 64), torch.float32, card)
+               for i in range(3))
+    w = _normal(18, (4, 100, 64), torch.float32, card)
+
+    def f(q, k, v):
+        return (flash_attention_3d(q, k, v, causal=True) * w).sum()
+
+    build.reset_launch_counts()
+    g = vmap(grad(f, argnums=(0, 1, 2)))(q, k, v)
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_attention"] == 1
+    assert build.launch_counts["flash_attention_bwd"] == 1
+    for i in range(3):
+        for a, b in zip(g, grad(f, argnums=(0, 1, 2))(q[i], k[i], v[i])):
+            assert torch.equal(a[i], b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-9b"])
+def test_loss_grad_on_the_card_matches_the_cpu(card, arch):
+    """``loss_fn``'s gradient through K7 and its backward (hd=32, the
+    GQA fold on yi-9b) against the CPU path's plain attention: the loss
+    within 1e-5 relative, each leaf within 1e-4 x its max |g|; one
+    forward and one backward launch a layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import init_params, model_specs, transformer
+    cfg = get_arch(arch).reduced(num_layers=2, d_model=128, num_heads=4,
+                                 num_kv_heads=2, vocab_size=128)
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(19).integers(
+        0, 128, (2, 33)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want_l, want_g = value_and_grad(
+        lambda p: transformer.loss_fn(p, batch, cfg, remat="none"), params)
+    build.reset_launch_counts()
+    got_l, got_g = value_and_grad(
+        lambda p: transformer.loss_fn(
+            p, pt.tmap(lambda x: x.to(card), batch), cfg, remat="full"),
+        pt.tmap(lambda x: x.to(card), params))
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_attention"] == 2 * cfg.num_layers
+    assert build.launch_counts["flash_attention_bwd"] == cfg.num_layers
+    assert abs(float(got_l) - float(want_l)) <= 1e-5 * abs(float(want_l))
+    for a, b in zip(pt.leaves(got_g), pt.leaves(want_g)):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-4 * float(b.abs().max())
