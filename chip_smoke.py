@@ -837,11 +837,22 @@ def kernel_checks(torch, syn, fem):
             q4, k4, v4, is_causal=True, enable_gqa=gqa is not None)
         do4 = do.view(out4.shape)
         atol, rtol = FLASH_TOL[dtype]
+        name = (f"flash_attention_3d_bwd ({bh}, {s}, {hd}) x T={t_len} "
+                f"{dtype}, {label}")
+
+        def kernel():
+            return flash_attention.flash_attention_3d_bwd(
+                q, k, v, o, do, lse, causal=True, causal_period=period)
+
+        # no atomics, the split walk's parts summed in a fixed order: a
+        # second call gives the first one's bits (phase 11's flat ==
+        # per_leaf round rests on it)
+        first, second = kernel(), kernel()
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"{name}: a second call differs from the first")
+        del first, second
         return case(
-            f"flash_attention_3d_bwd ({bh}, {s}, {hd}) x T={t_len} {dtype}, "
-            f"{label}",
-            lambda: flash_attention.flash_attention_3d_bwd(
-                q, k, v, o, do, lse, causal=True, causal_period=period),
+            name, kernel,
             lambda: ref.flash_attention_3d_bwd_ref(
                 q, k, v, o, do, lse, causal=True, causal_period=period),
             atol, nbytes, 10 * hd * pairs, calls=calls, plain_repeats=3,

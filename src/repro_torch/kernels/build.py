@@ -3,10 +3,12 @@
 Each ``csrc/<name>.cu`` compiles, at first use and from the repository's
 sources only, into ``build/kernels/lib<name>-<digest>.so`` under the
 repository root (a directory ``.gitignore`` lists), for ``sm_90a``.  The
-digest covers the source and the flags, so an edited kernel is rebuilt
-and a built one is reused.  The libraries export plain C functions that
-launch on the stream they are given and return ``cudaGetLastError()``;
-they include no PyTorch header, so each builds in seconds.
+digest covers the source, the headers of ``csrc`` it includes
+(``hopper.cuh``, which both K7 sources share) and the flags, so an
+edited kernel or header is rebuilt and a built one is reused.  The
+libraries export plain C functions that launch on the stream they are
+given and return ``cudaGetLastError()``; they include no PyTorch header,
+so each builds in seconds.
 
 Every wrapper counts its launches in :data:`launch_counts` (one per
 kernel launch, nowhere else), so a run can show that it went through the
@@ -17,11 +19,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
@@ -61,11 +64,29 @@ def _flags(name: str) -> Tuple[str, ...]:
     return COMMON_FLAGS + EXTRA_FLAGS[name]
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc`` it includes with
+    quotes, directly or through another, each once, in the order met."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / m.decode() for m in _INCLUDE.findall(
+            path.read_bytes())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(
-        src + " ".join(_flags(name)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

@@ -17,7 +17,8 @@ own order.
 forward also keeps each row's log-sum-exp (the kernel writes it when
 asked) and whose backward launches ``csrc/flash_attention_bwd.cu`` (a
 kernel with no TPU counterpart: the reference trains through its XLA
-attention), or on the CPU takes ``ref.flash_attention_3d_bwd_ref``.  Under
+attention; on the tensor cores like the forward, deterministic), or on
+the CPU takes ``ref.flash_attention_3d_bwd_ref``.  Under
 ``torch.func.vmap`` both fold the mapped dims into BH, so the K clients
 of a ``vmap(grad(loss))`` step cost one forward and one backward launch.
 A second derivative raises.
@@ -44,8 +45,38 @@ _FN = {torch.float32: "flash_attention_f32",
        torch.bfloat16: "flash_attention_bf16"}
 _BWD_FN = {torch.float32: "flash_attention_bwd_f32",
            torch.bfloat16: "flash_attention_bwd_bf16"}
-#: The backward's grid has one 64-row (64-key) block per tile on y.
-BWD_MAX_ROWS = 65535 * 64
+#: The backward walks 64-row (64-key) tiles, at most 65,535 of them.
+BWD_TILE = 64
+BWD_MAX_ROWS = 65535 * BWD_TILE
+#: Row tiles a dK/dV block walks at most without a period (4,096 rows).
+BWD_MAX_WALK = 64
+#: The backward's scratch rows of lse and D pad S to a multiple of this.
+BWD_ROW_PAD = 128
+
+
+def bwd_plan(s: int, causal_period: int = 0):
+    """The backward's split of a dK/dV block's walk over the ``ceil(s /
+    64)`` row tiles: ``(chunk, parts)``, part ``p`` walking tiles
+    ``[p * chunk, (p + 1) * chunk)``.  One folded group's tiles a part
+    under a period, else at most :data:`BWD_MAX_WALK`; it depends on the
+    shapes alone, not on BH, so a vmap fold sums each slice in the order
+    of its own call.  ``csrc/flash_attention_bwd.cu`` ``plan`` computes
+    the same."""
+    n_q = -(-s // BWD_TILE)
+    chunk = -(-causal_period // BWD_TILE) if causal_period > 0 \
+        else BWD_MAX_WALK
+    chunk = max(1, min(chunk, n_q))
+    return chunk, -(-n_q // chunk)
+
+
+def bwd_scratch_floats(bh: int, s: int, t: int, hd: int,
+                       causal_period: int = 0) -> int:
+    """Floats of the backward's scratch: lse * log2 e and D of ``bh``
+    slices of S padded to :data:`BWD_ROW_PAD` rows, then, where the walk
+    is split, each part's f32 dK and dV."""
+    s_pad = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
+    parts = bwd_plan(s, causal_period)[1]
+    return 2 * bh * s_pad + (2 * parts * bh * t * hd if parts > 1 else 0)
 
 
 def _check(q, k, v, causal_period: int) -> None:
@@ -120,7 +151,9 @@ def flash_attention_3d_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                            causal_period: int = 0):
     """The K7 backward's launch: ``(dq, dk, dv)`` of ``o`` = K7(q, k, v)
     under the cotangent ``do`` (``o``'s shape and dtype), from the
-    forward's f32 ``lse`` (BH, S); each in its input's dtype."""
+    forward's f32 ``lse`` (BH, S); each in its input's dtype.  On the card
+    it runs 3 or 4 CUDA launches (one count), with a scratch of
+    :func:`bwd_scratch_floats`; the same inputs give the same bits."""
     _check(q, k, v, causal_period)
     what = "flash_attention_3d_bwd"
     for name, t in (("o", o), ("do", do)):
@@ -147,14 +180,15 @@ def flash_attention_3d_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if bh == 0 or s == 0:
         return dq, dk.zero_(), dv.zero_()
-    q, k, v, o, do = (t_.contiguous() for t_ in (q, k, v, o, do))
+    q, k, v, o, do = (_aligned(t_) for t_ in (q, k, v, o, do))
     lse = lse.contiguous()
-    d = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(bwd_scratch_floats(bh, s, t, hd, causal_period),
+                          dtype=torch.float32, device=q.device)
     lib = build.library("flash_attention_bwd", _BWD_SIGNATURES)
     rc = getattr(lib, _BWD_FN[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), d.data_ptr(), bh, s, t, hd, int(causal),
+        dv.data_ptr(), scratch.data_ptr(), bh, s, t, hd, int(causal),
         causal_period, hd ** -0.5, build.stream())
     build.check_launch(rc, what)
     build.launch_counts["flash_attention_bwd"] += 1

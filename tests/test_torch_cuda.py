@@ -923,11 +923,24 @@ def test_segmented_mesh_replay_equals_eager_rounds(card, monkeypatch,
     (3, 100, 77, 32, False, 0, torch.float32),
     (3, 130, 130, 64, True, 0, torch.bfloat16),
     (2, 1, 1, 128, True, 0, torch.float32),
+    # the wgmma path at every head dim, non-causal, ragged with T < 64
+    (2, 300, 300, 32, True, 0, torch.bfloat16),
+    (2, 260, 260, 128, True, 0, torch.bfloat16),
+    (3, 192, 192, 64, False, 0, torch.bfloat16),
+    (2, 100, 50, 64, True, 0, torch.bfloat16),
+    # 8 folded groups at hd=128: the split walk and its closing sum
+    (1, 8 * 256, 256, 128, True, 256, torch.float32),
+    (1, 8 * 256, 256, 128, True, 256, torch.bfloat16),
+    # S != T; a walk past 4,096 rows without a period (split in 2)
+    (2, 300, 170, 64, True, 0, torch.float32),
+    (2, 130, 300, 64, False, 0, torch.float32),
+    (1, 4160, 4160, 32, True, 0, torch.float32),
 ])
 def test_flash_attention_backward_matches_plain(card, bh, s, t, hd, causal,
                                                 period, dtype):
-    """The K7 backward (one launch) against the explicit formula on the
-    card, from the forward kernel's lse; K7's own tolerance."""
+    """The K7 backward (one count, 3 or 4 CUDA launches) against the
+    explicit formula on the card, from the forward kernel's lse; K7's own
+    tolerance."""
     q = _normal(11, (bh, s, hd), dtype, card)
     k = _normal(12, (bh, t, hd), dtype, card)
     v = _normal(13, (bh, t, hd), dtype, card)
@@ -950,6 +963,27 @@ def test_flash_attention_backward_matches_plain(card, bh, s, t, hd, causal,
         assert g.dtype == dtype and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), atol=atol,
                                    rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_bitwise_repeatable(card, dtype):
+    """Two calls give the same bits (no atomics; the split walk's parts
+    summed in a fixed order), under a period that splits the walk."""
+    bh, s, t, hd, period = 2, 4 * 512, 512, 128, 512
+    q = _normal(21, (bh, s, hd), dtype, card)
+    k = _normal(22, (bh, t, hd), dtype, card)
+    v = _normal(23, (bh, t, hd), dtype, card)
+    do = _normal(24, (bh, s, hd), dtype, card)
+    o, lse = fa.flash_attention_3d_fwd(q, k, v, causal=True,
+                                       causal_period=period, with_lse=True)
+    assert fa.bwd_plan(s, period)[1] == 4
+    first = fa.flash_attention_3d_bwd(q, k, v, o, do, lse, causal=True,
+                                      causal_period=period)
+    second = fa.flash_attention_3d_bwd(q, k, v, o, do, lse, causal=True,
+                                       causal_period=period)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -693,3 +693,94 @@ def test_cpu_path_launches_no_kernel():
     assert set(build.launch_counts) >= {"codec_aggregate",
                                         "codec_aggregate_partial"}
     assert set(build.launch_counts.values()) == {0}
+
+
+# -- K7's backward: the split walk of its dK/dV blocks ----------------------
+
+def _bwd_walks(s, t, causal, period, own):
+    """How often the backward's dK/dV blocks of ``own`` keys (64 in f32,
+    128 in bf16: two warpgroups of 64) take each (row tile, key tile) pair
+    under ``flash_attention.bwd_plan``: part ``p`` of key block ``kb``
+    walks the tiles of ``[p * chunk, (p + 1) * chunk)`` whose rows see the
+    block's first key, and each 64 keys of the block take a walked tile
+    whose rows see their first key; ``vis`` marks the pairs that hold a
+    visible (row, key)."""
+    from repro_torch.kernels import flash_attention as fa
+    tile = fa.BWD_TILE
+    pos = np.arange(s) % period if period else np.arange(s)
+    keys = np.arange(t)
+    mask = (keys[None, :] <= pos[:, None]) if causal \
+        else np.ones((s, t), bool)
+    n_q, n_k = -(-s // tile), -(-t // tile)
+    vis = np.zeros((n_q, n_k), bool)
+    for i in range(n_q):
+        for j in range(n_k):
+            vis[i, j] = mask[i * tile:(i + 1) * tile,
+                             j * tile:(j + 1) * tile].any()
+    chunk, parts = fa.bwd_plan(s, period)
+    walks = np.zeros((n_q, n_k), int)
+    for kb in range(-(-t // own)):
+        k0 = kb * own
+        for p in range(parts):
+            for qt in range(p * chunk, min((p + 1) * chunk, n_q)):
+                rows = mask[qt * tile:(qt + 1) * tile]
+                if not rows[:, k0].any():
+                    continue
+                for kt in range(k0 // tile, min((k0 + own) // tile, n_k)):
+                    walks[qt, kt] += bool(rows[:, kt * tile].any())
+    return vis, walks, parts
+
+
+# the card tests' shapes, then chip_smoke's phase 3 shapes (h)-(l)
+BWD_SHAPES = [
+    (200, 200, True, 0), (4 * 200, 200, True, 200), (3 * 90, 60, True, 90),
+    (100, 77, False, 0), (130, 130, True, 0), (1, 1, True, 0),
+    (300, 300, True, 0), (260, 260, True, 0), (192, 192, False, 0),
+    (100, 50, True, 0), (8 * 256, 256, True, 256), (300, 170, True, 0),
+    (130, 300, False, 0), (4160, 4160, True, 0),
+    (4096, 4096, True, 0), (64, 64, True, 0), (8 * 2048, 2048, True, 2048),
+    (1000, 1000, True, 0)]
+
+
+@pytest.mark.parametrize("s,t,causal,period", BWD_SHAPES)
+@pytest.mark.parametrize("own", [64, 128])
+def test_bwd_plan_walks_every_visible_tile_pair_once(s, t, causal, period,
+                                                      own):
+    """Across the parts of every dK/dV block, each (row tile, key tile)
+    pair that holds a visible pair is walked exactly once, and no other."""
+    vis, walks, parts = _bwd_walks(s, t, causal, period, own)
+    assert np.array_equal(walks, vis.astype(int)), (s, t, period, parts)
+
+
+def test_bwd_plan_splits_the_folds_and_long_walks():
+    """One part a folded group (the yi-9b fold: 8 parts of 32 tiles, ~67 MB
+    of f32 partials), one part up to 4,096 rows unfolded; the plan does not
+    depend on BH."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.bwd_plan(8 * 2048, 2048) == (32, 8)
+    assert fa.bwd_plan(4096, 0) == (64, 1)
+    assert fa.bwd_plan(4160, 0) == (64, 2)
+    assert fa.bwd_plan(64, 0) == (1, 1)
+    assert fa.bwd_plan(3 * 90, 90) == (2, 3)
+    s_pad = 16384
+    assert fa.bwd_scratch_floats(4, 8 * 2048, 2048, 128, 2048) == \
+        2 * 4 * s_pad + 2 * 8 * 4 * 2048 * 128
+    assert 4 * 2 * 8 * 4 * 2048 * 128 == 67_108_864
+    # no split: lse and D only, S padded to 128 rows
+    assert fa.bwd_scratch_floats(3, 130, 77, 64) == 2 * 3 * 256
+
+
+def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
+    """An edit to a header a source includes (directly or through another
+    header) changes the library's path, so a stale build is not reused."""
+    assert [p.name for p in build.sources("flash_attention_bwd")] == \
+        ["flash_attention_bwd.cu", "hopper.cuh"]
+    (tmp_path / "k.cu").write_text('#include <math.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setitem(build.EXTRA_FLAGS, "k", ())
+    assert [p.name for p in build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    before = build.library_path("k")
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert build.library_path("k") != before
