@@ -44,7 +44,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    hd=128, causal_period=2048, f32; (d) a ragged length, BH=16,
    S=T=1000, hd=64; (e) non-causal, BH=8, S=T=512, hd=64; (f) and (g)
    qwen's prefill at B=2, S=1024 and S=128
-   (BH=32), and, writing the row log-sum-exp as training does, (a)'s
+   (BH=32); (m) and (n) qwen3-moe-235b-a22b's GQA-folded prefills, 16
+   query heads a KV head: B*Kv=4 slices of 16*4096 rows against 4096
+   keys and 8 of 16*1024 against 1024, hd=64, causal_period=S; and,
+   writing the row log-sum-exp as training does, (a)'s
    shape and the trainer's local-step fold (K*B*H = 128 slices of S=64):
    f32 within atol 4e-5 / rtol 2e-5 (the reference's own sweep
    tolerance) and bf16 within 4e-3 / 1e-2 (one bf16 ulp and a margin:
@@ -196,7 +199,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompt, 16 new tokens, cache 128), whose greedy tokens must equal the
    CPU path's; yi-9b at full width cut to 4 of its 48 layers (32 heads
    on 4 KV heads), B=1, S=2048, against the card's plain attention, K7
-   launched 4 times;
+   launched 4 times; then qwen3-moe-235b-a22b at full width (d=4096, 64
+   heads on 4 KV heads, hd=64, E=128 experts top-8, expert d_ff 1536,
+   V=151,936) cut to MOE_LAYERS=2 of its 94 layers, its weights drawn
+   on the card from a seeded CUDA generator: (a) one layer's
+   ``moe_ffn`` at B=1, S=4096 on seeded hidden states against the
+   per-expert plain version ``moe_ffn_plain`` on the card (within
+   MOE_REL x max |out|, the aux within MOE_AUX_TOL), with the dropped
+   pairs and the busiest expert's load against Cb=320; (b) ties, a zero
+   router and one with duplicated columns on inputs whose router logits
+   are exact in f32: the experts, their order and the slots equal the
+   CPU path's; (c) prefill at B=1, S=4096 and B=2, S=1024 against the
+   plain attention on the card (logits within LOGIT_REL, argmax equal;
+   K7 launched once a layer), with the routing choices that differ
+   between the two runs; where they differ and the logits do not agree,
+   the case is held with the K7 run's expert choices injected into the
+   plain run (``moe.route`` swapped: the plain run's own router softmax,
+   gates and aux on those experts), and says so; the idle share of one
+   profiled B=1, S=4096 prefill; (d) ``serve.generate`` at B=2 (16-token
+   prompt, 16 new tokens, cache 128): no kernel launched, greedy tokens
+   equal to the same generation with ``moe.moe_ffn`` swapped for the
+   plain version; the 24.6 GB are freed before phase 11;
 11. LM training at full width, qwen1.5-0.5b, random weights from seed
    0, f32: (a) ``loss_fn`` and its gradient at B=1, S=64 against the
    CPU path (the loss within LOGIT_REL relative, each leaf within
@@ -298,6 +321,15 @@ FLASH_TOL = {"f32": (4e-5, 2e-5), "bf16": (4e-3, 1e-2)}
 #: card's plain attention, relative to max |logit|: 24 layers of f32
 #: products summed in another order.
 LOGIT_REL = 1e-4
+
+#: Phase 10's MoE cells: qwen3-moe-235b-a22b at full width, cut to
+#: MOE_LAYERS of its 94 layers (6.1 B params, 24.6 GB in f32).
+MOE_LAYERS = 2
+#: Phase 10: one full-width ``moe_ffn`` against the per-expert plain
+#: version on the card, relative to max |out| (4,096-long f32 dot
+#: products in another order, 8 gated terms a token); the aux absolute.
+MOE_REL = 1e-4
+MOE_AUX_TOL = 1e-6
 
 #: Phase 11: the LM trainer's devices a round.  K=4 does not fit the
 #: 80 GB card: phase A's (K, nb) per-batch gradients of the 464 M-param
@@ -993,6 +1025,12 @@ def kernel_checks(torch, syn, fem):
              k7_case("qwen B=2 S=1024", 32, 1024, 1024, 64, True, "f32"),
              k7_case("qwen B=2 S=128", 32, 128, 128, 64, True, "f32",
                      calls=20),
+             # phase 10's qwen3-moe prefills: 16 query heads a KV head,
+             # folded into 16*S rows against S keys
+             k7_case("(m) qwen3-moe B=1 S=4096 GQA-folded", 4, 16 * 4096,
+                     4096, 64, True, "f32", period=4096, gqa=(1, 64, 4)),
+             k7_case("(n) qwen3-moe B=2 S=1024 GQA-folded", 8, 16 * 1024,
+                     1024, 64, True, "f32", period=1024, gqa=(2, 64, 4)),
              # phase 11's train step (S=4096) and the trainer's folded
              # launches (S=64): K*B*H rows of a local step, K*nb*B*H of
              # phase A's gradients
@@ -2746,6 +2784,56 @@ def device_share(torch, fn, label: str, host_ops: bool = True):
     return idle
 
 
+def card_tokens(torch, seed, vocab, B, S):
+    """numpy-seeded (B, S) token ids on the card."""
+    a = np.random.default_rng(seed).integers(0, vocab, (B, S))
+    return torch.from_numpy(a.astype(np.int32)).cuda()
+
+
+def logits_agree(torch, got, want):
+    """(agree, max |got - want|, max |want|): within LOGIT_REL x max
+    |want|, finite, the same argmax."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    ok = (bool(torch.isfinite(got).all()) and err <= LOGIT_REL * scale
+          and torch.equal(got.argmax(-1), want.argmax(-1)))
+    return ok, err, scale
+
+
+def compare_logits(torch, label, got, want):
+    ok, err, scale = logits_agree(torch, got, want)
+    check(bool(torch.isfinite(got).all()), f"{label}: logits not finite")
+    check(ok, f"{label}: logits differ by {err} (bound {LOGIT_REL} x "
+              f"{scale}) or their argmax differs")
+    print(f"  {label}: max |logit diff| {err:.3g} (bound {LOGIT_REL:g} x "
+          f"max |logit| {scale:.4g}); argmax equal")
+
+
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """``module.name`` is ``value`` inside the block (for comparison
+    runs: the plain attention, the plain MoE, a recorded routing)."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def card_generator(torch, seed: int):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def init_on_card(torch, specs, seed: int):
+    """``init_params`` of ``specs`` drawn on the card from a seeded CUDA
+    generator (the same initialisers and scales): the host draws ~124 M
+    values a second, ~50 s for qwen3-moe's 6.1 B."""
+    from repro_torch.models import init_params
+    return init_params(specs, card_generator(torch, seed))
+
+
 def lm_phase(torch, counts):
     """Phase 10: the LM stack's prefill and serve paths at full width;
     returns its timings (ms) and idle share."""
@@ -2758,10 +2846,6 @@ def lm_phase(torch, counts):
 
     out = {}
 
-    def tokens(seed, vocab, B, S):
-        a = np.random.default_rng(seed).integers(0, vocab, (B, S))
-        return torch.from_numpy(a.astype(np.int32)).cuda()
-
     def k7_launches(fn):
         """``fn()`` and the K7 launches it made."""
         before = counts["flash_attention"]
@@ -2772,28 +2856,12 @@ def lm_phase(torch, counts):
     def plain_on_card(fn):
         """``fn()`` with the prefill's attention swapped for the plain
         versions (on the card, for comparison only)."""
-        saved = attention.attention
-        attention.attention = attention.plain_attention
-        try:
+        with swapped(attention, "attention", attention.plain_attention):
             return fn()
-        finally:
-            attention.attention = saved
-
-    def compare(label, got, want):
-        got, want = got.float().cpu(), want.float().cpu()
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max())
-        check(bool(torch.isfinite(got).all()), f"{label}: logits not finite")
-        check(err <= LOGIT_REL * scale, f"{label}: logits differ by {err} > "
-                                        f"{LOGIT_REL} x {scale}")
-        check(torch.equal(got.argmax(-1), want.argmax(-1)),
-              f"{label}: argmax differs")
-        print(f"  {label}: max |logit diff| {err:.3g} (bound {LOGIT_REL:g} x "
-              f"max |logit| {scale:.4g}); argmax equal")
 
     def prefill_case(cfg, params, B, S, what, against_cpu=None):
         step = make_prefill_step(cfg)
-        toks = tokens(B * S, cfg.vocab_size, B, S)
+        toks = card_tokens(torch, B * S, cfg.vocab_size, B, S)
         logits, n = k7_launches(lambda: step(params, {"tokens": toks}))
         check(logits.shape == (B, 1, cfg.vocab_size), f"{what}: shape "
                                                         f"{logits.shape}")
@@ -2801,12 +2869,12 @@ def lm_phase(torch, counts):
                                    f"prefill, not {cfg.num_layers}")
         if against_cpu is not None:
             want = step(against_cpu, {"tokens": toks.cpu()})
-            compare(f"{what} B={B} S={S}, card (K7) vs CPU path", logits,
-                    want)
+            compare_logits(torch, f"{what} B={B} S={S}, card (K7) vs CPU "
+                                  f"path", logits, want)
             return
         want = plain_on_card(lambda: step(params, {"tokens": toks}))
-        compare(f"{what} B={B} S={S}, K7 vs plain attention on the card",
-                logits, want)
+        compare_logits(torch, f"{what} B={B} S={S}, K7 vs plain attention "
+                              f"on the card", logits, want)
         ms = cuda_ms(torch, lambda: step(params, {"tokens": toks}), 1,
                      repeats=3)
         plain = cuda_ms(torch, lambda: plain_on_card(
@@ -2831,7 +2899,7 @@ def lm_phase(torch, counts):
         torch, lambda: step(params, {"tokens": toks}),
         "qwen1.5-0.5b B=1 S=4096 prefill")
 
-    prompt = tokens(16, cfg.vocab_size, 2, 16)
+    prompt = card_tokens(torch, 16, cfg.vocab_size, 2, 16)
     before = dict(counts)
     gen = serve.generate(params, cfg, prompt, 16, 128)
     check(_delta(before, counts) == {}, "the decode path launched a kernel")
@@ -2856,6 +2924,190 @@ def lm_phase(torch, counts):
           f"{time.perf_counter() - t0:.1f} s")
     prefill_case(ycfg, yparams, 1, 2048, "yi-9b (4 layers)")
     del yparams
+    torch.cuda.empty_cache()
+    out.update(moe_cells(torch, counts))
+    return out
+
+
+def moe_cells(torch, counts):
+    """Phase 10's MoE cells: qwen3-moe-235b-a22b at full width, MOE_LAYERS
+    of its 94 layers, random weights drawn on the card from seed 0, f32:
+    (a) one ``moe_ffn`` against the per-expert plain version, (b) ties
+    against the CPU path, (c) prefill through K7 against the plain
+    attention, (d) ``serve.generate`` against the plain MoE; returns
+    their timings (ms) and the prefill's idle share."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention, model_specs, moe, param_count
+
+    out = {}
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b"),
+                              num_layers=MOE_LAYERS)
+    mcfg, name = cfg.moe, f"qwen3-moe ({MOE_LAYERS} layers)"
+    E, K = mcfg.num_experts, mcfg.top_k
+    t0 = time.perf_counter()
+    params = init_on_card(torch, model_specs(cfg), 0)
+    torch.cuda.synchronize()
+    print(f"  qwen3-moe-235b-a22b at full width, {MOE_LAYERS} of 94 layers "
+          f"(E={E}, top-{K}, expert d_ff {cfg.d_ff}): "
+          f"{param_count(model_specs(cfg)):,} params (f32), drawn on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
+
+    # (a) one layer's MoE at B=1, S=4096 against the per-expert version
+    layer = pt.tmap(lambda a: a[0], params["stack"]["pos_0"]["moe"])
+    S = 4096
+    gen = card_generator(torch, 1)
+    x = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+    Cb = moe.group_capacity(S, mcfg)
+    got, aux = moe.moe_ffn(layer, x, mcfg)
+    want, aux_plain = moe.moe_ffn_plain(layer, x, mcfg)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "moe_ffn: output not finite")
+    check(err <= MOE_REL * scale, f"moe_ffn: differs from the per-expert "
+                                  f"version by {err} > {MOE_REL} x {scale}")
+    aux_err = abs(float(aux) - float(aux_plain))
+    check(aux_err <= MOE_AUX_TOL, f"moe_ffn: aux differs by {aux_err}")
+    r = moe.route(layer, x, mcfg)
+    dropped = int((moe.slots(r.idx, E, Cb) == E * Cb).sum())
+    load = torch.bincount(r.idx.reshape(-1), minlength=E)
+    out[f"{name} moe_ffn B=1 S={S}"] = cuda_ms(
+        torch, lambda: moe.moe_ffn(layer, x, mcfg), 1, repeats=3)
+    out[f"{name} moe_ffn B=1 S={S} plain"] = cuda_ms(
+        torch, lambda: moe.moe_ffn_plain(layer, x, mcfg), 1, repeats=3)
+    print(f"  (a) moe_ffn, one layer, B=1 S={S}: max |diff| {err:.3g} "
+          f"against the per-expert version (bound {MOE_REL:g} x max |out| "
+          f"{scale:.4g}), aux {float(aux):.7f} (diff {aux_err:.2g}); "
+          f"{dropped} of {S * K} pairs dropped; busiest expert "
+          f"{int(load.max())} pairs against Cb={Cb} (mean "
+          f"{S * K // E}); {out[f'{name} moe_ffn B=1 S={S}']:.2f} ms, "
+          f"per-expert {out[f'{name} moe_ffn B=1 S={S} plain']:.2f} ms")
+    del got, want, x, r
+
+    # (b) ties: a zero router and duplicated columns, card vs CPU path
+    for router in ("zero", "duplicated"):
+        rng = np.random.default_rng(5)
+        B, S = 2, 1024
+        xt = torch.from_numpy(rng.integers(-1, 2, (B, S, cfg.d_model))
+                              .astype(np.float32))
+        # router logits in multiples of 2^-10, exact in f32 on both
+        # devices: a tie is a tie on the card and on the CPU
+        rt = torch.zeros(cfg.d_model, E)
+        if router == "duplicated":
+            rt[:, 0::2] = torch.from_numpy(
+                rng.integers(-1, 2, (cfg.d_model, E // 2)) / 1024).float()
+            rt[:, 1::2] = rt[:, 0::2]
+        Cb = moe.group_capacity(S, mcfg)
+        on_card = moe.route({"router": rt.cuda()}, xt.cuda(), mcfg)
+        on_cpu = moe.route({"router": rt}, xt, mcfg)
+        slots_card = moe.slots(on_card.idx, E, Cb).cpu()
+        slots_cpu = moe.slots(on_cpu.idx, E, Cb)
+        check(torch.equal(on_card.idx.cpu(), on_cpu.idx),
+              f"ties ({router} router): the card's experts differ from the "
+              f"CPU path's")
+        check(torch.equal(slots_card, slots_cpu),
+              f"ties ({router} router): the card's slots differ from the "
+              f"CPU path's")
+        if router == "zero":
+            check(bool((on_cpu.idx == torch.arange(K)).all()),
+                  "ties (zero router): not experts 0..7, lower first")
+        print(f"  (b) ties, {router} router, B={B} S={S}: experts, order "
+              f"and slots equal the CPU path's; "
+              f"{int((slots_cpu == E * Cb).sum())} of {B * S * K} pairs "
+              f"dropped on both")
+
+    # (c) prefill through K7 against the plain attention on the card
+    step = make_prefill_step(cfg)
+
+    def recording(store):
+        real = moe.route
+
+        def spy(p, h, c):
+            store.append(real(p, h, c))
+            return store[-1]
+        return spy
+
+    def injecting(store):
+        """The plain run's own router softmax, gates and aux, on the
+        experts the K7 run chose."""
+        real, it = moe.route, iter(store)
+        return lambda p, h, c: moe.choose(real(p, h, c).probs,
+                                          next(it).idx, c)
+
+    def plain(fn, route=None):
+        with swapped(attention, "attention", attention.plain_attention), \
+                swapped(moe, "route", route or moe.route):
+            return fn()
+
+    for B, S in ((1, 4096), (2, 1024)):
+        toks = card_tokens(torch, B * S + 7, cfg.vocab_size, B, S)
+        batch = {"tokens": toks}
+        k7_routes, plain_routes = [], []
+        before = counts["flash_attention"]
+        with swapped(moe, "route", recording(k7_routes)):
+            logits = step(params, batch)
+        torch.cuda.synchronize()
+        n = counts["flash_attention"] - before
+        check(logits.shape == (B, 1, cfg.vocab_size),
+              f"{name}: shape {tuple(logits.shape)}")
+        check(n == cfg.num_layers, f"{name}: K7 launched {n} times in one "
+                                   f"prefill, not {cfg.num_layers}")
+        want = plain(lambda: step(params, batch), recording(plain_routes))
+        flips = sum(int((a.idx != b.idx).sum())
+                    for a, b in zip(k7_routes, plain_routes))
+        # tokens of a layer whose set of experts differs (not the order)
+        moved = sum(int((a.idx.sort(-1)[0] != b.idx.sort(-1)[0]).any(-1)
+                        .sum()) for a, b in zip(k7_routes, plain_routes))
+        label = f"{name} B={B} S={S}, K7 vs plain attention on the card"
+        ok, err, _ = logits_agree(torch, logits, want)
+        if flips and not ok:
+            # a flipped near-tie between the 8th and 9th expert, not K7:
+            # hold the case on the K7 run's expert choices
+            print(f"  {name} B={B} S={S}: without the K7 run's choices, "
+                  f"max |logit diff| {err:.3g}")
+            want = plain(lambda: step(params, batch), injecting(k7_routes))
+            label += ", the K7 run's expert choices injected"
+        compare_logits(torch, label, logits, want)
+        print(f"    routing choices that differ between the two runs: "
+              f"{flips} of {B * S * K * cfg.num_layers}; (token, layer) "
+              f"pairs whose experts differ: {moved} of "
+              f"{B * S * cfg.num_layers}")
+        ms = cuda_ms(torch, lambda: step(params, batch), 1, repeats=3)
+        plain_ms = cuda_ms(torch, lambda: plain(lambda: step(params, batch)),
+                           1, repeats=3)
+        out[f"{name} B={B} S={S}"] = ms
+        out[f"{name} B={B} S={S} plain attention"] = plain_ms
+        print(f"    {ms:.2f} ms per prefill ({B * S / ms * 1e3:.0f} prompt "
+              f"tokens/s); with the plain attention {plain_ms:.2f} ms")
+        if S == 4096:
+            out[f"idle share, {name} B=1 S=4096 prefill"] = device_share(
+                torch, lambda: step(params, batch),
+                f"{name} B=1 S=4096 prefill")
+        del logits, want, k7_routes, plain_routes
+
+    # (d) serve: greedy tokens against the same generation on the plain MoE
+    prompt = card_tokens(torch, 16, cfg.vocab_size, 2, 16)
+    before = dict(counts)
+    gen = serve.generate(params, cfg, prompt, 16, 128)
+    check(_delta(before, counts) == {}, f"{name}: the decode path launched "
+                                        f"a kernel")
+    with swapped(moe, "moe_ffn", moe.moe_ffn_plain):
+        gen_plain = serve.generate(params, cfg, prompt, 16, 128)
+    check(torch.equal(gen.tokens, gen_plain.tokens),
+          f"{name} serve: greedy tokens differ from the plain MoE's: "
+          f"{gen.tokens.tolist()} vs {gen_plain.tokens.tolist()}")
+    out[f"{name} serve ms per decode step (B=2)"] = gen.decode_s / 16 * 1e3
+    out[f"{name} serve ms per prompt step (B=2)"] = gen.prompt_s / 16 * 1e3
+    print(f"  (d) serve.generate, B=2, 16-token prompt, 16 new tokens, "
+          f"cache 128: greedy tokens equal the plain MoE's; "
+          f"{out[f'{name} serve ms per decode step (B=2)']:.2f} ms per "
+          f"decode step, {out[f'{name} serve ms per prompt step (B=2)']:.2f}"
+          f" ms per prompt step (host clock; the plain MoE "
+          f"{gen_plain.decode_s / 16 * 1e3:.2f}); tokens "
+          f"{gen.tokens.tolist()}")
+    del params
     torch.cuda.empty_cache()
     return out
 

@@ -16,6 +16,7 @@ are its local mean, then ``sharding.tree_pmean`` over the ranks (every
 rank holding the same count, the mean of all pods).  The reference's
 XLA shardings inside a pod (``_client_pspecs``: FSDP over ``data``,
 tensor parallel over ``model``) are not ported: a pod is one rank here.
+The MoE archs are refused (``steps.check_trainable``).
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ def make_podfed_round_step(cfg: ModelConfig,
     (every pod at the mean iterate, ``g_t`` the phase-A mean) and
     ``{"loss": the pods' mean loss at the new iterate on their first
     batch}``."""
+    steps.check_trainable(cfg)
     if local_steps < 1:
         raise ValueError(f"local_steps={local_steps} must be >= 1")
 

@@ -1,13 +1,15 @@
 """Serving driver: a teacher-forced prompt, then batched greedy decode.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 Counterpart of ``repro/launch/serve.py``, with its CLI and defaults (the
 reduced preset of ``--arch``).  As there, the prompt is fed through
 ``decode_step`` one token at a time, which fills the ring-buffer KV
-cache, and the model then decodes greedily.  Runs on the card unless
-``--device cpu``.  The weights are drawn by ``init_params`` from
+cache, and the model then decodes greedily.  The dense archs and the
+MoE archs (qwen3-moe-235b-a22b, arctic-480b) are served.  Runs on the
+card unless ``--device cpu``.  The weights are drawn by ``init_params`` from
 ``--seed``, and so is the prompt (from a ``torch.Generator``, not the
 reference's ``jax.random``).
 """

@@ -20,6 +20,8 @@ Counterpart of ``repro/launch/steps.py``:
 The train steps take gradients with ``torch.autograd.grad`` (so every
 remat policy works; on the card attention goes through K7 and its
 backward), return new state dicts and never write into their inputs.
+Serving takes the dense and the MoE archs; the train side
+(:func:`check_trainable`) refuses the MoE archs as not yet ported.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig, _not_ported
 from repro_torch.core import pytree as pt
 from repro_torch.models import transformer
 
@@ -44,9 +46,18 @@ class ShapeDtype:
 # Train state and batches
 # ---------------------------------------------------------------------------
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise unless the train side takes ``cfg``: the dense archs only
+    (training the MoE blocks is not yet ported)."""
+    transformer._check_ported(cfg)
+    if cfg.is_moe:
+        raise _not_ported(f"{cfg.name}: training the MoE blocks")
+
+
 def train_state_specs(cfg: ModelConfig, algo: str = "feddane") -> dict:
     """ParamSpec tree of the train state: FedDANE carries anchor and g_t
     beside the params."""
+    check_trainable(cfg)
     p = transformer.model_specs(cfg)
     if algo == "fedavg":
         return {"params": p}
@@ -62,8 +73,8 @@ def abstract_train_state(cfg: ModelConfig, algo: str = "feddane",
 def train_batch_specs(cfg: ModelConfig, shape: InputShape
                       ) -> Dict[str, ShapeDtype]:
     """Tokens and labels, (B, S) int32; the audio and patch frontends
-    are refused as not yet ported."""
-    transformer._check_ported(cfg)
+    and the MoE archs are refused as not yet ported."""
+    check_trainable(cfg)
     bs = (shape.global_batch, shape.seq_len)
     return {"tokens": ShapeDtype(bs, torch.int32),
             "labels": ShapeDtype(bs, torch.int32)}
@@ -129,6 +140,7 @@ def make_feddane_round_step(cfg: ModelConfig, *, eta: float = 1e-3,
                             mu: float = 0.01, remat: str = "full"
                             ) -> Callable:
     """One FedDANE round participation (module docstring)."""
+    check_trainable(cfg)
 
     def step(state, batch):
         lf = lambda p: transformer.loss_fn(p, batch, cfg, remat=remat)
@@ -148,6 +160,8 @@ def make_feddane_round_step(cfg: ModelConfig, *, eta: float = 1e-3,
 
 def make_fedavg_step(cfg: ModelConfig, *, eta: float = 1e-3,
                      remat: str = "full") -> Callable:
+    check_trainable(cfg)
+
     def step(state, batch):
         lf = lambda p: transformer.loss_fn(p, batch, cfg, remat=remat)
         loss, g = value_and_grad(lf, state["params"])
@@ -161,6 +175,7 @@ def make_feddane_pipelined_step(cfg: ModelConfig, *, eta: float = 1e-3,
                                 ) -> Callable:
     """§V-C variant: the stale gradient correction, ONE forward and
     backward a round."""
+    check_trainable(cfg)
 
     def step(state, batch):
         lf = lambda p: transformer.loss_fn(p, batch, cfg, remat=remat)

@@ -25,7 +25,8 @@ checkpoints); on the card its attention is K7 and its backward, one
 launch of each a layer for all the selected clients of a local step.
 Round times come from CUDA events on the card (the host clock on the
 CPU); checkpoints go through ``checkpoint/store.py`` every
-``--ckpt-every`` rounds.  The audio and patch frontends are not ported.
+``--ckpt-every`` rounds.  The audio and patch frontends and the MoE
+archs' training are not yet ported (``steps.check_trainable``).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from repro_torch.core.client import SOLVER_MODES
 from repro_torch.data.batching import FederatedData
 from repro_torch.data.leaf_like import generate_shakespeare_like
 from repro_torch.device import resolve_device
+from repro_torch.launch.steps import check_trainable
 from repro_torch.models import init_params, model_specs, param_count
 from repro_torch.models import transformer
 
@@ -64,6 +66,7 @@ def make_lm_fed_data(num_devices: int, seq_len: int, batch_size: int,
 def make_lm_loss(cfg):
     """The trainer's loss over a ``(b, seq_len + 1)`` batch: the first
     ``seq_len`` positions, no remat."""
+    check_trainable(cfg)
 
     def loss_fn(params, batch):
         b = {"tokens": batch["tokens"][:, :-1],

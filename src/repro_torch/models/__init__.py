@@ -1,6 +1,8 @@
 """Models of the port: the paper's experiment models (logistic
-regression and the two LSTMs, ``models/small.py``) and the dense LM
-stack (``models/transformer.py``)."""
+regression and the two LSTMs, ``models/small.py``) and the LM stack
+(``models/transformer.py``, dense and MoE blocks; the MoE layer in
+``models/moe.py``)."""
+from repro_torch.models.moe import group_capacity, moe_ffn, moe_specs
 from repro_torch.models.param import (ParamSpec, init_params, param_count,
                                       params_from_numpy, params_to_numpy)
 from repro_torch.models.transformer import (decode_cache_specs, decode_step,
@@ -11,4 +13,4 @@ from repro_torch.models.transformer import (decode_cache_specs, decode_step,
 __all__ = ["ParamSpec", "init_params", "param_count", "params_from_numpy",
            "params_to_numpy", "model_specs", "prefill", "decode_step",
            "decode_cache_specs", "effective_cache_len", "forward_hidden",
-           "loss_fn"]
+           "loss_fn", "moe_specs", "moe_ffn", "group_capacity"]

@@ -41,7 +41,8 @@ def _init_one(spec: ParamSpec, gen: torch.Generator, dtype, device):
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    draw = torch.randn(spec.shape, generator=gen, dtype=torch.float32)
+    draw = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
     if spec.init == "embed":
         return (draw * 0.02).to(dtype=dtype, device=device)
     # fan-in scaled normal; the output dim is the last axis by convention
@@ -57,9 +58,9 @@ def _init_one(spec: ParamSpec, gen: torch.Generator, dtype, device):
 
 def init_params(spec_tree, generator: torch.Generator,
                 dtype=torch.float32, device=None):
-    """Real parameters for ``spec_tree``, drawn on the CPU from
-    ``generator`` (so a seed gives the same values on every device) and
-    moved to ``device`` (the card unless ``device="cpu"``)."""
+    """Real parameters for ``spec_tree``, drawn from ``generator`` on
+    its device (a CPU generator gives a seed the same values on every
+    device) and moved to ``device`` (the card unless ``device="cpu"``)."""
     dev = resolve_device(device)
     return pt.tmap(lambda s: _init_one(s, generator, dtype, dev), spec_tree)
 

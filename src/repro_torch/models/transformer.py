@@ -1,7 +1,10 @@
-"""Model assembly for the dense LM stack: specs, loss, prefill and decode.
+"""Model assembly for the LM stack: specs, loss, prefill and decode.
 
-Counterpart of ``repro/models/transformer.py`` for the dense ``attn``
-pattern (qwen1.5-0.5b, yi-9b, minitron-8b, phi4-mini-3.8b).  The
+Counterpart of ``repro/models/transformer.py`` for the ``attn`` and
+``attn_moe`` patterns: the dense archs (qwen1.5-0.5b, yi-9b,
+minitron-8b, phi4-mini-3.8b) and the MoE archs (qwen3-moe-235b-a22b,
+arctic-480b), whose blocks run ``models/moe.py``'s ``moe_ffn`` in
+place of the SwiGLU FFN.  The
 parameter tree keeps the reference's keys and stacked layout
 (``embed/embedding``, ``stack/pos_0/attn/wq`` of shape ``[R, d, H, hd]``,
 ...), so ``models.param.params_from_numpy`` carries the reference's
@@ -22,12 +25,13 @@ Public entry points (functions over param trees):
 - ``model_specs(cfg)``                        parameter ParamSpec tree
 - ``forward_hidden(params, batch, cfg, remat)`` final hidden states
 - ``loss_fn(params, batch, cfg, remat)``      mean token cross-entropy
+                                              (+ the MoE blocks' aux)
 - ``prefill(params, batch, cfg)``             last-position logits
 - ``decode_step(params, batch, cache, cfg)``  one-token decode
 - ``decode_cache_specs(cfg, batch, cache_len)`` cache ParamSpec tree
 
-MoE, Mamba and xLSTM blocks, encoder-decoder models and the patch
-frontend are refused as not yet ported.
+Mamba and xLSTM blocks, encoder-decoder models and the patch frontend
+are refused as not yet ported.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.configs.base import ModelConfig, _not_ported
 from repro_torch.core import pytree as pt
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models.param import ParamSpec
 
 Params = Dict[str, Any]
@@ -54,7 +59,7 @@ Params = Dict[str, Any]
 
 def _check_ported(cfg: ModelConfig) -> None:
     for kind in cfg.pattern:
-        if kind != cb.ATTN:
+        if kind not in (cb.ATTN, cb.ATTN_MOE):
             raise _not_ported(f"{cfg.name}: block kind {kind!r}")
     if cfg.encoder_decoder:
         raise _not_ported(f"{cfg.name}: encoder_decoder")
@@ -62,15 +67,19 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise _not_ported(f"{cfg.name}: frontend {cfg.frontend!r}")
 
 
-def _block_specs(cfg: ModelConfig) -> dict:
+def _block_specs(kind: str, cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    return {
+    s = {
         "ln1": L.norm_spec(d),
         "attn": attn.attention_specs(d, cfg.num_heads, cfg.num_kv_heads, hd,
                                      cfg.qkv_bias),
         "ln2": L.norm_spec(d),
-        "ffn": L.swiglu_ffn_specs(d, cfg.d_ff),
     }
+    if kind == cb.ATTN_MOE:
+        s["moe"] = moe.moe_specs(d, cfg.d_ff, cfg.moe)
+    else:
+        s["ffn"] = L.swiglu_ffn_specs(d, cfg.d_ff)
+    return s
 
 
 def _stack(spec: ParamSpec, repeats: int) -> ParamSpec:
@@ -81,8 +90,8 @@ def _stack(spec: ParamSpec, repeats: int) -> ParamSpec:
 def _stack_specs(cfg: ModelConfig) -> dict:
     repeats = cfg.num_layers // len(cfg.pattern)
     return {f"pos_{p}": pt.tmap(lambda s: _stack(s, repeats),
-                                _block_specs(cfg))
-            for p, _ in enumerate(cfg.pattern)}
+                                _block_specs(kind, cfg))
+            for p, kind in enumerate(cfg.pattern)}
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -101,14 +110,23 @@ def model_specs(cfg: ModelConfig) -> dict:
 # Prefill block application
 # ---------------------------------------------------------------------------
 
+def _ffn(p: Params, h, cfg: ModelConfig):
+    """The block's FFN on ``h``: (out, the MoE aux loss or None)."""
+    if "moe" in p:
+        return moe.moe_ffn(p["moe"], h, cfg.moe)
+    return L.swiglu_ffn(p["ffn"], h), None
+
+
 def _apply_block(p: Params, x, cfg: ModelConfig, positions, *,
                  causal: bool = True):
+    """The block's output and its aux loss (None for a dense block)."""
     h = L.rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     q, k, v = attn.qkv_project(p["attn"], h, positions, cfg.rope_theta)
     x = x + attn.out_project(p["attn"],
                              attn.attention(q, k, v, causal=causal))
     h = L.rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-    return x + L.swiglu_ffn(p["ffn"], h)
+    y, aux = _ffn(p, h, cfg)
+    return x + y, aux
 
 
 def _layer(stack: Params, r: int) -> Params:
@@ -138,32 +156,50 @@ def _remat(fn, policy: str):
                      f"{REMAT_POLICIES}")
 
 
+def _add_aux(total, a):
+    return a if total is None else (total if a is None else total + a)
+
+
 def _run_stack(stack: Params, x, cfg: ModelConfig, positions, *,
                causal: bool = True, remat: str = "none"):
+    """The layer stack's output and the sum of its blocks' aux losses
+    over the layers (None where every block is dense)."""
     repeats = cfg.num_layers // len(cfg.pattern)
+    aux = None
     for r in range(repeats):
         layer = _layer(stack, r)
 
         def body(y, layer=layer):
+            layer_aux = None
             for i, _ in enumerate(cfg.pattern):
-                y = _apply_block(layer[f"pos_{i}"], y, cfg, positions,
-                                 causal=causal)
-            return y
+                y, a = _apply_block(layer[f"pos_{i}"], y, cfg, positions,
+                                    causal=causal)
+                layer_aux = _add_aux(layer_aux, a)
+            return y, layer_aux
 
-        x = _remat(body, remat)(x)
-    return x
+        x, a = _remat(body, remat)(x)
+        aux = _add_aux(aux, a)
+    return x, aux
+
+
+def _forward_hidden_aux(params: Params, batch: Dict[str, Any],
+                        cfg: ModelConfig, remat: str = "none"):
+    """Final-norm hidden states (B, S, d) of ``batch["tokens"]`` (B, S),
+    each layer under the ``remat`` policy, and the MoE blocks' aux loss
+    summed over the layers (None for a dense arch, whose aux is 0)."""
+    _check_ported(cfg)
+    x = L.embed(params["embed"], batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = _run_stack(params["stack"], x, cfg, positions, causal=True,
+                        remat=remat)
+    return L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps), aux
 
 
 def forward_hidden(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
                    remat: str = "none"):
     """Final-norm hidden states (B, S, d) of ``batch["tokens"]`` (B, S),
     each layer under the ``remat`` policy."""
-    _check_ported(cfg)
-    x = L.embed(params["embed"], batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(params["stack"], x, cfg, positions, causal=True,
-                   remat=remat)
-    return L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _forward_hidden_aux(params, batch, cfg, remat)[0]
 
 
 def loss_fn(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
@@ -171,16 +207,18 @@ def loss_fn(params: Params, batch: Dict[str, Any], cfg: ModelConfig,
     """Mean token cross-entropy of ``batch`` ({"tokens", "labels"}, both
     (B, S); label -1 = ignore) through the tied embedding or the head,
     chunked over the sequence (each chunk checkpointed unless ``remat``
-    is ``"none"``).  The dense blocks add no auxiliary loss (the
-    reference's ``aux`` is 0 for them)."""
-    hidden = forward_hidden(params, batch, cfg, remat)
+    is ``"none"``), plus the MoE blocks' load-balance loss.  The dense
+    blocks add none (the reference's ``aux`` is 0 for them)."""
+    hidden, aux = _forward_hidden_aux(params, batch, cfg, remat)
     if cfg.tie_embeddings:
-        return L.chunked_softmax_xent(
+        ce = L.chunked_softmax_xent(
             hidden, params["embed"]["embedding"], batch["labels"],
             transpose=True, remat=remat != "none")
-    return L.chunked_softmax_xent(hidden, params["head"]["w"],
-                                  batch["labels"], transpose=False,
-                                  remat=remat != "none")
+    else:
+        ce = L.chunked_softmax_xent(hidden, params["head"]["w"],
+                                    batch["labels"], transpose=False,
+                                    remat=remat != "none")
+    return ce if aux is None else ce + aux
 
 
 def _logits(params: Params, x, cfg: ModelConfig):
@@ -242,7 +280,7 @@ def _apply_block_decode(p: Params, x, cache: Params, cfg: ModelConfig,
     o = attn.cached_attention(q, kc, vc, cache_len=cache_len)
     x = x + attn.out_project(p["attn"], o)
     h = L.rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-    return x + L.swiglu_ffn(p["ffn"], h)
+    return x + _ffn(p, h, cfg)[0]
 
 
 @torch.inference_mode()

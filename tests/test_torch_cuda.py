@@ -1040,3 +1040,77 @@ def test_loss_grad_on_the_card_matches_the_cpu(card, arch):
     for a, b in zip(pt.leaves(got_g), pt.leaves(want_g)):
         assert float((a.cpu() - b).abs().max()) <= \
             1e-4 * float(b.abs().max())
+
+
+def _exact_moe_inputs(seed, B, S, d, E, router):
+    """Hidden states in {-1, 0, 1} and a router in {-1, 0, 1} / 1024:
+    every router logit is exact in f32, on the card as on the CPU, so
+    both devices see the same ties and the same order of the rest.
+    ``router``: "random", "zero" or "duplicated" (odd columns copies of
+    the even ones)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-1, 2, (B, S, d)).astype(np.float32)
+    r = np.zeros((d, E), np.float32)
+    if router == "random":
+        r[:] = rng.integers(-1, 2, (d, E)) / 1024
+    elif router == "duplicated":
+        r[:, 0::2] = rng.integers(-1, 2, (d, E // 2)) / 1024
+        r[:, 1::2] = r[:, 0::2]
+    return torch.from_numpy(x), torch.from_numpy(r)
+
+
+def _moe_layer(E, K, dense, router, seed=0, d=64, S=200):
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe, param
+    cfg = MoEConfig(num_experts=E, top_k=K, dense_residual=dense,
+                    dense_residual_d_ff=48 if dense else 0)
+    p = param.init_params(moe.moe_specs(d, 96, cfg),
+                          torch.Generator().manual_seed(seed), device="cpu")
+    x, p["router"] = _exact_moe_inputs(seed, 2, S, d, E, router)
+    return cfg, p, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,K,dense", [(8, 2, False), (128, 8, False),
+                                       (8, 2, True)])
+def test_moe_ffn_on_the_card_matches_the_cpu(card, E, K, dense):
+    """``moe_ffn`` on the card against the CPU path (B=2, S=200, d=64):
+    the experts and slots exactly, outputs within 1e-5 x max |out|, the
+    aux within 1e-6; and against the per-expert plain version on the
+    card."""
+    from repro_torch.core import pytree as pt
+    from repro_torch.models import moe
+    cfg, p, x = _moe_layer(E, K, dense, "random")
+    pc, xc = pt.tmap(lambda t: t.to(card), p), x.to(card)
+    want, want_aux = moe.moe_ffn(p, x, cfg)
+    got, got_aux = moe.moe_ffn(pc, xc, cfg)
+    r, rc = moe.route(p, x, cfg), moe.route(pc, xc, cfg)
+    Cb = moe.group_capacity(x.shape[1], cfg)
+    assert torch.equal(rc.idx.cpu(), r.idx)
+    assert torch.equal(moe.slots(rc.idx, E, Cb).cpu(),
+                       moe.slots(r.idx, E, Cb))
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+    assert abs(float(got_aux) - float(want_aux)) <= 1e-6
+    plain, plain_aux = moe.moe_ffn_plain(pc, xc, cfg)
+    assert float((plain - got).abs().max()) <= 1e-5 * scale
+    assert abs(float(plain_aux) - float(got_aux)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("router", ["zero", "duplicated"])
+def test_moe_ties_on_the_card_match_the_cpu(card, router):
+    """E=128, K=8: a zero router and one with duplicated columns give
+    the CPU path's experts, order and slots on the card, the lower expert
+    first among equals (``jax.lax.top_k``'s rule)."""
+    from repro_torch.core import pytree as pt
+    from repro_torch.models import moe
+    cfg, p, x = _moe_layer(128, 8, False, router, seed=3, S=256)
+    r = moe.route(p, x, cfg)
+    rc = moe.route(pt.tmap(lambda t: t.to(card), p), x.to(card), cfg)
+    Cb = moe.group_capacity(x.shape[1], cfg)
+    assert torch.equal(rc.idx.cpu(), r.idx)
+    assert torch.equal(moe.slots(rc.idx, 128, Cb).cpu(),
+                       moe.slots(r.idx, 128, Cb))
+    if router == "zero":
+        assert bool((r.idx == torch.arange(8)).all())

@@ -1,10 +1,12 @@
-"""The port's dense LM stack against the JAX package, on the CPU.
+"""The port's LM stack (dense and MoE) against the JAX package, on the CPU.
 
 The reference's ``init_params`` draws the weights; ``params_from_numpy``
 carries them into the port unchanged (the weight bridge: both trees have
 the same keys and stacked ``[R, ...]`` layout).  The same numpy-seeded
 tokens then go through both packages' prefill, hidden-state forward and
-decode step, and through the serve loop.
+decode step, and through the serve loop: the dense archs and the MoE
+archs (qwen3-moe-235b-a22b, and arctic-480b with its dense residual
+branch), whose routing must pick the same experts in both packages.
 
 Tolerances: logits and hidden states atol 1e-4 / rtol 1e-4 (float32
 matrix products and softmax sums in another order than XLA's, through 2
@@ -32,10 +34,13 @@ from repro_torch.models import param, transformer
 
 ATOL = RTOL = 1e-4
 DENSE = ["qwen1.5-0.5b", "yi-9b", "minitron-8b", "phi4-mini-3.8b"]
-NOT_PORTED = ["qwen3-moe-235b-a22b", "arctic-480b", "jamba-v0.1-52b",
-              "xlstm-350m", "whisper-tiny", "internvl2-26b"]
+MOE = ["qwen3-moe-235b-a22b", "arctic-480b"]
+NOT_PORTED = ["jamba-v0.1-52b", "xlstm-350m", "whisper-tiny",
+              "internvl2-26b"]
 SMALL = {"qwen": ("qwen1.5-0.5b", {}),
-         "yi-gqa": ("yi-9b", {"num_kv_heads": 2})}
+         "yi-gqa": ("yi-9b", {"num_kv_heads": 2}),
+         "qwen3-moe": ("qwen3-moe-235b-a22b", {}),
+         "arctic": ("arctic-480b", {"num_kv_heads": 2})}
 
 
 def _small(name):
@@ -99,7 +104,7 @@ def test_registry_matches_reference():
         configs.get_shape("train_8k")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_model_specs_match_reference_at_full_width(arch):
     """The full configs' spec trees -- keys, shapes, axes, initialisers
     -- and parameter counts, from the specs alone (nothing allocated)."""
@@ -126,7 +131,7 @@ def test_other_families_are_refused(arch):
         transformer.decode_cache_specs(cfg, 1, 8)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 @pytest.mark.parametrize("shape", sorted(jconfigs.INPUT_SHAPES))
 def test_step_input_specs_match_reference(arch, shape):
     jcfg, tcfg = jconfigs.get_arch(arch), configs.get_arch(arch)
@@ -289,7 +294,9 @@ def _reference_serve(jp, jcfg, prompt, tokens, cache_len):
     return np.asarray(jnp.stack(out, axis=1))
 
 
-@pytest.mark.parametrize("name,cache_len", [("qwen", 128), ("yi-gqa", 8)])
+@pytest.mark.parametrize("name,cache_len", [("qwen", 128), ("yi-gqa", 8),
+                                            ("qwen3-moe", 128),
+                                            ("arctic", 8)])
 def test_generate_gives_the_reference_tokens(name, cache_len):
     """Greedy tokens of ``serve.generate`` on the reference's weights
     equal the reference's serve loop; at cache_len 8 the ring wraps."""
