@@ -103,7 +103,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    a step over all 9 leaves); then one card-only round at sample_cap
    512, timed on the host clock.  Each task's local step in parts: the
    host's ``vmap(grad)`` (its idle share under the profiler) against
-   K1's time;
+   K1's time.  The CPU path's runs of phases 8 and 8c (each cell's run
+   from w0 and its two nudged runs) are submitted before phase 4 to a
+   pool of CPU_WORKERS spawned processes, each on a third of the host's
+   cores at a lower priority (CPU_WORKER_NICE) and making its data anew
+   from the seeds; phases 4-8c run beside them and each check waits for
+   its runs;
 8b. the scanned driver (``round_driver="scan"``), each round one replay
    of a captured CUDA graph: the paper config for feddane, fedprox and
    fedavg, 5 rounds in one chunk on injected selections (drawn by the
@@ -241,12 +246,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    local step; (d) pods as clients: one pod, E=1 against
    ``make_feddane_round_step`` within POD_TOL; 2 pods x 2 local steps, 1
    round, finite;
+11b. training the MoE archs: qwen3-moe-235b-a22b at full width cut to
+   MOE_TRAIN_LAYERS=1 of its 94 layers (3.70 B params, 14.79 GB f32:
+   a fedavg step's 4 model-sized buffers fit the card, a feddane
+   step's 6 do not), weights drawn on the card from seed 0, f32, TF32
+   off: (a) one layer's ``moe_ffn`` gradient (x and every weight) at
+   B=1, S=MOE_TRAIN_S=4096 against ``moe_ffn_plain``'s on the card
+   (each leaf within GRAD_REL of its max |g|), two runs bitwise equal,
+   the dropped pairs, ms of each; (b) its ``vmap(grad)`` over the data
+   of MOE_VMAP = 2 clients x B=4 x S=64 (the trainer's local step,
+   vmap's fallback off) against each client's own gradient: bitwise,
+   or within VMAP_REL, saying which; (c) ``loss_fn``'s gradient at B=1,
+   S=4096, ``remat="full"``, through K7 and K7-bwd (K7 twice and K7-bwd
+   once a layer), two runs bitwise equal, against the plain attention
+   on the card (the loss within LOGIT_REL, each leaf within GRAD_REL),
+   with the routing choices that differ between the two runs; where
+   they differ and the gradients do not agree, the plain run is held on
+   the K7 run's expert choices (``moe.choose``); (d) one
+   ``make_fedavg_step`` on that batch: its loss bitwise (c)'s, its
+   params bitwise params - eta g of (c)'s gradient, ms and the card's
+   peak; (e) qwen3-moe and arctic-480b at ``launch/train.py``'s reduced
+   preset (d=128, 2 layers, V=256, 4 experts top-2): one step of each
+   train step builder at B=4 S=64 (K7's launches counted),
+   ``train.main`` feddane N=8 K=2 E=1 B=4 S=64, 2 rounds on ``auto``
+   (= flat, K1 once a local step) against the same run on the CPU path
+   (in the pool: the same selections, params within TRAJECTORY_TOL),
+   then 1 round on ``per_leaf`` bitwise equal to flat's first (K4 once
+   a local step); pods as clients, 2 pods x 2 local steps, finite;
 12. the ``kernels`` JSON line: every kernel with its launches on the
    main path -- phases 4-8d in this process (the counters are set to 0
    just before phase 4 and read just after phase 8d; a captured kernel
    counts once a replay, and once for the warm-up run before its
-   capture), phase 9's ranks, phase 10 and phase 11 (each set to 0 just
-   before it and read just after) -- error,
+   capture), phase 9's ranks, phase 10, and phases 11 and 11b (each set
+   to 0 just before it and read just after) -- error,
    times and bound, and each checked shape under ``cases`` (with its
    ``device_ms`` where phase 3 took one, and the update paths' kernels
    and launches a step).
@@ -347,6 +379,21 @@ TRAIN_STEP_TOL = 1e-6
 #: Phase 11: the pod round with one pod and E=1 against the FedDANE
 #: step, the reference's own bar (tests/test_podfed.py).
 POD_TOL = 2e-5
+
+#: Phase 11b: qwen3-moe-235b-a22b trained at full width, cut to this many
+#: of its 94 layers: 3.70 B params, P = 14.79 GB in f32.  A fedavg step
+#: holds 4P (params, g, eta g, the new params); a feddane step's 6P and
+#: the pipelined step's do not fit the 80 GB card, nor does arctic's
+#: gradient (14.07 B params at one layer).
+MOE_TRAIN_LAYERS = 1
+#: Phase 11b (a), (c), (d): train_4k's sequence, its batch cut to 1.
+MOE_TRAIN_S = 4096
+#: Phase 11b (b): the trainer's local step, clients x B x S.
+MOE_VMAP = (2, 4, 64)
+#: Phase 11b (b): ``vmap(grad)`` against separate gradients where they
+#: are not bit for bit equal, relative to the gradient's max |g| (over
+#: all its leaves).
+VMAP_REL = 1e-6
 
 PAPER = dict(num_devices=30, devices_per_round=10, local_epochs=20,
              local_batch_size=10, learning_rate=0.01, seed=0)
@@ -1073,38 +1120,140 @@ def lstm_rows(specs) -> int:
 CPU_SOLVER = "fused_epoch"
 
 
-def cpu_trajectories(torch, loss_fn, data_cpu, cfg, p0, rounds: int,
-                     nudge: float = 1e-7):
-    """``rounds`` rounds of ``cfg`` on the CPU path (batched engine; ``cfg``
-    says its solver mode) from
-    ``p0`` and from ``p0`` nudged by ``nudge`` times two numpy-seeded
-    directions on every leaf.  Returns, per round, the params and
-    selections of the run from ``p0``, the larger move of the two nudged
-    runs (the spread float32 rounding can cause) and max |param|."""
+#: The CPU path's three runs of a cell: from w0 and from w0 nudged by
+#: ``nudge`` times two numpy-seeded directions, as (seed, multiple of
+#: ``nudge``).
+NUDGES = ((7, 0.0), (7, 1.0), (8, 1.0))
+#: Phases 8, 8c and 11b hand their CPU-path runs, which are independent,
+#: to a pool of this many spawned processes, each on this share of the
+#: host's cores (:func:`cpu_pool`); phases 8 and 8c's are all submitted
+#: before phase 4, so that they run beside phases 4-8b.
+CPU_WORKERS = 3
+#: The workers' scheduling priority below this process's: the phases
+#: they run beside keep the host first.
+CPU_WORKER_NICE = 10
+
+
+def nudged(torch, p0, seed: int, eps: float):
+    """``p0`` plus ``eps`` times a direction drawn from ``seed``."""
+    from repro_torch.core import pytree as pt
+    rng = np.random.default_rng(seed)
+    return pt.tmap(lambda x: x + torch.from_numpy(
+        (eps * rng.normal(size=tuple(x.shape))).astype(np.float32)), p0)
+
+
+def cpu_trajectory(torch, loss_fn, data_cpu, cfg, p, rounds: int):
+    """``rounds`` rounds of ``cfg`` on the CPU path (batched engine;
+    ``cfg`` says its solver mode) from ``p``: each round's params and
+    selections."""
     from repro_torch.core import FederatedTrainer
     from repro_torch.core import pytree as pt
 
-    runs = []
-    for seed, eps in ((7, 0.0), (7, nudge), (8, nudge)):
-        rng = np.random.default_rng(seed)
-        p = pt.tmap(lambda x: x + torch.from_numpy(
-            (eps * rng.normal(size=tuple(x.shape))).astype(np.float32)), p0)
-        tr = FederatedTrainer(loss_fn, data_cpu,
-                              dataclasses.replace(cfg, engine="batched"),
-                              device="cpu")
-        st = tr.init(p)
-        traj = []
-        for _ in range(rounds):
-            st = tr.round(st)
-            traj.append((pt.tmap(torch.clone, st.params),
-                         tr.last_selection))
-        runs.append(traj)
+    tr = FederatedTrainer(loss_fn, data_cpu,
+                          dataclasses.replace(cfg, engine="batched"),
+                          device="cpu")
+    st = tr.init(p)
+    traj = []
+    for _ in range(rounds):
+        st = tr.round(st)
+        traj.append((pt.tmap(torch.clone, st.params), tr.last_selection))
+    return traj
+
+
+def trajectory_spread(torch, runs):
+    """Per round of :data:`NUDGES`' runs: the params and selections of
+    the run from w0, the larger move of the two nudged runs (the spread
+    float32 rounding can cause) and max |param|."""
+    from repro_torch.core import pytree as pt
+
     base = runs[0]
     spread = [max(max_err(torch, base[r][0], o[r][0]) for o in runs[1:])
-              for r in range(rounds)]
+              for r in range(len(base))]
     scale = [max(float(x.abs().max()) for x in pt.leaves(b[0]))
              for b in base]
     return base, spread, scale
+
+
+def cpu_trajectories(torch, loss_fn, data_cpu, cfg, p0, rounds: int,
+                     nudge: float = 1e-7):
+    """:func:`trajectory_spread` of :data:`NUDGES`' runs of ``cfg`` from
+    ``p0``, one after another in this process."""
+    return trajectory_spread(torch, [
+        cpu_trajectory(torch, loss_fn, data_cpu, cfg,
+                       nudged(torch, p0, seed, k * nudge), rounds)
+        for seed, k in NUDGES])
+
+
+def _cpu_worker(threads: int, src: str) -> None:
+    import torch
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    torch.set_num_threads(threads)
+    os.nice(CPU_WORKER_NICE)
+
+
+def cpu_pool():
+    """A pool of :data:`CPU_WORKERS` spawned processes for the CPU
+    path's runs, each with ``torch.set_num_threads`` at its share of the
+    cores this process may use, at :data:`CPU_WORKER_NICE`; returns it
+    and that thread count.  The workers make their data anew from the
+    seeds (:func:`cpu_data`)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    threads = max(1, len(os.sched_getaffinity(0)) // CPU_WORKERS)
+    pool = ProcessPoolExecutor(
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker, initargs=(threads, str(ROOT / "src")))
+    return pool, threads
+
+
+_CPU_DATA = {}
+
+
+def cpu_data(recipe):
+    """The CPU path's dataset of ``recipe`` = (kind, devices, sample
+    cap), made from its seeds once a process: the paper's synthetic(1,1)
+    (seed 0, B=10), or phase 8's Sent140-like (seed 0, its loss over
+    LOSS_DEVICES) or Shakespeare-like (seed 0, at the cap)."""
+    if recipe not in _CPU_DATA:
+        from repro_torch.data import make_synthetic
+        from repro_torch.data.batching import FederatedData
+        from repro_torch.data.leaf_like import (generate_sent140_like,
+                                                generate_shakespeare_like)
+        kind, n, cap = recipe
+        if kind == "synthetic":
+            data = make_synthetic(1, 1, num_devices=n, seed=0,
+                                  batch_size=10, device="cpu")
+        elif kind == "sent140":
+            data = FederatedData(generate_sent140_like(n, seed=0), 10,
+                                 name="sent140_like",
+                                 eval_sample=LOSS_DEVICES, device="cpu")
+        else:
+            data = FederatedData(
+                generate_shakespeare_like(n, seed=0, sample_cap=cap), 10,
+                name="shakespeare_like", device="cpu")
+        _CPU_DATA[recipe] = data
+    return _CPU_DATA[recipe]
+
+
+def _pooled_trajectory(recipe, loss_fn, cfg, p0, seed, eps, rounds):
+    import torch
+    return cpu_trajectory(torch, loss_fn, cpu_data(recipe), cfg,
+                          nudged(torch, p0, seed, eps), rounds)
+
+
+def pooled_trajectories(pool, recipe, loss_fn, cfg, p0, rounds: int,
+                        nudge: float = 1e-7):
+    """:data:`NUDGES`' runs of :func:`cpu_trajectories`, submitted to
+    ``pool`` on ``recipe``'s data: their futures, in order."""
+    return [pool.submit(_pooled_trajectory, recipe, loss_fn, cfg, p0, seed,
+                        k * nudge, rounds) for seed, k in NUDGES]
+
+
+def results(futures):
+    """The results of ``futures`` and the seconds spent waiting."""
+    t0 = time.perf_counter()
+    return [f.result() for f in futures], time.perf_counter() - t0
 
 
 def cpu_sensitivity(torch, data_cpu, cfg, rounds: int = 1):
@@ -1205,11 +1354,12 @@ LOSS_DEVICES = 50
 LOSS_REL = 1e-5
 
 
-def lstm_cell(torch, label, loss_fn, data, data_cpu, cfg, p0,
-              rounds: int, cpu_rounds: int, counts):
+def lstm_cell(torch, label, loss_fn, data, cpu_runs, cfg, p0,
+              rounds: int, counts):
     """``rounds`` rounds of ``cfg`` on the card from ``p0`` (CUDA events
-    around each), the first ``cpu_rounds`` held against the CPU path: the
-    same selections, params within SPREAD_FACTOR x the spread a 1e-7
+    around each), the first rounds held against the CPU path's runs
+    (``cpu_runs``: the futures of :func:`pooled_trajectories`, or None):
+    the same selections, params within SPREAD_FACTOR x the spread a 1e-7
     nudge of ``p0`` causes there (TRAJECTORY_TOL where it causes none),
     that limit under MAX_REL_LIMIT of the params' scale.  Returns the
     card's trainer and state, the ms of its rounds, its launches and the
@@ -1218,14 +1368,14 @@ def lstm_cell(torch, label, loss_fn, data, data_cpu, cfg, p0,
     from repro_torch.core import pytree as pt
 
     base, spread, scale = [], [], []
-    if cpu_rounds:
-        t0 = time.perf_counter()
-        base, spread, scale = cpu_trajectories(torch, loss_fn, data_cpu,
-                                               cfg, p0, cpu_rounds)
-        print(f"  {label}: CPU path, {cpu_rounds} round(s) x 3 runs in "
-              f"{time.perf_counter() - t0:.1f} s; a 1e-7 nudge of w0 moves "
+    if cpu_runs:
+        runs, waited = results(cpu_runs)
+        base, spread, scale = trajectory_spread(torch, runs)
+        print(f"  {label}: CPU path, {len(base)} round(s) x 3 runs in the "
+              f"pool (waited {waited:.1f} s); a 1e-7 nudge of w0 moves "
               f"params by {[f'{x:.2e}' for x in spread]}; max |param| "
               f"{[f'{x:.3g}' for x in scale]}")
+    cpu_rounds = len(base)
     tr = FederatedTrainer(loss_fn, data, cfg)
     st = tr.init(p0)
     before = dict(counts)
@@ -1293,7 +1443,36 @@ def step_breakdown(torch, loss_fn, data, trainer, st, label: str, k1):
           f"card: {k1['ms'] / (ms + k1['ms']):.2e} of the step")
 
 
-def lstm_phase(torch, counts, k1_cases):
+def lstm_cpu_jobs(pool):
+    """Phase 8's CPU-path runs, submitted to ``pool``: Sent140-like's
+    three cells (LSTM_ROUNDS rounds) and Shakespeare-like's flat cell
+    (SHAKES_CPU_ROUNDS at SHAKES_CPU_CAP), :data:`NUDGES`' runs each."""
+    import torch
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.data.leaf_like import SENT_VOCAB, SHAKES_VOCAB
+    from repro_torch.models.param import init_params
+    from repro_torch.models.small import (charlstm_loss, charlstm_specs,
+                                          sentlstm_loss, sentlstm_specs)
+
+    jobs = {}
+    p0 = init_params(sentlstm_specs(SENT_VOCAB),
+                     torch.Generator().manual_seed(0), device="cpu")
+    for algo, mu in FIG1_MU.items():
+        cfg = FederatedConfig(algorithm=algo, mu=mu, **SENT140)
+        jobs[f"sent140/{algo}"] = pooled_trajectories(
+            pool, ("sent140", SENT140["num_devices"], None), sentlstm_loss,
+            cfg, p0, LSTM_ROUNDS)
+    p0 = init_params(charlstm_specs(SHAKES_VOCAB),
+                     torch.Generator().manual_seed(0), device="cpu")
+    cfg = FederatedConfig(algorithm="feddane", mu=FIG1_MU["feddane"],
+                          local_solver="flat", **SHAKESPEARE)
+    jobs["shakespeare/flat"] = pooled_trajectories(
+        pool, ("shakespeare", SHAKESPEARE["num_devices"], SHAKES_CPU_CAP),
+        charlstm_loss, cfg, p0, SHAKES_CPU_ROUNDS)
+    return jobs
+
+
+def lstm_phase(torch, counts, k1_cases, cpu_jobs):
     """Phase 8: Sent140-like and Shakespeare-like through the LSTMs on
     the python driver, on the card against the CPU path; the rounds run
     K1 (``flat``, what ``auto`` resolves to) or K4 (``per_leaf``) once a
@@ -1301,7 +1480,7 @@ def lstm_phase(torch, counts, k1_cases):
     so an op without a batching rule fails the phase.  Returns the cells'
     ms/round and the Sent140 feddane cell's CPU-path rounds for phase 8b;
     ``k1_cases``: phase 3's K1 case on each LSTM's pack (rows a device
-    -> case), for the breakdown."""
+    -> case), for the breakdown; ``cpu_jobs``: :func:`lstm_cpu_jobs`."""
     import torch._C._functorch as functorch
     from repro_torch.configs.base import FederatedConfig
     from repro_torch.core import FederatedTrainer
@@ -1339,7 +1518,7 @@ def lstm_phase(torch, counts, k1_cases):
             cfg = FederatedConfig(algorithm=algo, mu=mu, **SENT140)
             tr, st, ms, grew, cpu_rounds = lstm_cell(
                 torch, f"sent140 {algo} auto", sentlstm_loss, sent,
-                sent_cpu, cfg, p0, LSTM_ROUNDS, LSTM_ROUNDS, counts)
+                cpu_jobs[f"sent140/{algo}"], cfg, p0, LSTM_ROUNDS, counts)
             p_cpu = cpu_rounds[-1][0]
             check(grew.get("dane_update_flat", 0) > 0 and
                   not grew.get("dane_update_2d"),
@@ -1380,8 +1559,6 @@ def lstm_phase(torch, counts, k1_cases):
         devs = generate_shakespeare_like(SHAKESPEARE["num_devices"], seed=0,
                                          sample_cap=SHAKES_CPU_CAP)
         shak = FederatedData(devs, 10, name="shakespeare_like")
-        shak_cpu = FederatedData(devs, 10, name="shakespeare_like",
-                                 device="cpu")
         n_leaves = len(pt.leaves(specs))
         print(f"  Shakespeare-like: N={shak.num_devices}, sample_cap "
               f"{SHAKES_CPU_CAP} (cut from 512 for the CPU path's time), "
@@ -1392,14 +1569,14 @@ def lstm_phase(torch, counts, k1_cases):
               f"E={SHAKESPEARE['local_epochs']}; data in "
               f"{time.perf_counter() - t0:.1f} s")
         finals, grown = {}, {}
-        for mode, cpu_rounds in (("flat", SHAKES_CPU_ROUNDS),
-                                 ("per_leaf", 0)):
+        for mode in ("flat", "per_leaf"):
             cfg = FederatedConfig(algorithm="feddane",
                                   mu=FIG1_MU["feddane"], local_solver=mode,
                                   **SHAKESPEARE)
             tr, st, ms, grown[mode], _ = lstm_cell(
                 torch, f"shakespeare feddane {mode}", charlstm_loss, shak,
-                shak_cpu, cfg, p0, LSTM_ROUNDS, cpu_rounds, counts)
+                cpu_jobs.get(f"shakespeare/{mode}"), cfg, p0, LSTM_ROUNDS,
+                counts)
             out[f"shakespeare/{mode}"] = statistics.median(ms)
             finals[mode] = pt.tmap(torch.clone, st.params)
             if mode == "flat":
@@ -1424,7 +1601,7 @@ def lstm_phase(torch, counts, k1_cases):
               f"card, {steps / LSTM_ROUNDS * k1_cases[rows]['device_ms']:.3f}"
               f" ms a round "
               f"of {out['shakespeare/flat']:.1f}")
-        del shak, shak_cpu, devs, finals
+        del shak, devs, finals
 
         # one card-only round at the generator's default sample_cap
         t0 = time.perf_counter()
@@ -1817,29 +1994,65 @@ def _buffered_cfg(**kw):
                            **dict(PAPER, **kw))
 
 
-def buffered_cpu(torch, syn_cpu, cfg, commits: int, nudge: float = 1e-7):
+def buffered_cells():
+    """Phase 8c's cells held to the CPU path: label -> (cfg, commits,
+    runs); the degenerate cells take the run from the zero start, the
+    others :data:`NUDGES`' three."""
+    cells = {}
+    for algo in ("feddane", "fedprox", "fedavg"):
+        cells[f"buffered {algo} degenerate"] = (_buffered_cfg(
+            algorithm=algo, buffer_size=0, staleness_fn="constant"),
+            BUF_DEGENERATE, 1)
+    for algo in ("feddane", "fedavg"):
+        cells[f"buffered {algo} hostile M=5"] = (_buffered_cfg(
+            algorithm=algo, scenario="hostile", buffer_size=5,
+            staleness_fn="polynomial", max_staleness=3), BUF_ASYNC, 3)
+    cells["buffered feddane hostile int8 M=5"] = (_buffered_cfg(
+        algorithm="feddane", scenario="hostile", codec="int8",
+        buffer_size=5), BUF_INT8, 3)
+    return cells
+
+
+def buffered_run(torch, syn_cpu, cfg, commits: int, seed: int, eps: float):
     """``cfg`` on the CPU path's buffered driver (``fused_epoch``, the
     plain version of K2, the mode ``auto`` takes on the card) for
-    ``commits`` commits from the seeded zero start and from it nudged by
-    ``nudge`` times two numpy-seeded directions: the first run's history
-    and params, the larger move of the nudged runs and max |param|."""
+    ``commits`` commits from the seeded zero start nudged by ``eps``
+    (:func:`nudged`): its history and params."""
     from repro_torch.core import FederatedTrainer
-    from repro_torch.core import pytree as pt
     from repro_torch.models.small import logreg_loss
+    return FederatedTrainer(
+        logreg_loss, syn_cpu,
+        dataclasses.replace(cfg, local_solver="fused_epoch"),
+        device="cpu").run(nudged(torch, _logreg_p0(torch, "cpu"), seed, eps),
+                          commits)
 
-    cfg = dataclasses.replace(cfg, local_solver="fused_epoch")
-    runs = []
-    for seed, eps in ((7, 0.0), (7, nudge), (8, nudge)):
-        rng = np.random.default_rng(seed)
-        p = pt.tmap(lambda x: x + torch.from_numpy(
-            (eps * rng.normal(size=tuple(x.shape))).astype(np.float32)),
-            _logreg_p0(torch, "cpu"))
-        runs.append(FederatedTrainer(logreg_loss, syn_cpu, cfg,
-                                     device="cpu").run(p, commits))
-    (hist, params), nudged = runs[0], runs[1:]
-    spread = max(max_err(torch, params, p) for _, p in nudged)
+
+def _pooled_buffered(recipe, cfg, commits, seed, eps):
+    import torch
+    return buffered_run(torch, cpu_data(recipe), cfg, commits, seed, eps)
+
+
+def buffered_cpu_jobs(pool, nudge: float = 1e-7):
+    """Phase 8c's CPU-path runs (:func:`buffered_cells`), submitted to
+    ``pool`` on the paper's synthetic(1,1): label -> futures."""
+    recipe = ("synthetic", PAPER["num_devices"], None)
+    return {label: [pool.submit(_pooled_buffered, recipe, cfg, commits,
+                                seed, k * nudge)
+                    for seed, k in NUDGES[:runs]]
+            for label, (cfg, commits, runs) in buffered_cells().items()}
+
+
+def buffered_cpu(torch, futures):
+    """The CPU path's runs of a cell (:func:`buffered_cpu_jobs`): the
+    first run's history and params, the larger move of the nudged runs,
+    max |param| and the seconds spent waiting for them."""
+    from repro_torch.core import pytree as pt
+
+    runs, waited = results(futures)
+    (hist, params), nudged_runs = runs[0], runs[1:]
+    spread = max(max_err(torch, params, p) for _, p in nudged_runs)
     scale = max(float(x.abs().max()) for x in pt.leaves(params))
-    return hist, params, spread, scale
+    return hist, params, spread, scale, waited
 
 
 def _rel_loss(a, b) -> float:
@@ -1847,10 +2060,11 @@ def _rel_loss(a, b) -> float:
     return float(max(abs(x - y) / max(1.0, abs(y)) for x, y in zip(a, b)))
 
 
-def buffered_phase(torch, counts, syn, syn_cpu, python_ms, sent140):
+def buffered_phase(torch, counts, syn, python_ms, sent140, cpu_jobs):
     """Phase 8c: the buffered driver on the card.  ``python_ms``: phase
     7's python-driver ms/round of feddane under ``hostile``; ``sent140``:
-    phase 8's handoff.  Returns ms/commit of the timed cells."""
+    phase 8's handoff; ``cpu_jobs``: :func:`buffered_cpu_jobs`.  Returns
+    ms/commit of the timed cells."""
     import torch._C._functorch as functorch
     from repro_torch.core import FederatedTrainer
     from repro_torch.core import pytree as pt
@@ -1858,6 +2072,7 @@ def buffered_phase(torch, counts, syn, syn_cpu, python_ms, sent140):
     from repro_torch.models.small import logreg_loss, sentlstm_loss
 
     out = {}
+    cells = buffered_cells()
 
     def card_run(cfg, commits, label, timed=False):
         """The card's run of ``cfg``: history, params on the CPU, ms a
@@ -1885,18 +2100,14 @@ def buffered_phase(torch, counts, syn, syn_cpu, python_ms, sent140):
     for algo in ("feddane", "fedprox", "fedavg"):
         t_cell = time.perf_counter()
         label = f"buffered {algo} degenerate"
-        cfg = _buffered_cfg(algorithm=algo, buffer_size=0,
-                            staleness_fn="constant")
+        cfg = cells[label][0]
         _, hg, pg, ms, grew, rec = card_run(cfg, BUF_DEGENERATE, label)
         hp, pp = FederatedTrainer(
             logreg_loss, syn, dataclasses.replace(
                 cfg, round_driver="python")).run(_logreg_p0(torch),
                                                  BUF_DEGENERATE)
         pp = pt.tmap(lambda x: x.cpu(), pp)
-        hc, pc = FederatedTrainer(
-            logreg_loss, syn_cpu, dataclasses.replace(
-                cfg, local_solver="fused_epoch"), device="cpu").run(
-            _logreg_p0(torch, "cpu"), BUF_DEGENERATE)
+        [(hc, pc)], _ = results(cpu_jobs[label])
         e_py, e_cpu = max_err(torch, pg, pp), max_err(torch, pg, pc)
         l_py, l_cpu = _rel_loss(hg["loss"], hp["loss"]), _rel_loss(
             hg["loss"], hc["loss"])
@@ -1924,14 +2135,12 @@ def buffered_phase(torch, counts, syn, syn_cpu, python_ms, sent140):
     # (b) asynchronous: hostile, M=5, polynomial weights, max staleness 3
     for algo in ("feddane", "fedavg"):
         label = f"buffered {algo} hostile M=5"
-        cfg = _buffered_cfg(algorithm=algo, scenario="hostile",
-                            buffer_size=5, staleness_fn="polynomial",
-                            max_staleness=3)
+        cfg = cells[label][0]
         t0 = time.perf_counter()
-        hc, pc, spread, scale = buffered_cpu(torch, syn_cpu, cfg, BUF_ASYNC)
+        hc, pc, spread, scale, waited = buffered_cpu(torch, cpu_jobs[label])
         tol = SPREAD_FACTOR * spread if spread > 0 else TRAJECTORY_TOL
-        print(f"  {label}: CPU path, {BUF_ASYNC} commits x 3 runs in "
-              f"{time.perf_counter() - t0:.1f} s; a 1e-7 nudge of w0 moves "
+        print(f"  {label}: CPU path, {BUF_ASYNC} commits x 3 runs in the "
+              f"pool (waited {waited:.1f} s); a 1e-7 nudge of w0 moves "
               f"params by {spread:.2e}; max |param| {scale:.3g}; card held "
               f"to {tol:.2e}")
         check(tol <= MAX_REL_LIMIT * scale,
@@ -1966,9 +2175,8 @@ def buffered_phase(torch, counts, syn, syn_cpu, python_ms, sent140):
     # (c) lossy uplink: int8 encoded at launch, decoded deltas committed
     t_cell = time.perf_counter()
     label = "buffered feddane hostile int8 M=5"
-    cfg = _buffered_cfg(algorithm="feddane", scenario="hostile",
-                        codec="int8", buffer_size=5)
-    hc, pc, spread, scale = buffered_cpu(torch, syn_cpu, cfg, BUF_INT8)
+    cfg = cells[label][0]
+    hc, pc, spread, scale, _ = buffered_cpu(torch, cpu_jobs[label])
     tol = SPREAD_FACTOR * spread if spread > 0 else TRAJECTORY_TOL
     check(tol <= MAX_REL_LIMIT * scale,
           f"{label}: limit {tol} exceeds {MAX_REL_LIMIT} x {scale}")
@@ -2790,6 +2998,13 @@ def card_tokens(torch, seed, vocab, B, S):
     return torch.from_numpy(a.astype(np.int32)).cuda()
 
 
+def card_batch(torch, seed, vocab, B, S):
+    """numpy-seeded tokens and their next tokens as labels, (B, S) each,
+    on the card."""
+    t = card_tokens(torch, seed, vocab, B, S + 1)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
 def logits_agree(torch, got, want):
     """(agree, max |got - want|, max |want|): within LOGIT_REL x max
     |want|, finite, the same argmax."""
@@ -2820,6 +3035,26 @@ def swapped(module, name, value):
         yield
     finally:
         setattr(module, name, saved)
+
+
+def recording(store):
+    """``moe.route`` that appends each routing it makes to ``store``."""
+    from repro_torch.models import moe
+    real = moe.route
+
+    def spy(p, h, c):
+        store.append(real(p, h, c))
+        return store[-1]
+    return spy
+
+
+def injecting(store):
+    """``moe.route`` on the experts of the routings in ``store``, in
+    turn, with the router softmax, gates and aux of this run's own
+    (``moe.choose``): the plain run held on the K7 run's choices."""
+    from repro_torch.models import moe
+    real, it = moe.route, iter(store)
+    return lambda p, h, c: moe.choose(real(p, h, c).probs, next(it).idx, c)
 
 
 def card_generator(torch, seed: int):
@@ -2957,7 +3192,7 @@ def moe_cells(torch, counts):
 
     # (a) one layer's MoE at B=1, S=4096 against the per-expert version
     layer = pt.tmap(lambda a: a[0], params["stack"]["pos_0"]["moe"])
-    S = 4096
+    S = MOE_TRAIN_S
     gen = card_generator(torch, 1)
     x = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
     Cb = moe.group_capacity(S, mcfg)
@@ -3020,21 +3255,6 @@ def moe_cells(torch, counts):
 
     # (c) prefill through K7 against the plain attention on the card
     step = make_prefill_step(cfg)
-
-    def recording(store):
-        real = moe.route
-
-        def spy(p, h, c):
-            store.append(real(p, h, c))
-            return store[-1]
-        return spy
-
-    def injecting(store):
-        """The plain run's own router softmax, gates and aux, on the
-        experts the K7 run chose."""
-        real, it = moe.route, iter(store)
-        return lambda p, h, c: moe.choose(real(p, h, c).probs,
-                                          next(it).idx, c)
 
     def plain(fn, route=None):
         with swapped(attention, "attention", attention.plain_attention), \
@@ -3421,12 +3641,401 @@ def train_phase(torch, counts):
     return out
 
 
+def train_drawn(argv):
+    """``launch/train.py``'s ``main`` on ``argv``, its selections
+    recorded: (its result, the selections), its prints swallowed."""
+    import io
+
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.launch import train
+
+    drawn, orig = [], FederatedTrainer._sample
+
+    def spy(self):
+        sel = orig(self)
+        drawn.append(np.asarray(sel).tolist())
+        return sel
+
+    FederatedTrainer._sample = spy
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            return train.main(argv), drawn
+    finally:
+        FederatedTrainer._sample = orig
+
+
+def _pooled_train(argv):
+    res, drawn = train_drawn(argv)
+    return res.state.params, drawn, res.losses
+
+
+def moe_train_phase(torch, counts, pool):
+    """Phase 11b: training the MoE archs.  qwen3-moe-235b-a22b at full
+    width, MOE_TRAIN_LAYERS of its 94 layers, weights drawn on the card
+    from seed 0, f32: (a) one layer's ``moe_ffn`` gradient against
+    ``moe_ffn_plain``'s, (b) its ``vmap(grad)`` at the trainer's local
+    step against separate gradients, (c) ``loss_fn``'s gradient at B=1
+    S=4096 through K7 and K7-bwd against the plain attention, (d) one
+    ``make_fedavg_step``; then (e) both MoE archs at ``launch/train.py``'s
+    reduced preset: the three train steps, the trainer against the CPU
+    path (run in ``pool``) and pods as clients.  Returns timings (ms)
+    and peaks (GiB)."""
+    import torch._C._functorch as functorch
+    from torch.func import grad, vmap
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch import podfed, steps
+    from repro_torch.models import (attention, model_specs, moe,
+                                    param_count, transformer)
+
+    out = {}
+    k7 = ("flash_attention", "flash_attention_bwd")
+    argv = ["--num-devices", "8", "--devices-per-round", "2",
+            "--local-epochs", "1", "--batch-size", "4", "--seq-len", "64",
+            "--samples-per-device", "16", "--seed", "0"]
+    archs = ("qwen3-moe-235b-a22b", "arctic-480b")
+    # (e)'s CPU path, in the pool while the card runs (a)-(d)
+    cpu_runs = {a: pool.submit(_pooled_train, ["--arch", a, "--rounds",
+                                               "2", "--device", "cpu"]
+                               + argv) for a in archs}
+
+    def launches(fn):
+        before = dict(counts)
+        res = fn()
+        torch.cuda.synchronize()
+        return res, _delta(before, counts)
+
+    def events(fn):
+        """``fn()`` and its ms (CUDA events)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    def worst(got, want):
+        """The worst leaf's max |got - want| relative to its max |want|."""
+        return max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(pt.leaves(got), pt.leaves(want)))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(pt.leaves(a),
+                                                     pt.leaves(b)))
+
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b"),
+                              num_layers=MOE_TRAIN_LAYERS)
+    mcfg, L = cfg.moe, MOE_TRAIN_LAYERS
+    E, K = mcfg.num_experts, mcfg.top_k
+    name = f"qwen3-moe ({L} layer)"
+    t0 = time.perf_counter()
+    params = init_on_card(torch, model_specs(cfg), 0)
+    torch.cuda.synchronize()
+    n_params = param_count(model_specs(cfg))
+    print(f"  qwen3-moe-235b-a22b at full width, {L} of 94 layers: "
+          f"{n_params:,} params ({n_params * 4 / 1e9:.2f} GB f32), drawn on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
+
+    # (a) one layer's moe_ffn gradient against the per-expert version's
+    layer = pt.tmap(lambda a: a[0], params["stack"]["pos_0"]["moe"])
+    S = MOE_TRAIN_S
+    gen = card_generator(torch, 1)
+    x = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+    w = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+
+    def layer_grad(fn):
+        """d/d(x, every weight) of sum(w * out) + aux."""
+        xs = [t.detach().requires_grad_(True) for t in [x] + pt.leaves(layer)]
+        p = pt.unflatten(pt.flatten(layer)[1], xs[1:])
+        o, aux = fn(p, xs[0], mcfg)
+        return torch.autograd.grad((o * w).sum() + aux, xs)
+
+    got = layer_grad(moe.moe_ffn)
+    again = layer_grad(moe.moe_ffn)
+    check(same(got, again), "(a) two moe_ffn gradients differ")
+    del again
+    want = layer_grad(moe.moe_ffn_plain)
+    err = worst(got, want)
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "(a) moe_ffn gradient not finite")
+    check(err <= GRAD_REL, f"(a) moe_ffn's gradient differs from the "
+                           f"per-expert version's by {err} x max |g|")
+    Cb = moe.group_capacity(S, mcfg)
+    dropped = int((moe.slots(moe.route(layer, x, mcfg).idx, E, Cb)
+                   == E * Cb).sum())
+    out[f"{name} moe_ffn grad B=1 S={S} ms"] = cuda_ms(
+        torch, lambda: layer_grad(moe.moe_ffn), 1, repeats=3)
+    out[f"{name} moe_ffn grad B=1 S={S} plain ms"] = events(
+        lambda: layer_grad(moe.moe_ffn_plain))[1]
+    print(f"  (a) moe_ffn gradient (x and {len(got) - 1} weights), one "
+          f"layer, B=1 S={S}: worst leaf {err:.2e} x its max |g| (<= "
+          f"{GRAD_REL:g}) against moe_ffn_plain's; two runs bitwise equal "
+          f"(the dispatch gather's scatter-add); {dropped} of {S * K} pairs "
+          f"dropped (Cb={Cb}); "
+          f"{out[f'{name} moe_ffn grad B=1 S={S} ms']:.2f} ms, per-expert "
+          f"{out[f'{name} moe_ffn grad B=1 S={S} plain ms']:.2f} ms "
+          f"(CUDA events; median of 3, its second call)")
+    del got, want, x, w
+
+    # (b) vmap(grad) over the clients' data at the trainer's local step
+    n, B, Sb = MOE_VMAP
+    xb = torch.randn(n, B, Sb, cfg.d_model, generator=gen, device=gen.device)
+    wb = torch.randn(B, Sb, cfg.d_model, generator=gen, device=gen.device)
+
+    def f(p, x):
+        o, aux = moe.moe_ffn(p, x, mcfg)
+        return (o * wb).sum() + aux
+
+    was = functorch._is_vmap_fallback_enabled()
+    functorch._set_vmap_fallback_enabled(False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        g_v, ms = events(lambda: vmap(grad(f), in_dims=(None, 0))(layer, xb))
+    finally:
+        functorch._set_vmap_fallback_enabled(was)
+    vmap_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bitwise, err, leaf_err, logits = True, 0.0, 0.0, 0.0
+    lv = vmap(lambda x: x @ layer["router"])(xb)
+    for i in range(n):
+        g_i = grad(f)(layer, xb[i])
+        mine = pt.index(g_v, i)
+        bitwise &= same(mine, g_i)
+        g_max = max(float(x.abs().max()) for x in pt.leaves(g_i))
+        err = max(err, max(float((a - b).abs().max()) for a, b in zip(
+            pt.leaves(mine), pt.leaves(g_i))) / g_max)
+        leaf_err = max(leaf_err, worst(mine, g_i))
+        logits = max(logits, float((lv[i] - xb[i] @ layer["router"])
+                                   .abs().max()))
+        del g_i, mine
+    check(bitwise or err <= VMAP_REL,
+          f"(b) vmap(grad) differs from separate gradients by {err} x max "
+          f"|g| > {VMAP_REL}")
+    del g_v
+    functorch._set_vmap_fallback_enabled(False)
+    try:
+        ms2 = events(lambda: vmap(grad(f), in_dims=(None, 0))(layer, xb))[1]
+    finally:
+        functorch._set_vmap_fallback_enabled(was)
+    out[f"{name} moe_ffn vmap(grad) {n}x{B}x{Sb} ms"] = [ms, ms2]
+    out[f"{name} moe_ffn vmap(grad) peak GiB"] = vmap_peak
+    why = (f"within {err:.2e} x the gradient's max |g| of the separate "
+           f"gradients (<= {VMAP_REL:g}; the worst leaf {leaf_err:.2e} x "
+           f"its own max), not bitwise: the batched router product "
+           f"({n * B * Sb} rows against {B * Sb}) takes another cuBLAS "
+           f"kernel, whose logits differ by up to {logits:.2e}")
+    print(f"  (b) vmap(grad) of that layer, in_dims=(None, 0), {n} clients x "
+          f"B={B} x S={Sb} (Cb={moe.group_capacity(Sb, mcfg)}), vmap's "
+          f"fallback off: " + ("bitwise equal to the separate gradients"
+                               if bitwise else why)
+          + f"; {ms:.2f} ms the first call, {ms2:.2f} ms the second (CUDA "
+          f"events); card peak {vmap_peak:.2f} GiB (the params and "
+          f"{n} clients' weight gradients: no weight copied a client)")
+    del lv
+    del xb, wb, layer
+
+    # (d) one fedavg step, then (c) the loss's gradient it takes
+    b = card_batch(torch, S, cfg.vocab_size, 1, S)
+    lf = lambda p: transformer.loss_fn(p, b, cfg, remat="full")  # noqa
+    eta = 1e-3
+    step = steps.make_fedavg_step(cfg, eta=eta, remat="full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ((new, m), step_ms), n_step = launches(
+        lambda: events(lambda: step({"params": params}, b)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    routes, plain_routes = [], []
+    with swapped(moe, "route", recording(routes)):
+        ((loss, g), g_ms), n_grad = launches(
+            lambda: events(lambda: steps.value_and_grad(lf, params)))
+    check(n_grad.get("flash_attention") == 2 * L
+          and n_grad.get("flash_attention_bwd") == L,
+          f"(c) a gradient launched K7 {n_grad}, not {2 * L} forward and "
+          f"{L} backward")
+    check(torch.equal(m["loss"], loss), f"(d) the fedavg step's loss "
+                                        f"{float(m['loss'])} is not (c)'s "
+                                        f"{float(loss)}")
+    check(all(torch.equal(a, p - g_ * eta) for a, p, g_ in zip(
+        pt.leaves(new["params"]), pt.leaves(params), pt.leaves(g))),
+        "(d) the fedavg step's params are not params - eta g of (c)'s "
+        "gradient")
+    check(n_step.get("flash_attention") == 2 * L
+          and n_step.get("flash_attention_bwd") == L,
+          f"(d) the fedavg step launched K7 {n_step}")
+    del new
+    (loss2, g2), g2_ms = events(lambda: steps.value_and_grad(lf, params))
+    check(torch.equal(loss, loss2) and same(g, g2),
+          "(c) two K7 gradients differ")
+    del g2
+    with swapped(attention, "attention", attention.plain_attention), \
+            swapped(moe, "route", recording(plain_routes)):
+        (loss_p, g_p), p_ms = events(lambda: steps.value_and_grad(lf, params))
+    flips = sum(int((a.idx != c.idx).sum())
+                for a, c in zip(routes, plain_routes))
+    rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    err = worst(g, g_p)
+    held = "the plain run's own choices"
+    if flips and (rel > LOGIT_REL or err > GRAD_REL):
+        print(f"  (c) on its own choices the plain route's loss is {rel:.2e} "
+              f"and the worst gradient leaf {err:.2e} away")
+        del g_p
+        with swapped(attention, "attention", attention.plain_attention), \
+                swapped(moe, "route", injecting(routes)):
+            loss_p, g_p = steps.value_and_grad(lf, params)
+        rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+        err = worst(g, g_p)
+        held = "the K7 run's expert choices injected"
+    check(rel <= LOGIT_REL and err <= GRAD_REL,
+          f"(c) K7 against the plain attention: loss {rel}, worst gradient "
+          f"leaf {err} x its max |g|")
+    check(all(bool(torch.isfinite(x).all()) for x in pt.leaves(g)),
+          "(c) gradient not finite")
+    out[f"{name} loss grad B=1 S={S} ms"] = [g_ms, g2_ms]
+    out[f"{name} loss grad B=1 S={S} plain attention ms"] = p_ms
+    out[f"{name} fedavg step ms"] = step_ms
+    out[f"{name} fedavg step peak GiB"] = peak
+    print(f"  (c) loss_fn B=1 S={S} remat=full: {float(loss):.6f}; its "
+          f"gradient {g_ms:.2f}, {g2_ms:.2f} ms (CUDA events), two runs "
+          f"bitwise equal; K7 {2 * L} forward + {L} backward launches; "
+          f"against the plain attention ({p_ms:.2f} ms, {held}): loss rel "
+          f"{rel:.2e} (<= {LOGIT_REL:g}), worst leaf {err:.2e} x its max "
+          f"|g| (<= {GRAD_REL:g}); routing choices that differ between the "
+          f"two runs: {flips} of {sum(r.idx.numel() for r in routes)} (the "
+          f"forward and its recomputation)")
+    print(f"  (d) make_fedavg_step, B=1 S={S} remat=full: {step_ms:.2f} ms "
+          f"(CUDA events); its loss bitwise (c)'s, its params bitwise params "
+          f"- eta g of (c)'s gradient; card peak {peak:.2f} GiB (4 x "
+          f"{n_params * 4 / 2 ** 30:.2f} GiB of params and gradient buffers "
+          f"and the activations)")
+    del g, g_p, params, routes, plain_routes
+    torch.cuda.empty_cache()
+
+    # (e) both MoE archs at launch/train.py's reduced preset
+    for arch in archs:
+        rcfg = get_arch(arch).reduced(num_layers=2, d_model=128,
+                                      vocab_size=256)
+        L = rcfg.num_layers
+        rp = init_on_card(torch, model_specs(rcfg), 0)
+        rb = card_batch(torch, 65, rcfg.vocab_size, 4, 64)
+        zeros = pt.tmap(torch.zeros_like, rp)
+        step_n, step_ms = {}, {}
+        for algo, build in steps.STEP_BUILDERS.items():
+            st = {"params": rp} if algo == "fedavg" else \
+                {"params": rp, "anchor": rp, "g_t": zeros}
+            ((new, m), step_ms[algo]), grew = launches(
+                lambda: events(lambda: build(rcfg, eta=1e-3,
+                                             remat="full")(st, rb)))
+            grads = 2 if algo == "feddane" else 1
+            step_n[algo] = {k: grew.get(k, 0) for k in k7}
+            check(np.isfinite(float(m["loss"])) and all(
+                bool(torch.isfinite(x).all()) for x in pt.leaves(new))
+                and step_n[algo] == {k7[0]: 2 * grads * L,
+                                     k7[1]: grads * L},
+                f"(e) {arch} {algo} step: loss {float(m['loss'])}, K7 "
+                f"launches {grew}")
+            out[f"{arch} reduced {algo} step ms"] = step_ms[algo]
+        print(f"  (e) {arch} reduced ({param_count(model_specs(rcfg)):,} "
+              f"params, {rcfg.moe.num_experts} experts top-"
+              f"{rcfg.moe.top_k}, d={rcfg.d_model}, {L} layers), B=4 S=64 "
+              f"remat=full, one step each: ms "
+              f"{ {a: round(v, 2) for a, v in step_ms.items()} }; K7 "
+              f"launches {step_n}")
+        del rp, zeros
+
+        first = []
+        orig_round = FederatedTrainer.round
+
+        def spy_round(self, st):
+            new = orig_round(self, st)
+            if not first:
+                first.append(pt.tmap(torch.clone, new.params))
+            return new
+
+        FederatedTrainer.round = spy_round
+        try:
+            (res, sel), grew = launches(lambda: train_drawn(
+                ["--arch", arch, "--rounds", "2"] + argv))
+        finally:
+            FederatedTrainer.round = orig_round
+        steps_run = 2 * 4
+        check(grew.get("dane_update_flat") == steps_run
+              and not grew.get("dane_update_2d") and grew.get(k7[0], 0) > 0
+              and grew.get(k7[1], 0) > 0,
+              f"(e) {arch} trainer auto: {grew} (K1 once a local step, "
+              f"{steps_run} steps)")
+        (res_leaf, sel_leaf), grew_leaf = launches(lambda: train_drawn(
+            ["--arch", arch, "--rounds", "1", "--local-solver", "per_leaf"]
+            + argv))
+        check(grew_leaf.get("dane_update_2d") == 4
+              and not grew_leaf.get("dane_update_flat"),
+              f"(e) {arch} per_leaf: {grew_leaf} (K4 once a local step)")
+        check(sel_leaf == sel[:len(sel_leaf)]
+              and same(res_leaf.state.params, first[0]),
+              f"(e) {arch}: per_leaf's round differs from flat's")
+        p_cpu, sel_cpu, losses_cpu = cpu_runs[arch].result()
+        check(sel == sel_cpu, f"(e) {arch}: selections {sel} on the card, "
+                              f"{sel_cpu} on the CPU path")
+        diff = max_err(torch, pt.tmap(lambda x: x.cpu(), res.state.params),
+                       p_cpu)
+        check(diff <= TRAJECTORY_TOL and all(np.isfinite(res.losses)),
+              f"(e) {arch}: params {diff} from the CPU path's after 2 "
+              f"rounds > {TRAJECTORY_TOL}")
+        out[f"{arch} reduced trainer ms/round"] = res.round_ms
+        print(f"      train.py feddane N=8 K=2 E=1 B=4 S=64: 2 rounds on auto "
+              f"(flat) {[round(x, 1) for x in res.round_ms]} ms/round (CUDA "
+              f"events), losses {[round(x, 5) for x in res.losses]} (CPU path "
+              f"{[round(x, 5) for x in losses_cpu]}); the CPU path's "
+              f"selections {sel_cpu}, params within {diff:.2e} (<= "
+              f"{TRAJECTORY_TOL:g}); per_leaf 1 round bitwise equal to "
+              f"flat's ({res_leaf.round_ms[0]:.1f} ms); launches flat "
+              f"{grew}, per_leaf {grew_leaf}")
+        p0 = res.state.params
+        del res, res_leaf, first[:]
+
+        def pods(n):
+            return pt.tmap(lambda x: x.unsqueeze(0).expand((n,) + x.shape)
+                           .contiguous(), p0)
+
+        two = pods(2)
+        bb = {k: torch.stack([v, torch.roll(v, 1, dims=1)])[:, None].expand(
+            2, 2, *v.shape).contiguous() for k, v in rb.items()}
+        fn2, _ = podfed.make_podfed_round_step(rcfg, local_steps=2,
+                                               eta=1e-2, mu=0.01,
+                                               remat="full")
+        ((pnew, pm), pod_ms), grew = launches(lambda: events(lambda: fn2(
+            {"params": two, "anchor": two,
+             "g_t": pt.tmap(torch.zeros_like, two)}, bb)))
+        check(np.isfinite(float(pm["loss"])) and all(
+            bool(torch.isfinite(x).all()) for x in pt.leaves(pnew)),
+            f"(e) {arch} podfed 2 pods x 2 steps: not finite")
+        out[f"{arch} reduced podfed 2 pods x 2 steps ms"] = pod_ms
+        print(f"      podfed 2 pods x 2 local steps, 1 round: finite, loss "
+              f"{float(pm['loss']):.5f}, {pod_ms:.1f} ms, launches {grew}")
+        del two, pnew, p0
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    pool, threads = cpu_pool()           # its workers start at a submit
+    try:
+        return run(torch, pool, threads)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run(torch, pool, threads: int) -> int:
+    """Phases 1-12 (module docstring); ``pool``, ``threads``: the CPU
+    path's workers (:func:`cpu_pool`)."""
     from repro_torch.configs.base import FederatedConfig
     from repro_torch.data import make_femnist_like, make_synthetic
     from repro_torch.kernels import build
@@ -3458,11 +4067,19 @@ def main() -> int:
     print(f"    data made in {time.perf_counter() - t0:.2f} s")
 
     print("[3] kernels against their plain versions")
+    t0 = time.perf_counter()
     rows = kernel_checks(torch, syn, fem)
+    print(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
     counts = build.launch_counts
     build.reset_launch_counts()          # the main path starts here
     phase_ms = {}
+    # phases 8 and 8c's CPU path, in the workers while phases 4-8b run
+    lstm_jobs = lstm_cpu_jobs(pool)
+    buffered_jobs = buffered_cpu_jobs(pool)
+    print(f"    the CPU path's runs of phases 8 and 8c go to {CPU_WORKERS} "
+          f"spawned workers of {threads} threads each, submitted now")
+    t4 = time.perf_counter()
     print("[4] paper config: synthetic(1,1) N=30 K=10 E=20 B=10 lr=0.01")
     for algo in ("feddane", "fedprox", "fedavg"):
         cfg = FederatedConfig(algorithm=algo, mu=0.001, **PAPER)
@@ -3585,6 +4202,7 @@ def main() -> int:
     print(f"  K5 launches = lossy rounds on the card = {lossy_rounds} "
           f"(3 compared + 1 profiled per lossy cell)")
 
+    print(f"  phases 4-7 took {time.perf_counter() - t4:.1f} s")
     print("[8] the paper's non-convex tasks: Sent140-like and "
           "Shakespeare-like LSTMs at full width, Fig. 1's settings")
     t0 = time.perf_counter()
@@ -3594,7 +4212,7 @@ def main() -> int:
             f"dane_update_flat ({10 * n}, 128)"))
         for n in (lstm_rows(sentlstm_specs(SENT_VOCAB)),
                   lstm_rows(charlstm_specs(SHAKES_VOCAB)))}
-    lstm_ms, sent140 = lstm_phase(torch, counts, k1_cases)
+    lstm_ms, sent140 = lstm_phase(torch, counts, k1_cases, lstm_jobs)
     phase_ms.update(lstm_ms)
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
@@ -3608,9 +4226,9 @@ def main() -> int:
     print('[8c] the buffered driver (round_driver="buffered"): an event '
           'queue of stale clients')
     t0 = time.perf_counter()
-    phase_ms.update(buffered_phase(torch, counts, syn, syn_cpu,
+    phase_ms.update(buffered_phase(torch, counts, syn,
                                    phase_ms["feddane/hostile/none"],
-                                   sent140))
+                                   sent140, buffered_jobs))
     print(f"  phase 8c took {time.perf_counter() - t0:.1f} s")
 
     print("[8d] the population layer: streaming client shards at "
@@ -3639,9 +4257,15 @@ def main() -> int:
     t0 = time.perf_counter()
     build.reset_launch_counts()          # the training path starts here
     train_out = train_phase(torch, counts)
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    print("[11b] training the MoE archs: qwen3-moe-235b-a22b at full width "
+          f"({MOE_TRAIN_LAYERS} of 94 layers), both MoE archs reduced")
+    t1 = time.perf_counter()
+    train_out.update(moe_train_phase(torch, counts, pool))
+    print(f"  phase 11b took {time.perf_counter() - t1:.1f} s")
     train_path = dict(counts)            # and is read here
-    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s; launches "
-          f"{ {k: v for k, v in train_path.items() if v} }")
+    print(f"  phases 11 and 11b took {time.perf_counter() - t0:.1f} s; "
+          f"launches { {k: v for k, v in train_path.items() if v} }")
 
     for r in rows:
         r["launches"] = (main_path[r["name"]] + on_mesh.get(r["name"], 0)

@@ -16,7 +16,8 @@ are its local mean, then ``sharding.tree_pmean`` over the ranks (every
 rank holding the same count, the mean of all pods).  The reference's
 XLA shardings inside a pod (``_client_pspecs``: FSDP over ``data``,
 tensor parallel over ``model``) are not ported: a pod is one rank here.
-The MoE archs are refused (``steps.check_trainable``).
+The archs are those of the train steps (``steps.check_trainable``): the
+dense archs and the MoE archs, whose pod loss adds the MoE blocks' aux.
 """
 from __future__ import annotations
 

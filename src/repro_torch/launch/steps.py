@@ -20,8 +20,11 @@ Counterpart of ``repro/launch/steps.py``:
 The train steps take gradients with ``torch.autograd.grad`` (so every
 remat policy works; on the card attention goes through K7 and its
 backward), return new state dicts and never write into their inputs.
-Serving takes the dense and the MoE archs; the train side
-(:func:`check_trainable`) refuses the MoE archs as not yet ported.
+Serving and the train side take the same archs, the dense ones and the
+MoE ones (qwen3-moe-235b-a22b, arctic-480b), whose loss adds the MoE
+blocks' load-balance aux; :func:`check_trainable` refuses what the
+model refuses (the Mamba and xLSTM blocks, encoder-decoder models and
+the audio and patch frontends) as not yet ported.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import InputShape, ModelConfig, _not_ported
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import pytree as pt
 from repro_torch.models import transformer
 
@@ -47,11 +50,9 @@ class ShapeDtype:
 # ---------------------------------------------------------------------------
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless the train side takes ``cfg``: the dense archs only
-    (training the MoE blocks is not yet ported)."""
+    """Raise unless the train side takes ``cfg``: the ``attn`` and
+    ``attn_moe`` patterns, as the model does."""
     transformer._check_ported(cfg)
-    if cfg.is_moe:
-        raise _not_ported(f"{cfg.name}: training the MoE blocks")
 
 
 def train_state_specs(cfg: ModelConfig, algo: str = "feddane") -> dict:
@@ -73,7 +74,7 @@ def abstract_train_state(cfg: ModelConfig, algo: str = "feddane",
 def train_batch_specs(cfg: ModelConfig, shape: InputShape
                       ) -> Dict[str, ShapeDtype]:
     """Tokens and labels, (B, S) int32; the audio and patch frontends
-    and the MoE archs are refused as not yet ported."""
+    are refused as not yet ported."""
     check_trainable(cfg)
     bs = (shape.global_batch, shape.seq_len)
     return {"tokens": ShapeDtype(bs, torch.int32),

@@ -1,11 +1,13 @@
 """End-to-end federated training driver for the LM stack.
 
-Federated fine-tuning of a dense architecture (the reduced preset unless
-``--full-size``) with FedDANE / FedAvg / FedProx / variants from the
-core library:
+Federated fine-tuning of a dense or an MoE architecture (the reduced
+preset unless ``--full-size``) with FedDANE / FedAvg / FedProx /
+variants from the core library:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --rounds 20 --devices-per-round 4 --local-epochs 2 --algo feddane
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen3-moe-235b-a22b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --full-size \\
       --num-devices 8 --devices-per-round 2 --local-epochs 1 \\
       --samples-per-device 16 --rounds 2
@@ -25,8 +27,11 @@ checkpoints); on the card its attention is K7 and its backward, one
 launch of each a layer for all the selected clients of a local step.
 Round times come from CUDA events on the card (the host clock on the
 CPU); checkpoints go through ``checkpoint/store.py`` every
-``--ckpt-every`` rounds.  The audio and patch frontends and the MoE
-archs' training are not yet ported (``steps.check_trainable``).
+``--ckpt-every`` rounds.  The MoE archs (qwen3-moe-235b-a22b,
+arctic-480b) train at the reduced preset, cut to at most 4 experts and
+top-2 (``ModelConfig.reduced``); their loss adds the blocks' load-balance
+aux.  The audio and patch frontends are not yet ported
+(``steps.check_trainable``).
 """
 from __future__ import annotations
 

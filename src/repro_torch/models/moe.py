@@ -14,15 +14,20 @@ Counterpart of ``repro/models/moe.py`` (``moe_specs``, ``_capacity``,
   capacity block, from an exclusive count, in (token, choice) order, of
   the earlier pairs of the same sequence routed to the same expert.  A
   pair past the capacity ``Cb`` goes to the pad slot ``E * Cb``.
-- :func:`moe_ffn`: the dispatch gather into a dense (B, E, Cb, d) block,
-  the expert einsums, and the combine: K gathers accumulated in f32 in
-  choice order, then Arctic's dense residual branch.
+- :func:`moe_ffn`: the dispatch gather into each expert's (B*Cb, d)
+  slot rows, the expert products (:func:`expert_matmul`, one ``bmm``
+  over the experts, as the reference's einsums), and the combine: K
+  gathers accumulated in f32 in choice order, then Arctic's dense
+  residual branch.
 
 The reference computes all of this outside any Pallas kernel, and so
 does the port: plain PyTorch on every device.  The dispatch's
-``scatter_`` writes duplicate indices only into the pad column, which is
+``scatter`` writes duplicate indices only into the pad column, which is
 sliced off, so the arbitrary winner the card picks among duplicates
-never shows.
+never shows.  Nothing is written in place and no value is read to the
+host, so :func:`route` and :func:`moe_ffn` batch under
+``torch.func.vmap`` (the trainer's ``vmap(grad)``) with no per-sample
+fallback, at any capacity factor.
 
 :func:`moe_ffn_plain` is a second, independent formulation of the same
 function (a loop over the experts, without the slot arithmetic), for
@@ -101,7 +106,11 @@ def choose(probs, idx, cfg: MoEConfig) -> Routing:
     gate = torch.gather(probs, -1, idx)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=(0, 1))                                 # (E,)
-    ce = F.one_hot(idx, E).to(F32).mean(dim=(0, 1, 2))
+    # the share of the choices on each expert; a comparison rather than
+    # ``F.one_hot``, whose check of the range reads a value to the host
+    # (which ``torch.func.vmap`` refuses)
+    hits = idx[..., None] == torch.arange(E, device=idx.device)
+    ce = hits.to(F32).mean(dim=(0, 1, 2))
     aux = cfg.aux_loss_weight * E * torch.sum(me * ce)
     return Routing(probs, gate, idx, aux)
 
@@ -124,6 +133,51 @@ def slots(idx, num_experts: int, capacity: int):
                        num_experts * capacity)
 
 
+class _ExpertMatmul(torch.autograd.Function):
+    """``torch.bmm`` over the experts, (E, R, m) @ (E, m, n) -> (E, R, n),
+    whose ``vmap`` takes the mapped dim of the rows' operand into its
+    rows: one product against the unmapped weights, which functorch's own
+    rule would copy once a client (``matmul`` broadcasts them).  Mapped
+    weights fold into the expert dim.  Its backward is the same
+    function, so that the gradients fold alike."""
+
+    @staticmethod
+    def forward(x, w):
+        return torch.bmm(x, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (_ExpertMatmul.apply(g, w.transpose(1, 2)),
+                _ExpertMatmul.apply(x.transpose(1, 2), g))
+
+    @staticmethod
+    def vmap(info, in_dims, x, w):
+        xd, wd = in_dims
+        if wd is None:
+            xs = x.movedim(xd, 1)                          # (E, N, R, m)
+            E, N, R, m = xs.shape
+            out = _ExpertMatmul.apply(xs.reshape(E, N * R, m), w)
+            return out.reshape(E, N, R, -1), 1
+        w = w.movedim(wd, 0)                               # (N, E, m, n)
+        N, E = w.shape[:2]
+        x = (x.movedim(xd, 0) if xd is not None
+             else x.expand((N,) + x.shape))
+        out = _ExpertMatmul.apply(x.reshape((N * E,) + x.shape[2:]),
+                                  w.reshape((N * E,) + w.shape[2:]))
+        return out.reshape((N, E) + out.shape[1:]), 0
+
+
+def expert_matmul(x, w):
+    """(E, R, m) @ (E, m, n) -> (E, R, n), one product an expert
+    (:class:`_ExpertMatmul`)."""
+    return _ExpertMatmul.apply(x, w)
+
+
 def moe_ffn(params, x, cfg: MoEConfig,
             capacity_factor: float = 1.25) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
@@ -143,16 +197,18 @@ def moe_ffn(params, x, cfg: MoEConfig,
     # the token position of each slot; S (the zero row) where it is empty
     s_idx = torch.arange(S, device=x.device).repeat_interleave(K)
     disp = torch.full((B, E * Cb + 1), S, dtype=torch.long, device=x.device)
-    disp.scatter_(1, slot, s_idx.expand(B, S * K))
-    disp = disp[:, :E * Cb]
+    disp = disp.scatter(1, slot, s_idx.expand(B, S * K))[:, :E * Cb]
     rows = torch.arange(B, device=x.device)[:, None]
     xpad = torch.cat([x, x.new_zeros(B, 1, d)], dim=1)
-    xe = xpad[rows, disp].reshape(B, E, Cb, d)
+    # each expert's slot rows of every sequence, (E, B*Cb, d)
+    xe = xpad[rows, disp].reshape(B, E, Cb, d).transpose(0, 1).reshape(
+        E, B * Cb, d)
 
-    g = torch.einsum("becd,edf->becf", xe, params["w_gate"])
-    u = torch.einsum("becd,edf->becf", xe, params["w_up"])
+    g = expert_matmul(xe, params["w_gate"])
+    u = expert_matmul(xe, params["w_up"])
     h = F.silu(g) * u
-    ye = torch.einsum("becf,efd->becd", h, params["w_down"])   # (B,E,Cb,d)
+    ye = expert_matmul(h, params["w_down"]).reshape(E, B, Cb, d).transpose(
+        0, 1)                                                  # (B,E,Cb,d)
 
     # combine: K gathers, summed in f32 in choice order
     ypad = torch.cat([ye.reshape(B, E * Cb, d), ye.new_zeros(B, 1, d)],

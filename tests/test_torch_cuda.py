@@ -1114,3 +1114,83 @@ def test_moe_ties_on_the_card_match_the_cpu(card, router):
                        moe.slots(r.idx, 128, Cb))
     if router == "zero":
         assert bool((r.idx == torch.arange(8)).all())
+
+
+def _moe_grads(cfg, p, x, w, cf=1.25):
+    """d/dp of sum(w * moe_ffn(p, x)) + aux, x the data of one client."""
+    from torch.func import grad
+
+    from repro_torch.models import moe
+
+    def f(p, x):
+        out, aux = moe.moe_ffn(p, x, cfg, cf)
+        return (out * w).sum() + aux
+    return f, grad(f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [1.25, 0.05])
+@pytest.mark.parametrize("E,K,dense", [(8, 2, True), (128, 8, False)])
+def test_moe_vmap_grad_on_the_card_equals_separate_grads(card, E, K, dense,
+                                                         cf):
+    """``vmap(grad)`` of ``moe_ffn`` over 3 clients' data on the card
+    (vmap's fallback off), at a capacity factor that drops pairs and one
+    that drops few: each client's gradient within 1e-6 x max |g| of its
+    own ``grad`` (bit for bit where cuBLAS takes the same kernel for the
+    batched and the single products), relative to the gradient's max
+    |g|, and two runs of each bitwise equal."""
+    import torch._C._functorch as functorch
+    from torch.func import vmap
+
+    from repro_torch.core import pytree as pt
+    cfg, p, _ = _moe_layer(E, K, dense, "random", seed=4)
+    p = pt.tmap(lambda t: t.to(card), p)
+    x = _normal(5, (3, 2, 96, 64), torch.float32, card)
+    w = _normal(6, (2, 96, 64), torch.float32, card)
+    f, g1 = _moe_grads(cfg, p, x, w, cf)
+    was = functorch._is_vmap_fallback_enabled()
+    functorch._set_vmap_fallback_enabled(False)
+    try:
+        got = vmap(g1, in_dims=(None, 0))(p, x)
+        again = vmap(g1, in_dims=(None, 0))(p, x)
+    finally:
+        functorch._set_vmap_fallback_enabled(was)
+    for a, b in zip(pt.leaves(got), pt.leaves(again)):
+        assert torch.equal(a, b)
+    for i in range(3):
+        want = g1(p, x[i])
+        g_max = max(float(b.abs().max()) for b in pt.leaves(want))
+        for a, b in zip(pt.leaves(pt.index(got, i)), pt.leaves(want)):
+            assert float((a - b).abs().max()) <= 1e-6 * g_max
+        for a, b in zip(pt.leaves(want), pt.leaves(g1(p, x[i]))):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b"])
+def test_moe_trainer_flat_equals_per_leaf_on_the_card(card, arch):
+    """``launch/train.py`` on a reduced MoE arch (1 layer, d=128), one
+    feddane round of K=2 in the flat and per_leaf modes: bitwise equal
+    params, K1 once a local step in flat and K4 once a step in per_leaf,
+    K7 and its backward launched."""
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch import train
+    argv = ["--arch", arch, "--rounds", "1", "--num-devices", "4",
+            "--devices-per-round", "2", "--local-epochs", "1",
+            "--samples-per-device", "8", "--seq-len", "16", "--d-model",
+            "128", "--layers", "1", "--vocab", "128"]
+    out, grew = {}, {}
+    for mode in ("flat", "per_leaf"):
+        build.reset_launch_counts()
+        out[mode] = train.main(argv + ["--local-solver", mode])
+        torch.cuda.synchronize()
+        grew[mode] = dict(build.launch_counts)
+    for a, b in zip(pt.leaves(out["flat"].state.params),
+                    pt.leaves(out["per_leaf"].state.params)):
+        assert torch.equal(a, b)
+    assert grew["flat"]["dane_update_flat"] == 2
+    assert grew["per_leaf"]["dane_update_2d"] == 2
+    assert not grew["flat"]["dane_update_2d"]
+    assert not grew["per_leaf"]["dane_update_flat"]
+    assert grew["flat"]["flash_attention"] > 0
+    assert grew["flat"]["flash_attention_bwd"] > 0

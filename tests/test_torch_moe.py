@@ -14,7 +14,7 @@ Model level: the reduced qwen3-moe-235b-a22b and arctic-480b (prefill,
 decode and ``generate`` are in tests/test_torch_transformer.py);
 ``loss_fn`` (cross-entropy plus the aux) within 1e-5 and its gradient
 within 1e-4 x each leaf's max |g|; the full-width spec trees and
-parameter counts; ``serve.main``; the train side's refusal.
+parameter counts; ``serve.main``; the train side's entry points.
 """
 import dataclasses
 
@@ -264,7 +264,7 @@ def _batch(seed, B, S, vocab=128):
             "labels": labels}
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 @pytest.mark.parametrize("arch", MOE)
 def test_loss_and_grad_match_reference(arch, remat):
     """``loss_fn`` (cross-entropy plus both layers' aux) and its
@@ -326,18 +326,33 @@ def test_serve_main_runs_qwen3_moe_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", MOE)
-def test_train_side_refuses_moe(arch):
-    """Serving is ported, training the MoE blocks is not: every train
-    entry point says so."""
+def test_train_side_takes_moe(arch):
+    """Every train entry point takes the MoE archs: the specs, the step
+    builders, the trainer's loss and ``train.main`` (one round on the
+    CPU), and podfed."""
     cfg = configs.get_arch(arch).reduced()
     shape = configs.get_shape("train_4k")
-    for fn in (lambda: steps.train_state_specs(cfg),
-               lambda: steps.abstract_train_state(cfg),
-               lambda: steps.train_batch_specs(cfg, shape),
-               *(lambda b=b: b(cfg) for b in steps.STEP_BUILDERS.values()),
-               lambda: train.make_lm_loss(cfg),
-               lambda: train.main(["--arch", arch, "--device", "cpu"]),
-               lambda: podfed.make_podfed_round_step(cfg),
-               lambda: podfed.abstract_podfed_args(cfg, shape, 2)):
-        with pytest.raises(ValueError, match="not yet ported"):
-            fn()
+    moe_leaf = "['params']['stack']['pos_0']['moe']['w_gate']"
+    rows = {jax.tree_util.keystr(p): s.shape
+            for p, s in jax.tree_util.tree_leaves_with_path(
+                steps.abstract_train_state(cfg),
+                is_leaf=lambda x: isinstance(x, steps.ShapeDtype))}
+    assert rows[moe_leaf] == (2, 4, 256, 512)
+    assert set(steps.train_state_specs(cfg)) == {"params", "anchor", "g_t"}
+    assert steps.train_batch_specs(cfg, shape)["tokens"].shape == (256, 4096)
+    for build in steps.STEP_BUILDERS.values():
+        assert callable(build(cfg))
+    assert callable(train.make_lm_loss(cfg))
+    res = train.main(["--arch", arch, "--device", "cpu", "--rounds", "1",
+                      "--num-devices", "4", "--devices-per-round", "2",
+                      "--local-epochs", "1", "--samples-per-device", "8",
+                      "--seq-len", "16", "--d-model", "64", "--layers", "1",
+                      "--vocab", "128"])
+    assert res.cfg.moe.num_experts == 4 and res.cfg.moe.top_k == 2
+    assert np.isfinite(res.losses).all() and res.state.round == 1
+    fn, info = podfed.make_podfed_round_step(cfg)
+    assert callable(fn) and info["mesh_devices"] == 1
+    state, batch = podfed.abstract_podfed_args(cfg, shape, 2)
+    assert state["params"]["stack"]["pos_0"]["moe"]["w_gate"].shape == \
+        (2, 2, 4, 256, 512)
+    assert batch["tokens"].shape[0] == 2
