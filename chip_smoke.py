@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together), printing ptxas's registers,
    stack frame and spills of every entry;
-3. each kernel (K1-K7) at every shape phases 4-11 give it (K2 and K3 at
+3. each kernel (K1-K8) at every shape phases 4-11 give it (K2 and K3 at
    both d=60 and d=784, K2 also on a rank's devices of the flat mesh
    and, with its steps cut short, of the tree, and on the 1- and 3-row
    cohorts a buffered refill solves, K3 too; K2 and K3 also at d=2,000
@@ -46,7 +46,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    qwen's prefill at B=2, S=1024 and S=128
    (BH=32); (m) and (n) qwen3-moe-235b-a22b's GQA-folded prefills, 16
    query heads a KV head: B*Kv=4 slices of 16*4096 rows against 4096
-   keys and 8 of 16*1024 against 1024, hd=64, causal_period=S; and,
+   keys and 8 of 16*1024 against 1024, hd=64, causal_period=S; (o) and
+   (p) jamba-v0.1-52b's, 4 query heads a KV head, hd=128: B*Kv=8
+   slices of 4*4096 rows against 4096 keys and 16 of 4*1024 against
+   1024; and,
    writing the row log-sum-exp as training does, (a)'s
    shape and the trainer's local-step fold (K*B*H = 128 slices of S=64):
    f32 within atol 4e-5 / rtol 2e-5 (the reference's own sweep
@@ -64,7 +67,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    flops a visible pair, TF32 or bf16 rate), the plain version and
    ``torch.autograd.grad`` through SDPA (its backward).  K1 and K4 also
    at the trainer's qwen1.5-0.5b pack (K=2 devices of 463,987,712
-   params: one flat launch; the tree's 14 leaves in one launch);
+   params: one flat launch; the tree's 14 leaves in one launch).  K8
+   (the selective scan, a kernel of the port) at (s1) jamba's prefill
+   B=1, S=4096, di=8,192, N=16, (s2) B=2, S=1024 and (s3) the reduced
+   preset B=2, S=200, di=512, N=8, on numpy-seeded inputs (a random
+   a_log), within K8_REL x max |y| of the plain step loop, beside its
+   bound (the bytes, or the exponentials on the special-function
+   units) and the plain loop's time over 3 calls; no PyTorch call
+   computes it;
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
@@ -225,6 +235,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompt, 16 new tokens, cache 128): no kernel launched, greedy tokens
    equal to the same generation with ``moe.moe_ffn`` swapped for the
    plain version; the 24.6 GB are freed before phase 11;
+10c. the hybrid arch: jamba-v0.1-52b at full width (d=4096, 32 heads on
+   8 KV heads, hd=128, di=8,192, N=16, 16 experts top-2, d_ff 14,336,
+   V=65,536) cut to JAMBA_LAYERS=8 of its 32 layers, one repeat of its
+   pattern (7 mamba blocks, 4 of them with the MoE FFN, and 1
+   attention block; 13.30 B params), weights drawn on the card from
+   seed 0, f32, TF32 off: (a) one mamba layer's ``mamba_mixer`` at B=1,
+   S=4096 on seeded hidden states through K8 against the plain scan on
+   the card (``ssm.selective_scan`` swapped for ``ssm.plain_scan``;
+   within K8_REL x max |out|); (b) prefill at B=1, S=4096 and B=2,
+   S=1024 against the plain attention and the plain scan on the card
+   (logits within LOGIT_REL, argmax equal; K7 exactly once and K8
+   exactly 7 times a prefill), with the routing choices that differ and,
+   where they differ and the logits do not agree, the kernels' run's
+   choices injected; ms a prefill and the idle share of one profiled
+   B=1, S=4096 prefill; (c) ``serve.generate`` at B=2 (16-token
+   prompt, 16 new tokens, cache 128): no kernel launched, the logits
+   after the prompt (the decode path's SSM state and conv window)
+   within LOGIT_REL of the prefill's last position (K8's scan), argmax
+   equal (the prefill's expert choices injected where a flip makes them
+   disagree); ms a decode step; the 49.5 GiB freed before phase 11;
 11. LM training at full width, qwen1.5-0.5b, random weights from seed
    0, f32: (a) ``loss_fn`` and its gradient at B=1, S=64 against the
    CPU path (the loss within LOGIT_REL relative, each leaf within
@@ -277,7 +307,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    main path -- phases 4-8d in this process (the counters are set to 0
    just before phase 4 and read just after phase 8d; a captured kernel
    counts once a replay, and once for the warm-up run before its
-   capture), phase 9's ranks, phase 10, and phases 11 and 11b (each set
+   capture), phase 9's ranks, phase 10, phase 10c, and phases 11 and
+   11b (each set
    to 0 just before it and read just after) -- error,
    times and bound, and each checked shape under ``cases`` (with its
    ``device_ms`` where phase 3 took one, and the update paths' kernels
@@ -318,6 +349,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
+#: exponentials a second on the special-function units: 16 a clock an SM
+#: (NVIDIA's CUDA C++ Programming Guide, arithmetic instruction
+#: throughput, compute capability 9.0) x 132 SMs x the 1,980 MHz boost clock; K8's bound by operations.
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
 
 #: Flat and per-leaf updates round op by op like the plain version.
 UPDATE_TOL = 0.0
@@ -353,10 +388,16 @@ FLASH_TOL = {"f32": (4e-5, 2e-5), "bf16": (4e-3, 1e-2)}
 #: card's plain attention, relative to max |logit|: 24 layers of f32
 #: products summed in another order.
 LOGIT_REL = 1e-4
+#: K8 and the mixer against the plain step loop: within this x max |y|
+#: (f32 exp and sums in another order, over a decaying recurrence).
+K8_REL = 1e-5
 
 #: Phase 10's MoE cells: qwen3-moe-235b-a22b at full width, cut to
 #: MOE_LAYERS of its 94 layers (6.1 B params, 24.6 GB in f32).
 MOE_LAYERS = 2
+#: Phase 10c: jamba-v0.1-52b at full width, cut to one repeat of its
+#: 8-block pattern (8 of 32 layers: 13.30 B params, 49.53 GiB in f32).
+JAMBA_LAYERS = 8
 #: Phase 10: one full-width ``moe_ffn`` against the per-expert plain
 #: version on the card, relative to max |out| (4,096-long f32 dot
 #: products in another order, 8 gated terms a token); the aux absolute.
@@ -501,7 +542,7 @@ def kernel_checks(torch, syn, fem):
     from repro_torch.data.batching import stack_device_batches
     from repro_torch.kernels import (build, codec, dane_update,
                                      flash_attention, flatpack, local_solve,
-                                     ref)
+                                     ref, selective_scan)
     from repro_torch.kernels import ops as kops
     from repro_torch.data.leaf_like import SENT_VOCAB, SHAKES_VOCAB
     from repro_torch.models.small import charlstm_specs, sentlstm_specs
@@ -529,8 +570,15 @@ def kernel_checks(torch, syn, fem):
 
     def case(label, kernel, plain, tol, nbytes, flops, calls=100,
              plain_repeats=5, library=None, rtol=0.0,
-             peak_flops=PEAK_F32_FLOPS, device_time=False):
+             peak_flops=PEAK_F32_FLOPS, device_time=False, scaled=False,
+             plain_calls=None):
+        """``scaled``: ``tol`` is relative to the plain output's max |y|;
+        ``plain_calls``: calls a timed repeat of the plain version (by
+        default ``calls``)."""
         got, want = kernel(), plain()
+        if scaled:
+            tol = tol * max(float(y.float().abs().max())
+                            for y in pt.leaves(want))
         err = max_err(torch, got, want)
         # |kernel - plain| <= tol + rtol * |plain|, elementwise
         excess = max(float(((x.float() - y.float()).abs()
@@ -541,7 +589,7 @@ def kernel_checks(torch, syn, fem):
         b_ms, b_by = bound(nbytes, flops, peak_flops)
         c = dict(shape=label, max_abs_err=err, tol=tol, rtol=rtol,
                  ms=cuda_ms(torch, kernel, calls),
-                 plain_ms=cuda_ms(torch, plain, calls,
+                 plain_ms=cuda_ms(torch, plain, plain_calls or calls,
                                   repeats=plain_repeats),
                  bound_ms=b_ms, bound_by=b_by,
                  library_ms=(cuda_ms(torch, library, calls)
@@ -940,6 +988,34 @@ def kernel_checks(torch, syn, fem):
             library=lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
                                                 retain_graph=True))
 
+    def k8_case(label, B, S, di, N, calls=20):
+        """K8 on numpy-seeded inputs shaped as the mixer makes them (dt a
+        softplus, A = -exp(a_log) with a random a_log: the model's zeros
+        would make A -1 everywhere), held within K8_REL x max |y| of
+        the plain step loop on the card.  Its bound: x, dt, Bc, Cc, A
+        read once and y written once, against the B*S*di*N exponentials
+        on the special-function units (the state's 6 f32 flops each,
+        at 67 TFLOP/s, take less); no PyTorch call computes the scan."""
+        x, bc, cc = (normal(B, S, n) for n in (di, N, N))
+        dt = torch.nn.functional.softplus(normal(B, S, di) - 1.0)
+        a = -torch.exp(normal(di, N, scale=0.5))
+        nbytes = 4 * (3 * B * S * di + 2 * B * S * N + di * N)
+        return case(
+            f"selective_scan ({B}, {S}, {di}) N={N} f32, {label}",
+            lambda: selective_scan.selective_scan(x, dt, bc, cc, a),
+            lambda: ref.selective_scan_ref(x, dt, bc, cc, a),
+            K8_REL, nbytes, B * S * di * N, calls=calls, plain_repeats=3,
+            plain_calls=1, peak_flops=PEAK_SFU_OPS, scaled=True)
+
+    def row_k8(cases):
+        """K8: a kernel of the port with no TPU counterpart (the
+        reference's scan is a ``lax.scan`` that XLA loops)."""
+        return dict(row("selective_scan", "", "selective_scan.cu", cases),
+                    replaces="none: no TPU kernel (the reference scans "
+                             "_mamba_step with lax.scan, "
+                             "src/repro/models/ssm.py:99-108 under "
+                             "chunked_scan :26-41)")
+
     def qwen_update_cases():
         """K1 over the trainer's qwen1.5-0.5b flat pack (LM_TRAIN_K
         devices, all active, as a local step's mask) and K4 over the
@@ -1078,6 +1154,12 @@ def kernel_checks(torch, syn, fem):
                      4096, 64, True, "f32", period=4096, gqa=(1, 64, 4)),
              k7_case("(n) qwen3-moe B=2 S=1024 GQA-folded", 8, 16 * 1024,
                      1024, 64, True, "f32", period=1024, gqa=(2, 64, 4)),
+             # phase 10c's jamba prefills: 32 query heads on 8 KV heads,
+             # hd=128, folded into 4*S rows against S keys
+             k7_case("(o) jamba B=1 S=4096 GQA-folded", 8, 4 * 4096, 4096,
+                     128, True, "f32", period=4096, gqa=(1, 32, 8)),
+             k7_case("(p) jamba B=2 S=1024 GQA-folded", 16, 4 * 1024, 1024,
+                     128, True, "f32", period=1024, gqa=(2, 32, 8)),
              # phase 11's train step (S=4096) and the trainer's folded
              # launches (S=64): K*B*H rows of a local step, K*nb*B*H of
              # phase A's gradients
@@ -1100,6 +1182,12 @@ def kernel_checks(torch, syn, fem):
              k7_bwd_case("(k) ragged", 16, 1000, 1000, 64, "f32"),
              k7_bwd_case("(l) qwen train_4k B=1 S=4096", 16, 4096, 4096, 64,
                          "bf16")])),
+        # K8 at phase 10c's jamba prefills (di = 2 d_model = 8,192,
+        # N=16) and the reduced preset at a length off the chunk
+        row_k8([k8_case("(s1) jamba B=1 S=4096", 1, 4096, 8192, 16),
+                k8_case("(s2) jamba B=2 S=1024", 2, 1024, 8192, 16),
+                k8_case("(s3) jamba reduced B=2 S=200", 2, 200, 512, 8,
+                        calls=100)]),
     ]
 
 
@@ -3332,6 +3420,184 @@ def moe_cells(torch, counts):
     return out
 
 
+def jamba_phase(torch, counts):
+    """Phase 10c: jamba-v0.1-52b at full width, JAMBA_LAYERS of its 32
+    layers (7 mamba blocks, 4 with the MoE FFN, and 1 attention block),
+    random weights drawn on the card from seed 0, f32: (a) one mamba
+    layer's ``mamba_mixer`` through K8 against the plain scan on the
+    card, (b) prefill through K7 and K8 against the plain attention and
+    the plain scan, (c) ``serve.generate``, its logits after the prompt
+    against the prefill's; returns their timings (ms) and the prefill's
+    idle share."""
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import (attention, model_specs, moe,
+                                    param_count, ssm)
+
+    out = {}
+    cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"),
+                              num_layers=JAMBA_LAYERS)
+    name = f"jamba ({JAMBA_LAYERS} layers)"
+    kinds = cfg.layer_kinds
+    n_attn = sum(k in (cb.ATTN, cb.ATTN_MOE) for k in kinds)
+    n_mamba = len(kinds) - n_attn
+    t0 = time.perf_counter()
+    params = init_on_card(torch, model_specs(cfg), 0)
+    torch.cuda.synchronize()
+    print(f"  jamba-v0.1-52b at full width, {JAMBA_LAYERS} of 32 layers "
+          f"({n_mamba} mamba, {n_attn} attention; E={cfg.moe.num_experts} "
+          f"top-{cfg.moe.top_k} in {kinds.count(cb.MAMBA_MOE)}): "
+          f"{param_count(model_specs(cfg)):,} params (f32), drawn on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
+
+    def plain_scan(fn):
+        with swapped(ssm, "selective_scan", ssm.plain_scan):
+            return fn()
+
+    # (a) one mamba layer's mixer at B=1, S=4096: K8 against the plain scan
+    layer = pt.tmap(lambda a: a[0], params["stack"]["pos_0"]["mamba"])
+    S = 4096
+    gen = card_generator(torch, 2)
+    x = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+    mixer = lambda: ssm.mamba_mixer(layer, x, cfg)
+    before = counts["selective_scan"]
+    got = mixer()
+    torch.cuda.synchronize()
+    check(counts["selective_scan"] - before == 1,
+          "mamba_mixer: K8 not launched once")
+    want = plain_scan(mixer)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "mamba_mixer: not finite")
+    check(err <= K8_REL * scale, f"mamba_mixer: K8 differs from the plain "
+                                 f"scan by {err} > {K8_REL} x {scale}")
+    out[f"{name} mamba_mixer B=1 S={S}"] = cuda_ms(torch, mixer, 1,
+                                                   repeats=3)
+    out[f"{name} mamba_mixer B=1 S={S} plain scan"] = cuda_ms(
+        torch, lambda: plain_scan(mixer), 1, repeats=1)
+    print(f"  (a) mamba_mixer, one layer, B=1 S={S}: max |diff| {err:.3g} "
+          f"against the plain scan (bound {K8_REL:g} x max |out| "
+          f"{scale:.4g}); {out[f'{name} mamba_mixer B=1 S={S}']:.2f} ms, "
+          f"plain scan "
+          f"{out[f'{name} mamba_mixer B=1 S={S} plain scan']:.2f} ms")
+    del got, want, x
+
+    # (b) prefill through K7 and K8 against the plain attention and scan
+    step = make_prefill_step(cfg)
+
+    def plain(fn, route=None):
+        with swapped(attention, "attention", attention.plain_attention), \
+                swapped(ssm, "selective_scan", ssm.plain_scan), \
+                swapped(moe, "route", route or moe.route):
+            return fn()
+
+    for B, S in ((1, 4096), (2, 1024)):
+        toks = card_tokens(torch, B * S + 11, cfg.vocab_size, B, S)
+        batch = {"tokens": toks}
+        k_routes, plain_routes = [], []
+        before = dict(counts)
+        with swapped(moe, "route", recording(k_routes)):
+            logits = step(params, batch)
+        torch.cuda.synchronize()
+        grew = _delta(before, counts)
+        check(logits.shape == (B, 1, cfg.vocab_size),
+              f"{name}: shape {tuple(logits.shape)}")
+        check(grew == {"flash_attention": n_attn, "selective_scan": n_mamba},
+              f"{name}: one prefill launched {grew}, not K7 {n_attn} and "
+              f"K8 {n_mamba} times")
+        want = plain(lambda: step(params, batch), recording(plain_routes))
+        flips = sum(int((a.idx != b.idx).sum())
+                    for a, b in zip(k_routes, plain_routes))
+        label = (f"{name} B={B} S={S}, K7 and K8 vs the plain attention "
+                 f"and scan on the card")
+        ok, err, _ = logits_agree(torch, logits, want)
+        if flips and not ok:
+            # a flipped near-tie between the 2nd and 3rd expert: hold the
+            # case on the kernels' run's expert choices
+            print(f"  {name} B={B} S={S}: without the kernels' run's "
+                  f"choices, max |logit diff| {err:.3g}")
+            want = plain(lambda: step(params, batch), injecting(k_routes))
+            label += ", the kernels' run's expert choices injected"
+        compare_logits(torch, label, logits, want)
+        print(f"    launches a prefill {grew}; routing choices that differ "
+              f"between the two runs: {flips} of "
+              f"{B * S * cfg.moe.top_k * len(k_routes)}")
+        ms = cuda_ms(torch, lambda: step(params, batch), 1, repeats=3)
+        plain_ms = cuda_ms(torch, lambda: plain(lambda: step(params, batch)),
+                           1, repeats=1)
+        out[f"{name} B={B} S={S}"] = ms
+        out[f"{name} B={B} S={S} plain attention and scan"] = plain_ms
+        print(f"    {ms:.2f} ms per prefill ({B * S / ms * 1e3:.0f} prompt "
+              f"tokens/s); with the plain attention and scan {plain_ms:.2f} "
+              f"ms")
+        if S == 4096:
+            out[f"idle share, {name} B=1 S=4096 prefill"] = device_share(
+                torch, lambda: step(params, batch),
+                f"{name} B=1 S=4096 prefill")
+        del logits, want, k_routes, plain_routes
+
+    # (c) serve: the decode path's logits after the prompt (the mamba
+    # blocks' state and conv window built one step a token) against the
+    # prefill's last position (the K8 scan), then greedy decode
+    B, P, new = 2, 16, 16
+    prompt = card_tokens(torch, P, cfg.vocab_size, B, P)
+    dec_routes, pre_routes = [], []
+    before = dict(counts)
+    with swapped(moe, "route", recording(dec_routes)):
+        gen = serve.generate(params, cfg, prompt, new, 128)
+    check(_delta(before, counts) == {}, f"{name}: the decode path launched "
+                                        f"a kernel")
+    with swapped(moe, "route", recording(pre_routes)):
+        want = step(params, {"tokens": prompt})
+    n_moe = len(pre_routes)
+    Cb = moe.group_capacity(P, cfg.moe)
+    dropped = sum(int((moe.slots(r.idx, cfg.moe.num_experts, Cb)
+                       == cfg.moe.num_experts * Cb).sum())
+                  for r in pre_routes)
+    # the decode path routes each prompt token on its own, layer by layer
+    flips = sum(int((dec_routes[t * n_moe + j].idx
+                     != pre_routes[j].idx[:, t:t + 1]).sum())
+                for t in range(P) for j in range(n_moe))
+    label = (f"{name} serve B={B}: the logits after a {P}-token prompt, "
+             f"decode path vs prefill")
+    ok, err, _ = logits_agree(torch, gen.prompt_logits, want)
+    if flips and not ok:
+        print(f"  {label}: without the prefill's choices, max |logit diff| "
+              f"{err:.3g}")
+        calls = iter(range(P * n_moe))
+        real = moe.route
+
+        def prefill_choices(p, h, c):
+            i = next(calls, None)
+            r = real(p, h, c)
+            if i is None:
+                return r
+            t, j = divmod(i, n_moe)
+            return moe.choose(r.probs, pre_routes[j].idx[:, t:t + 1], c)
+        with swapped(moe, "route", prefill_choices):
+            gen = serve.generate(params, cfg, prompt, new, 128)
+        label += ", the prefill's expert choices injected"
+    compare_logits(torch, label, gen.prompt_logits, want)
+    out[f"{name} serve ms per decode step (B=2)"] = gen.decode_s / new * 1e3
+    out[f"{name} serve ms per prompt step (B=2)"] = gen.prompt_s / P * 1e3
+    print(f"  (c) serve.generate, B={B}, {P}-token prompt, {new} new "
+          f"tokens, cache 128: routing choices that differ from the "
+          f"prefill's {flips} of {B * P * cfg.moe.top_k * n_moe}, pairs the "
+          f"prefill dropped {dropped}; "
+          f"{out[f'{name} serve ms per decode step (B=2)']:.2f} ms per "
+          f"decode step, {out[f'{name} serve ms per prompt step (B=2)']:.2f}"
+          f" ms per prompt step (host clock); tokens {gen.tokens.tolist()}")
+    check(bool(torch.isfinite(gen.prompt_logits).all()),
+          f"{name} serve: logits not finite")
+    # (d) free the weights before phase 11
+    del params, gen, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_phase(torch, counts):
     """Phase 11: LM training at full width (qwen1.5-0.5b, random weights
     from seed 0, f32): the loss's gradient, the three train steps, the
@@ -4252,6 +4518,15 @@ def run(torch, pool, threads: int) -> int:
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s; launches "
           f"{ {k: v for k, v in lm_path.items() if v} }")
 
+    print(f"[10c] the hybrid arch at full width: jamba-v0.1-52b "
+          f"({JAMBA_LAYERS} of 32 layers) through K7 and K8")
+    t0 = time.perf_counter()
+    build.reset_launch_counts()          # the hybrid path starts here
+    lm_ms.update(jamba_phase(torch, counts))
+    jamba_path = dict(counts)            # and is read here
+    print(f"  phase 10c took {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: v for k, v in jamba_path.items() if v} }")
+
     print("[11] LM training at full width: qwen1.5-0.5b's loss, train "
           "steps, federated trainer and pods as clients")
     t0 = time.perf_counter()
@@ -4269,7 +4544,8 @@ def run(torch, pool, threads: int) -> int:
 
     for r in rows:
         r["launches"] = (main_path[r["name"]] + on_mesh.get(r["name"], 0)
-                         + lm_path[r["name"]] + train_path[r["name"]])
+                         + lm_path[r["name"]] + jamba_path[r["name"]]
+                         + train_path[r["name"]])
         check(r["launches"] > 0, f"{r['name']} not launched on the main "
                                  f"path")
     print(f"[12] done in {time.perf_counter() - t_start:.1f} s; phase "

@@ -3,9 +3,10 @@
 ``ModelConfig``, ``MoEConfig`` and ``InputShape`` are counterparts of
 ``repro/configs/base.py:15-153``: the same fields, defaults, derived
 properties and ``reduced()`` preset, so an architecture reads the same in
-both packages.  The model path of the port takes the dense ``attn``
-pattern only (``models/transformer.py`` refuses the other block kinds,
-encoder-decoder models and the patch frontend as not yet ported).
+both packages.  The model path of the port takes the ``attn``,
+``attn_moe``, ``mamba`` and ``mamba_moe`` block kinds
+(``models/transformer.py`` refuses the xLSTM blocks, encoder-decoder
+models and the patch frontend as not yet ported).
 
 ``FederatedConfig`` is the counterpart of the reference's
 ``FederatedConfig``: the same fields, defaults and validation, checked
@@ -25,7 +26,7 @@ from typing import Optional, Tuple
 # Block kinds used by the layer pattern of an architecture.
 ATTN = "attn"          # full-attention transformer block (dense FFN)
 ATTN_MOE = "attn_moe"  # attention block with MoE FFN
-MAMBA = "mamba"        # Mamba SSM block (dense FFN none; mamba mixer only)
+MAMBA = "mamba"        # Mamba mixer + dense SwiGLU FFN
 MAMBA_MOE = "mamba_moe"  # Mamba mixer + MoE FFN (Jamba)
 SLSTM = "slstm"        # xLSTM sLSTM block
 MLSTM = "mlstm"        # xLSTM mLSTM block

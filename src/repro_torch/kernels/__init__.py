@@ -8,6 +8,8 @@
 - ``flash_attention`` (K7): blockwise online-softmax attention, causal
   or not, with GQA-folded query rows (``causal_period``), the prefill
   path's self-attention;
+- ``selective_scan`` (K8, a kernel of the port only): the Mamba
+  selective scan of the SSM blocks' prefill;
 - ``ops``: tree-level wrappers of the update kernels and the reference's
   GQA wrapper of K7;
 - ``ref``: the plain PyTorch version of each kernel;

@@ -223,3 +223,28 @@ def flash_attention_3d_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     dq = torch.bmm(ds, k.to(F32)) * scale
     dk = torch.bmm(ds.transpose(1, 2), q.to(F32)) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def selective_scan_ref(xs, dt, Bc, Cc, A):
+    """K8's function: the Mamba selective scan from ``h = 0``, the
+    reference's step (``repro/models/ssm.py:99-108``) folded over S.
+
+    ``xs``, ``dt``: (B, S, di); ``Bc``, ``Cc``: (B, S, N); ``A``: (di, N),
+    all f32.  Each step, in the reference's order of products::
+
+        h   = exp(dt_t A) * h + (dt_t x_t) (x) b_t     (B, di, N)
+        y_t = sum_n h[:, :, n] c_t[:, n]               (B, di)
+
+    Returns ``y`` (B, S, di) f32.
+    """
+    B, S, di = xs.shape
+    h = xs.new_zeros((B, di, A.shape[1]), dtype=F32)
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t].to(F32)
+        da = torch.exp(dt_t[..., None] * A)
+        dbx = (dt[:, t] * xs[:, t]).to(F32)[..., None] \
+            * Bc[:, t].to(F32)[:, None, :]
+        h = da * h + dbx
+        ys.append(torch.einsum("bin,bn->bi", h, Cc[:, t].to(F32)))
+    return torch.stack(ys, dim=1) if ys else xs.new_zeros((B, 0, di))

@@ -2,16 +2,18 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 Counterpart of ``repro/launch/serve.py``, with its CLI and defaults (the
 reduced preset of ``--arch``).  As there, the prompt is fed through
 ``decode_step`` one token at a time, which fills the ring-buffer KV
-cache, and the model then decodes greedily.  The dense archs and the
-MoE archs (qwen3-moe-235b-a22b, arctic-480b) are served.  Runs on the
-card unless ``--device cpu``.  The weights are drawn by ``init_params`` from
-``--seed``, and so is the prompt (from a ``torch.Generator``, not the
-reference's ``jax.random``).
+cache (and, for jamba-v0.1-52b's mamba blocks, the SSM state and conv
+window), and the model then decodes greedily.  The dense archs, the MoE
+archs (qwen3-moe-235b-a22b, arctic-480b) and the hybrid jamba-v0.1-52b
+are served.  Runs on the card unless ``--device cpu``.  The weights are
+drawn by ``init_params`` from ``--seed``, and so is the prompt (from a
+``torch.Generator``, not the reference's ``jax.random``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ class Generation(NamedTuple):
     tokens: torch.Tensor      # (B, tokens) greedy tokens
     prompt_s: float           # host clock over the prompt's decode steps
     decode_s: float           # host clock over the greedy decode steps
+    prompt_logits: torch.Tensor  # (B, 1, V) logits after the prompt
 
 
 def _clock(device) -> float:
@@ -48,13 +51,16 @@ def generate(params, cfg, prompt, tokens: int, cache_len: int) -> Generation:
     B, P = prompt.shape
     dev = prompt.device
     dtype = params["embed"]["embedding"].dtype
-    cache = pt.tmap(lambda s: torch.zeros(s.shape, dtype=dtype, device=dev),
-                    decode_cache_specs(cfg, B, cache_len))
+    # KV caches in the params' dtype, recurrent states in f32
+    cache = pt.tmap(lambda s: torch.zeros(
+        s.shape, dtype=dtype if "seq" in s.axes else torch.float32,
+        device=dev), decode_cache_specs(cfg, B, cache_len))
     t0 = _clock(dev)
     for t in range(P):
         logits, cache = decode_step(
             params, {"tokens": prompt[:, t:t + 1], "t": t}, cache, cfg)
     t1 = _clock(dev)
+    prompt_logits = logits
     out = []
     tok = torch.argmax(logits, dim=-1)
     for t in range(P, P + tokens):
@@ -63,7 +69,7 @@ def generate(params, cfg, prompt, tokens: int, cache_len: int) -> Generation:
         tok = torch.argmax(logits, dim=-1)
         out.append(tok[:, 0])
     toks = torch.stack(out, dim=1) if out else prompt.new_zeros((B, 0))
-    return Generation(toks, t1 - t0, _clock(dev) - t1)
+    return Generation(toks, t1 - t0, _clock(dev) - t1, prompt_logits)
 
 
 def main(argv=None):

@@ -20,11 +20,13 @@ Counterpart of ``repro/launch/steps.py``:
 The train steps take gradients with ``torch.autograd.grad`` (so every
 remat policy works; on the card attention goes through K7 and its
 backward), return new state dicts and never write into their inputs.
-Serving and the train side take the same archs, the dense ones and the
-MoE ones (qwen3-moe-235b-a22b, arctic-480b), whose loss adds the MoE
-blocks' load-balance aux; :func:`check_trainable` refuses what the
-model refuses (the Mamba and xLSTM blocks, encoder-decoder models and
-the audio and patch frontends) as not yet ported.
+Serving takes the dense archs, the MoE ones (qwen3-moe-235b-a22b,
+arctic-480b) and the hybrid jamba-v0.1-52b (its mamba blocks' scan
+through K8 on the card).  The train side takes the dense and MoE archs,
+whose loss adds the MoE blocks' load-balance aux; :func:`check_trainable`
+refuses the mamba blocks (K8 has no backward yet) and what the model
+refuses (the xLSTM blocks, encoder-decoder models and the audio and
+patch frontends) as not yet ported.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs import base as cb
+from repro_torch.configs.base import InputShape, ModelConfig, _not_ported
 from repro_torch.core import pytree as pt
 from repro_torch.models import transformer
 
@@ -51,8 +54,11 @@ class ShapeDtype:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise unless the train side takes ``cfg``: the ``attn`` and
-    ``attn_moe`` patterns, as the model does."""
+    ``attn_moe`` patterns.  The model serves the mamba blocks too, but
+    their scan's kernel has no backward yet."""
     transformer._check_ported(cfg)
+    if any(k in (cb.MAMBA, cb.MAMBA_MOE) for k in cfg.pattern):
+        raise _not_ported(f"{cfg.name}: training of the mamba blocks")
 
 
 def train_state_specs(cfg: ModelConfig, algo: str = "feddane") -> dict:
@@ -96,11 +102,13 @@ def decode_batch_specs(cfg: ModelConfig, shape: InputShape
 
 def abstract_decode_cache(cfg: ModelConfig, shape: InputShape,
                           dtype=torch.bfloat16) -> dict:
-    """The decode cache's shapes: KV caches in the activation dtype."""
+    """The decode cache's shapes: KV caches in the activation dtype,
+    recurrent states (a mamba block's ``h`` and conv window) in f32."""
     cache_len = transformer.effective_cache_len(cfg, shape.seq_len)
     specs = transformer.decode_cache_specs(cfg, shape.global_batch,
                                            cache_len)
-    return pt.tmap(lambda s: ShapeDtype(s.shape, dtype), specs)
+    return pt.tmap(lambda s: ShapeDtype(
+        s.shape, dtype if "seq" in s.axes else torch.float32), specs)
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:

@@ -1,10 +1,13 @@
 """Model assembly for the LM stack: specs, loss, prefill and decode.
 
-Counterpart of ``repro/models/transformer.py`` for the ``attn`` and
-``attn_moe`` patterns: the dense archs (qwen1.5-0.5b, yi-9b,
-minitron-8b, phi4-mini-3.8b) and the MoE archs (qwen3-moe-235b-a22b,
-arctic-480b), whose blocks run ``models/moe.py``'s ``moe_ffn`` in
-place of the SwiGLU FFN.  The
+Counterpart of ``repro/models/transformer.py`` for the ``attn``,
+``attn_moe``, ``mamba`` and ``mamba_moe`` patterns: the dense archs
+(qwen1.5-0.5b, yi-9b, minitron-8b, phi4-mini-3.8b), the MoE archs
+(qwen3-moe-235b-a22b, arctic-480b), whose blocks run ``models/moe.py``'s
+``moe_ffn`` in place of the SwiGLU FFN, and the hybrid jamba-v0.1-52b,
+whose mamba blocks run ``models/ssm.py``'s ``mamba_mixer`` in place of
+attention (K8 on the card) and decode through ``mamba_decode_step`` on
+a cache of the SSM state ``h`` and the conv window.  The
 parameter tree keeps the reference's keys and stacked layout
 (``embed/embedding``, ``stack/pos_0/attn/wq`` of shape ``[R, d, H, hd]``,
 ...), so ``models.param.params_from_numpy`` carries the reference's
@@ -30,8 +33,8 @@ Public entry points (functions over param trees):
 - ``decode_step(params, batch, cache, cfg)``  one-token decode
 - ``decode_cache_specs(cfg, batch, cache_len)`` cache ParamSpec tree
 
-Mamba and xLSTM blocks, encoder-decoder models and the patch frontend
-are refused as not yet ported.
+xLSTM blocks, encoder-decoder models and the patch frontend are
+refused as not yet ported.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ from repro_torch.configs.base import ModelConfig, _not_ported
 from repro_torch.core import pytree as pt
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import moe, ssm
 from repro_torch.models.param import ParamSpec
 
 Params = Dict[str, Any]
@@ -57,9 +60,14 @@ Params = Dict[str, Any]
 # Specs
 # ---------------------------------------------------------------------------
 
+#: The block kinds the port's model takes.
+_PORTED_KINDS = (cb.ATTN, cb.ATTN_MOE, cb.MAMBA, cb.MAMBA_MOE)
+_ATTN_KINDS = (cb.ATTN, cb.ATTN_MOE)
+
+
 def _check_ported(cfg: ModelConfig) -> None:
     for kind in cfg.pattern:
-        if kind not in (cb.ATTN, cb.ATTN_MOE):
+        if kind not in _PORTED_KINDS:
             raise _not_ported(f"{cfg.name}: block kind {kind!r}")
     if cfg.encoder_decoder:
         raise _not_ported(f"{cfg.name}: encoder_decoder")
@@ -69,13 +77,14 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 def _block_specs(kind: str, cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    s = {
-        "ln1": L.norm_spec(d),
-        "attn": attn.attention_specs(d, cfg.num_heads, cfg.num_kv_heads, hd,
-                                     cfg.qkv_bias),
-        "ln2": L.norm_spec(d),
-    }
-    if kind == cb.ATTN_MOE:
+    s = {"ln1": L.norm_spec(d)}
+    if kind in _ATTN_KINDS:
+        s["attn"] = attn.attention_specs(d, cfg.num_heads, cfg.num_kv_heads,
+                                         hd, cfg.qkv_bias)
+    else:
+        s["mamba"] = ssm.mamba_specs(cfg)
+    s["ln2"] = L.norm_spec(d)
+    if kind in (cb.ATTN_MOE, cb.MAMBA_MOE):
         s["moe"] = moe.moe_specs(d, cfg.d_ff, cfg.moe)
     else:
         s["ffn"] = L.swiglu_ffn_specs(d, cfg.d_ff)
@@ -119,11 +128,16 @@ def _ffn(p: Params, h, cfg: ModelConfig):
 
 def _apply_block(p: Params, x, cfg: ModelConfig, positions, *,
                  causal: bool = True):
-    """The block's output and its aux loss (None for a dense block)."""
+    """The block's output and its aux loss (None for a dense FFN).  A
+    mamba block (``"mamba"`` in ``p``) mixes with ``ssm.mamba_mixer``,
+    the others with attention."""
     h = L.rms_norm(x, p["ln1"], cfg.rms_norm_eps)
-    q, k, v = attn.qkv_project(p["attn"], h, positions, cfg.rope_theta)
-    x = x + attn.out_project(p["attn"],
-                             attn.attention(q, k, v, causal=causal))
+    if "mamba" in p:
+        x = x + ssm.mamba_mixer(p["mamba"], h, cfg)
+    else:
+        q, k, v = attn.qkv_project(p["attn"], h, positions, cfg.rope_theta)
+        x = x + attn.out_project(p["attn"],
+                                 attn.attention(q, k, v, causal=causal))
     h = L.rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     y, aux = _ffn(p, h, cfg)
     return x + y, aux
@@ -240,7 +254,16 @@ def prefill(params: Params, batch: Dict[str, Any], cfg: ModelConfig):
 # Decode caches
 # ---------------------------------------------------------------------------
 
-def _cache_block_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
+def _cache_block_specs(kind: str, cfg: ModelConfig, batch: int,
+                       cache_len: int) -> dict:
+    if kind not in _ATTN_KINDS:
+        di, _, N = ssm.mamba_dims(cfg)
+        return {"h": ParamSpec((batch, di, N),
+                               ("batch", "ssm_inner", "ssm_state"),
+                               init="zeros"),
+                "conv": ParamSpec((batch, cfg.ssm_conv_dim - 1, di),
+                                  ("batch", None, "ssm_inner"),
+                                  init="zeros")}
     hd = cfg.resolved_head_dim
     kv = ("batch", "seq", "kv_heads", "head_dim")
     shape = (batch, cache_len, cfg.num_kv_heads, hd)
@@ -254,8 +277,9 @@ def decode_cache_specs(cfg: ModelConfig, batch: int,
     _check_ported(cfg)
     repeats = cfg.num_layers // len(cfg.pattern)
     return {f"pos_{p}": pt.tmap(lambda s: _stack(s, repeats),
-                                _cache_block_specs(cfg, batch, cache_len))
-            for p, _ in enumerate(cfg.pattern)}
+                                _cache_block_specs(kind, cfg, batch,
+                                                   cache_len))
+            for p, kind in enumerate(cfg.pattern)}
 
 
 def effective_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -270,15 +294,21 @@ def effective_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 # ---------------------------------------------------------------------------
 
 def _apply_block_decode(p: Params, x, cache: Params, cfg: ModelConfig,
-                        t: int, cache_len: int):
-    """x: (B,1,d); t: absolute position.  Writes the token's K/V into
-    ``cache`` (in place) and returns the block's output."""
+                        t: int):
+    """x: (B,1,d); t: absolute position.  Writes the token's K/V (an
+    attention block) or the SSM state and conv window (a mamba block)
+    into ``cache`` in place and returns the block's output."""
     h = L.rms_norm(x, p["ln1"], cfg.rms_norm_eps)
-    pos = torch.full((x.shape[0], 1), t, device=x.device)
-    q, k, v = attn.qkv_project(p["attn"], h, pos, cfg.rope_theta)
-    kc, vc = attn.update_cache(cache["k"], cache["v"], k, v, t)
-    o = attn.cached_attention(q, kc, vc, cache_len=cache_len)
-    x = x + attn.out_project(p["attn"], o)
+    if "mamba" in p:
+        x = x + ssm.mamba_decode_step(p["mamba"], h, cache, cfg)[0]
+    else:
+        pos = torch.full((x.shape[0], 1), t, device=x.device)
+        q, k, v = attn.qkv_project(p["attn"], h, pos, cfg.rope_theta)
+        kc, vc = attn.update_cache(cache["k"], cache["v"], k, v, t)
+        # ring buffer: valid length saturates at capacity
+        o = attn.cached_attention(q, kc, vc,
+                                  cache_len=min(t + 1, kc.shape[1]))
+        x = x + attn.out_project(p["attn"], o)
     h = L.rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     return x + _ffn(p, h, cfg)[0]
 
@@ -290,7 +320,8 @@ def decode_step(params: Params, batch: Dict[str, Any], cache: Params,
 
     ``batch``: {"tokens": (B,1) int, "t": the absolute position (an int
     or a 0-d tensor)}.  Returns (logits (B,1,V), cache): the cache's
-    ring slot ``t % cache_len`` of every layer is written in place (the
+    ring slot ``t % cache_len`` of every attention layer, and the state
+    and conv window of every mamba layer, are written in place (the
     reference returns an updated copy).
     """
     _check_ported(cfg)
@@ -300,10 +331,8 @@ def decode_step(params: Params, batch: Dict[str, Any], cache: Params,
     for r in range(repeats):
         layer, layer_cache = _layer(params["stack"], r), _layer(cache, r)
         for i, _ in enumerate(cfg.pattern):
-            lc = layer_cache[f"pos_{i}"]
-            # ring buffer: valid length saturates at capacity
-            cl = min(t + 1, lc["k"].shape[1])
-            x = _apply_block_decode(layer[f"pos_{i}"], x, lc, cfg, t, cl)
+            x = _apply_block_decode(layer[f"pos_{i}"], x,
+                                    layer_cache[f"pos_{i}"], cfg, t)
     x = L.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _logits(params, x, cfg), cache
 

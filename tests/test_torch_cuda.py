@@ -1194,3 +1194,106 @@ def test_moe_trainer_flat_equals_per_leaf_on_the_card(card, arch):
     assert not grew["per_leaf"]["dane_update_flat"]
     assert grew["flat"]["flash_attention"] > 0
     assert grew["flat"]["flash_attention_bwd"] > 0
+
+
+# ---------------------------------------------------------------------------
+# K8, the selective scan
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(card, B, S, di, N, seed=40):
+    """Scan inputs as the mixer makes them: x of O(1), dt a softplus, b
+    and c of O(1), A = -exp(a_log) with a random a_log."""
+    x = _normal(seed, (B, S, di), torch.float32, card)
+    dt = torch.nn.functional.softplus(
+        _normal(seed + 1, (B, S, di), torch.float32, card) - 1.0)
+    bc = _normal(seed + 2, (B, S, N), torch.float32, card)
+    cc = _normal(seed + 3, (B, S, N), torch.float32, card)
+    a = -torch.exp(0.5 * _normal(seed + 4, (di, N), torch.float32, card))
+    return x, dt, bc, cc, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N", [
+    (2, 200, 512, 8),      # the reduced preset at S=200 (not a multiple
+                           # of the chunk or the kernel's time tile)
+    (1, 64, 8192, 16),     # full width, a short prompt
+    (3, 1, 96, 16),        # one step; channels past di in the last block
+])
+def test_selective_scan_kernel_matches_plain(card, B, S, di, N):
+    from repro_torch.kernels.selective_scan import selective_scan
+    x, dt, bc, cc, a = _scan_inputs(card, B, S, di, N)
+    build.reset_launch_counts()
+    got = selective_scan(x, dt, bc, cc, a)
+    torch.cuda.synchronize()
+    assert build.launch_counts["selective_scan"] == 1
+    want = ref.selective_scan_ref(x, dt, bc, cc, a)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_selective_scan_kernel_takes_column_views_of_bc_and_cc(card):
+    """``Bc`` and ``Cc`` as the mixer hands them over: column slices of
+    one (B, S, dt_rank + 2N) product."""
+    from repro_torch.kernels.selective_scan import selective_scan
+    x, dt, _, _, a = _scan_inputs(card, 2, 100, 128, 8)
+    proj = _normal(50, (2, 100, 4 + 16), torch.float32, card)
+    bc, cc = proj[..., 4:12], proj[..., 12:]
+    got = selective_scan(x, dt, bc, cc, a)
+    want = ref.selective_scan_ref(x, dt, bc, cc, a)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+def test_selective_scan_kernel_refuses(card):
+    """Another dtype, an input that requires grad, a non-contiguous x
+    and a state size it is not built for raise; nothing is launched."""
+    from repro_torch.kernels.selective_scan import selective_scan
+    x, dt, bc, cc, a = _scan_inputs(card, 1, 16, 64, 8)
+    build.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32"):
+        selective_scan(x.bfloat16(), dt, bc, cc, a)
+    with pytest.raises(TypeError, match="float32"):
+        selective_scan(x, dt, bc, cc, a.double())
+    with pytest.raises(RuntimeError, match="requires grad"):
+        selective_scan(x.requires_grad_(True), dt, bc, cc, a)
+    x = x.detach()
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan(torch.cat([x, x], dim=-1)[..., :64], dt, bc, cc, a)
+    x4, dt4, bc4, cc4, a4 = _scan_inputs(card, 1, 16, 64, 4)
+    with pytest.raises(ValueError, match="state dim N=4"):
+        selective_scan(x4, dt4, bc4, cc4, a4)
+    assert build.launch_counts["selective_scan"] == 0
+
+
+@pytest.mark.cuda
+def test_mamba_mixer_runs_k8_on_the_card(card):
+    """The reduced jamba preset's mixer on the card launches K8 once and
+    agrees with the same mixer on the plain scan, on the card and on the
+    CPU, within 1e-5 x max |out|."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pytree as pt
+    from repro_torch.models import param, ssm
+    cfg = get_arch("jamba-v0.1-52b").reduced()
+    p = param.init_params(ssm.mamba_specs(cfg),
+                          torch.Generator().manual_seed(0), device="cpu")
+    p["a_log"] = _normal(7, tuple(p["a_log"].shape), torch.float32, "cpu")
+    x = _normal(8, (2, 200, cfg.d_model), torch.float32, "cpu")
+    pc = pt.tmap(lambda t: t.to(card), p)
+    build.reset_launch_counts()
+    got = ssm.mamba_mixer(pc, x.to(card), cfg)
+    torch.cuda.synchronize()
+    assert build.launch_counts["selective_scan"] == 1
+    scale = float(got.abs().max())
+    saved = ssm.selective_scan
+    ssm.selective_scan = ssm.plain_scan
+    try:
+        plain = ssm.mamba_mixer(pc, x.to(card), cfg)
+    finally:
+        ssm.selective_scan = saved
+    assert build.launch_counts["selective_scan"] == 1
+    cpu = ssm.mamba_mixer(p, x, cfg)
+    assert float((got - plain).abs().max()) <= 1e-5 * scale
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-5 * scale

@@ -1,4 +1,5 @@
-"""The port's LM stack (dense and MoE) against the JAX package, on the CPU.
+"""The port's LM stack (dense, MoE and hybrid) against the JAX package, on
+the CPU.
 
 The reference's ``init_params`` draws the weights; ``params_from_numpy``
 carries them into the port unchanged (the weight bridge: both trees have
@@ -6,7 +7,10 @@ the same keys and stacked ``[R, ...]`` layout).  The same numpy-seeded
 tokens then go through both packages' prefill, hidden-state forward and
 decode step, and through the serve loop: the dense archs and the MoE
 archs (qwen3-moe-235b-a22b, and arctic-480b with its dense residual
-branch), whose routing must pick the same experts in both packages.
+branch), whose routing must pick the same experts in both packages, and
+the hybrid jamba-v0.1-52b (one repeat of its 8-block pattern: mamba,
+mamba_moe and attn blocks; the decode cache holds each mamba block's
+SSM state and conv window).
 
 Tolerances: logits and hidden states atol 1e-4 / rtol 1e-4 (float32
 matrix products and softmax sums in another order than XLA's, through 2
@@ -35,12 +39,15 @@ from repro_torch.models import param, transformer
 ATOL = RTOL = 1e-4
 DENSE = ["qwen1.5-0.5b", "yi-9b", "minitron-8b", "phi4-mini-3.8b"]
 MOE = ["qwen3-moe-235b-a22b", "arctic-480b"]
-NOT_PORTED = ["jamba-v0.1-52b", "xlstm-350m", "whisper-tiny",
-              "internvl2-26b"]
+HYBRID = ["jamba-v0.1-52b"]
+NOT_PORTED = ["xlstm-350m", "whisper-tiny", "internvl2-26b"]
 SMALL = {"qwen": ("qwen1.5-0.5b", {}),
          "yi-gqa": ("yi-9b", {"num_kv_heads": 2}),
          "qwen3-moe": ("qwen3-moe-235b-a22b", {}),
-         "arctic": ("arctic-480b", {"num_kv_heads": 2})}
+         "arctic": ("arctic-480b", {"num_kv_heads": 2}),
+         "jamba": ("jamba-v0.1-52b",
+                   {"num_layers": 1, "d_model": 64, "num_heads": 4,
+                    "num_kv_heads": 2, "d_ff": 128, "vocab_size": 128})}
 
 
 def _small(name):
@@ -104,7 +111,7 @@ def test_registry_matches_reference():
         configs.get_shape("train_8k")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
 def test_model_specs_match_reference_at_full_width(arch):
     """The full configs' spec trees -- keys, shapes, axes, initialisers
     -- and parameter counts, from the specs alone (nothing allocated)."""
@@ -131,7 +138,7 @@ def test_other_families_are_refused(arch):
         transformer.decode_cache_specs(cfg, 1, 8)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
 @pytest.mark.parametrize("shape", sorted(jconfigs.INPUT_SHAPES))
 def test_step_input_specs_match_reference(arch, shape):
     jcfg, tcfg = jconfigs.get_arch(arch), configs.get_arch(arch)
@@ -270,6 +277,30 @@ def test_decode_matches_teacher_forcing():
                                atol=ATOL, rtol=RTOL)
 
 
+def test_hybrid_decode_matches_teacher_forcing():
+    """jamba's decode path (the mamba blocks' one-step recurrence on the
+    cached state and conv window, the attention block's KV cache)
+    reproduces the full-sequence forward's logits (the chunked scan) at
+    every position, in the port.  S=8: a token takes an expert at most
+    once, so no expert gets more than the capacity of 8 and the prefill
+    drops no pair either."""
+    _, tp = _params("jamba")
+    _, tcfg = _small("jamba")
+    B, S = 2, 8
+    toks = torch.from_numpy(_tokens(9, tcfg.vocab_size, B, S))
+    hidden = transformer.forward_hidden(tp, {"tokens": toks}, tcfg)
+    full = L.head(tp["head"], hidden)
+    cache = param.init_params(transformer.decode_cache_specs(tcfg, B, S),
+                              torch.Generator(), device="cpu")
+    outs = []
+    for t in range(S):
+        logits, cache = transformer.decode_step(
+            tp, {"tokens": toks[:, t:t + 1], "t": t}, cache, tcfg)
+        outs.append(logits[:, 0])
+    np.testing.assert_allclose(torch.stack(outs, 1).numpy(), full.numpy(),
+                               atol=ATOL, rtol=RTOL)
+
+
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
@@ -296,7 +327,7 @@ def _reference_serve(jp, jcfg, prompt, tokens, cache_len):
 
 @pytest.mark.parametrize("name,cache_len", [("qwen", 128), ("yi-gqa", 8),
                                             ("qwen3-moe", 128),
-                                            ("arctic", 8)])
+                                            ("arctic", 8), ("jamba", 8)])
 def test_generate_gives_the_reference_tokens(name, cache_len):
     """Greedy tokens of ``serve.generate`` on the reference's weights
     equal the reference's serve loop; at cache_len 8 the ring wraps."""
