@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together), printing ptxas's registers,
    stack frame and spills of every entry;
-3. each kernel (K1-K8) at every shape phases 4-11 give it (K2 and K3 at
+3. each kernel (K1-K8, K7-bwd, K8-bwd) at every shape phases 4-11c
+   give it (K2 and K3 at
    both d=60 and d=784, K2 also on a rank's devices of the flat mesh
    and, with its steps cut short, of the tree, and on the 1- and 3-row
    cohorts a buffered refill solves, K3 too; K2 and K3 also at d=2,000
@@ -74,7 +75,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    a_log), within K8_REL x max |y| of the plain step loop, beside its
    bound (the bytes, or the exponentials on the special-function
    units) and the plain loop's time over 3 calls; no PyTorch call
-   computes it;
+   computes it.  K8-bwd (the scan's backward, a kernel of the port) at
+   (s1)-(s3) and (s3') the reduced trainer's fold of 2 clients (B=2x4,
+   S=64, di=256, A one a client), from the states K8's training launch
+   saved: each output within GRAD_REL x its max |g| of the plain reverse
+   walk, two calls bitwise equal, and the training launch's y and H
+   within K8_REL x their max of the plain forward's, beside its bound
+   (the bytes, or the B*S*di*N exponentials the gradient needs) and the
+   plain walk's time;
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
@@ -303,12 +311,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    (in the pool: the same selections, params within TRAJECTORY_TOL),
    then 1 round on ``per_leaf`` bitwise equal to flat's first (K4 once
    a local step); pods as clients, 2 pods x 2 local steps, finite;
+11c. training the hybrid arch: jamba-v0.1-52b at full width, weights
+   drawn on the card from seed 0, f32: (b) one ``mamba_mixer``'s
+   gradient (x and every weight) at B=1, S=4096 through K8 and K8-bwd
+   (once each) against the plain scan's autograd on the card (each leaf
+   within GRAD_REL of its max |g|); (c) ``loss_fn``'s gradient at its
+   first JAMBA_TRAIN_LAYERS=2 layers (mamba, mamba_moe: 3.74 B params)
+   at B=1, S=4096, ``remat="full"`` (K8 twice and K8-bwd once a layer),
+   two runs bitwise equal, against the plain scan route on the card
+   (the loss within LOGIT_REL, each leaf within GRAD_REL; the routing
+   choices that differ, and the plain run held on the K8 run's where
+   they differ and the gradients do not agree); (d) ``make_fedavg_step``
+   on that batch, twice: its loss bitwise (c)'s, its params bitwise
+   params - eta g, ms and the card's peak; (e) at the first layer
+   alone, 3 ``make_feddane_round_step`` steps at S=4096 (the loss
+   falls; ms a step, peak) and 3 at S=JAMBA_STEP_CMP_S against the
+   plain scan's (params within TRAIN_STEP_TOL), one pipelined step;
+   (f) ``train.main --arch jamba-v0.1-52b --layers 1 --lr
+   JAMBA_TRAIN_LR``: feddane N=8 K=2 E=1 B=4 S=64, 2 rounds on ``auto``
+   (= flat; K8 and K8-bwd once a mamba layer, K7 and K7-bwd once for
+   the attention layer, in each local step for both clients) against
+   the CPU path (in the pool: the same selections, params within
+   TRAJECTORY_TOL), 1 round on ``per_leaf`` bitwise equal to flat's
+   first, pods as clients, 2 pods x 2 local steps, finite;
 12. the ``kernels`` JSON line: every kernel with its launches on the
    main path -- phases 4-8d in this process (the counters are set to 0
    just before phase 4 and read just after phase 8d; a captured kernel
    counts once a replay, and once for the warm-up run before its
-   capture), phase 9's ranks, phase 10, phase 10c, and phases 11 and
-   11b (each set
+   capture), phase 9's ranks, phase 10, phase 10c, and phases 11-11c
+   (each set
    to 0 just before it and read just after) -- error,
    times and bound, and each checked shape under ``cases`` (with its
    ``device_ms`` where phase 3 took one, and the update paths' kernels
@@ -436,6 +467,27 @@ MOE_VMAP = (2, 4, 64)
 #: all its leaves).
 VMAP_REL = 1e-6
 
+#: Phase 11c: jamba-v0.1-52b trained at full width, cut to its first
+#: JAMBA_TRAIN_LAYERS layers (a mamba block with the dense FFN, then one
+#: with the 16-expert MoE: 3.74 B params, P = 13.94 GiB in f32): a
+#: fedavg step's 4P fits the card, a feddane step's 6P does not; the
+#: feddane steps (e) run on the first layer alone (0.818 B params).
+JAMBA_TRAIN_LAYERS = 2
+JAMBA_STEP_LAYERS = 1
+#: Phase 11c (e): the steps' eta (at 1e-3 three steps move the
+#: one-layer cut's params by only 1e-5, 10 x TRAIN_STEP_TOL) and the
+#: sequence of the 3 steps held against the plain scan's (whose Python
+#: loop of the step takes ~16 s a gradient a layer at S=4096).
+JAMBA_STEP_ETA = 1e-2
+JAMBA_STEP_CMP_S = 1024
+#: Phase 11c (f): the reduced trainer's lr.  At train.py's default 0.05
+#: jamba's trajectory amplifies rounding, in the reference as in the
+#: port (tests/test_torch_moe_train.py: a 1e-7 nudge of the weights
+#: moves the reference's g_t by > 1e-4 in one feddane step, with no
+#: expert choice flipped), so no two f32 runs could agree within
+#: TRAJECTORY_TOL over 2 rounds there; 0.005 takes smaller steps.
+JAMBA_TRAIN_LR = "0.005"
+
 PAPER = dict(num_devices=30, devices_per_round=10, local_epochs=20,
              local_batch_size=10, learning_rate=0.01, seed=0)
 
@@ -532,7 +584,7 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
 
 
 def kernel_checks(torch, syn, fem):
-    """Phase 3: K1-K7 against their plain versions at every shape that
+    """Phase 3: K1-K8 and the backwards against their plain versions at every shape that
     phases 4-10 give them; returns the rows of the kernels line (launches
     filled in later).  A row's ``max_abs_err`` is the worst of its
     cases; its times and bound are those of its first case."""
@@ -1016,6 +1068,64 @@ def kernel_checks(torch, syn, fem):
                              "src/repro/models/ssm.py:99-108 under "
                              "chunked_scan :26-41)")
 
+    def k8_bwd_case(label, B, S, di, N, groups=0, calls=20):
+        """K8-bwd on numpy-seeded inputs shaped as K8's (``groups``: A one
+        a group of batch rows, as the vmap fold of ``groups`` clients
+        gives it) and a cotangent, from the states K8's training launch
+        saved: each output within GRAD_REL x its own max |g| of the
+        plain backward on the same inputs, two calls bitwise equal; the
+        training launch's y and H within K8_REL x their max of the plain
+        forward's (H is all 0 at S <= 64: then equal).  Its bound: x, dt,
+        dy, Bc, Cc, A and H read once, dx, ddt, dBc, dCc and dA written
+        once, against the B*S*di*N exponentials exp(dt_t A) the gradient
+        needs on the special-function units (the kernel evaluates each
+        twice, in the chunk's recomputation and its walk back: its own
+        choice); no PyTorch call computes the scan's gradient."""
+        x, bc, cc, dy = (normal(B, S, n) for n in (di, N, N, di))
+        dt = torch.nn.functional.softplus(normal(B, S, di) - 1.0)
+        a = -torch.exp(normal(*((groups,) if groups else ()), di, N,
+                              scale=0.5))
+        y, H = selective_scan.selective_scan_fwd(x, dt, bc, cc, a,
+                                                 with_states=True)
+        for name, g, w in zip(("y", "H"), (y, H), ref.selective_scan_fwd_ref(
+                x, dt, bc, cc, a, selective_scan.CHUNK)):
+            err, top = float((g - w).abs().max()), float(w.abs().max())
+            check(err <= K8_REL * top, f"K8 {label}: the training launch's "
+                                       f"{name} differs from the plain "
+                                       f"forward's by {err} (max {top})")
+        del y
+        args = (x, dt, bc, cc, a, H, dy)
+        got = selective_scan.selective_scan_bwd(*args)
+        again = selective_scan.selective_scan_bwd(*args)
+        want = ref.selective_scan_bwd_ref(*args)
+        check(all(torch.equal(g, g2) for g, g2 in zip(got, again)),
+              f"K8-bwd {label}: two calls differ")
+        for name, g, w in zip(("dxs", "ddt", "dBc", "dCc", "dA"), got, want):
+            rel = float((g - w).abs().max()) / float(w.abs().max())
+            check(rel <= GRAD_REL, f"K8-bwd {label}: {name} differs from "
+                                   f"the plain backward by {rel} x its max")
+        del got, again, want
+        nbytes = 4 * (5 * B * S * di + 4 * B * S * N + 2 * a.numel()
+                      + H.numel())
+        return case(
+            f"selective_scan_bwd ({B}, {S}, {di}) N={N} f32"
+            + (f" A in {groups} groups" if groups else "") + f", {label}",
+            lambda: selective_scan.selective_scan_bwd(*args),
+            lambda: ref.selective_scan_bwd_ref(*args),
+            GRAD_REL, nbytes, B * S * di * N, calls=calls,
+            plain_repeats=1, plain_calls=1, peak_flops=PEAK_SFU_OPS,
+            scaled=True)
+
+    def row_k8_bwd(cases):
+        """K8-bwd: a kernel of the port with no TPU counterpart (the
+        reference differentiates its lax.scan under jax.checkpoint)."""
+        return dict(row("selective_scan_bwd", "", "selective_scan_bwd.cu",
+                        cases),
+                    replaces="none: no TPU kernel (the reference "
+                             "differentiates its lax.scan of _mamba_step "
+                             "under chunked_scan's jax.checkpoint, "
+                             "src/repro/models/ssm.py:26-41)")
+
     def qwen_update_cases():
         """K1 over the trainer's qwen1.5-0.5b flat pack (LM_TRAIN_K
         devices, all active, as a local step's mask) and K4 over the
@@ -1188,6 +1298,17 @@ def kernel_checks(torch, syn, fem):
                 k8_case("(s2) jamba B=2 S=1024", 2, 1024, 8192, 16),
                 k8_case("(s3) jamba reduced B=2 S=200", 2, 200, 512, 8,
                         calls=100)]),
+        # K8-bwd at the same shapes, and the trainer's vmap fold of two
+        # clients (A a client) at the reduced preset
+        row_k8_bwd([k8_bwd_case("(s1) jamba B=1 S=4096", 1, 4096, 8192, 16,
+                                calls=5),
+                    k8_bwd_case("(s2) jamba B=2 S=1024", 2, 1024, 8192, 16,
+                                calls=5),
+                    k8_bwd_case("(s3) jamba reduced B=2 S=200", 2, 200, 512,
+                                8),
+                    k8_bwd_case("(s3') the reduced trainer's fold of 2 "
+                                "clients, B=2x4 S=64", 8, 64, 256, 8,
+                                groups=2)]),
     ]
 
 
@@ -4286,6 +4407,389 @@ def moe_train_phase(torch, counts, pool):
     return out
 
 
+def jamba_cut(layers: int):
+    """jamba-v0.1-52b at full width, its first ``layers`` layers (the
+    pattern cut to them, one repeat)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("jamba-v0.1-52b")
+    return dataclasses.replace(cfg, num_layers=layers,
+                               pattern=cfg.pattern[:layers])
+
+
+#: Phase 11c (f)'s argv of ``launch/train.py`` (the CPU path's run
+#: adds ``--device cpu``).
+JAMBA_TRAIN_ARGV = ["--arch", "jamba-v0.1-52b", "--layers", "1", "--lr",
+                    JAMBA_TRAIN_LR, "--num-devices", "8",
+                    "--devices-per-round", "2", "--local-epochs", "1",
+                    "--batch-size", "4", "--seq-len", "64",
+                    "--samples-per-device", "16", "--seed", "0"]
+
+
+def jamba_train_phase(torch, counts, cpu_run):
+    """Phase 11c: training the hybrid arch.  jamba-v0.1-52b at full
+    width, weights drawn on the card from seed 0, f32: (b) one
+    ``mamba_mixer``'s gradient through K8 and K8-bwd against the plain
+    scan's autograd; (c) ``loss_fn``'s gradient at JAMBA_TRAIN_LAYERS
+    layers, B=1 S=4096, remat="full", against the plain scan route;
+    (d) one ``make_fedavg_step``; (e) 3 ``make_feddane_round_step``
+    steps at JAMBA_STEP_LAYERS layer against the plain scan's, one
+    pipelined step; (f) the reduced preset's ``train.main`` against the
+    CPU path (``cpu_run``, a future of the pool), per_leaf, pods.
+    ((a), K8-bwd alone, is in phase 3.)  Returns timings (ms) and peaks
+    (GiB)."""
+    from repro_torch.configs import base as cb
+    from repro_torch.configs import get_arch
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.kernels import dane_update
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import podfed, steps
+    from repro_torch.models import (model_specs, moe, param_count, ssm,
+                                    transformer)
+
+    out = {}
+    k8 = ("selective_scan", "selective_scan_bwd")
+    S = 4096
+
+    def launches(fn):
+        before = dict(counts)
+        res = fn()
+        torch.cuda.synchronize()
+        return res, _delta(before, counts)
+
+    def events(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    def worst(got, want):
+        return max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(pt.leaves(got), pt.leaves(want)))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(pt.leaves(a),
+                                                     pt.leaves(b)))
+
+    def plain_scan(fn, route=None):
+        with swapped(ssm, "selective_scan", ssm.plain_scan), \
+                swapped(moe, "route", route or moe.route):
+            return fn()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    cfg = jamba_cut(JAMBA_TRAIN_LAYERS)
+    L = JAMBA_TRAIN_LAYERS
+    name = f"jamba ({L} layers)"
+    params = init_on_card(torch, model_specs(cfg), 0)
+    torch.cuda.synchronize()
+    n_params = param_count(model_specs(cfg))
+    print(f"  jamba-v0.1-52b at full width, its first {L} of 32 layers "
+          f"({', '.join(cfg.layer_kinds)}): {n_params:,} params "
+          f"({n_params * 4 / 2 ** 30:.2f} GiB f32), drawn on the card")
+
+    # (b) one mixer's gradient, x and every leaf, K8/K8-bwd vs plain scan
+    layer = pt.tmap(lambda a: a[0], params["stack"]["pos_0"]["mamba"])
+    gen = card_generator(torch, 3)
+    x = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+    w = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+
+    def mixer_grad():
+        xs = [t.detach().requires_grad_(True)
+              for t in [x] + pt.leaves(layer)]
+        p = pt.unflatten(pt.flatten(layer)[1], xs[1:])
+        return torch.autograd.grad(
+            (ssm.mamba_mixer(p, xs[0], cfg) * w).sum(), xs)
+
+    (got, ms), n = launches(lambda: events(mixer_grad))
+    check(n == {k8[0]: 1, k8[1]: 1}, f"(b) the mixer's gradient launched "
+                                     f"{n}, not K8 and K8-bwd once")
+    want, plain_ms = events(lambda: plain_scan(mixer_grad))
+    err = worst(got, want)
+    check(all(bool(torch.isfinite(g).all()) for g in got)
+          and err <= GRAD_REL, f"(b) the mixer's gradient differs from the "
+                               f"plain scan's by {err} x max |g|")
+    ms = [ms, events(mixer_grad)[1]]
+    out[f"jamba mamba_mixer grad B=1 S={S} ms"] = ms
+    out[f"jamba mamba_mixer grad B=1 S={S} plain scan ms"] = plain_ms
+    print(f"  (b) mamba_mixer's gradient (x and {len(got) - 1} weights), "
+          f"B=1 S={S}: worst leaf {err:.2e} x its max |g| (<= "
+          f"{GRAD_REL:g}) against the plain scan's autograd; K8 + K8-bwd "
+          f"once; {ms[0]:.2f}, {ms[1]:.2f} ms, plain scan {plain_ms:.1f} ms "
+          f"(CUDA events)")
+    del got, want, x, w, layer
+
+    # (d) one fedavg step, then (c) the loss's gradient it takes
+    b = card_batch(torch, S + 5, cfg.vocab_size, 1, S)
+    lf = lambda p: transformer.loss_fn(p, b, cfg, remat="full")  # noqa
+    eta = 1e-3
+    n_mamba = sum(k in (cb.MAMBA, cb.MAMBA_MOE) for k in cfg.layer_kinds)
+    want_n = {k8[0]: 2 * n_mamba, k8[1]: n_mamba}
+    step = steps.make_fedavg_step(cfg, eta=eta, remat="full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the first step at this size, then the one held below
+    step_ms = [events(lambda: step({"params": params}, b))[1]]
+    ((new, m), ms), n_step = launches(
+        lambda: events(lambda: step({"params": params}, b)))
+    step_ms.append(ms)
+    peak = peak_gib()
+    routes, plain_routes = [], []
+    with swapped(moe, "route", recording(routes)):
+        ((loss, g), g_ms), n_grad = launches(
+            lambda: events(lambda: steps.value_and_grad(lf, params)))
+    check({k: n_grad.get(k, 0) for k in k8} == want_n,
+          f"(c) a gradient launched {n_grad}, not K8 {2 * n_mamba} and "
+          f"K8-bwd {n_mamba} times")
+    check({k: n_step.get(k, 0) for k in k8} == want_n,
+          f"(d) the fedavg step launched {n_step}")
+    check(torch.equal(m["loss"], loss), f"(d) the fedavg step's loss "
+                                        f"{float(m['loss'])} is not (c)'s "
+                                        f"{float(loss)}")
+    check(all(torch.equal(a, p - g_ * eta) for a, p, g_ in zip(
+        pt.leaves(new["params"]), pt.leaves(params), pt.leaves(g))),
+        "(d) the fedavg step's params are not params - eta g of (c)'s "
+        "gradient")
+    del new
+    (loss2, g2), g2_ms = events(lambda: steps.value_and_grad(lf, params))
+    check(torch.equal(loss, loss2) and same(g, g2),
+          "(c) two K8 gradients differ")
+    del g2
+    # the plain route without remat (the same values; its scan's Python
+    # loop runs one forward, not two): each MoE block routes once, where
+    # the K8 run routed in the forward and again in its recomputation
+    lf_plain = lambda p: transformer.loss_fn(p, b, cfg,  # noqa
+                                             remat="none")
+    (loss_p, g_p), p_ms = events(lambda: plain_scan(
+        lambda: steps.value_and_grad(lf_plain, params),
+        recording(plain_routes)))
+    check(len(routes) == 2 * len(plain_routes),
+          f"(c) {len(routes)} routings under remat full, "
+          f"{len(plain_routes)} without")
+    routes = routes[:len(plain_routes)]
+    flips = sum(int((a.idx != c.idx).sum())
+                for a, c in zip(routes, plain_routes))
+    rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    err = worst(g, g_p)
+    held = "the plain run's own choices"
+    if flips and (rel > LOGIT_REL or err > GRAD_REL):
+        print(f"  (c) on its own choices the plain route's loss is {rel:.2e} "
+              f"and the worst gradient leaf {err:.2e} away")
+        del g_p
+        loss_p, g_p = plain_scan(
+            lambda: steps.value_and_grad(lf_plain, params),
+            injecting(routes))
+        rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+        err = worst(g, g_p)
+        held = "the K8 run's expert choices injected"
+    check(rel <= LOGIT_REL and err <= GRAD_REL,
+          f"(c) K8 against the plain scan: loss {rel}, worst gradient leaf "
+          f"{err} x its max |g|")
+    check(all(bool(torch.isfinite(t).all()) for t in pt.leaves(g)),
+          "(c) gradient not finite")
+    out[f"{name} loss grad B=1 S={S} ms"] = [g_ms, g2_ms]
+    out[f"{name} loss grad B=1 S={S} plain scan ms"] = p_ms
+    out[f"{name} fedavg step ms"] = step_ms
+    out[f"{name} fedavg step peak GiB"] = peak
+    print(f"  (c) loss_fn B=1 S={S} remat=full: {float(loss):.6f}; its "
+          f"gradient {g_ms:.2f}, {g2_ms:.2f} ms (CUDA events), two runs "
+          f"bitwise equal; K8 {2 * n_mamba} + K8-bwd {n_mamba} launches; "
+          f"against the plain scan (remat none, {p_ms:.1f} ms, {held}): "
+          f"loss rel "
+          f"{rel:.2e} (<= {LOGIT_REL:g}), worst leaf {err:.2e} x its max "
+          f"|g| (<= {GRAD_REL:g}); routing choices that differ between "
+          f"the two runs: {flips} of {sum(r.idx.numel() for r in routes)}")
+    print(f"  (d) make_fedavg_step, B=1 S={S} remat=full: "
+          f"{step_ms[0]:.2f} ms the first call at this size, "
+          f"{step_ms[1]:.2f} ms the second (CUDA events); its loss bitwise "
+          f"(c)'s, its params bitwise params - eta g of (c)'s gradient; "
+          f"card peak {peak:.2f} GiB (4 x {n_params * 4 / 2 ** 30:.2f} GiB "
+          f"of params and gradient buffers and the activations)")
+    del g, g_p, params, routes, plain_routes
+    torch.cuda.empty_cache()
+
+    # (e) at one layer: 3 feddane steps at S=4096, then 3 at
+    # JAMBA_STEP_CMP_S against the plain scan's (its Python loop of the
+    # step takes ~16 s a gradient a layer at S=4096), a pipelined step
+    cfg1 = jamba_cut(JAMBA_STEP_LAYERS)
+    p1 = init_on_card(torch, model_specs(cfg1), 0)
+    zeros = pt.tmap(torch.zeros_like, p1)
+    fd = steps.make_feddane_round_step(cfg1, eta=JAMBA_STEP_ETA, mu=0.01,
+                                       remat="full")
+
+    def three_steps(batch, record):
+        st, losses = {"params": p1, "anchor": p1, "g_t": zeros}, []
+        for _ in range(3):
+            ((st, m), ms), n = launches(lambda: events(lambda: fd(st,
+                                                                  batch)))
+            losses.append(float(m["loss"]))
+            record.append((ms, n))
+        return st, losses
+
+    torch.cuda.reset_peak_memory_stats()
+    rec, rec_cmp, rec_plain = [], [], []
+    st, losses = three_steps(b, rec)
+    peak = peak_gib()
+    for _, n in rec:
+        check({k: n.get(k, 0) for k in k8} == {k8[0]: 4, k8[1]: 2},
+              f"(e) a feddane step launched {n}, not K8 4 and K8-bwd 2 "
+              f"times")
+    check(losses[-1] < losses[0], f"(e) the loss did not fall: {losses}")
+    b_cmp = card_batch(torch, 17, cfg1.vocab_size, 1, JAMBA_STEP_CMP_S)
+    st_cmp, losses_cmp = three_steps(b_cmp, rec_cmp)
+    st_plain, losses_plain = plain_scan(lambda: three_steps(b_cmp,
+                                                            rec_plain))
+    diff = max_err(torch, st_cmp["params"], st_plain["params"])
+    moved = max_err(torch, st_cmp["params"], p1)
+    check(diff <= TRAIN_STEP_TOL and moved >= 10 * TRAIN_STEP_TOL,
+          f"(e) params K8 vs the plain scan differ by {diff} (moved "
+          f"{moved}); limit {TRAIN_STEP_TOL}")
+    del st_plain, st_cmp
+    pipe = steps.make_feddane_pipelined_step(cfg1, eta=JAMBA_STEP_ETA,
+                                             mu=0.01, remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    ((new, m), pipe_ms), n = launches(lambda: events(lambda: pipe(st, b)))
+    pipe_peak = peak_gib()
+    check(np.isfinite(float(m["loss"]))
+          and {k: n.get(k, 0) for k in k8} == {k8[0]: 2, k8[1]: 1},
+          f"(e) the pipelined step: loss {float(m['loss'])}, launches {n}")
+    one = f"jamba ({JAMBA_STEP_LAYERS} layer)"
+    out[f"{one} feddane S={S} ms a step"] = [r[0] for r in rec]
+    out[f"{one} feddane S={JAMBA_STEP_CMP_S} ms a step"] = [
+        r[0] for r in rec_cmp]
+    out[f"{one} feddane S={JAMBA_STEP_CMP_S}, plain scan, ms a step"] = [
+        r[0] for r in rec_plain]
+    out[f"{one} feddane S={S} peak GiB"] = peak
+    out[f"{one} pipelined step S={S} ms"] = pipe_ms
+    out[f"{one} pipelined step S={S} peak GiB"] = pipe_peak
+    print(f"  (e) {one}, {param_count(model_specs(cfg1)):,} params, "
+          f"make_feddane_round_step B=1 remat=full eta={JAMBA_STEP_ETA:g}, "
+          f"3 steps: at S={S} losses {[round(x, 6) for x in losses]}, ms a "
+          f"step {[round(r[0], 2) for r in rec]}, card peak {peak:.2f} GiB, "
+          f"K8 4 + K8-bwd 2 launches a step; at S={JAMBA_STEP_CMP_S} losses "
+          f"{[round(x, 6) for x in losses_cmp]} (plain scan "
+          f"{[round(x, 6) for x in losses_plain]}), ms a step "
+          f"{[round(r[0], 2) for r in rec_cmp]} (plain scan "
+          f"{[round(r[0], 1) for r in rec_plain]}), params vs the plain "
+          f"scan {diff:.2e} (<= {TRAIN_STEP_TOL:g}; moved {moved:.2e}); the "
+          f"pipelined step at S={S} {pipe_ms:.2f} ms, peak {pipe_peak:.2f} "
+          f"GiB, launches {n}")
+    del st, new, p1, zeros, b, b_cmp
+    torch.cuda.empty_cache()
+
+    # (f) launch/train.py's reduced preset against the CPU path
+    rcfg = get_arch("jamba-v0.1-52b").reduced(num_layers=1, d_model=128,
+                                              vocab_size=256)
+    n_mamba = sum(k in (cb.MAMBA, cb.MAMBA_MOE) for k in rcfg.layer_kinds)
+    n_attn = len(rcfg.layer_kinds) - n_mamba
+    step_counts, first = [], []
+    orig_step, orig_init = kops.FlatUpdate.step, kops.FlatUpdate.__init__
+    orig_round = FederatedTrainer.round
+
+    def spy_init(self, *a, **kw):
+        step_counts.append([dict(counts)])
+        return orig_init(self, *a, **kw)
+
+    def spy_step(self, *a, **kw):
+        step_counts[-1].append(dict(counts))
+        return orig_step(self, *a, **kw)
+
+    def spy_round(self, st):
+        new = orig_round(self, st)
+        if not first:
+            first.append(pt.tmap(torch.clone, new.params))
+        return new
+
+    kops.FlatUpdate.step, kops.FlatUpdate.__init__ = spy_step, spy_init
+    FederatedTrainer.round = spy_round
+    try:
+        (res, sel), grew = launches(lambda: train_drawn(
+            JAMBA_TRAIN_ARGV + ["--rounds", "2"]))
+    finally:
+        kops.FlatUpdate.step, kops.FlatUpdate.__init__ = orig_step, \
+            orig_init
+        FederatedTrainer.round = orig_round
+    local_steps = sum(len(c) - 1 for c in step_counts)
+    check(grew.get("dane_update_flat") == local_steps == 2 * 4
+          and not grew.get("dane_update_2d"),
+          f"(f) trainer auto: {grew} (K1 once a local step, {local_steps} "
+          f"steps)")
+    per_step = {k8[0]: n_mamba, k8[1]: n_mamba, "flash_attention": n_attn,
+                "flash_attention_bwd": n_attn}
+    for solve in step_counts:
+        for a, c in zip(solve, solve[1:]):
+            d = _delta(a, c)
+            check({k: d.get(k, 0) for k in per_step} == per_step,
+                  f"(f) a local step of K=2 launched {d}, not {per_step}")
+    (res_leaf, sel_leaf), grew_leaf = launches(lambda: train_drawn(
+        JAMBA_TRAIN_ARGV + ["--rounds", "1", "--local-solver", "per_leaf"]))
+    # K4 takes the tree's leaves MAX_SEGMENTS at a launch
+    chunks = -(-len(pt.leaves(model_specs(rcfg)))
+               // dane_update.MAX_SEGMENTS)
+    check(grew_leaf.get("dane_update_2d") == 4 * chunks
+          and not grew_leaf.get("dane_update_flat"),
+          f"(f) per_leaf: {grew_leaf} (K4 {chunks} a local step: the "
+          f"tree's leaves {dane_update.MAX_SEGMENTS} at a launch)")
+    check(sel_leaf == sel[:len(sel_leaf)]
+          and same(res_leaf.state.params, first[0]),
+          "(f) per_leaf's round differs from flat's")
+    p_cpu, sel_cpu, losses_cpu = cpu_run.result()
+    check(sel == sel_cpu, f"(f) selections {sel} on the card, {sel_cpu} on "
+                          f"the CPU path")
+    diff = max_err(torch, pt.tmap(lambda t: t.cpu(), res.state.params),
+                   p_cpu)
+    moved = max_err(torch, res.state.params, first[0])
+    check(diff <= TRAJECTORY_TOL and moved >= 10 * TRAJECTORY_TOL
+          and all(np.isfinite(res.losses)),
+          f"(f) params {diff} from the CPU path's after 2 rounds > "
+          f"{TRAJECTORY_TOL} (round 2 moved them {moved})")
+    out["jamba reduced trainer ms/round"] = res.round_ms
+    out["jamba reduced trainer ms/round, per_leaf"] = res_leaf.round_ms
+    print(f"  (f) train.py --arch jamba-v0.1-52b --layers 1 "
+          f"({param_count(model_specs(rcfg)):,} params: {n_mamba} mamba + "
+          f"{n_attn} attention blocks, d={rcfg.d_model}, N="
+          f"{rcfg.ssm_state_dim}, {rcfg.moe.num_experts} experts top-"
+          f"{rcfg.moe.top_k}) --lr {JAMBA_TRAIN_LR}, feddane N=8 K=2 E=1 "
+          f"B=4 S=64: 2 rounds on auto (flat) "
+          f"{[round(t, 1) for t in res.round_ms]} ms/round (CUDA events), "
+          f"losses {[round(t, 5) for t in res.losses]} (CPU path "
+          f"{[round(t, 5) for t in losses_cpu]}); the CPU path's selections "
+          f"{sel_cpu}, params within {diff:.2e} (<= {TRAJECTORY_TOL:g}; "
+          f"round 2 moved them {moved:.2e}); a local step K8 and K8-bwd "
+          f"{n_mamba}, K7 and K7-bwd {n_attn} launches for both clients; "
+          f"per_leaf 1 round bitwise equal to flat's "
+          f"({res_leaf.round_ms[0]:.1f} ms, K4 {chunks} launches a local "
+          f"step); launches flat {grew}")
+    p0 = res.state.params
+    del res, res_leaf, first[:]
+
+    two = pt.tmap(lambda t: t.unsqueeze(0).expand((2,) + t.shape)
+                  .contiguous(), p0)
+    rb = card_batch(torch, 65, rcfg.vocab_size, 4, 64)
+    bb = {k: torch.stack([v, torch.roll(v, 1, dims=1)])[:, None].expand(
+        2, 2, *v.shape).contiguous() for k, v in rb.items()}
+    fn2, _ = podfed.make_podfed_round_step(rcfg, local_steps=2, eta=1e-2,
+                                           mu=0.01, remat="full")
+    ((pnew, pm), pod_ms), grew = launches(lambda: events(lambda: fn2(
+        {"params": two, "anchor": two,
+         "g_t": pt.tmap(torch.zeros_like, two)}, bb)))
+    check(np.isfinite(float(pm["loss"])) and all(
+        bool(torch.isfinite(t).all()) for t in pt.leaves(pnew))
+        and grew.get(k8[0], 0) > 0 and grew.get(k8[1], 0) > 0,
+        f"(f) podfed 2 pods x 2 steps: not finite, or launches {grew}")
+    out["jamba reduced podfed 2 pods x 2 steps ms"] = pod_ms
+    print(f"      podfed 2 pods x 2 local steps, 1 round: finite, loss "
+          f"{float(pm['loss']):.5f}, {pod_ms:.1f} ms, launches {grew}")
+    del two, pnew, p0
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4510,6 +5014,10 @@ def run(torch, pool, threads: int) -> int:
     on_mesh = mesh_phase(torch, int8_tol["feddane"])
     print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    # phase 11c's CPU path, in the pool while phases 10-11b run
+    jamba_cpu = pool.submit(_pooled_train,
+                            JAMBA_TRAIN_ARGV + ["--rounds", "2",
+                                                "--device", "cpu"])
     print("[10] LM stack inference at full width (prefill and serve)")
     t0 = time.perf_counter()
     build.reset_launch_counts()          # the LM path starts here
@@ -4538,8 +5046,14 @@ def run(torch, pool, threads: int) -> int:
     t1 = time.perf_counter()
     train_out.update(moe_train_phase(torch, counts, pool))
     print(f"  phase 11b took {time.perf_counter() - t1:.1f} s")
+    print(f"[11c] training the hybrid arch: jamba-v0.1-52b at full width "
+          f"({JAMBA_TRAIN_LAYERS} and {JAMBA_STEP_LAYERS} of 32 layers) "
+          f"through K8 and K8-bwd, and reduced")
+    t1 = time.perf_counter()
+    train_out.update(jamba_train_phase(torch, counts, jamba_cpu))
+    print(f"  phase 11c took {time.perf_counter() - t1:.1f} s")
     train_path = dict(counts)            # and is read here
-    print(f"  phases 11 and 11b took {time.perf_counter() - t0:.1f} s; "
+    print(f"  phases 11-11c took {time.perf_counter() - t0:.1f} s; "
           f"launches { {k: v for k, v in train_path.items() if v} }")
 
     for r in rows:

@@ -8,8 +8,10 @@
 - ``flash_attention`` (K7): blockwise online-softmax attention, causal
   or not, with GQA-folded query rows (``causal_period``), the prefill
   path's self-attention;
-- ``selective_scan`` (K8, a kernel of the port only): the Mamba
-  selective scan of the SSM blocks' prefill;
+- ``selective_scan`` (K8 and its backward K8-bwd, kernels of the port
+  only): the Mamba selective scan of the SSM blocks;
+- ``vmap_fold``: the kernels' vmap rules' fold of the mapped dim into
+  their leading dim;
 - ``ops``: tree-level wrappers of the update kernels and the reference's
   GQA wrapper of K7;
 - ``ref``: the plain PyTorch version of each kernel;

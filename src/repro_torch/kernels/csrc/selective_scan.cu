@@ -17,6 +17,14 @@
 // with the products in the reference's order: dt * x first, then times
 // b.  The plain version is kernels/ref.py selective_scan_ref.
 //
+// Training's entry point (selective_scan_states_f32) also writes H
+// (B, ceil(S / 64), di, N), the state before each chunk of kChunk = 64
+// steps, which the backward (selective_scan_bwd.cu) recomputes each
+// chunk from, and takes A per group: A (G, di, N), row b reading
+// A[b / (B / G)] (a vmap fold of G clients with their own A).  Its y is
+// serving's, bit for bit: the same instructions compute h and y, and H
+// is stored beside them.
+//
 // What bounds it on this card: at jamba's prefill (B=1, S=4,096,
 // di=8,192, N=16) it reads x and dt and writes y, 403 MB (0.120 ms at
 // 3.35 TB/s), and evaluates B*S*di*N = 537 M exponentials (the SFU's
@@ -43,6 +51,7 @@ namespace {
 
 constexpr int kChannels = 64;
 constexpr int kSteps = 32;
+constexpr int kChunk = 64;  // steps between the saved states (2 tiles)
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -91,23 +100,28 @@ __device__ __forceinline__ void load_tile(
   }
 }
 
-template <int N>
+// kStates: also write each chunk's starting state to ``states`` (H),
+// and read A of the row's group (``rows_per_group`` rows a group).
+template <int N, bool kStates>
 __global__ void __launch_bounds__(kChannels) selective_scan_kernel(
     const float* __restrict__ xs, const float* __restrict__ dt,
     const float* __restrict__ bc, const float* __restrict__ cc,
-    const float* __restrict__ a, float* __restrict__ y, int seq_len,
-    int di) {
+    const float* __restrict__ a, float* __restrict__ y,
+    float* __restrict__ states, int seq_len, int di, int rows_per_group) {
   __shared__ Tile<N> tiles[2];
   const int seq = blockIdx.y;
   const int ch = blockIdx.x * kChannels + threadIdx.x;
   const bool live = ch < di;
+  const float* arow =
+      kStates ? a + (long long)(seq / rows_per_group) * di * N : a;
 
   float an[N], h[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    an[n] = live ? a[(long long)ch * N + n] : 0.0f;
+    an[n] = live ? arow[(long long)ch * N + n] : 0.0f;
     h[n] = 0.0f;
   }
+  const int n_chunks = (seq_len + kChunk - 1) / kChunk;
 
   const int n_tiles = (seq_len + kSteps - 1) / kSteps;
   float* yrow = y + (long long)seq * seq_len * di + ch;
@@ -123,6 +137,13 @@ __global__ void __launch_bounds__(kChannels) selective_scan_kernel(
     const Tile<N>& cur = tiles[tile & 1];
     const int t0 = tile * kSteps;
     const int steps = min(kSteps, seq_len - t0);
+    if (kStates && live && t0 % kChunk == 0) {
+      float4* dst = reinterpret_cast<float4*>(
+          states + (((long long)seq * n_chunks + t0 / kChunk) * di + ch) * N);
+#pragma unroll
+      for (int n = 0; n < N; n += 4)
+        dst[n / 4] = make_float4(h[n], h[n + 1], h[n + 2], h[n + 3]);
+    }
 #pragma unroll 2
     for (int s = 0; s < steps; ++s) {
       const float dtv = cur.dt[s][threadIdx.x];
@@ -140,16 +161,17 @@ __global__ void __launch_bounds__(kChannels) selective_scan_kernel(
   }
 }
 
-template <int N>
+template <int N, bool kStates>
 int launch(const void* xs, const void* dt, const void* bc, const void* cc,
-           const void* a, void* y, int batch, int seq_len, int di,
-           void* stream) {
+           const void* a, void* y, void* states, int batch, int seq_len,
+           int di, int groups, void* stream) {
   const dim3 grid((di + kChannels - 1) / kChannels, batch);
-  selective_scan_kernel<N><<<grid, kChannels, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  selective_scan_kernel<N, kStates><<<grid, kChannels, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xs), static_cast<const float*>(dt),
       static_cast<const float*>(bc), static_cast<const float*>(cc),
-      static_cast<const float*>(a), static_cast<float*>(y), seq_len, di);
+      static_cast<const float*>(a), static_cast<float*>(y),
+      static_cast<float*>(states), seq_len, di, batch / groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -163,8 +185,30 @@ extern "C" int selective_scan_f32(const void* xs, const void* dt,
                                   int seq_len, int di, int n_state,
                                   void* stream) {
   if (n_state == 8)
-    return launch<8>(xs, dt, bc, cc, a, y, batch, seq_len, di, stream);
+    return launch<8, false>(xs, dt, bc, cc, a, y, nullptr, batch, seq_len,
+                            di, 1, stream);
   if (n_state == 16)
-    return launch<16>(xs, dt, bc, cc, a, y, batch, seq_len, di, stream);
+    return launch<16, false>(xs, dt, bc, cc, a, y, nullptr, batch, seq_len,
+                             di, 1, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Training's forward: y as above, and H (B, ceil(S / 64), di, N), the
+// state before each chunk of 64 steps; A (groups, di, N), ``groups``
+// dividing the batch (1: A (di, N) for every row).
+extern "C" int selective_scan_states_f32(const void* xs, const void* dt,
+                                         const void* bc, const void* cc,
+                                         const void* a, void* y,
+                                         void* states, int batch,
+                                         int seq_len, int di, int n_state,
+                                         int groups, void* stream) {
+  if (groups < 1 || batch % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_state == 8)
+    return launch<8, true>(xs, dt, bc, cc, a, y, states, batch, seq_len, di,
+                           groups, stream);
+  if (n_state == 16)
+    return launch<16, true>(xs, dt, bc, cc, a, y, states, batch, seq_len,
+                            di, groups, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.vmap_fold import fold, unfold
 from repro_torch.kernels.build import F, I, P
 
 #: Head dims the kernel is built for (a template parameter of the source).
@@ -195,22 +196,6 @@ def flash_attention_3d_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     return dq, dk, dv
 
 
-def _fold(info, in_dims, *tensors):
-    """The mapped dim of each tensor moved to the front (broadcast where
-    unmapped) and merged into BH: ``(batch * BH, ...)`` tensors."""
-    out = []
-    for t, dim in zip(tensors, in_dims):
-        t = (t.movedim(dim, 0) if dim is not None
-             else t.expand((info.batch_size,) + t.shape))
-        out.append(t.reshape((-1,) + t.shape[2:]))
-    return out
-
-
-def _unfold(info, t):
-    return None if t is None else t.reshape(
-        (info.batch_size, -1) + t.shape[1:])
-
-
 class _FlashAttention(torch.autograd.Function):
     """K7 with its backward; see the module docstring."""
 
@@ -241,9 +226,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, causal_period, with_lse):
-        o, lse = _FlashAttention.apply(*_fold(info, in_dims[:3], q, k, v),
+        o, lse = _FlashAttention.apply(*fold(info, in_dims[:3], q, k, v),
                                        causal, causal_period, with_lse)
-        return ((_unfold(info, o), _unfold(info, lse)),
+        return ((unfold(info, o), unfold(info, lse)),
                 (0, None if lse is None else 0))
 
 
@@ -268,9 +253,9 @@ class _FlashAttentionBwd(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, o, do, lse, causal, causal_period):
         grads = _FlashAttentionBwd.apply(
-            *_fold(info, in_dims[:6], q, k, v, o, do, lse), causal,
+            *fold(info, in_dims[:6], q, k, v, o, do, lse), causal,
             causal_period)
-        return tuple(_unfold(info, g) for g in grads), (0, 0, 0)
+        return tuple(unfold(info, g) for g in grads), (0, 0, 0)
 
 
 def flash_attention_3d(q, k, v, *, causal: bool = True,

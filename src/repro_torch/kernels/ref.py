@@ -225,26 +225,114 @@ def flash_attention_3d_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def selective_scan_ref(xs, dt, Bc, Cc, A):
-    """K8's function: the Mamba selective scan from ``h = 0``, the
-    reference's step (``repro/models/ssm.py:99-108``) folded over S.
+#: Steps between the states K8's training forward saves (``H``), and the
+#: chunk K8-bwd recomputes from each: the reference's ``SCAN_CHUNK``.
+SCAN_CHUNK = 64
+
+
+def _scan_rows_A(A, B: int):
+    """``A`` as each batch row uses it: ``(di, N)`` shared by every row,
+    or ``(G, di, N)`` with row ``b`` taking ``A[b // (B // G)]``, expanded
+    to ``(B, di, N)``."""
+    if A.dim() == 2:
+        return A
+    G = A.shape[0]
+    if G == 0 or B % G:
+        raise ValueError(f"selective_scan: batch {B} is not a multiple of "
+                         f"A's {G} groups")
+    return A.repeat_interleave(B // G, dim=0)
+
+
+def _scan_step(h, x_t, dt_t, b_t, A):
+    """One step of the recurrence (the reference's order of products)."""
+    da = torch.exp(dt_t.to(F32)[..., None] * A)
+    dbx = (dt_t * x_t).to(F32)[..., None] * b_t.to(F32)[:, None, :]
+    return da * h + dbx
+
+
+def selective_scan_fwd_ref(xs, dt, Bc, Cc, A, chunk: int = SCAN_CHUNK):
+    """K8's function with the states its backward needs: ``(y, H)``.
 
     ``xs``, ``dt``: (B, S, di); ``Bc``, ``Cc``: (B, S, N); ``A``: (di, N),
-    all f32.  Each step, in the reference's order of products::
+    or (G, di, N) with batch row ``b`` taking ``A[b // (B // G)]``; all
+    f32.  From ``h = 0``, each step in the reference's order of products::
 
         h   = exp(dt_t A) * h + (dt_t x_t) (x) b_t     (B, di, N)
         y_t = sum_n h[:, :, n] c_t[:, n]               (B, di)
 
-    Returns ``y`` (B, S, di) f32.
+    ``y`` is (B, S, di); ``H`` (B, ceil(S / chunk), di, N) holds the state
+    before each chunk of ``chunk`` steps (``H[:, 0] = 0``).
     """
     B, S, di = xs.shape
-    h = xs.new_zeros((B, di, A.shape[1]), dtype=F32)
-    ys = []
+    Ab = _scan_rows_A(A, B)
+    h = xs.new_zeros((B, di, A.shape[-1]), dtype=F32)
+    ys, hs = [], []
     for t in range(S):
-        dt_t = dt[:, t].to(F32)
-        da = torch.exp(dt_t[..., None] * A)
-        dbx = (dt[:, t] * xs[:, t]).to(F32)[..., None] \
-            * Bc[:, t].to(F32)[:, None, :]
-        h = da * h + dbx
+        if t % chunk == 0:
+            hs.append(h)
+        h = _scan_step(h, xs[:, t], dt[:, t], Bc[:, t], Ab)
         ys.append(torch.einsum("bin,bn->bi", h, Cc[:, t].to(F32)))
-    return torch.stack(ys, dim=1) if ys else xs.new_zeros((B, 0, di))
+    y = torch.stack(ys, dim=1) if ys else xs.new_zeros((B, 0, di))
+    H = torch.stack(hs, dim=1) if hs else h.new_zeros((B, 0, di,
+                                                       A.shape[-1]))
+    return y, H
+
+
+def selective_scan_ref(xs, dt, Bc, Cc, A):
+    """K8's function: the Mamba selective scan from ``h = 0``, the
+    reference's step (``repro/models/ssm.py:99-108``) folded over S;
+    ``y`` of :func:`selective_scan_fwd_ref`.  (B, S, di) f32."""
+    return selective_scan_fwd_ref(xs, dt, Bc, Cc, A)[0]
+
+
+def selective_scan_bwd_ref(xs, dt, Bc, Cc, A, H, dy,
+                           chunk: int = SCAN_CHUNK):
+    """K8-bwd's function: ``(dxs, ddt, dBc, dCc, dA)`` of the scan of
+    :func:`selective_scan_fwd_ref` (its ``H`` saved at ``chunk``) under
+    the cotangent ``dy`` (B, S, di), by an explicit reverse walk.
+
+    Chunks go last to first; each chunk's states are recomputed forward
+    from ``H``, then walked back.  With ``da_t = exp(dt_t A)`` and ``dh``
+    (B, di, N) from 0, each step does, in order::
+
+        dh     += dy_t[i] c_t
+        dC_t[n] = sum_i dy_t[i] h_t[i, n]
+        dB_t[n] = sum_i dh[i, n] (dt_t x_t)[i]
+        dx_t[i] = dt_t[i] sum_n dh b_t
+        ddt_t[i] = x_t[i] sum_n dh b_t + sum_n dh h_{t-1} da_t A
+        dA[i, n] += dh h_{t-1} da_t dt_t      (per batch row)
+        dh     *= da_t
+
+    ``dA`` is A's shape: the rows' terms summed in row order within each
+    of A's groups (over every row for a 2-d ``A``).
+    """
+    B, S, di = xs.shape
+    N = A.shape[-1]
+    Ab = _scan_rows_A(A, B)
+    dxs, ddt = (xs.new_zeros((B, S, di), dtype=F32) for _ in range(2))
+    dBc, dCc = (xs.new_zeros((B, S, N), dtype=F32) for _ in range(2))
+    dA_rows, dh = (xs.new_zeros((B, di, N), dtype=F32) for _ in range(2))
+    for c in reversed(range(H.shape[1])):
+        t0, t1 = c * chunk, min(S, (c + 1) * chunk)
+        hs = [H[:, c].to(F32)]
+        for t in range(t0, t1):
+            hs.append(_scan_step(hs[-1], xs[:, t], dt[:, t], Bc[:, t], Ab))
+        for t in reversed(range(t0, t1)):
+            h_prev, h_t = hs[t - t0], hs[t - t0 + 1]
+            x_t, dt_t = xs[:, t].to(F32), dt[:, t].to(F32)
+            dy_t = dy[:, t].to(F32)
+            da = torch.exp(dt_t[..., None] * Ab)
+            dh = dh + dy_t[..., None] * Cc[:, t].to(F32)[:, None, :]
+            dCc[:, t] = torch.einsum("bi,bin->bn", dy_t, h_t)
+            dBc[:, t] = torch.einsum("bin,bi->bn", dh, dt_t * x_t)
+            sb = torch.einsum("bin,bn->bi", dh, Bc[:, t].to(F32))
+            q = dh * h_prev * da
+            dxs[:, t] = dt_t * sb
+            ddt[:, t] = x_t * sb + (q * Ab).sum(-1)
+            dA_rows = dA_rows + q * dt_t[..., None]
+            dh = dh * da
+    if A.dim() == 2:
+        dA = dA_rows.sum(0)
+    else:
+        dA = dA_rows.reshape((A.shape[0], -1, di, N)).sum(1)
+    return dxs, ddt, dBc, dCc, dA

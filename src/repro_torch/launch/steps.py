@@ -20,13 +20,13 @@ Counterpart of ``repro/launch/steps.py``:
 The train steps take gradients with ``torch.autograd.grad`` (so every
 remat policy works; on the card attention goes through K7 and its
 backward), return new state dicts and never write into their inputs.
-Serving takes the dense archs, the MoE ones (qwen3-moe-235b-a22b,
-arctic-480b) and the hybrid jamba-v0.1-52b (its mamba blocks' scan
-through K8 on the card).  The train side takes the dense and MoE archs,
-whose loss adds the MoE blocks' load-balance aux; :func:`check_trainable`
-refuses the mamba blocks (K8 has no backward yet) and what the model
-refuses (the xLSTM blocks, encoder-decoder models and the audio and
-patch frontends) as not yet ported.
+Serving and training take the dense archs, the MoE ones
+(qwen3-moe-235b-a22b, arctic-480b) and the hybrid jamba-v0.1-52b (its
+mamba blocks' scan through K8, and its gradient through K8-bwd, on the
+card); the loss adds the MoE blocks' load-balance aux.
+:func:`check_trainable` refuses what the model refuses: the xLSTM
+blocks, encoder-decoder models and the audio and patch frontends, as not
+yet ported.
 """
 from __future__ import annotations
 
@@ -35,8 +35,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.configs import base as cb
-from repro_torch.configs.base import InputShape, ModelConfig, _not_ported
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import pytree as pt
 from repro_torch.models import transformer
 
@@ -53,12 +52,9 @@ class ShapeDtype:
 # ---------------------------------------------------------------------------
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless the train side takes ``cfg``: the ``attn`` and
-    ``attn_moe`` patterns.  The model serves the mamba blocks too, but
-    their scan's kernel has no backward yet."""
+    """Raise unless the train side takes ``cfg``: the ``attn``,
+    ``attn_moe``, ``mamba`` and ``mamba_moe`` patterns, as the model."""
     transformer._check_ported(cfg)
-    if any(k in (cb.MAMBA, cb.MAMBA_MOE) for k in cfg.pattern):
-        raise _not_ported(f"{cfg.name}: training of the mamba blocks")
 
 
 def train_state_specs(cfg: ModelConfig, algo: str = "feddane") -> dict:

@@ -1,13 +1,15 @@
 """End-to-end federated training driver for the LM stack.
 
-Federated fine-tuning of a dense or an MoE architecture (the reduced
-preset unless ``--full-size``) with FedDANE / FedAvg / FedProx /
-variants from the core library:
+Federated fine-tuning of a dense, an MoE or the hybrid architecture
+(the reduced preset unless ``--full-size``) with FedDANE / FedAvg /
+FedProx / variants from the core library:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --rounds 20 --devices-per-round 4 --local-epochs 2 --algo feddane
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch qwen3-moe-235b-a22b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch jamba-v0.1-52b --layers 1 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --full-size \\
       --num-devices 8 --devices-per-round 2 --local-epochs 1 \\
       --samples-per-device 16 --rounds 2
@@ -30,7 +32,11 @@ CPU); checkpoints go through ``checkpoint/store.py`` every
 ``--ckpt-every`` rounds.  The MoE archs (qwen3-moe-235b-a22b,
 arctic-480b) train at the reduced preset, cut to at most 4 experts and
 top-2 (``ModelConfig.reduced``); their loss adds the blocks' load-balance
-aux.  The audio and patch frontends are not yet ported
+aux.  So does jamba-v0.1-52b's, whose reduced preset keeps whole repeats
+of its 8-block pattern (``--layers 1``: 8 layers, 7 of them mamba, at
+d=128 and state N=8); on the card its mamba blocks' scan runs K8 and its
+gradient K8-bwd, once a layer for all the clients of a local step.  The
+xLSTM blocks and the audio and patch frontends are not yet ported
 (``steps.check_trainable``).
 """
 from __future__ import annotations

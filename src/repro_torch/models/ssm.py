@@ -6,12 +6,18 @@ Counterpart of ``repro/models/ssm.py``, with its parameter tree
 - :func:`chunked_scan`: ``lax.scan`` of a step over the leading axis,
   as a Python loop, cut into the reference's chunks (the same three
   cases: S <= chunk, S % chunk != 0, chunked).  Its forward is the
-  reference's in every case; the per-chunk checkpoint that lets BPTT
-  keep only chunk-boundary carries comes with training.
+  reference's in every case, and autograd differentiates through it
+  (keeping every step's tensors).  The reference's per-chunk
+  ``jax.checkpoint`` is not a ``torch.utils.checkpoint`` here:
+  ``torch.func.grad``, the trainer's ``vmap(grad)``, refuses
+  saved-tensor hooks.  On the card that remat lives in K8's Function,
+  which saves only the chunk-boundary states ``H`` for K8-bwd.
 - :func:`selective_scan`: the recurrence ``h_t = exp(dt_t A) h_{t-1} +
   (dt_t x_t) b_t``, ``y_t = h_t c_t`` from ``h = 0`` -- on the card the
-  hand-written kernel K8 (``kernels/selective_scan.py``), on the CPU
-  :func:`plain_scan`, ``chunked_scan`` of the reference's step.
+  hand-written kernel K8 and its backward K8-bwd
+  (``kernels/selective_scan.py``, differentiable and vmappable), on the
+  CPU :func:`plain_scan`, ``chunked_scan`` of the reference's step
+  (bitwise the reference's order; autograd differentiates it).
   :func:`mamba_mixer` looks it up at call time, so a comparison run can
   swap in :func:`plain_scan` on the card (as ``attention.attention`` is
   swapped for the plain attention).
@@ -49,7 +55,9 @@ def _scan(step: Callable, carry, xs, start: int, stop: int, ys: list):
 def chunked_scan(step: Callable, carry, xs, chunk: int = SCAN_CHUNK):
     """Scan ``step`` (``(carry, x_t) -> (carry, y_t)``) over the leading
     axis of the tree ``xs``; returns ``(carry, ys)``, ``ys`` the step
-    outputs stacked along a new leading axis."""
+    outputs stacked along a new leading axis.  No chunk is checkpointed
+    (``torch.func.grad`` refuses checkpoints): on the card the
+    reference's per-chunk remat is K8's saved ``H`` (module docstring)."""
     S = pt.leaves(xs)[0].shape[0]
     ys: list = []
     if S <= chunk or S % chunk != 0:
@@ -145,8 +153,8 @@ def plain_scan(xs, dt, Bc, Cc, A, chunk: int = SCAN_CHUNK):
 
 
 def selective_scan(xs, dt, Bc, Cc, A, chunk: int = SCAN_CHUNK):
-    """The scan of the prefill: K8 on the card, :func:`plain_scan` on the
-    CPU.  (B, S, di) f32."""
+    """The scan of the prefill and of training: K8 (with K8-bwd under
+    grad) on the card, :func:`plain_scan` on the CPU.  (B, S, di) f32."""
     if xs.device.type == "cuda":
         return selective_scan_kernel(xs, dt, Bc, Cc, A)
     return plain_scan(xs, dt, Bc, Cc, A, chunk)

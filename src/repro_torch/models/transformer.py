@@ -17,7 +17,10 @@ reference's remat policy: ``"none"``; ``"full"``, a
 ``torch.utils.checkpoint`` of the layer (recompute everything from its
 input); ``"dots"``, a selective checkpoint that keeps the matrix
 products (``aten.mm``, the reference's dots without batch dims) and
-recomputes the rest.  All three give the same values.  Checkpoints need
+recomputes the rest.  All three give the same values, and take every
+block kind: under ``"full"`` a mamba layer's scan runs twice on the card
+(K8 in the forward and in its recomputation) and its backward once
+(K8-bwd, from the recomputation's chunk states).  Checkpoints need
 plain ``torch.autograd``: ``torch.func.grad`` refuses them, so the
 federated trainer's loss runs with ``remat="none"``, as the reference's
 ``launch/train.py`` does.  ``prefill`` and ``decode_step`` run under

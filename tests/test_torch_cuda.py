@@ -1248,24 +1248,56 @@ def test_selective_scan_kernel_takes_column_views_of_bc_and_cc(card):
 
 @pytest.mark.cuda
 def test_selective_scan_kernel_refuses(card):
-    """Another dtype, an input that requires grad, a non-contiguous x
-    and a state size it is not built for raise; nothing is launched."""
-    from repro_torch.kernels.selective_scan import selective_scan
+    """Another dtype, a grouped A on serving's launch (it takes one A),
+    a non-contiguous x and a state size it is not built for raise;
+    nothing is launched."""
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_fwd)
     x, dt, bc, cc, a = _scan_inputs(card, 1, 16, 64, 8)
     build.reset_launch_counts()
     with pytest.raises(TypeError, match="float32"):
         selective_scan(x.bfloat16(), dt, bc, cc, a)
     with pytest.raises(TypeError, match="float32"):
         selective_scan(x, dt, bc, cc, a.double())
-    with pytest.raises(RuntimeError, match="requires grad"):
-        selective_scan(x.requires_grad_(True), dt, bc, cc, a)
-    x = x.detach()
+    with pytest.raises(ValueError, match="grouped A"):
+        selective_scan_fwd(x, dt, bc, cc, a[None])
     with pytest.raises(ValueError, match="contiguous"):
         selective_scan(torch.cat([x, x], dim=-1)[..., :64], dt, bc, cc, a)
     x4, dt4, bc4, cc4, a4 = _scan_inputs(card, 1, 16, 64, 4)
     with pytest.raises(ValueError, match="state dim N=4"):
         selective_scan(x4, dt4, bc4, cc4, a4)
     assert build.launch_counts["selective_scan"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [0, 2])
+def test_selective_scan_bwd_kernel_matches_plain(card, groups):
+    """K8-bwd at the reduced preset's (2, 200, 512) N=8 (S off the chunk),
+    A shared or one a batch row (a vmap fold of 2 clients), from the
+    states K8's training launch saved, against the plain backward on the
+    card: each output within 1e-5 x its max |g|; two calls bitwise
+    equal; one count each for the forward and the backward."""
+    from repro_torch.kernels.selective_scan import (selective_scan_bwd,
+                                                    selective_scan_fwd)
+    x, dt, bc, cc, a = _scan_inputs(card, 2, 200, 512, 8)
+    if groups:
+        a = torch.stack([a, a.flip(0)])
+    dy = _normal(60, (2, 200, 512), torch.float32, card)
+    build.reset_launch_counts()
+    y, H = selective_scan_fwd(x, dt, bc, cc, a, with_states=True)
+    got = selective_scan_bwd(x, dt, bc, cc, a, H, dy)
+    again = selective_scan_bwd(x, dt, bc, cc, a, H, dy)
+    torch.cuda.synchronize()
+    assert build.launch_counts["selective_scan"] == 1
+    assert build.launch_counts["selective_scan_bwd"] == 2
+    y_ref, H_ref = ref.selective_scan_fwd_ref(x, dt, bc, cc, a)
+    assert H.shape == H_ref.shape == (2, 4, 512, 8)
+    assert float((y - y_ref).abs().max()) <= 1e-5 * float(
+        y_ref.abs().max())
+    want = ref.selective_scan_bwd_ref(x, dt, bc, cc, a, H_ref, dy)
+    for g, w, g2 in zip(got, want, again):
+        assert g.shape == w.shape and torch.equal(g, g2)
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 @pytest.mark.cuda
