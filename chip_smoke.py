@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together), printing ptxas's registers,
    stack frame and spills of every entry;
-3. each kernel (K1-K8, K7-bwd, K8-bwd) at every shape phases 4-11c
+3. each kernel (K1-K10, K7-bwd, K8-bwd) at every shape phases 4-11c
    give it (K2 and K3 at
    both d=60 and d=784, K2 also on a rank's devices of the flat mesh
    and, with its steps cut short, of the tree, and on the 1- and 3-row
@@ -82,7 +82,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    walk, two calls bitwise equal, and the training launch's y and H
    within K8_REL x their max of the plain forward's, beside its bound
    (the bytes, or the B*S*di*N exponentials the gradient needs) and the
-   plain walk's time;
+   plain walk's time.  K9 and K10 (the mLSTM and sLSTM scans, kernels of
+   the port) at xlstm-350m's (x1)/(y1) B=1 S=4096, (x2)/(y2) B=2 S=1024,
+   (x3)/(y3) phase 10d's comparison prompt B=2 S=256 (H=4, dk=512,
+   dh=256) and (x4)/(y4) the reduced preset B=2 S=100 (dk=128, dh=64),
+   on numpy-seeded inputs, within XLSTM_REL x max |h| of the plain step
+   loop, two calls bitwise equal, beside the bound (the bytes, or the
+   flops of the state's update and read-out at the CUDA cores' f32 rate)
+   and the plain loop's time; no PyTorch call computes either;
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
@@ -263,6 +270,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    within LOGIT_REL of the prefill's last position (K8's scan), argmax
    equal (the prefill's expert choices injected where a flip makes them
    disagree); ms a decode step; the 49.5 GiB freed before phase 11;
+10d. xLSTM: xlstm-350m at full width and full depth (24 layers, 12 sLSTM
+   and 12 mLSTM blocks, d=1,024, H=4, dk=512, dh=256, V=50,304;
+   405,185,632 params, 1.62 GB), weights drawn on the card from seed 0,
+   f32: (a) one mLSTM and one sLSTM layer's mixer at B=1, S=4096 through
+   K9 and K10 (once each) against the plain scans on the card
+   (``xlstm.mlstm_scan`` / ``slstm_scan`` swapped for
+   ``ref.mlstm_scan_ref`` / ``slstm_scan_ref``;
+   within XLSTM_REL x max |out|); (b) the prefill at XLSTM_CMP = B=2,
+   S=256 against the plain scans on the card (logits within LOGIT_REL,
+   argmax equal; K9 and K10 exactly 12 times each a prefill); (c) ms a
+   prefill at B=1 S=4096 and B=2 S=1024, and the idle share of one
+   profiled B=1 S=4096 prefill; (d) ``serve.generate`` at B=2 (16-token
+   prompt, 8 new tokens, cache 128): no kernel launched, the logits after
+   the prompt within LOGIT_REL of the CPU path's on the same weights and
+   greedy tokens equal (decode starts the stabiliser m at 0, the prefill
+   at -1e30, so decode is not held to the prefill); ms a decode step;
 11. LM training at full width, qwen1.5-0.5b, random weights from seed
    0, f32: (a) ``loss_fn`` and its gradient at B=1, S=64 against the
    CPU path (the loss within LOGIT_REL relative, each leaf within
@@ -338,9 +361,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    main path -- phases 4-8d in this process (the counters are set to 0
    just before phase 4 and read just after phase 8d; a captured kernel
    counts once a replay, and once for the warm-up run before its
-   capture), phase 9's ranks, phase 10, phase 10c, and phases 11-11c
-   (each set
-   to 0 just before it and read just after) -- error,
+   capture), phase 9's ranks, phase 10, phases 10c and 10d, and phases
+   11-11c (each set to 0 just before it and read just after) -- error,
    times and bound, and each checked shape under ``cases`` (with its
    ``device_ms`` where phase 3 took one, and the update paths' kernels
    and launches a step).
@@ -422,6 +444,10 @@ LOGIT_REL = 1e-4
 #: K8 and the mixer against the plain step loop: within this x max |y|
 #: (f32 exp and sums in another order, over a decaying recurrence).
 K8_REL = 1e-5
+#: K9, K10 and the xLSTM mixers against the plain step loops: within
+#: this x max |h| (f32 exp and sums in another order over a stabilised
+#: recurrence).
+XLSTM_REL = 1e-5
 
 #: Phase 10's MoE cells: qwen3-moe-235b-a22b at full width, cut to
 #: MOE_LAYERS of its 94 layers (6.1 B params, 24.6 GB in f32).
@@ -505,10 +531,13 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, launches: int, repeats: int = 5) -> float:
+def cuda_ms(torch, fn, launches: int, repeats: int = 5,
+            warm: bool = True) -> float:
     """Median over ``repeats`` of CUDA-event time per call, each repeat
-    ``launches`` back-to-back calls after a warm-up call."""
-    fn()
+    ``launches`` back-to-back calls after a warm-up call (none where
+    ``warm`` is False: the caller has just run ``fn``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
@@ -594,7 +623,7 @@ def kernel_checks(torch, syn, fem):
     from repro_torch.data.batching import stack_device_batches
     from repro_torch.kernels import (build, codec, dane_update,
                                      flash_attention, flatpack, local_solve,
-                                     ref, selective_scan)
+                                     ref, selective_scan, xlstm_scan)
     from repro_torch.kernels import ops as kops
     from repro_torch.data.leaf_like import SENT_VOCAB, SHAKES_VOCAB
     from repro_torch.models.small import charlstm_specs, sentlstm_specs
@@ -623,10 +652,11 @@ def kernel_checks(torch, syn, fem):
     def case(label, kernel, plain, tol, nbytes, flops, calls=100,
              plain_repeats=5, library=None, rtol=0.0,
              peak_flops=PEAK_F32_FLOPS, device_time=False, scaled=False,
-             plain_calls=None):
+             plain_calls=None, plain_warm=True):
         """``scaled``: ``tol`` is relative to the plain output's max |y|;
         ``plain_calls``: calls a timed repeat of the plain version (by
-        default ``calls``)."""
+        default ``calls``); ``plain_warm=False``: the comparison's call
+        of the plain version is its warm-up (a step loop of seconds)."""
         got, want = kernel(), plain()
         if scaled:
             tol = tol * max(float(y.float().abs().max())
@@ -642,7 +672,7 @@ def kernel_checks(torch, syn, fem):
         c = dict(shape=label, max_abs_err=err, tol=tol, rtol=rtol,
                  ms=cuda_ms(torch, kernel, calls),
                  plain_ms=cuda_ms(torch, plain, plain_calls or calls,
-                                  repeats=plain_repeats),
+                                  repeats=plain_repeats, warm=plain_warm),
                  bound_ms=b_ms, bound_by=b_by,
                  library_ms=(cuda_ms(torch, library, calls)
                              if library is not None else None))
@@ -1126,6 +1156,58 @@ def kernel_checks(torch, syn, fem):
                              "under chunked_scan's jax.checkpoint, "
                              "src/repro/models/ssm.py:26-41)")
 
+    def bitwise_case(what, kernel, *args):
+        """Two calls of ``kernel`` on the same inputs give the same bits."""
+        check(torch.equal(kernel(*args), kernel(*args)),
+              f"{what}: two calls differ")
+
+    def k9_case(label, B, S, H, D, calls=20):
+        """K9 on numpy-seeded inputs (q, k, v and log_i of O(1), log_f a
+        log-sigmoid of N(2, 1)), within XLSTM_REL x max |h| of the plain
+        step loop on the card, two calls bitwise equal.  Its bound: q, k,
+        v and the gates read once, h written once, against the 5 flops an
+        element of C a step (C f + (i k) v, and the sum of C q) and the
+        8 a row of n; no PyTorch call computes the scan."""
+        q, k, v = (normal(B, S, H, D) for _ in range(3))
+        log_i = normal(B, S, H)
+        log_f = ref.logsigmoid(normal(B, S, H) + 2.0)
+        args = (q, k, v, log_i, log_f)
+        bitwise_case(f"K9 {label}", xlstm_scan.mlstm_scan, *args)
+        nbytes = 4 * (4 * B * S * H * D + 2 * B * S * H)
+        return case(
+            f"mlstm_scan ({B}, {S}, {H}, {D}) f32, {label}",
+            lambda: xlstm_scan.mlstm_scan(*args),
+            lambda: ref.mlstm_scan_ref(*args),
+            XLSTM_REL, nbytes, B * S * H * (5 * D * D + 8 * D), calls=calls,
+            plain_repeats=1, plain_calls=1, plain_warm=False, scaled=True)
+
+    def k10_case(label, B, S, H, D, calls=5):
+        """K10 on numpy-seeded inputs (zx, ix, fx, ox of O(1), the
+        recurrent matrices at the model's scale 0.02), within XLSTM_REL x
+        max |h| of the plain step loop on the card, two calls bitwise
+        equal.  Its bound: the inputs and the four (H, D, D) matrices read
+        once, h written once, against the 4 products of h with a matrix a
+        step (2 D^2 flops each a head) and ~30 flops an element for the
+        gates; no PyTorch call computes the scan."""
+        xs = [normal(B, S, H, D) for _ in range(4)]
+        rs = [normal(H, D, D, scale=0.02) for _ in range(4)]
+        args = tuple(xs + rs)
+        bitwise_case(f"K10 {label}", xlstm_scan.slstm_scan, *args)
+        nbytes = 4 * (5 * B * S * H * D + 4 * H * D * D)
+        return case(
+            f"slstm_scan ({B}, {S}, {H}, {D}) f32, {label}",
+            lambda: xlstm_scan.slstm_scan(*args),
+            lambda: ref.slstm_scan_ref(*args),
+            XLSTM_REL, nbytes, B * S * H * D * (8 * D + 30), calls=calls,
+            plain_repeats=1, plain_calls=1, plain_warm=False, scaled=True)
+
+    def row_xlstm(name, source, step, cases):
+        """K9 or K10: a kernel of the port with no TPU counterpart (the
+        reference's scan is a ``lax.scan`` that XLA loops)."""
+        return dict(row(name, "", source, cases),
+                    replaces=f"none: no TPU kernel (the reference scans "
+                             f"{step} with lax.scan under chunked_scan)")
+
     def qwen_update_cases():
         """K1 over the trainer's qwen1.5-0.5b flat pack (LM_TRAIN_K
         devices, all active, as a local step's mask) and K4 over the
@@ -1309,6 +1391,24 @@ def kernel_checks(torch, syn, fem):
                     k8_bwd_case("(s3') the reduced trainer's fold of 2 "
                                 "clients, B=2x4 S=64", 8, 64, 256, 8,
                                 groups=2)]),
+        # K9 and K10 at phase 10d's xlstm-350m prefills (H=4, dk=512,
+        # dh=256), its mixers' B=1 S=4096, and the reduced preset
+        row_xlstm(
+            "mlstm_scan", "mlstm_scan.cu",
+            "_mlstm_step, src/repro/models/xlstm.py:52-68, :105-106",
+            [k9_case("(x1) xlstm B=1 S=4096", 1, 4096, 4, 512),
+             k9_case("(x2) xlstm B=2 S=1024", 2, 1024, 4, 512),
+             k9_case("(x3) xlstm B=2 S=256", 2, 256, 4, 512),
+             k9_case("(x4) xlstm reduced B=2 S=100", 2, 100, 4, 128,
+                     calls=100)]),
+        row_xlstm(
+            "slstm_scan", "slstm_scan.cu",
+            "_slstm_step, src/repro/models/xlstm.py:141-160, :187-189",
+            [k10_case("(y1) xlstm B=1 S=4096", 1, 4096, 4, 256),
+             k10_case("(y2) xlstm B=2 S=1024", 2, 1024, 4, 256),
+             k10_case("(y3) xlstm B=2 S=256", 2, 256, 4, 256),
+             k10_case("(y4) xlstm reduced B=2 S=100", 2, 100, 4, 64,
+                      calls=20)]),
     ]
 
 
@@ -3719,6 +3819,147 @@ def jamba_phase(torch, counts):
     return out
 
 
+#: Phase 10d (b): the prefill held against the plain scans' Python loop
+#: (~25 s at S=4096), at this prompt.
+XLSTM_CMP = (2, 256)
+#: Phase 10d (d): serving at B=2, the prompt and the greedy tokens.
+XLSTM_SERVE = (2, 16, 8)
+
+
+def xlstm_phase(torch, counts):
+    """Phase 10d: xlstm-350m at full width and full depth (24 layers,
+    12 sLSTM and 12 mLSTM blocks), random weights drawn on the card from
+    seed 0, f32: (a) one mLSTM and one sLSTM mixer at B=1 S=4096 through
+    K9 and K10 against the plain scans on the card, (b) the prefill
+    against the plain scans at XLSTM_CMP, (c) the prefill timed at B=1
+    S=4096 and B=2 S=1024, (d) ``serve.generate`` against the CPU path on
+    the same weights; returns the timings (ms) and the idle share."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch import serve
+    from repro_torch.kernels import ref
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model_specs, param_count, xlstm
+
+    out = {}
+    cfg = get_arch("xlstm-350m")
+    name = "xlstm-350m"
+    layers = cfg.num_layers // len(cfg.pattern)     # of each kind
+    t0 = time.perf_counter()
+    params = init_on_card(torch, model_specs(cfg), 0)
+    torch.cuda.synchronize()
+    print(f"  xlstm-350m at full width and depth ({cfg.num_layers} layers: "
+          f"{layers} sLSTM, {layers} mLSTM; d={cfg.d_model}, "
+          f"H={cfg.num_heads}, dk={xlstm.mlstm_dims(cfg)[1]}, "
+          f"dh={cfg.d_model // cfg.num_heads}, V={cfg.vocab_size}): "
+          f"{param_count(model_specs(cfg)):,} params (f32), drawn on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
+
+    def plain(fn):
+        with swapped(xlstm, "mlstm_scan", ref.mlstm_scan_ref), \
+                swapped(xlstm, "slstm_scan", ref.slstm_scan_ref):
+            return fn()
+
+    # (a) one layer's mixer of each kind at B=1, S=4096: the kernel
+    # against the plain scan
+    S = 4096
+    gen = card_generator(torch, 3)
+    x = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+    for kind, pos, kernel in (("mlstm", "pos_1", "mlstm_scan"),
+                              ("slstm", "pos_0", "slstm_scan")):
+        layer = pt.tmap(lambda a: a[0], params["stack"][pos][kind])
+        mix = getattr(xlstm, f"{kind}_mixer")
+        mixer = lambda: mix(layer, x, cfg)
+        before = counts[kernel]
+        got = mixer()
+        torch.cuda.synchronize()
+        check(counts[kernel] - before == 1,
+              f"{kind}_mixer: {kernel} not launched once")
+        want = plain(mixer)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()), f"{kind}_mixer: not finite")
+        check(err <= XLSTM_REL * scale,
+              f"{kind}_mixer: the kernel differs from the plain scan by "
+              f"{err} > {XLSTM_REL} x {scale}")
+        key = f"{name} {kind}_mixer B=1 S={S}"
+        out[key] = cuda_ms(torch, mixer, 1, repeats=3)
+        print(f"  (a) {kind}_mixer, one layer, B=1 S={S}: max |diff| "
+              f"{err:.3g} against the plain scan (bound {XLSTM_REL:g} x max "
+              f"|out| {scale:.4g}); {out[key]:.2f} ms (the plain scan's "
+              f"time: phase 3)")
+        del got, want
+    del x
+
+    # (b) the 24-layer prefill through K9 and K10 against the plain scans
+    step = make_prefill_step(cfg)
+    B, S = XLSTM_CMP
+    toks = card_tokens(torch, B * S + 13, cfg.vocab_size, B, S)
+    before = dict(counts)
+    logits = step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    grew = _delta(before, counts)
+    check(logits.shape == (B, 1, cfg.vocab_size),
+          f"{name}: shape {tuple(logits.shape)}")
+    check(grew == {"mlstm_scan": layers, "slstm_scan": layers},
+          f"{name}: one prefill launched {grew}, not K9 and K10 {layers} "
+          f"times each")
+    want = plain(lambda: step(params, {"tokens": toks}))
+    compare_logits(torch, f"(b) {name} B={B} S={S}, K9 and K10 vs the plain "
+                          f"scans on the card", logits, want)
+    print(f"    launches a prefill {grew}")
+    del logits, want
+
+    # (c) the prefill's time at a long and a batched prompt
+    for B, S in ((1, 4096), (2, 1024)):
+        toks = card_tokens(torch, B * S + 17, cfg.vocab_size, B, S)
+        batch = {"tokens": toks}
+        logits = step(params, batch)
+        check(bool(torch.isfinite(logits).all()),
+              f"{name} B={B} S={S}: logits not finite")
+        ms = cuda_ms(torch, lambda: step(params, batch), 1, repeats=3)
+        out[f"{name} B={B} S={S}"] = ms
+        print(f"  (c) {name} prefill B={B} S={S}: {ms:.2f} ms "
+              f"({B * S / ms * 1e3:.0f} prompt tokens/s)")
+        if S == 4096:
+            out[f"idle share, {name} B=1 S=4096 prefill"] = device_share(
+                torch, lambda: step(params, batch),
+                f"{name} B=1 S=4096 prefill")
+        del logits
+
+    # (d) serve: the decode path (plain PyTorch on every device, m from
+    # 0) against the CPU path's on the same weights and prompt
+    B, P, new = XLSTM_SERVE
+    prompt = card_tokens(torch, P, cfg.vocab_size, B, P)
+    before = dict(counts)
+    gen = serve.generate(params, cfg, prompt, new, 128)
+    check(_delta(before, counts) == {}, f"{name}: the decode path launched "
+                                        f"a kernel")
+    t0 = time.perf_counter()
+    params_cpu = pt.tmap(lambda a: a.cpu(), params)
+    gen_cpu = serve.generate(params_cpu, cfg, prompt.cpu(), new, 128)
+    cpu_s = time.perf_counter() - t0
+    compare_logits(torch, f"(d) {name} serve B={B}: the logits after a "
+                          f"{P}-token prompt, card vs CPU path",
+                   gen.prompt_logits, gen_cpu.prompt_logits)
+    check(torch.equal(gen.tokens.cpu(), gen_cpu.tokens),
+          f"{name} serve: greedy tokens differ from the CPU path: "
+          f"{gen.tokens.tolist()} vs {gen_cpu.tokens.tolist()}")
+    out[f"{name} serve ms per decode step (B={B})"] = \
+        gen.decode_s / new * 1e3
+    out[f"{name} serve ms per prompt step (B={B})"] = gen.prompt_s / P * 1e3
+    print(f"      serve.generate, B={B}, {P}-token prompt, {new} new "
+          f"tokens, cache 128: greedy tokens equal the CPU path's (its "
+          f"copy and run {cpu_s:.1f} s); "
+          f"{out[f'{name} serve ms per decode step (B={B})']:.2f} ms per "
+          f"decode step, "
+          f"{out[f'{name} serve ms per prompt step (B={B})']:.2f} ms per "
+          f"prompt step (host clock); tokens {gen.tokens.tolist()}")
+    del params, params_cpu, gen, gen_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_phase(torch, counts):
     """Phase 11: LM training at full width (qwen1.5-0.5b, random weights
     from seed 0, f32): the loss's gradient, the three train steps, the
@@ -5035,6 +5276,15 @@ def run(torch, pool, threads: int) -> int:
     print(f"  phase 10c took {time.perf_counter() - t0:.1f} s; launches "
           f"{ {k: v for k, v in jamba_path.items() if v} }")
 
+    print("[10d] xLSTM at full width and depth: xlstm-350m (24 layers) "
+          "through K9 and K10")
+    t0 = time.perf_counter()
+    build.reset_launch_counts()          # the xLSTM path starts here
+    lm_ms.update(xlstm_phase(torch, counts))
+    xlstm_path = dict(counts)            # and is read here
+    print(f"  phase 10d took {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: v for k, v in xlstm_path.items() if v} }")
+
     print("[11] LM training at full width: qwen1.5-0.5b's loss, train "
           "steps, federated trainer and pods as clients")
     t0 = time.perf_counter()
@@ -5059,7 +5309,7 @@ def run(torch, pool, threads: int) -> int:
     for r in rows:
         r["launches"] = (main_path[r["name"]] + on_mesh.get(r["name"], 0)
                          + lm_path[r["name"]] + jamba_path[r["name"]]
-                         + train_path[r["name"]])
+                         + xlstm_path[r["name"]] + train_path[r["name"]])
         check(r["launches"] > 0, f"{r['name']} not launched on the main "
                                  f"path")
     print(f"[12] done in {time.perf_counter() - t_start:.1f} s; phase "

@@ -4,9 +4,10 @@
 ``repro/configs/base.py:15-153``: the same fields, defaults, derived
 properties and ``reduced()`` preset, so an architecture reads the same in
 both packages.  The model path of the port takes the ``attn``,
-``attn_moe``, ``mamba`` and ``mamba_moe`` block kinds
-(``models/transformer.py`` refuses the xLSTM blocks, encoder-decoder
-models and the patch frontend as not yet ported).
+``attn_moe``, ``mamba``, ``mamba_moe``, ``mlstm`` and ``slstm`` block
+kinds (``models/transformer.py`` refuses encoder-decoder models and the
+audio and patch frontends as not yet ported; training refuses the
+xLSTM blocks, ``launch/steps.check_trainable``).
 
 ``FederatedConfig`` is the counterpart of the reference's
 ``FederatedConfig``: the same fields, defaults and validation, checked

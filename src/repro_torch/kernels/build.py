@@ -45,6 +45,8 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "flash_attention_bwd": (),
     "selective_scan": (),
     "selective_scan_bwd": (),
+    "mlstm_scan": (),
+    "slstm_scan": (),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.
@@ -52,7 +54,7 @@ launch_counts: Dict[str, int] = dict.fromkeys(
     ("dane_update_flat", "dane_update_2d", "local_epoch",
      "linear_logistic_step", "codec_aggregate", "codec_aggregate_partial",
      "flash_attention", "flash_attention_bwd", "selective_scan",
-     "selective_scan_bwd"),
+     "selective_scan_bwd", "mlstm_scan", "slstm_scan"),
     0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

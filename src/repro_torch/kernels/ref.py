@@ -336,3 +336,108 @@ def selective_scan_bwd_ref(xs, dt, Bc, Cc, A, H, dy,
     else:
         dA = dA_rows.reshape((A.shape[0], -1, di, N)).sum(1)
     return dxs, ddt, dBc, dCc, dA
+
+
+# ---------------------------------------------------------------------------
+# The xLSTM scans (K9 mLSTM, K10 sLSTM)
+# ---------------------------------------------------------------------------
+
+#: The stabiliser's start, the reference's (not -inf: ``log_f + m - m_new``
+#: must stay finite).
+M_START = -1e30
+
+
+def logsigmoid(x):
+    """``log(sigmoid(x))`` as the reference computes it, ``-softplus(-x)``
+    = ``min(x, 0) - log1p(exp(-|x|))`` (finite for every finite x)."""
+    return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-x.abs()))
+
+
+def mlstm_step(dk: int):
+    """The reference's ``_mlstm_step`` (``repro/models/xlstm.py:52-68``):
+    ``(carry, xs_t) -> (carry, h_t)`` with carry ``(C, n, m)`` (B, H, dk,
+    dv), (B, H, dk), (B, H) and ``xs_t`` = q, k, v (B, H, dk), log_i,
+    log_f (B, H), all f32."""
+    scale = dk ** -0.5
+
+    def step(carry, xs_t):
+        C, n, m = carry
+        q, k, v, log_i, log_f = xs_t
+        m_new = torch.maximum(log_f + m, log_i)
+        i_p = torch.exp(log_i - m_new)
+        f_p = torch.exp(log_f + m - m_new)
+        C = f_p[..., None, None] * C \
+            + i_p[..., None, None] * k[..., :, None] * v[..., None, :]
+        n = f_p[..., None] * n + i_p[..., None] * k
+        num = torch.einsum("bhkv,bhk->bhv", C, q * scale)
+        den = torch.einsum("bhk,bhk->bh", n, q * scale).abs()
+        h = num / torch.clamp(den, min=1.0)[..., None]
+        return (C, n, m_new), h
+    return step
+
+
+def slstm_step(r_z, r_i, r_f, r_o):
+    """The reference's ``_slstm_step`` (``repro/models/xlstm.py:141-160``)
+    on the per-head recurrent matrices ``r_*`` (H, dh, dh): ``(carry,
+    xs_t) -> (carry, h_t)`` with carry ``(c, n, m, h)`` and ``xs_t`` = zx,
+    ix, fx, ox, each (B, H, dh) f32."""
+    def rec(w, h):
+        return torch.einsum("bhi,hij->bhj", h, w)
+
+    def step(carry, xs_t):
+        c, n, m, h = carry
+        zx, ix, fx, ox = xs_t
+        z_t = torch.tanh(zx + rec(r_z, h))
+        i_raw = ix + rec(r_i, h)
+        f_raw = fx + rec(r_f, h)
+        o_t = torch.sigmoid(ox + rec(r_o, h))
+        log_f = logsigmoid(f_raw)
+        m_new = torch.maximum(log_f + m, i_raw)
+        i_p = torch.exp(i_raw - m_new)
+        f_p = torch.exp(log_f + m - m_new)
+        c = f_p * c + i_p * z_t
+        n = f_p * n + i_p
+        h = o_t * c / torch.clamp(n, min=1e-6)
+        return (c, n, m_new, h), h
+    return step
+
+
+def _scan_heads(step, carry, xs, chunk: int):
+    """``models.ssm.chunked_scan`` of ``step`` over the S axis of the
+    (B, S, ...) tensors ``xs``; the outputs back as (B, S, ...).  (The
+    model package is imported here, not at the top: it imports the
+    kernels' wrappers, which import this module.)"""
+    from repro_torch.models.ssm import chunked_scan
+    swap = lambda a: a.transpose(0, 1)
+    _, hs = chunked_scan(step, carry, tuple(map(swap, xs)), chunk)
+    return hs.transpose(0, 1)
+
+
+def mlstm_scan_ref(q, k, v, log_i, log_f, chunk: int = SCAN_CHUNK):
+    """K9's function: the reference's mLSTM step folded over S from
+    ``C = 0``, ``n = 0``, ``m = -1e30`` (its ``mlstm_init_state``), as
+    ``chunked_scan`` (chunks of ``chunk``) runs it.  q, k, v (B, S, H,
+    dk), log_i, log_f (B, S, H), f32 -> h (B, S, H, dk)."""
+    B, S, H, dk = q.shape
+    C = q.new_zeros((B, H, dk, v.shape[-1]), dtype=F32)
+    n = q.new_zeros((B, H, dk), dtype=F32)
+    m = q.new_full((B, H), M_START, dtype=F32)
+    if S == 0:
+        return q.new_zeros((B, 0, H, v.shape[-1]), dtype=F32)
+    return _scan_heads(mlstm_step(dk), (C, n, m), (q, k, v, log_i, log_f),
+                       chunk)
+
+
+def slstm_scan_ref(zx, ix, fx, ox, r_z, r_i, r_f, r_o,
+                   chunk: int = SCAN_CHUNK):
+    """K10's function: the reference's sLSTM step folded over S from
+    ``c = n = h = 0``, ``m = -1e30`` (its ``slstm_init_state``), as
+    ``chunked_scan`` runs it.  zx, ix, fx, ox (B, S, H, dh), r_* (H, dh,
+    dh), f32 -> h (B, S, H, dh)."""
+    B, S, H, dh = zx.shape
+    zeros = zx.new_zeros((B, H, dh), dtype=F32)
+    m = zx.new_full((B, H, dh), M_START, dtype=F32)
+    if S == 0:
+        return zx.new_zeros((B, 0, H, dh), dtype=F32)
+    return _scan_heads(slstm_step(r_z, r_i, r_f, r_o),
+                       (zeros, zeros, m, zeros), (zx, ix, fx, ox), chunk)

@@ -3,15 +3,19 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 Counterpart of ``repro/launch/serve.py``, with its CLI and defaults (the
 reduced preset of ``--arch``).  As there, the prompt is fed through
 ``decode_step`` one token at a time, which fills the ring-buffer KV
 cache (and, for jamba-v0.1-52b's mamba blocks, the SSM state and conv
-window), and the model then decodes greedily.  The dense archs, the MoE
-archs (qwen3-moe-235b-a22b, arctic-480b) and the hybrid jamba-v0.1-52b
-are served.  Runs on the card unless ``--device cpu``.  The weights are
+window; for xlstm-350m's blocks, their recurrent states), and the model
+then decodes greedily.  The dense archs, the MoE archs
+(qwen3-moe-235b-a22b, arctic-480b), the hybrid jamba-v0.1-52b and
+xlstm-350m are served.  The recurrent states start from zeros, as the
+reference's cache does: an xLSTM block's stabiliser ``m`` too, where its
+prefill starts it at -1e30 (``models/xlstm.py``).  Runs on the card unless ``--device cpu``.  The weights are
 drawn by ``init_params`` from ``--seed``, and so is the prompt (from a
 ``torch.Generator``, not the reference's ``jax.random``).
 """
@@ -51,7 +55,8 @@ def generate(params, cfg, prompt, tokens: int, cache_len: int) -> Generation:
     B, P = prompt.shape
     dev = prompt.device
     dtype = params["embed"]["embedding"].dtype
-    # KV caches in the params' dtype, recurrent states in f32
+    # KV caches in the params' dtype, recurrent states (mamba, xLSTM) in
+    # f32
     cache = pt.tmap(lambda s: torch.zeros(
         s.shape, dtype=dtype if "seq" in s.axes else torch.float32,
         device=dev), decode_cache_specs(cfg, B, cache_len))

@@ -36,7 +36,8 @@ aux.  So does jamba-v0.1-52b's, whose reduced preset keeps whole repeats
 of its 8-block pattern (``--layers 1``: 8 layers, 7 of them mamba, at
 d=128 and state N=8); on the card its mamba blocks' scan runs K8 and its
 gradient K8-bwd, once a layer for all the clients of a local step.  The
-xLSTM blocks and the audio and patch frontends are not yet ported
+xLSTM blocks (served, not trained: their scan kernels have no backward
+yet) and the audio and patch frontends are refused as not yet ported
 (``steps.check_trainable``).
 """
 from __future__ import annotations

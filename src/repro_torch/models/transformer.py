@@ -1,13 +1,16 @@
 """Model assembly for the LM stack: specs, loss, prefill and decode.
 
 Counterpart of ``repro/models/transformer.py`` for the ``attn``,
-``attn_moe``, ``mamba`` and ``mamba_moe`` patterns: the dense archs
-(qwen1.5-0.5b, yi-9b, minitron-8b, phi4-mini-3.8b), the MoE archs
-(qwen3-moe-235b-a22b, arctic-480b), whose blocks run ``models/moe.py``'s
-``moe_ffn`` in place of the SwiGLU FFN, and the hybrid jamba-v0.1-52b,
-whose mamba blocks run ``models/ssm.py``'s ``mamba_mixer`` in place of
-attention (K8 on the card) and decode through ``mamba_decode_step`` on
-a cache of the SSM state ``h`` and the conv window.  The
+``attn_moe``, ``mamba``, ``mamba_moe``, ``mlstm`` and ``slstm``
+patterns: the dense archs (qwen1.5-0.5b, yi-9b, minitron-8b,
+phi4-mini-3.8b), the MoE archs (qwen3-moe-235b-a22b, arctic-480b), whose
+blocks run ``models/moe.py``'s ``moe_ffn`` in place of the SwiGLU FFN,
+the hybrid jamba-v0.1-52b, whose mamba blocks run ``models/ssm.py``'s
+``mamba_mixer`` in place of attention (K8 on the card) and decode
+through ``mamba_decode_step`` on a cache of the SSM state ``h`` and the
+conv window, and xlstm-350m, whose self-contained blocks (no FFN) are
+``models/xlstm.py``'s mixers (K9 and K10 on the card) and decode on a
+cache of the recurrent states (C, n, m and c, n, m, h).  The
 parameter tree keeps the reference's keys and stacked layout
 (``embed/embedding``, ``stack/pos_0/attn/wq`` of shape ``[R, d, H, hd]``,
 ...), so ``models.param.params_from_numpy`` carries the reference's
@@ -20,7 +23,10 @@ products (``aten.mm``, the reference's dots without batch dims) and
 recomputes the rest.  All three give the same values, and take every
 block kind: under ``"full"`` a mamba layer's scan runs twice on the card
 (K8 in the forward and in its recomputation) and its backward once
-(K8-bwd, from the recomputation's chunk states).  Checkpoints need
+(K8-bwd, from the recomputation's chunk states).  An xLSTM layer's
+gradient runs on the CPU alone: K9 and K10 have no backward yet and
+refuse an input that requires grad (training refuses xlstm-350m,
+``launch/steps.check_trainable``).  Checkpoints need
 plain ``torch.autograd``: ``torch.func.grad`` refuses them, so the
 federated trainer's loss runs with ``remat="none"``, as the reference's
 ``launch/train.py`` does.  ``prefill`` and ``decode_step`` run under
@@ -36,8 +42,8 @@ Public entry points (functions over param trees):
 - ``decode_step(params, batch, cache, cfg)``  one-token decode
 - ``decode_cache_specs(cfg, batch, cache_len)`` cache ParamSpec tree
 
-xLSTM blocks, encoder-decoder models and the patch frontend are
-refused as not yet ported.
+Encoder-decoder models and the audio and patch frontends are refused
+as not yet ported.
 """
 from __future__ import annotations
 
@@ -53,7 +59,7 @@ from repro_torch.configs.base import ModelConfig, _not_ported
 from repro_torch.core import pytree as pt
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models import moe, ssm
+from repro_torch.models import moe, ssm, xlstm
 from repro_torch.models.param import ParamSpec
 
 Params = Dict[str, Any]
@@ -64,8 +70,11 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 #: The block kinds the port's model takes.
-_PORTED_KINDS = (cb.ATTN, cb.ATTN_MOE, cb.MAMBA, cb.MAMBA_MOE)
+_PORTED_KINDS = (cb.ATTN, cb.ATTN_MOE, cb.MAMBA, cb.MAMBA_MOE, cb.MLSTM,
+                 cb.SLSTM)
 _ATTN_KINDS = (cb.ATTN, cb.ATTN_MOE)
+#: The xLSTM blocks: ``ln1`` and the mixer alone, no FFN.
+_XLSTM_SPECS = {cb.MLSTM: xlstm.mlstm_specs, cb.SLSTM: xlstm.slstm_specs}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -81,6 +90,9 @@ def _check_ported(cfg: ModelConfig) -> None:
 def _block_specs(kind: str, cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     s = {"ln1": L.norm_spec(d)}
+    if kind in _XLSTM_SPECS:
+        s[kind] = _XLSTM_SPECS[kind](cfg)
+        return s  # self-contained block
     if kind in _ATTN_KINDS:
         s["attn"] = attn.attention_specs(d, cfg.num_heads, cfg.num_kv_heads,
                                          hd, cfg.qkv_bias)
@@ -131,10 +143,15 @@ def _ffn(p: Params, h, cfg: ModelConfig):
 
 def _apply_block(p: Params, x, cfg: ModelConfig, positions, *,
                  causal: bool = True):
-    """The block's output and its aux loss (None for a dense FFN).  A
-    mamba block (``"mamba"`` in ``p``) mixes with ``ssm.mamba_mixer``,
-    the others with attention."""
+    """The block's output and its aux loss (None for a dense FFN or an
+    xLSTM block).  A mamba block (``"mamba"`` in ``p``) mixes with
+    ``ssm.mamba_mixer``, an xLSTM block (``"mlstm"`` or ``"slstm"``) with
+    its mixer and nothing after it, the others with attention."""
     h = L.rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+    if "mlstm" in p:
+        return x + xlstm.mlstm_mixer(p["mlstm"], h, cfg), None
+    if "slstm" in p:
+        return x + xlstm.slstm_mixer(p["slstm"], h, cfg), None
     if "mamba" in p:
         x = x + ssm.mamba_mixer(p["mamba"], h, cfg)
     else:
@@ -259,6 +276,19 @@ def prefill(params: Params, batch: Dict[str, Any], cfg: ModelConfig):
 
 def _cache_block_specs(kind: str, cfg: ModelConfig, batch: int,
                        cache_len: int) -> dict:
+    H = cfg.num_heads
+    if kind == cb.MLSTM:
+        dk = xlstm.mlstm_dims(cfg)[1]
+        return {"C": ParamSpec((batch, H, dk, dk),
+                               ("batch", None, None, None), init="zeros"),
+                "n": ParamSpec((batch, H, dk), ("batch", None, None),
+                               init="zeros"),
+                "m": ParamSpec((batch, H), ("batch", None), init="zeros")}
+    if kind == cb.SLSTM:
+        dh = cfg.d_model // H
+        return {name: ParamSpec((batch, H, dh), ("batch", None, None),
+                                init="zeros")
+                for name in ("c", "n", "m", "h")}
     if kind not in _ATTN_KINDS:
         di, _, N = ssm.mamba_dims(cfg)
         return {"h": ParamSpec((batch, di, N),
@@ -299,9 +329,14 @@ def effective_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 def _apply_block_decode(p: Params, x, cache: Params, cfg: ModelConfig,
                         t: int):
     """x: (B,1,d); t: absolute position.  Writes the token's K/V (an
-    attention block) or the SSM state and conv window (a mamba block)
-    into ``cache`` in place and returns the block's output."""
+    attention block), the SSM state and conv window (a mamba block) or
+    the recurrent state (an xLSTM block) into ``cache`` in place and
+    returns the block's output."""
     h = L.rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+    if "mlstm" in p:
+        return x + xlstm.mlstm_decode_step(p["mlstm"], h, cache, cfg)[0]
+    if "slstm" in p:
+        return x + xlstm.slstm_decode_step(p["slstm"], h, cache, cfg)[0]
     if "mamba" in p:
         x = x + ssm.mamba_decode_step(p["mamba"], h, cache, cfg)[0]
     else:
@@ -323,9 +358,9 @@ def decode_step(params: Params, batch: Dict[str, Any], cache: Params,
 
     ``batch``: {"tokens": (B,1) int, "t": the absolute position (an int
     or a 0-d tensor)}.  Returns (logits (B,1,V), cache): the cache's
-    ring slot ``t % cache_len`` of every attention layer, and the state
-    and conv window of every mamba layer, are written in place (the
-    reference returns an updated copy).
+    ring slot ``t % cache_len`` of every attention layer, the state and
+    conv window of every mamba layer and the states of every xLSTM layer
+    are written in place (the reference returns an updated copy).
     """
     _check_ported(cfg)
     x = L.embed(params["embed"], batch["tokens"])

@@ -1329,3 +1329,129 @@ def test_mamba_mixer_runs_k8_on_the_card(card):
     cpu = ssm.mamba_mixer(p, x, cfg)
     assert float((got - plain).abs().max()) <= 1e-5 * scale
     assert float((got.cpu() - cpu).abs().max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# K9 and K10, the xLSTM scans
+# ---------------------------------------------------------------------------
+
+def _mlstm_inputs(card, B, S, H, D, seed=60):
+    """q, k, v of O(1); log_i of O(1); log_f a log-sigmoid."""
+    q, k, v = (_normal(seed + i, (B, S, H, D), torch.float32, card)
+               for i in range(3))
+    log_i = _normal(seed + 3, (B, S, H), torch.float32, card)
+    log_f = ref.logsigmoid(_normal(seed + 4, (B, S, H), torch.float32, card)
+                           + 2.0)
+    return q, k, v, log_i, log_f
+
+
+def _slstm_inputs(card, B, S, H, D, seed=70):
+    """zx, ix, fx, ox of O(1); the recurrent matrices at scale 0.2 (the
+    model's 0.02 would leave the recurrence almost idle)."""
+    xs = [_normal(seed + i, (B, S, H, D), torch.float32, card)
+          for i in range(4)]
+    rs = [0.2 * _normal(seed + 4 + i, (H, D, D), torch.float32, card)
+          for i in range(4)]
+    return xs + rs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D", [
+    (2, 100, 4, 128),      # the reduced preset, S off the kernel's tile
+    (1, 64, 4, 512),       # full width, a short prompt
+    (3, 1, 2, 64),         # one step
+])
+def test_mlstm_scan_kernel_matches_plain(card, B, S, H, D):
+    """K9 against its plain version on the card within 1e-5 x max |h|;
+    two calls bitwise equal; one count a call."""
+    from repro_torch.kernels.xlstm_scan import mlstm_scan
+    args = _mlstm_inputs(card, B, S, H, D)
+    build.reset_launch_counts()
+    got = mlstm_scan(*args)
+    again = mlstm_scan(*args)
+    torch.cuda.synchronize()
+    assert build.launch_counts["mlstm_scan"] == 2
+    assert torch.equal(got, again)
+    want = ref.mlstm_scan_ref(*args)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D", [
+    (2, 100, 4, 64),       # the reduced preset
+    (1, 64, 4, 256),       # full width, a short prompt
+    (3, 1, 2, 32),         # one step
+])
+def test_slstm_scan_kernel_matches_plain(card, B, S, H, D):
+    """K10 against its plain version on the card within 1e-5 x max |h|;
+    two calls bitwise equal; one count a call."""
+    from repro_torch.kernels.xlstm_scan import slstm_scan
+    args = _slstm_inputs(card, B, S, H, D)
+    build.reset_launch_counts()
+    got = slstm_scan(*args)
+    again = slstm_scan(*args)
+    torch.cuda.synchronize()
+    assert build.launch_counts["slstm_scan"] == 2
+    assert torch.equal(got, again)
+    want = ref.slstm_scan_ref(*args)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+def test_xlstm_scan_kernels_refuse(card):
+    """Another dtype, a head dim they are not built for and an input that
+    requires grad raise; nothing is launched."""
+    from repro_torch.kernels.xlstm_scan import mlstm_scan, slstm_scan
+    m = _mlstm_inputs(card, 1, 8, 2, 64)
+    s = _slstm_inputs(card, 1, 8, 2, 64)
+    build.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32"):
+        mlstm_scan(m[0].double(), *m[1:])
+    with pytest.raises(TypeError, match="float32"):
+        slstm_scan(*s[:4], s[4].bfloat16(), *s[5:])
+    with pytest.raises(ValueError, match="head dim 96"):
+        mlstm_scan(*_mlstm_inputs(card, 1, 8, 2, 96))
+    with pytest.raises(ValueError, match="head dim 96"):
+        slstm_scan(*_slstm_inputs(card, 1, 8, 2, 96))
+    with pytest.raises(ValueError, match="xLSTM training"):
+        mlstm_scan(m[0].clone().requires_grad_(), *m[1:])
+    with pytest.raises(ValueError, match="xLSTM training"):
+        slstm_scan(*s[:4], s[4].clone().requires_grad_(), *s[5:])
+    assert build.launch_counts["mlstm_scan"] == 0
+    assert build.launch_counts["slstm_scan"] == 0
+
+
+@pytest.mark.cuda
+def test_xlstm_model_runs_k9_and_k10_on_the_card(card):
+    """The reduced xlstm-350m preset's prefill on the card launches K9
+    and K10 once a layer of each kind and agrees with the CPU path within
+    1e-4 x max |logit|; its serve loop launches neither and gives the CPU
+    path's tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch import serve
+    from repro_torch.models import param, transformer
+    cfg = get_arch("xlstm-350m").reduced()
+    p = param.init_params(transformer.model_specs(cfg),
+                          torch.Generator().manual_seed(0), device="cpu")
+    pc = pt.tmap(lambda t: t.to(card), p)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    build.reset_launch_counts()
+    got = transformer.prefill(pc, {"tokens": toks.to(card)}, cfg)
+    torch.cuda.synchronize()
+    layers = cfg.num_layers // 2
+    assert build.launch_counts["mlstm_scan"] == layers
+    assert build.launch_counts["slstm_scan"] == layers
+    want = transformer.prefill(p, {"tokens": toks}, cfg)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    build.reset_launch_counts()
+    gen = serve.generate(pc, cfg, toks[:, :6].to(card), 4, 16)
+    assert set(build.launch_counts.values()) == {0}
+    assert torch.equal(gen.tokens.cpu(),
+                       serve.generate(p, cfg, toks[:, :6], 4, 16).tokens)

@@ -10,7 +10,9 @@ archs (qwen3-moe-235b-a22b, and arctic-480b with its dense residual
 branch), whose routing must pick the same experts in both packages, and
 the hybrid jamba-v0.1-52b (one repeat of its 8-block pattern: mamba,
 mamba_moe and attn blocks; the decode cache holds each mamba block's
-SSM state and conv window).
+SSM state and conv window); and xlstm-350m (its spec trees, input
+shapes, the reduced prefill and decode; its blocks and serving in
+depth: ``tests/test_torch_xlstm.py``).
 
 Tolerances: logits and hidden states atol 1e-4 / rtol 1e-4 (float32
 matrix products and softmax sums in another order than XLA's, through 2
@@ -40,14 +42,16 @@ ATOL = RTOL = 1e-4
 DENSE = ["qwen1.5-0.5b", "yi-9b", "minitron-8b", "phi4-mini-3.8b"]
 MOE = ["qwen3-moe-235b-a22b", "arctic-480b"]
 HYBRID = ["jamba-v0.1-52b"]
-NOT_PORTED = ["xlstm-350m", "whisper-tiny", "internvl2-26b"]
+XLSTM = ["xlstm-350m"]
+NOT_PORTED = ["whisper-tiny", "internvl2-26b"]
 SMALL = {"qwen": ("qwen1.5-0.5b", {}),
          "yi-gqa": ("yi-9b", {"num_kv_heads": 2}),
          "qwen3-moe": ("qwen3-moe-235b-a22b", {}),
          "arctic": ("arctic-480b", {"num_kv_heads": 2}),
          "jamba": ("jamba-v0.1-52b",
                    {"num_layers": 1, "d_model": 64, "num_heads": 4,
-                    "num_kv_heads": 2, "d_ff": 128, "vocab_size": 128})}
+                    "num_kv_heads": 2, "d_ff": 128, "vocab_size": 128}),
+         "xlstm": ("xlstm-350m", {})}
 
 
 def _small(name):
@@ -111,7 +115,7 @@ def test_registry_matches_reference():
         configs.get_shape("train_8k")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID + XLSTM)
 def test_model_specs_match_reference_at_full_width(arch):
     """The full configs' spec trees -- keys, shapes, axes, initialisers
     -- and parameter counts, from the specs alone (nothing allocated)."""
@@ -138,7 +142,7 @@ def test_other_families_are_refused(arch):
         transformer.decode_cache_specs(cfg, 1, 8)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID + XLSTM)
 @pytest.mark.parametrize("shape", sorted(jconfigs.INPUT_SHAPES))
 def test_step_input_specs_match_reference(arch, shape):
     jcfg, tcfg = jconfigs.get_arch(arch), configs.get_arch(arch)
