@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together), printing ptxas's registers,
    stack frame and spills of every entry;
-3. each kernel (K1-K10, K7-bwd, K8-bwd) at every shape phases 4-11c
-   give it (K2 and K3 at
+3. each kernel (K1-K10, K7-bwd, K8-bwd, K9-bwd, K10-bwd) at every shape
+   phases 4-11d give it (K2 and K3 at
    both d=60 and d=784, K2 also on a rank's devices of the flat mesh
    and, with its steps cut short, of the tree, and on the 1- and 3-row
    cohorts a buffered refill solves, K3 too; K2 and K3 also at d=2,000
@@ -89,7 +89,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    on numpy-seeded inputs, within XLSTM_REL x max |h| of the plain step
    loop, two calls bitwise equal, beside the bound (the bytes, or the
    flops of the state's update and read-out at the CUDA cores' f32 rate)
-   and the plain loop's time; no PyTorch call computes either;
+   and the plain loop's time; no PyTorch call computes either.  K9-bwd
+   and K10-bwd (their backward, kernels of the port) at (x1)/(y1),
+   (x2)/(y2), (x4)/(y4) and (x5)/(y5) the reduced trainer's fold of 2
+   clients (B=2x4, S=64, dk=64, dh=32, the sLSTM's r in 2 groups), from
+   the states the training launches saved: each output within GRAD_REL
+   x its own max |g| of the plain backward, two calls bitwise equal, and
+   the training launches' h and states within XLSTM_REL x their max of
+   the plain forward's, beside the bound (the bytes, or the walk's flops
+   at the f32 rate).  Every plain step loop of the scans (K8-K10 and
+   their backward) runs once, its comparison call timed with CUDA
+   events;
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
@@ -357,12 +367,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    the CPU path (in the pool: the same selections, params within
    TRAJECTORY_TOL), 1 round on ``per_leaf`` bitwise equal to flat's
    first, pods as clients, 2 pods x 2 local steps, finite;
+11d. training xLSTM: xlstm-350m at full width and depth (24 layers),
+   weights drawn on the card from seed 0, f32: (a) one mLSTM and one
+   sLSTM mixer's gradient (x and every weight) at B=1, S=4096 through
+   K9/K10 and K9-bwd/K10-bwd (once each) against autograd of the plain
+   scans on the card (each leaf within GRAD_REL of its max |g|); (b)
+   ``loss_fn``'s gradient, ``remat="full"`` (K9/K10 twice and
+   K9-bwd/K10-bwd once a layer), at XLSTM_GRAD_CMP (B=1, S=256, four
+   chunks) against the plain scans' route (remat none; loss within
+   LOGIT_REL, each leaf within GRAD_REL), then at B=1 S=4096 twice,
+   bitwise equal, ms and the card's peak; (c) ``make_fedavg_step`` at
+   B=1 S=4096 (its loss and params bitwise (b)'s loss and params - eta
+   g), 3 ``make_feddane_round_step`` steps (the loss falls) and a
+   pipelined step, ms and peaks; (d) ``train.main --arch xlstm-350m
+   --lr XLSTM_TRAIN_LR`` (4 layers, d=128): feddane N=8 K=2 E=1 B=4
+   S=64, 2 rounds on ``auto`` (= flat; K9, K10, K9-bwd and K10-bwd once
+   a layer of their kind in each local step for both clients) against
+   the CPU path (in the pool: the same selections, params within
+   TRAJECTORY_TOL; the CPU path's own spread from weights nudged by
+   1e-7 printed at that lr and at 0.05), 1 round on ``per_leaf``
+   bitwise equal to flat's first, pods as clients, 2 pods x 2 local
+   steps, finite;
 12. the ``kernels`` JSON line: every kernel with its launches on the
    main path -- phases 4-8d in this process (the counters are set to 0
    just before phase 4 and read just after phase 8d; a captured kernel
    counts once a replay, and once for the warm-up run before its
-   capture), phase 9's ranks, phase 10, phases 10c and 10d, and phases
-   11-11c (each set to 0 just before it and read just after) -- error,
+   capture), phase 9's ranks, phase 10, phases 10c and 10d, phases
+   11-11c and phase 11d (each set to 0 just before it and read just
+   after) -- error,
    times and bound, and each checked shape under ``cases`` (with its
    ``device_ms`` where phase 3 took one, and the update paths' kernels
    and launches a step).
@@ -379,6 +411,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -652,12 +685,31 @@ def kernel_checks(torch, syn, fem):
     def case(label, kernel, plain, tol, nbytes, flops, calls=100,
              plain_repeats=5, library=None, rtol=0.0,
              peak_flops=PEAK_F32_FLOPS, device_time=False, scaled=False,
-             plain_calls=None, plain_warm=True):
-        """``scaled``: ``tol`` is relative to the plain output's max |y|;
-        ``plain_calls``: calls a timed repeat of the plain version (by
-        default ``calls``); ``plain_warm=False``: the comparison's call
-        of the plain version is its warm-up (a step loop of seconds)."""
-        got, want = kernel(), plain()
+             plain_calls=None, plain_once=False, each=False):
+        """``scaled``: ``tol`` is relative to the plain output's max |y|
+        (``each``: to each output's own max, each output held to its
+        own); ``plain_calls``: calls a timed repeat of the plain version
+        (by default ``calls``); ``plain_once``: the plain version runs
+        once, its comparison call timed with CUDA events (a step loop of
+        seconds at S=4096)."""
+        got = kernel()
+        if plain_once:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain()
+            end.record()
+            end.synchronize()
+            once_ms = start.elapsed_time(end)
+        else:
+            want = plain()
+        if each:
+            for i, (x, y) in enumerate(zip(pt.leaves(got), pt.leaves(want))):
+                top = float(y.float().abs().max())
+                e = float((x.float() - y.float()).abs().max())
+                check(e <= tol * top, f"{label}: output {i} differs by {e} "
+                                      f"> {tol:g} x its max {top}")
         if scaled:
             tol = tol * max(float(y.float().abs().max())
                             for y in pt.leaves(want))
@@ -671,8 +723,9 @@ def kernel_checks(torch, syn, fem):
         b_ms, b_by = bound(nbytes, flops, peak_flops)
         c = dict(shape=label, max_abs_err=err, tol=tol, rtol=rtol,
                  ms=cuda_ms(torch, kernel, calls),
-                 plain_ms=cuda_ms(torch, plain, plain_calls or calls,
-                                  repeats=plain_repeats, warm=plain_warm),
+                 plain_ms=once_ms if plain_once else cuda_ms(
+                     torch, plain, plain_calls or calls,
+                     repeats=plain_repeats),
                  bound_ms=b_ms, bound_by=b_by,
                  library_ms=(cuda_ms(torch, library, calls)
                              if library is not None else None))
@@ -1086,8 +1139,8 @@ def kernel_checks(torch, syn, fem):
             f"selective_scan ({B}, {S}, {di}) N={N} f32, {label}",
             lambda: selective_scan.selective_scan(x, dt, bc, cc, a),
             lambda: ref.selective_scan_ref(x, dt, bc, cc, a),
-            K8_REL, nbytes, B * S * di * N, calls=calls, plain_repeats=3,
-            plain_calls=1, peak_flops=PEAK_SFU_OPS, scaled=True)
+            K8_REL, nbytes, B * S * di * N, calls=calls, plain_once=True,
+            peak_flops=PEAK_SFU_OPS, scaled=True)
 
     def row_k8(cases):
         """K8: a kernel of the port with no TPU counterpart (the
@@ -1103,7 +1156,8 @@ def kernel_checks(torch, syn, fem):
         a group of batch rows, as the vmap fold of ``groups`` clients
         gives it) and a cotangent, from the states K8's training launch
         saved: each output within GRAD_REL x its own max |g| of the
-        plain backward on the same inputs, two calls bitwise equal; the
+        plain backward on the same inputs (which runs once, its call
+        timed), two calls bitwise equal; the
         training launch's y and H within K8_REL x their max of the plain
         forward's (H is all 0 at S <= 64: then equal).  Its bound: x, dt,
         dy, Bc, Cc, A and H read once, dx, ddt, dBc, dCc and dA written
@@ -1125,16 +1179,8 @@ def kernel_checks(torch, syn, fem):
                                        f"forward's by {err} (max {top})")
         del y
         args = (x, dt, bc, cc, a, H, dy)
-        got = selective_scan.selective_scan_bwd(*args)
-        again = selective_scan.selective_scan_bwd(*args)
-        want = ref.selective_scan_bwd_ref(*args)
-        check(all(torch.equal(g, g2) for g, g2 in zip(got, again)),
-              f"K8-bwd {label}: two calls differ")
-        for name, g, w in zip(("dxs", "ddt", "dBc", "dCc", "dA"), got, want):
-            rel = float((g - w).abs().max()) / float(w.abs().max())
-            check(rel <= GRAD_REL, f"K8-bwd {label}: {name} differs from "
-                                   f"the plain backward by {rel} x its max")
-        del got, again, want
+        bitwise_all(f"K8-bwd {label}", selective_scan.selective_scan_bwd,
+                    *args)
         nbytes = 4 * (5 * B * S * di + 4 * B * S * N + 2 * a.numel()
                       + H.numel())
         return case(
@@ -1142,9 +1188,8 @@ def kernel_checks(torch, syn, fem):
             + (f" A in {groups} groups" if groups else "") + f", {label}",
             lambda: selective_scan.selective_scan_bwd(*args),
             lambda: ref.selective_scan_bwd_ref(*args),
-            GRAD_REL, nbytes, B * S * di * N, calls=calls,
-            plain_repeats=1, plain_calls=1, peak_flops=PEAK_SFU_OPS,
-            scaled=True)
+            GRAD_REL, nbytes, B * S * di * N, calls=calls, plain_once=True,
+            peak_flops=PEAK_SFU_OPS, scaled=True, each=True)
 
     def row_k8_bwd(cases):
         """K8-bwd: a kernel of the port with no TPU counterpart (the
@@ -1159,6 +1204,13 @@ def kernel_checks(torch, syn, fem):
     def bitwise_case(what, kernel, *args):
         """Two calls of ``kernel`` on the same inputs give the same bits."""
         check(torch.equal(kernel(*args), kernel(*args)),
+              f"{what}: two calls differ")
+
+    def bitwise_all(what, kernel, *args):
+        """Two calls of ``kernel`` on the same inputs give the same bits
+        in every output."""
+        check(all(torch.equal(a, b) for a, b in zip(kernel(*args),
+                                                    kernel(*args))),
               f"{what}: two calls differ")
 
     def k9_case(label, B, S, H, D, calls=20):
@@ -1179,7 +1231,7 @@ def kernel_checks(torch, syn, fem):
             lambda: xlstm_scan.mlstm_scan(*args),
             lambda: ref.mlstm_scan_ref(*args),
             XLSTM_REL, nbytes, B * S * H * (5 * D * D + 8 * D), calls=calls,
-            plain_repeats=1, plain_calls=1, plain_warm=False, scaled=True)
+            plain_once=True, scaled=True)
 
     def k10_case(label, B, S, H, D, calls=5):
         """K10 on numpy-seeded inputs (zx, ix, fx, ox of O(1), the
@@ -1199,7 +1251,7 @@ def kernel_checks(torch, syn, fem):
             lambda: xlstm_scan.slstm_scan(*args),
             lambda: ref.slstm_scan_ref(*args),
             XLSTM_REL, nbytes, B * S * H * D * (8 * D + 30), calls=calls,
-            plain_repeats=1, plain_calls=1, plain_warm=False, scaled=True)
+            plain_once=True, scaled=True)
 
     def row_xlstm(name, source, step, cases):
         """K9 or K10: a kernel of the port with no TPU counterpart (the
@@ -1207,6 +1259,88 @@ def kernel_checks(torch, syn, fem):
         return dict(row(name, "", source, cases),
                     replaces=f"none: no TPU kernel (the reference scans "
                              f"{step} with lax.scan under chunked_scan)")
+
+    def k9_bwd_case(label, B, S, H, D, calls=5):
+        """K9-bwd on K9's inputs (as :func:`k9_case`) and a cotangent, from
+        the states K9's training launch saved: the training launch's h
+        and chunk states within XLSTM_REL x their max of the plain
+        forward's (C, n at chunk 0 are zeros: then equal); each output
+        within GRAD_REL x its own max |g| of the plain backward (which
+        runs once, its call timed), two calls bitwise equal.  Its bound:
+        q, k, v, h, dh, the gates and the saved states read once, dq,
+        dk, dv and the gates' gradients written once, against 14 flops
+        an element of C a step (the recurrence recomputed, 3, and the
+        walk's five products with dC, 11) at 67 TFLOP/s; no PyTorch call
+        computes the scan's gradient."""
+        q, k, v, dh = (normal(B, S, H, D) for _ in range(4))
+        log_i = normal(B, S, H)
+        log_f = ref.logsigmoid(normal(B, S, H) + 2.0)
+        gates = (q, k, v, log_i, log_f)
+        out = xlstm_scan.mlstm_scan_fwd(*gates, with_states=True)
+        for name, g, w in zip(("h", "C", "n", "m"), out,
+                              ref.mlstm_scan_fwd_ref(*gates)):
+            err, top = float((g - w).abs().max()), float(w.abs().max())
+            check(err <= XLSTM_REL * top, f"K9 {label}: the training "
+                                          f"launch's {name} differs from "
+                                          f"the plain forward's by {err} "
+                                          f"(max {top})")
+        args = gates + out + (dh,)
+        bitwise_all(f"K9-bwd {label}", xlstm_scan.mlstm_scan_bwd, *args)
+        nc = -(-S // 64)
+        nbytes = 4 * (8 * B * S * H * D + 4 * B * S * H
+                      + B * nc * H * (D * D + D + 1))
+        return case(
+            f"mlstm_scan_bwd ({B}, {S}, {H}, {D}) f32, {label}",
+            lambda: xlstm_scan.mlstm_scan_bwd(*args),
+            lambda: ref.mlstm_scan_bwd_ref(*args),
+            GRAD_REL, nbytes, 14 * B * S * H * D * D, calls=calls,
+            plain_once=True, scaled=True, each=True)
+
+    def k10_bwd_case(label, B, S, H, D, groups=0, calls=5):
+        """K10-bwd on K10's inputs (as :func:`k10_case`; ``groups``: the
+        r's one a group of batch rows, as the vmap fold of ``groups``
+        clients gives them) and a cotangent, from every step's states
+        K10's training launch saved: the training launch's h and states
+        within XLSTM_REL x their max of the plain forward's; each output
+        within GRAD_REL x its own max |g| of the plain backward (which
+        runs once, its call timed), two calls bitwise equal.  Its bound:
+        the 7 saved states, h and dh read once, the 4 input gradients
+        written once, the r's read and their gradients written once,
+        against the 4 products r_g d_g a step and the 4 of dr (2 dh^2
+        flops each a head) and ~40 flops an element for the gates'
+        derivatives, at 67 TFLOP/s; no PyTorch call computes the scan's
+        gradient."""
+        xs = [normal(B, S, H, D) for _ in range(4)]
+        rs = [normal(*((groups,) if groups else ()), H, D, D, scale=0.02)
+              for _ in range(4)]
+        dh = normal(B, S, H, D)
+        out = xlstm_scan.slstm_scan_fwd(*xs, *rs, with_states=True)
+        for name, g, w in zip(("h",) + ref.SLSTM_STATES, out,
+                              ref.slstm_scan_fwd_ref(*xs, *rs)):
+            err, top = float((g - w).abs().max()), float(w.abs().max())
+            check(err <= XLSTM_REL * top, f"K10 {label}: the training "
+                                          f"launch's {name} differs from "
+                                          f"the plain forward's by {err} "
+                                          f"(max {top})")
+        args = tuple(rs) + out + (dh,)
+        bitwise_all(f"K10-bwd {label}", xlstm_scan.slstm_scan_bwd, *args)
+        nbytes = 4 * (13 * B * S * H * D + 8 * rs[0].numel())
+        return case(
+            f"slstm_scan_bwd ({B}, {S}, {H}, {D}) f32"
+            + (f" r in {groups} groups" if groups else "") + f", {label}",
+            lambda: xlstm_scan.slstm_scan_bwd(*args),
+            lambda: ref.slstm_scan_bwd_ref(*args),
+            GRAD_REL, nbytes, B * S * H * D * (16 * D + 40), calls=calls,
+            plain_once=True, scaled=True, each=True)
+
+    def row_xlstm_bwd(name, source, step, cases):
+        """K9-bwd or K10-bwd: a kernel of the port with no TPU counterpart
+        (the reference differentiates its lax.scan under jax.checkpoint)."""
+        return dict(row(name, "", source, cases),
+                    replaces=f"none: no TPU kernel (the reference "
+                             f"differentiates its lax.scan of {step} under "
+                             f"chunked_scan's jax.checkpoint, "
+                             f"src/repro/models/ssm.py:26-41)")
 
     def qwen_update_cases():
         """K1 over the trainer's qwen1.5-0.5b flat pack (LM_TRAIN_K
@@ -1409,6 +1543,28 @@ def kernel_checks(torch, syn, fem):
              k10_case("(y3) xlstm B=2 S=256", 2, 256, 4, 256),
              k10_case("(y4) xlstm reduced B=2 S=100", 2, 100, 4, 64,
                       calls=20)]),
+        # K9-bwd and K10-bwd at phase 11d's gradients (H=4, dk=512,
+        # dh=256), the reduced preset, and the reduced trainer's vmap fold
+        # of two clients (d=128: dk=64, dh=32; the sLSTM's r a client)
+        row_xlstm_bwd(
+            "mlstm_scan_bwd", "mlstm_scan_bwd.cu",
+            "_mlstm_step (src/repro/models/xlstm.py:52-68)",
+            [k9_bwd_case("(x1) xlstm B=1 S=4096", 1, 4096, 4, 512),
+             k9_bwd_case("(x2) xlstm B=2 S=1024", 2, 1024, 4, 512),
+             k9_bwd_case("(x4) xlstm reduced B=2 S=100", 2, 100, 4, 128,
+                         calls=20),
+             k9_bwd_case("(x5) the reduced trainer's fold of 2 clients, "
+                         "B=2x4 S=64", 8, 64, 4, 64, calls=20)]),
+        row_xlstm_bwd(
+            "slstm_scan_bwd", "slstm_scan_bwd.cu",
+            "_slstm_step (src/repro/models/xlstm.py:141-160)",
+            [k10_bwd_case("(y1) xlstm B=1 S=4096", 1, 4096, 4, 256),
+             k10_bwd_case("(y2) xlstm B=2 S=1024", 2, 1024, 4, 256),
+             k10_bwd_case("(y4) xlstm reduced B=2 S=100", 2, 100, 4, 64,
+                          calls=20),
+             k10_bwd_case("(y5) the reduced trainer's fold of 2 clients, "
+                          "B=2x4 S=64", 8, 64, 4, 32, groups=2,
+                          calls=20)]),
     ]
 
 
@@ -3366,6 +3522,42 @@ def injecting(store):
     return lambda p, h, c: moe.choose(real(p, h, c).probs, next(it).idx, c)
 
 
+def launches_of(torch, counts, fn):
+    """``fn()`` and the launches it made (``counts`` read before and
+    after, the card synchronised)."""
+    before = dict(counts)
+    res = fn()
+    torch.cuda.synchronize()
+    return res, _delta(before, counts)
+
+
+def cuda_events(torch, fn):
+    """``fn()`` and its ms (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    end.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def worst_rel(got, want):
+    """The worst leaf's max |got - want| relative to its max |want|."""
+    from repro_torch.core import pytree as pt
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(pt.leaves(got), pt.leaves(want)))
+
+
+def same_bits(a, b):
+    from repro_torch.core import pytree as pt
+    return all(x.equal(y) for x, y in zip(pt.leaves(a), pt.leaves(b)))
+
+
+def card_peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
 def card_generator(torch, seed: int):
     return torch.Generator(device="cuda").manual_seed(seed)
 
@@ -3996,18 +4188,13 @@ def train_phase(torch, counts):
         finally:
             attention.attention = saved
 
-    def launches(fn):
-        before = dict(counts)
-        res = fn()
-        torch.cuda.synchronize()
-        return res, _delta(before, counts)
+    launches = functools.partial(launches_of, torch, counts)
 
     def leaf_diff(a, b):
         return max(float((x.float().cpu() - y.float().cpu()).abs().max())
                    for x, y in zip(pt.leaves(a), pt.leaves(b)))
 
-    def peak_gib():
-        return torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gib = functools.partial(card_peak_gib, torch)
 
     params = init_params(model_specs(cfg), torch.Generator().manual_seed(0))
 
@@ -4269,31 +4456,44 @@ def train_phase(torch, counts):
     return out
 
 
-def train_drawn(argv):
+def train_drawn(argv, nudge: float = 0.0):
     """``launch/train.py``'s ``main`` on ``argv``, its selections
-    recorded: (its result, the selections), its prints swallowed."""
+    recorded: (its result, the selections), its prints swallowed.
+    ``nudge``: the drawn weights moved by ``nudge`` x N(0, 1) (seed 7)."""
     import io
 
     from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
     from repro_torch.launch import train
 
     drawn, orig = [], FederatedTrainer._sample
+    orig_init = train.init_params
 
     def spy(self):
         sel = orig(self)
         drawn.append(np.asarray(sel).tolist())
         return sel
 
+    def nudged(specs, gen, device=None):
+        import torch
+        g = torch.Generator().manual_seed(7)
+        return pt.tmap(lambda t: t + nudge * torch.randn(
+            t.shape, generator=g).to(t.device),
+            orig_init(specs, gen, device=device))
+
     FederatedTrainer._sample = spy
+    if nudge:
+        train.init_params = nudged
     try:
         with contextlib.redirect_stdout(io.StringIO()):
             return train.main(argv), drawn
     finally:
         FederatedTrainer._sample = orig
+        train.init_params = orig_init
 
 
-def _pooled_train(argv):
-    res, drawn = train_drawn(argv)
+def _pooled_train(argv, nudge: float = 0.0):
+    res, drawn = train_drawn(argv, nudge)
     return res.state.params, drawn, res.losses
 
 
@@ -4329,31 +4529,11 @@ def moe_train_phase(torch, counts, pool):
                                                "2", "--device", "cpu"]
                                + argv) for a in archs}
 
-    def launches(fn):
-        before = dict(counts)
-        res = fn()
-        torch.cuda.synchronize()
-        return res, _delta(before, counts)
+    launches = functools.partial(launches_of, torch, counts)
 
-    def events(fn):
-        """``fn()`` and its ms (CUDA events)."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = fn()
-        end.record()
-        end.synchronize()
-        return res, start.elapsed_time(end)
+    events = functools.partial(cuda_events, torch)
 
-    def worst(got, want):
-        """The worst leaf's max |got - want| relative to its max |want|."""
-        return max(float((a - b).abs().max()) / max(float(b.abs().max()),
-                                                    1e-30)
-                   for a, b in zip(pt.leaves(got), pt.leaves(want)))
-
-    def same(a, b):
-        return all(torch.equal(x, y) for x, y in zip(pt.leaves(a),
-                                                     pt.leaves(b)))
+    worst, same = worst_rel, same_bits
 
     cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b"),
                               num_layers=MOE_TRAIN_LAYERS)
@@ -4692,37 +4872,18 @@ def jamba_train_phase(torch, counts, cpu_run):
     k8 = ("selective_scan", "selective_scan_bwd")
     S = 4096
 
-    def launches(fn):
-        before = dict(counts)
-        res = fn()
-        torch.cuda.synchronize()
-        return res, _delta(before, counts)
+    launches = functools.partial(launches_of, torch, counts)
 
-    def events(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = fn()
-        end.record()
-        end.synchronize()
-        return res, start.elapsed_time(end)
+    events = functools.partial(cuda_events, torch)
 
-    def worst(got, want):
-        return max(float((a - b).abs().max()) / max(float(b.abs().max()),
-                                                    1e-30)
-                   for a, b in zip(pt.leaves(got), pt.leaves(want)))
-
-    def same(a, b):
-        return all(torch.equal(x, y) for x, y in zip(pt.leaves(a),
-                                                     pt.leaves(b)))
+    worst, same = worst_rel, same_bits
 
     def plain_scan(fn, route=None):
         with swapped(ssm, "selective_scan", ssm.plain_scan), \
                 swapped(moe, "route", route or moe.route):
             return fn()
 
-    def peak_gib():
-        return torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gib = functools.partial(card_peak_gib, torch)
 
     cfg = jamba_cut(JAMBA_TRAIN_LAYERS)
     L = JAMBA_TRAIN_LAYERS
@@ -5031,6 +5192,333 @@ def jamba_train_phase(torch, counts, cpu_run):
     return out
 
 
+#: Phase 11d (b): the 24-layer xlstm-350m gradient held against the
+#: plain scans at this (B, S): four chunks of 64 (the plain scans'
+#: Python loops take ~20 launches a step and layer).
+XLSTM_GRAD_CMP = (1, 256)
+#: Phase 11d (b)-(c): the timed gradient's and the steps' (B, S).
+XLSTM_TRAIN_S = 4096
+#: Phase 11d (c): the steps' eta.
+XLSTM_STEP_ETA = 1e-2
+#: Phase 11d (d)'s argv of ``launch/train.py`` (the CPU path's run adds
+#: ``--device cpu``): the reduced preset, 4 layers at d=128 (dk=64,
+#: dh=32), feddane N=8 K=2 E=1 B=4 S=64, without its ``--lr``.
+XLSTM_TRAIN_BASE = ["--arch", "xlstm-350m", "--num-devices", "8",
+                    "--devices-per-round", "2", "--local-epochs", "1",
+                    "--batch-size", "4", "--seq-len", "64",
+                    "--samples-per-device", "16", "--seed", "0"]
+#: Phase 11d (d)'s lr.  At train.py's default 0.05 the reduced xLSTM's
+#: trajectory amplifies rounding, as jamba's does (phase 11c (f)): the
+#: CPU path's own run from weights nudged by 1e-7 x N(0, 1) lands far
+#: past TRAJECTORY_TOL after 2 rounds (phase 11d (d) measures and prints
+#: that spread at both lrs), so no two f32 runs could agree there; 0.005
+#: takes smaller steps.
+XLSTM_TRAIN_LR = "0.005"
+XLSTM_TRAIN_ARGV = XLSTM_TRAIN_BASE + ["--lr", XLSTM_TRAIN_LR]
+#: The CPU path's runs of phase 11d (d): (lr, nudge) -> its argv and the
+#: nudge of the weights; the first is the one the card is held to.
+XLSTM_CPU_RUNS = {(XLSTM_TRAIN_LR, 0.0): XLSTM_TRAIN_ARGV,
+                  (XLSTM_TRAIN_LR, 1e-7): XLSTM_TRAIN_ARGV,
+                  ("0.05", 0.0): XLSTM_TRAIN_BASE + ["--lr", "0.05"],
+                  ("0.05", 1e-7): XLSTM_TRAIN_BASE + ["--lr", "0.05"]}
+
+
+def xlstm_cpu_jobs(pool):
+    """Phase 11d (d)'s CPU-path runs (:data:`XLSTM_CPU_RUNS`), submitted
+    to ``pool``: {(lr, nudge): future}."""
+    return {key: pool.submit(_pooled_train, argv + ["--rounds", "2",
+                                                    "--device", "cpu"],
+                             key[1])
+            for key, argv in XLSTM_CPU_RUNS.items()}
+
+
+def xlstm_train_phase(torch, counts, cpu_runs):
+    """Phase 11d: training xlstm-350m at full width and depth (24 layers,
+    random weights drawn on the card from seed 0, f32): (a) one mLSTM and
+    one sLSTM mixer's gradient at B=1 S=4096 through K9/K10 and
+    K9-bwd/K10-bwd against autograd of the plain scans on the card; (b)
+    ``loss_fn``'s gradient, remat="full", at XLSTM_GRAD_CMP against the
+    plain scans' route (remat none), then timed at B=1 S=4096 with its
+    peak; (c) a fedavg step (params - eta g of (b)'s gradient, bitwise),
+    3 ``make_feddane_round_step`` steps and a pipelined step at B=1
+    S=4096, with peaks; (d) the reduced preset's ``train.main`` against
+    the CPU path (``cpu_runs``: :func:`xlstm_cpu_jobs`, futures of the
+    pool), per_leaf, and pods 2 x 2.  Returns timings (ms) and peaks
+    (GiB)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.kernels import dane_update, ref
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import podfed, steps
+    from repro_torch.models import model_specs, param_count, transformer
+    from repro_torch.models import xlstm
+
+    out = {}
+    fwd, bwd = ("mlstm_scan", "slstm_scan"), ("mlstm_scan_bwd",
+                                              "slstm_scan_bwd")
+    launches = functools.partial(launches_of, torch, counts)
+    events = functools.partial(cuda_events, torch)
+    peak_gib = functools.partial(card_peak_gib, torch)
+
+    def plain(fn):
+        with swapped(xlstm, "mlstm_scan", ref.mlstm_scan_ref), \
+                swapped(xlstm, "slstm_scan", ref.slstm_scan_ref):
+            return fn()
+
+    def took(n, per_kind_fwd, per_kind_bwd):
+        return ({k: n.get(k, 0) for k in fwd + bwd}
+                == dict.fromkeys(fwd, per_kind_fwd)
+                | dict.fromkeys(bwd, per_kind_bwd))
+
+    cfg = get_arch("xlstm-350m")
+    name = "xlstm-350m"
+    L = cfg.num_layers // len(cfg.pattern)      # layers of each kind
+    S = XLSTM_TRAIN_S
+    params = init_on_card(torch, model_specs(cfg), 0)
+    n_params = param_count(model_specs(cfg))
+    print(f"  {name} at full width and depth ({cfg.num_layers} layers: {L} "
+          f"sLSTM, {L} mLSTM): {n_params:,} params "
+          f"({n_params * 4 / 2 ** 30:.2f} GiB f32), drawn on the card")
+
+    # (a) one mixer of each kind: x and every leaf, the kernels vs autograd
+    # of the plain scan
+    gen = card_generator(torch, 5)
+    x = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+    w = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+    for kind, pos in (("mlstm", "pos_1"), ("slstm", "pos_0")):
+        layer = pt.tmap(lambda a: a[0], params["stack"][pos][kind])
+        mix = getattr(xlstm, f"{kind}_mixer")
+
+        def mixer_grad():
+            xs = [t.detach().requires_grad_(True)
+                  for t in [x] + pt.leaves(layer)]
+            p = pt.unflatten(pt.flatten(layer)[1], xs[1:])
+            return torch.autograd.grad((mix(p, xs[0], cfg) * w).sum(), xs)
+
+        (got, ms), n = launches(lambda: events(mixer_grad))
+        k = f"{kind}_scan"
+        check({c: n.get(c, 0) for c in (k, k + "_bwd")} == {k: 1,
+                                                          k + "_bwd": 1},
+              f"(a) the {kind} mixer's gradient launched {n}")
+        want, plain_ms = events(lambda: plain(mixer_grad))
+        err = worst_rel(got, want)
+        check(all(bool(torch.isfinite(g).all()) for g in got)
+              and err <= GRAD_REL, f"(a) the {kind} mixer's gradient "
+                                   f"differs from the plain scan's by {err} "
+                                   f"x max |g|")
+        ms = [ms, events(mixer_grad)[1]]
+        out[f"{name} {kind}_mixer grad B=1 S={S} ms"] = ms
+        out[f"{name} {kind}_mixer grad B=1 S={S} plain scan ms"] = plain_ms
+        print(f"  (a) {kind}_mixer's gradient (x and {len(got) - 1} weights),"
+              f" B=1 S={S}: worst leaf {err:.2e} x its max |g| (<= "
+              f"{GRAD_REL:g}) against autograd of the plain scan; {k} + "
+              f"{k}_bwd once; {ms[0]:.2f}, {ms[1]:.2f} ms, plain scan "
+              f"{plain_ms:.1f} ms (CUDA events)")
+        del got, want
+        torch.cuda.empty_cache()
+    del x, w
+
+    # (b) the 24-layer loss's gradient against the plain scans, then timed
+    B_cmp, S_cmp = XLSTM_GRAD_CMP
+    b = card_batch(torch, S_cmp + 7, cfg.vocab_size, B_cmp, S_cmp)
+    (loss, g), n = launches(lambda: steps.value_and_grad(
+        lambda p: transformer.loss_fn(p, b, cfg, remat="full"), params))
+    check(took(n, 2 * L, L), f"(b) a gradient under remat full launched "
+                             f"{n}, not K9/K10 {2 * L} and K9-bwd/K10-bwd "
+                             f"{L} times each")
+    (loss_p, g_p), p_ms = events(lambda: plain(lambda: steps.value_and_grad(
+        lambda p: transformer.loss_fn(p, b, cfg, remat="none"), params)))
+    rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    err = worst_rel(g, g_p)
+    check(rel <= LOGIT_REL and err <= GRAD_REL
+          and all(bool(torch.isfinite(t).all()) for t in pt.leaves(g)),
+          f"(b) B={B_cmp} S={S_cmp}: loss {rel}, worst gradient leaf {err} "
+          f"x its max |g| against the plain scans")
+    print(f"  (b) loss_fn B={B_cmp} S={S_cmp} remat=full: loss "
+          f"{float(loss):.6f}, rel {rel:.2e} (<= {LOGIT_REL:g}) and worst "
+          f"gradient leaf {err:.2e} x its max |g| (<= {GRAD_REL:g}) against "
+          f"the plain scans (remat none, {p_ms:.1f} ms); launches {n}")
+    del g, g_p
+    b = card_batch(torch, S + 9, cfg.vocab_size, 1, S)
+    lf = lambda p: transformer.loss_fn(p, b, cfg, remat="full")  # noqa
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ((loss, g), g_ms), n = launches(lambda: events(
+        lambda: steps.value_and_grad(lf, params)))
+    g_peak = peak_gib()
+    check(took(n, 2 * L, L), f"(b) the S={S} gradient launched {n}")
+    (loss2, g2), g2_ms = events(lambda: steps.value_and_grad(lf, params))
+    check(torch.equal(loss, loss2) and same_bits(g, g2)
+          and all(bool(torch.isfinite(t).all()) for t in pt.leaves(g)),
+          f"(b) two S={S} gradients differ, or are not finite")
+    del g2
+    out[f"{name} loss grad B=1 S={S} ms"] = [g_ms, g2_ms]
+    out[f"{name} loss grad B=1 S={S} peak GiB"] = g_peak
+    print(f"      at B=1 S={S}: loss {float(loss):.6f}, its gradient "
+          f"{g_ms:.2f}, {g2_ms:.2f} ms (CUDA events), two runs bitwise "
+          f"equal, card peak {g_peak:.2f} GiB")
+
+    # (c) the steps at B=1 S=4096, remat full
+    eta = XLSTM_STEP_ETA
+    fa = steps.make_fedavg_step(cfg, eta=eta, remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    ((new, m), fa_ms), n = launches(lambda: events(
+        lambda: fa({"params": params}, b)))
+    fa_peak = peak_gib()
+    check(took(n, 2 * L, L), f"(c) the fedavg step launched {n}")
+    check(torch.equal(m["loss"], loss) and all(
+        torch.equal(a, p - t * eta) for a, p, t in zip(
+            pt.leaves(new["params"]), pt.leaves(params), pt.leaves(g))),
+        "(c) the fedavg step is not params - eta g of (b)'s gradient")
+    del new, g
+    torch.cuda.empty_cache()
+    zeros = pt.tmap(torch.zeros_like, params)
+    fd = steps.make_feddane_round_step(cfg, eta=eta, mu=0.01, remat="full")
+    st, losses, fd_ms = {"params": params, "anchor": params,
+                         "g_t": zeros}, [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        ((st, m), ms), n = launches(lambda: events(lambda: fd(st, b)))
+        check(took(n, 4 * L, 2 * L), f"(c) a feddane step launched {n}")
+        losses.append(float(m["loss"]))
+        fd_ms.append(ms)
+    fd_peak = peak_gib()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and all(bool(torch.isfinite(t).all())
+                  for t in pt.leaves(st["params"])),
+          f"(c) the feddane steps' losses {losses}")
+    pipe = steps.make_feddane_pipelined_step(cfg, eta=eta, mu=0.01,
+                                             remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    ((new, m), pipe_ms), n = launches(lambda: events(lambda: pipe(st, b)))
+    pipe_peak = peak_gib()
+    check(np.isfinite(float(m["loss"])) and took(n, 2 * L, L),
+          f"(c) the pipelined step: loss {float(m['loss'])}, launches {n}")
+    out[f"{name} fedavg step S={S} ms"] = fa_ms
+    out[f"{name} fedavg step S={S} peak GiB"] = fa_peak
+    out[f"{name} feddane S={S} ms a step"] = fd_ms
+    out[f"{name} feddane S={S} peak GiB"] = fd_peak
+    out[f"{name} pipelined step S={S} ms"] = pipe_ms
+    out[f"{name} pipelined step S={S} peak GiB"] = pipe_peak
+    print(f"  (c) B=1 S={S} remat=full eta={eta:g}: make_fedavg_step "
+          f"{fa_ms:.2f} ms (its params bitwise params - eta g of (b)), peak "
+          f"{fa_peak:.2f} GiB; 3 make_feddane_round_step steps, losses "
+          f"{[round(x, 6) for x in losses]}, ms {[round(x, 2) for x in fd_ms]}"
+          f", peak {fd_peak:.2f} GiB (K9/K10 {4 * L} + K9-bwd/K10-bwd "
+          f"{2 * L} launches a step); the pipelined step {pipe_ms:.2f} ms, "
+          f"peak {pipe_peak:.2f} GiB")
+    del st, new, params, zeros, b
+    torch.cuda.empty_cache()
+
+    # (d) launch/train.py's reduced preset against the CPU path
+    rcfg = get_arch("xlstm-350m").reduced(num_layers=2, d_model=128,
+                                          vocab_size=256)
+    rL = rcfg.num_layers // len(rcfg.pattern)
+    step_counts, first = [], []
+    orig_step, orig_init = kops.FlatUpdate.step, kops.FlatUpdate.__init__
+    orig_round = FederatedTrainer.round
+
+    def spy_init(self, *a, **kw):
+        step_counts.append([dict(counts)])
+        return orig_init(self, *a, **kw)
+
+    def spy_step(self, *a, **kw):
+        step_counts[-1].append(dict(counts))
+        return orig_step(self, *a, **kw)
+
+    def spy_round(self, st):
+        new = orig_round(self, st)
+        if not first:
+            first.append(pt.tmap(torch.clone, new.params))
+        return new
+
+    kops.FlatUpdate.step, kops.FlatUpdate.__init__ = spy_step, spy_init
+    FederatedTrainer.round = spy_round
+    try:
+        (res, sel), grew = launches(lambda: train_drawn(
+            XLSTM_TRAIN_ARGV + ["--rounds", "2"]))
+    finally:
+        kops.FlatUpdate.step, kops.FlatUpdate.__init__ = orig_step, \
+            orig_init
+        FederatedTrainer.round = orig_round
+    local_steps = sum(len(c) - 1 for c in step_counts)
+    check(grew.get("dane_update_flat") == local_steps == 2 * 4
+          and not grew.get("dane_update_2d"),
+          f"(d) trainer auto: {grew} (K1 once a local step, {local_steps} "
+          f"steps)")
+    for solve in step_counts:
+        for a, c in zip(solve, solve[1:]):
+            d = _delta(a, c)
+            check(took(d, rL, rL), f"(d) a local step of K=2 launched {d}, "
+                                   f"not K9/K10/K9-bwd/K10-bwd {rL} each")
+    (res_leaf, sel_leaf), grew_leaf = launches(lambda: train_drawn(
+        XLSTM_TRAIN_ARGV + ["--rounds", "1", "--local-solver", "per_leaf"]))
+    chunks = -(-len(pt.leaves(model_specs(rcfg)))
+               // dane_update.MAX_SEGMENTS)
+    check(grew_leaf.get("dane_update_2d") == 4 * chunks
+          and not grew_leaf.get("dane_update_flat"),
+          f"(d) per_leaf: {grew_leaf} (K4 {chunks} a local step)")
+    check(sel_leaf == sel[:len(sel_leaf)]
+          and same_bits(res_leaf.state.params, first[0]),
+          "(d) per_leaf's round differs from flat's")
+    cpu = {key: f.result() for key, f in cpu_runs.items()}
+    p_cpu, sel_cpu, losses_cpu = cpu[(XLSTM_TRAIN_LR, 0.0)]
+    spread = {lr: max_err(torch, cpu[(lr, 1e-7)][0], cpu[(lr, 0.0)][0])
+              for lr in (XLSTM_TRAIN_LR, "0.05")}
+    check(sel == sel_cpu, f"(d) selections {sel} on the card, {sel_cpu} on "
+                          f"the CPU path")
+    diff = max_err(torch, pt.tmap(lambda t: t.cpu(), res.state.params),
+                   p_cpu)
+    moved = max_err(torch, res.state.params, first[0])
+    check(diff <= TRAJECTORY_TOL and moved >= 10 * TRAJECTORY_TOL
+          and all(np.isfinite(res.losses)),
+          f"(d) params {diff} from the CPU path's after 2 rounds > "
+          f"{TRAJECTORY_TOL} (round 2 moved them {moved})")
+    out[f"{name} reduced trainer: CPU path's 1e-7-nudge spread by lr"] = \
+        spread
+    out[f"{name} reduced trainer ms/round"] = res.round_ms
+    out[f"{name} reduced trainer ms/round, per_leaf"] = res_leaf.round_ms
+    print(f"  (d) train.py --arch {name} ({param_count(model_specs(rcfg)):,} "
+          f"params: {rcfg.num_layers} layers, d={rcfg.d_model}), feddane N=8 "
+          f"K=2 E=1 B=4 S=64: 2 rounds on auto (flat) "
+          f"{[round(t, 1) for t in res.round_ms]} ms/round (CUDA events), "
+          f"--lr {XLSTM_TRAIN_LR}, losses {[round(t, 5) for t in res.losses]}"
+          f" (CPU path {[round(t, 5) for t in losses_cpu]}); selections "
+          f"equal the CPU path's, params within {diff:.2e} (<= "
+          f"{TRAJECTORY_TOL:g}; round 2 moved them {moved:.2e}); the CPU "
+          f"path's own run from weights nudged by 1e-7 lands "
+          f"{spread[XLSTM_TRAIN_LR]:.2e} away at this lr, "
+          f"{spread['0.05']:.2e} at train.py's default 0.05; a local step "
+          f"K9, K10, K9-bwd, K10-bwd"
+          f" {rL} each for both clients; per_leaf 1 round bitwise equal to "
+          f"flat's ({res_leaf.round_ms[0]:.1f} ms, K4 {chunks} launches a "
+          f"local step); launches flat {grew}")
+    p0 = res.state.params
+    del res, res_leaf, first[:]
+
+    two = pt.tmap(lambda t: t.unsqueeze(0).expand((2,) + t.shape)
+                  .contiguous(), p0)
+    rb = card_batch(torch, 65, rcfg.vocab_size, 4, 64)
+    bb = {k: torch.stack([v, torch.roll(v, 1, dims=1)])[:, None].expand(
+        2, 2, *v.shape).contiguous() for k, v in rb.items()}
+    fn2, _ = podfed.make_podfed_round_step(rcfg, local_steps=2, eta=1e-2,
+                                           mu=0.01, remat="full")
+    ((pnew, pm), pod_ms), grew = launches(lambda: events(lambda: fn2(
+        {"params": two, "anchor": two,
+         "g_t": pt.tmap(torch.zeros_like, two)}, bb)))
+    check(np.isfinite(float(pm["loss"])) and all(
+        bool(torch.isfinite(t).all()) for t in pt.leaves(pnew))
+        and all(grew.get(k, 0) > 0 for k in fwd + bwd),
+        f"(d) podfed 2 pods x 2 steps: not finite, or launches {grew}")
+    out[f"{name} reduced podfed 2 pods x 2 steps ms"] = pod_ms
+    print(f"      podfed 2 pods x 2 local steps, 1 round: finite, loss "
+          f"{float(pm['loss']):.5f}, {pod_ms:.1f} ms, launches {grew}")
+    del two, pnew, p0
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5255,10 +5743,11 @@ def run(torch, pool, threads: int) -> int:
     on_mesh = mesh_phase(torch, int8_tol["feddane"])
     print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
-    # phase 11c's CPU path, in the pool while phases 10-11b run
+    # phases 11c and 11d's CPU paths, in the pool while phases 10-11b run
     jamba_cpu = pool.submit(_pooled_train,
                             JAMBA_TRAIN_ARGV + ["--rounds", "2",
                                                 "--device", "cpu"])
+    xlstm_cpu = xlstm_cpu_jobs(pool)
     print("[10] LM stack inference at full width (prefill and serve)")
     t0 = time.perf_counter()
     build.reset_launch_counts()          # the LM path starts here
@@ -5305,11 +5794,20 @@ def run(torch, pool, threads: int) -> int:
     train_path = dict(counts)            # and is read here
     print(f"  phases 11-11c took {time.perf_counter() - t0:.1f} s; "
           f"launches { {k: v for k, v in train_path.items() if v} }")
+    print("[11d] training xLSTM: xlstm-350m at full width and depth (24 "
+          "layers) through K9, K10, K9-bwd and K10-bwd, and reduced")
+    t0 = time.perf_counter()
+    build.reset_launch_counts()          # the xLSTM training path starts here
+    train_out.update(xlstm_train_phase(torch, counts, xlstm_cpu))
+    xlstm_train_path = dict(counts)      # and is read here
+    print(f"  phase 11d took {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: v for k, v in xlstm_train_path.items() if v} }")
 
     for r in rows:
         r["launches"] = (main_path[r["name"]] + on_mesh.get(r["name"], 0)
                          + lm_path[r["name"]] + jamba_path[r["name"]]
-                         + xlstm_path[r["name"]] + train_path[r["name"]])
+                         + xlstm_path[r["name"]] + train_path[r["name"]]
+                         + xlstm_train_path[r["name"]])
         check(r["launches"] > 0, f"{r['name']} not launched on the main "
                                  f"path")
     print(f"[12] done in {time.perf_counter() - t_start:.1f} s; phase "

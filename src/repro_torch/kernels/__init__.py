@@ -10,8 +10,8 @@
   path's self-attention;
 - ``selective_scan`` (K8 and its backward K8-bwd, kernels of the port
   only): the Mamba selective scan of the SSM blocks;
-- ``xlstm_scan`` (K9 mLSTM, K10 sLSTM, kernels of the port only): the
-  xLSTM blocks' recurrences, serving only;
+- ``xlstm_scan`` (K9 mLSTM, K10 sLSTM and their backward K9-bwd,
+  K10-bwd, kernels of the port only): the xLSTM blocks' recurrences;
 - ``vmap_fold``: the kernels' vmap rules' fold of the mapped dim into
   their leading dim;
 - ``ops``: tree-level wrappers of the update kernels and the reference's

@@ -46,7 +46,9 @@ EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     "selective_scan": (),
     "selective_scan_bwd": (),
     "mlstm_scan": (),
+    "mlstm_scan_bwd": (),
     "slstm_scan": (),
+    "slstm_scan_bwd": (),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.
@@ -54,7 +56,8 @@ launch_counts: Dict[str, int] = dict.fromkeys(
     ("dane_update_flat", "dane_update_2d", "local_epoch",
      "linear_logistic_step", "codec_aggregate", "codec_aggregate_partial",
      "flash_attention", "flash_attention_bwd", "selective_scan",
-     "selective_scan_bwd", "mlstm_scan", "slstm_scan"),
+     "selective_scan_bwd", "mlstm_scan", "mlstm_scan_bwd", "slstm_scan",
+     "slstm_scan_bwd"),
     0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -40,6 +40,13 @@
 //   with the step's parity), and 16 threads write the step's 16 outputs;
 // - sums in a fixed order, no atomics: two calls give the same bits;
 // - expf (not __expf): the plain version's exp to an ulp or two.
+//
+// Training (mlstm_scan_states_f32): the same kernel also writes the state
+// before each chunk of kChunk = 64 steps, C (B, ceil(S / 64), H, D, D),
+// n (B, ceil(S / 64), H, D) and m (B, ceil(S / 64), H), from which the
+// backward (mlstm_scan_bwd.cu) recomputes each chunk: each block writes
+// its 16 columns of C, the head's first block n and m.  The serving
+// launch is the template without those stores.
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,6 +57,7 @@ constexpr int kGroups = kThreads / kCols;  // row groups, 16
 constexpr int kWarps = kThreads / 32;
 constexpr int kSteps = 4;
 constexpr int kMaxDim = 512;
+constexpr int kChunk = 64;  // steps between saved states (a multiple of kSteps)
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -107,13 +115,15 @@ __device__ __forceinline__ void load_tile(
   }
 }
 
-// R rows a thread: D = 16 R.
-template <int R>
+// R rows a thread: D = 16 R.  kSave: the training launch, which also
+// writes the state before each chunk into c_st, n_st, m_st.
+template <int R, bool kSave>
 __global__ void __launch_bounds__(kThreads) mlstm_scan_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ log_i,
-    const float* __restrict__ log_f, float* __restrict__ h, int seq_len,
-    int heads, float scale) {
+    const float* __restrict__ log_f, float* __restrict__ h,
+    float* __restrict__ c_st, float* __restrict__ n_st,
+    float* __restrict__ m_st, int seq_len, int heads, float scale) {
   constexpr int dim = kGroups * R;
   __shared__ Tile tiles[2];
   __shared__ float2 partial[2][kWarps][kCols];
@@ -144,6 +154,21 @@ __global__ void __launch_bounds__(kThreads) mlstm_scan_kernel(
     const Tile& cur = tiles[tile & 1];
     for (int s = 0; s < steps; ++s) {
       const int t = t0 + s;
+      if (kSave && t % kChunk == 0) {
+        // the state before step t: this block's columns of C; the head's
+        // first block n (one thread a row group) and m
+        const int n_chunks = (seq_len + kChunk - 1) / kChunk;
+        const long long at =
+            ((long long)b * n_chunks + t / kChunk) * heads + head;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          c_st[(at * dim + group * R + r) * dim + col0 + col] = C[r];
+        if (blockIdx.y == 0 && col == 0) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) n_st[at * dim + group * R + r] = n[r];
+        }
+        if (blockIdx.y == 0 && tid == 0) m_st[at] = m;
+      }
       const float li = cur.log_i[s], lf = cur.log_f[s];
       const float m_new = fmaxf(lf + m, li);
       const float ip = expf(li - m_new);
@@ -190,18 +215,42 @@ __global__ void __launch_bounds__(kThreads) mlstm_scan_kernel(
   }
 }
 
-template <int R>
+template <int R, bool kSave>
 int launch(const void* q, const void* k, const void* v, const void* log_i,
-           const void* log_f, void* h, int batch, int seq_len, int heads,
-           float scale, void* stream) {
+           const void* log_f, void* h, void* c_st, void* n_st, void* m_st,
+           int batch, int seq_len, int heads, float scale, void* stream) {
   const dim3 grid(batch * heads, (kGroups * R) / kCols);
-  mlstm_scan_kernel<R><<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  mlstm_scan_kernel<R, kSave><<<grid, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(log_i),
-      static_cast<const float*>(log_f), static_cast<float*>(h), seq_len,
-      heads, scale);
+      static_cast<const float*>(log_f), static_cast<float*>(h),
+      static_cast<float*>(c_st), static_cast<float*>(n_st),
+      static_cast<float*>(m_st), seq_len, heads, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSave>
+int dispatch(const void* q, const void* k, const void* v, const void* log_i,
+             const void* log_f, void* h, void* c_st, void* n_st, void* m_st,
+             int batch, int seq_len, int heads, int dim, float scale,
+             void* stream) {
+  switch (dim) {
+    case 64:
+      return launch<4, kSave>(q, k, v, log_i, log_f, h, c_st, n_st, m_st,
+                              batch, seq_len, heads, scale, stream);
+    case 128:
+      return launch<8, kSave>(q, k, v, log_i, log_f, h, c_st, n_st, m_st,
+                              batch, seq_len, heads, scale, stream);
+    case 256:
+      return launch<16, kSave>(q, k, v, log_i, log_f, h, c_st, n_st, m_st,
+                               batch, seq_len, heads, scale, stream);
+    case 512:
+      return launch<32, kSave>(q, k, v, log_i, log_f, h, c_st, n_st, m_st,
+                               batch, seq_len, heads, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -212,20 +261,19 @@ extern "C" int mlstm_scan_f32(const void* q, const void* k, const void* v,
                               const void* log_i, const void* log_f, void* h,
                               int batch, int seq_len, int heads, int dim,
                               float scale, void* stream) {
-  switch (dim) {
-    case 64:
-      return launch<4>(q, k, v, log_i, log_f, h, batch, seq_len, heads,
-                       scale, stream);
-    case 128:
-      return launch<8>(q, k, v, log_i, log_f, h, batch, seq_len, heads,
-                       scale, stream);
-    case 256:
-      return launch<16>(q, k, v, log_i, log_f, h, batch, seq_len, heads,
-                        scale, stream);
-    case 512:
-      return launch<32>(q, k, v, log_i, log_f, h, batch, seq_len, heads,
-                        scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(q, k, v, log_i, log_f, h, nullptr, nullptr, nullptr,
+                         batch, seq_len, heads, dim, scale, stream);
+}
+
+// The training launch: h and the state before each chunk of 64 steps,
+// C (B, ceil(S / 64), H, D, D), n (B, ceil(S / 64), H, D), m (B,
+// ceil(S / 64), H).
+extern "C" int mlstm_scan_states_f32(const void* q, const void* k,
+                                     const void* v, const void* log_i,
+                                     const void* log_f, void* h, void* c_st,
+                                     void* n_st, void* m_st, int batch,
+                                     int seq_len, int heads, int dim,
+                                     float scale, void* stream) {
+  return dispatch<true>(q, k, v, log_i, log_f, h, c_st, n_st, m_st, batch,
+                        seq_len, heads, dim, scale, stream);
 }

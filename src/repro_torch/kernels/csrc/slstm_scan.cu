@@ -45,6 +45,14 @@
 //   alternating with the step's parity);
 // - sums in a fixed order, no atomics: two calls give the same bits;
 // - expf, tanhf, log1pf (not the fast intrinsics).
+//
+// Training (slstm_scan_states_f32): the same kernel also writes every
+// step's cell state c, n, m and the four gates' pre-activations zx + a_z,
+// ix + a_i, fx + a_f, ox + a_o (each (B, S, H, dh)), on which the backward
+// (slstm_scan_bwd.cu) walks without a recompute, and takes the recurrent
+// matrices in G groups (G, H, dh, dh), batch row b taking group
+// b / (B / G) (a vmap fold of G clients, each with its own).  The serving
+// launch is the template without those stores, on one group.
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,12 +61,21 @@ constexpr int kThreads = 1024;
 constexpr int kMaxDim = 256;  // 1,024 / 4 gates: one (gate, column quad)
                               // a thread at the least
 
+// The seven state outputs of a training launch (c, n, m, and the
+// pre-activations of z, i, f, o), passed by value.
+struct States {
+  float* p[7];
+};
+
+// kSave: the training launch, which also writes the states into st.
+template <bool kSave>
 __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(
     const float* __restrict__ zx, const float* __restrict__ ix,
     const float* __restrict__ fx, const float* __restrict__ ox,
     const float* __restrict__ rz, const float* __restrict__ ri,
     const float* __restrict__ rf, const float* __restrict__ ro,
-    float* __restrict__ h, int seq_len, int heads, int dim) {
+    float* __restrict__ h, States st, int seq_len,
+    int heads, int dim, int rows_per_group) {
   __shared__ float hs[2][kMaxDim];
   __shared__ __align__(16) float partial[kThreads * 4];  // [p][g][dim]
   const int b = blockIdx.x / heads, head = blockIdx.x % heads;
@@ -68,8 +85,9 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(
   const int q = tid % quads, g = (tid / quads) % 4, p = tid / dim;
   const int rows = dim * dim / kThreads;  // rows a part
   const float* mat = g == 0 ? rz : g == 1 ? ri : g == 2 ? rf : ro;
+  const long long grp = b / rows_per_group;
   const float4* __restrict__ col = reinterpret_cast<const float4*>(
-      mat + ((long long)head * dim + (long long)p * rows) * dim) + q;
+      mat + ((grp * heads + head) * dim + (long long)p * rows) * dim) + q;
   float4* out4 = reinterpret_cast<float4*>(partial) + tid;
   // the cell: thread j < dim, column j
   const int j = tid;
@@ -118,10 +136,11 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(
           sum += partial[(part * 4 + gate) * dim + j];
         a[gate] = sum;
       }
-      const float z = tanhf(xz + a[0]);
+      const float pz = xz + a[0], po = xo + a[3];
+      const float z = tanhf(pz);
       const float i_raw = xi + a[1];
       const float f_raw = xf + a[2];
-      const float o_t = 1.0f / (1.0f + expf(-(xo + a[3])));
+      const float o_t = 1.0f / (1.0f + expf(-po));
       const float log_f = fminf(f_raw, 0.0f) - log1pf(expf(-fabsf(f_raw)));
       const float m_new = fmaxf(log_f + m, i_raw);
       const float ip = expf(i_raw - m_new);
@@ -132,9 +151,36 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(
       const float hv = o_t * c / fmaxf(n, 1e-6f);
       h[at] = hv;
       hs[(t + 1) & 1][j] = hv;
+      if (kSave) {
+        st.p[0][at] = c;
+        st.p[1][at] = n;
+        st.p[2][at] = m;
+        st.p[3][at] = pz;
+        st.p[4][at] = i_raw;
+        st.p[5][at] = f_raw;
+        st.p[6][at] = po;
+      }
     }
     __syncthreads();
   }
+}
+
+template <bool kSave>
+int launch(const void* zx, const void* ix, const void* fx, const void* ox,
+           const void* rz, const void* ri, const void* rf, const void* ro,
+           void* h, States st, int batch, int seq_len, int heads,
+           int dim, int groups, void* stream) {
+  if (dim < 32 || dim > kMaxDim || (dim & (dim - 1)) != 0 || groups < 1 ||
+      batch % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  slstm_scan_kernel<kSave><<<batch * heads, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(zx), static_cast<const float*>(ix),
+      static_cast<const float*>(fx), static_cast<const float*>(ox),
+      static_cast<const float*>(rz), static_cast<const float*>(ri),
+      static_cast<const float*>(rf), static_cast<const float*>(ro),
+      static_cast<float*>(h), st, seq_len, heads, dim, batch / groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -146,14 +192,22 @@ extern "C" int slstm_scan_f32(const void* zx, const void* ix, const void* fx,
                               const void* rf, const void* ro, void* h,
                               int batch, int seq_len, int heads, int dim,
                               void* stream) {
-  if (dim < 32 || dim > kMaxDim || (dim & (dim - 1)) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  slstm_scan_kernel<<<batch * heads, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(zx), static_cast<const float*>(ix),
-      static_cast<const float*>(fx), static_cast<const float*>(ox),
-      static_cast<const float*>(rz), static_cast<const float*>(ri),
-      static_cast<const float*>(rf), static_cast<const float*>(ro),
-      static_cast<float*>(h), seq_len, heads, dim);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(zx, ix, fx, ox, rz, ri, rf, ro, h, States{}, batch,
+                       seq_len, heads, dim, 1, stream);
+}
+
+// The training launch: h and every step's c, n, m, zx + a_z, ix + a_i,
+// fx + a_f, ox + a_o (each (B, S, H, dh)); the r's in ``groups`` groups
+// (G, H, dh, dh), batch row b taking group b / (B / G).
+extern "C" int slstm_scan_states_f32(
+    const void* zx, const void* ix, const void* fx, const void* ox,
+    const void* rz, const void* ri, const void* rf, const void* ro, void* h,
+    void* c, void* n, void* m, void* pz, void* pi, void* pf, void* po,
+    int batch, int seq_len, int heads, int dim, int groups, void* stream) {
+  const States st{{static_cast<float*>(c), static_cast<float*>(n),
+                   static_cast<float*>(m), static_cast<float*>(pz),
+                   static_cast<float*>(pi), static_cast<float*>(pf),
+                   static_cast<float*>(po)}};
+  return launch<true>(zx, ix, fx, ox, rz, ri, rf, ro, h, st, batch, seq_len,
+                      heads, dim, groups, stream);
 }

@@ -337,9 +337,8 @@ def selective_scan_bwd_ref(xs, dt, Bc, Cc, A, H, dy,
         dA = dA_rows.reshape((A.shape[0], -1, di, N)).sum(1)
     return dxs, ddt, dBc, dCc, dA
 
-
 # ---------------------------------------------------------------------------
-# The xLSTM scans (K9 mLSTM, K10 sLSTM)
+# The xLSTM scans (K9 mLSTM, K10 sLSTM) and their backward (K9-bwd, K10-bwd)
 # ---------------------------------------------------------------------------
 
 #: The stabiliser's start, the reference's (not -inf: ``log_f + m - m_new``
@@ -348,9 +347,31 @@ M_START = -1e30
 
 
 def logsigmoid(x):
-    """``log(sigmoid(x))`` as the reference computes it, ``-softplus(-x)``
-    = ``min(x, 0) - log1p(exp(-|x|))`` (finite for every finite x)."""
-    return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-x.abs()))
+    """``log(sigmoid(x))``, the reference's ``-softplus(-x)``, as ``min(x,
+    0) - log1p(exp(-|x|))``: finite for every finite x, and its gradient
+    ``sigmoid(-x)`` is the reference's, 0.5 at x = 0 (``torch.minimum``
+    splits a tie, and |x|'s gradient there is 0).  (``F.logsigmoid`` has
+    no batching rule on CUDA tensors under ``vmap(grad)``.)"""
+    return torch.minimum(x, x.new_zeros(())) - torch.log1p(
+        torch.exp(-x.abs()))
+
+
+def tie_share(a, b):
+    """The share of ``max(a, b)``'s gradient that goes to ``a``, as the
+    reference's ``jnp.maximum`` (and ``torch.maximum``) splits it: 1 where
+    a > b, 0.5 where a == b, 0 where a < b."""
+    return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def _mlstm_state(C, n, m, k, v, log_i, log_f):
+    """The mLSTM state update of one step: ``(C, n, m_new, i, f)``."""
+    m_new = torch.maximum(log_f + m, log_i)
+    i_p = torch.exp(log_i - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    C = f_p[..., None, None] * C \
+        + i_p[..., None, None] * k[..., :, None] * v[..., None, :]
+    n = f_p[..., None] * n + i_p[..., None] * k
+    return C, n, m_new, i_p, f_p
 
 
 def mlstm_step(dk: int):
@@ -361,83 +382,274 @@ def mlstm_step(dk: int):
     scale = dk ** -0.5
 
     def step(carry, xs_t):
-        C, n, m = carry
         q, k, v, log_i, log_f = xs_t
-        m_new = torch.maximum(log_f + m, log_i)
-        i_p = torch.exp(log_i - m_new)
-        f_p = torch.exp(log_f + m - m_new)
-        C = f_p[..., None, None] * C \
-            + i_p[..., None, None] * k[..., :, None] * v[..., None, :]
-        n = f_p[..., None] * n + i_p[..., None] * k
+        C, n, m_new, _, _ = _mlstm_state(*carry, k, v, log_i, log_f)
         num = torch.einsum("bhkv,bhk->bhv", C, q * scale)
         den = torch.einsum("bhk,bhk->bh", n, q * scale).abs()
-        h = num / torch.clamp(den, min=1.0)[..., None]
+        h = num / torch.maximum(den, den.new_ones(()))[..., None]
         return (C, n, m_new), h
     return step
 
 
+def _slstm_rows(r, B: int):
+    """A recurrent matrix as each batch row uses it: ``(H, dh, dh)``
+    shared by every row, or ``(G, H, dh, dh)`` with row ``b`` taking
+    ``r[b // (B // G)]``, expanded to ``(B, H, dh, dh)``."""
+    if r.dim() == 3:
+        return r
+    G = r.shape[0]
+    if G == 0 or B % G:
+        raise ValueError(f"slstm_scan: batch {B} is not a multiple of the "
+                         f"recurrent matrices' {G} groups")
+    return r.repeat_interleave(B // G, dim=0)
+
+
+def _rec(r, h):
+    """``h @ r`` a head: ``r`` (H, dh, dh) shared, or (B, H, dh, dh) a
+    row."""
+    if r.dim() == 3:
+        return torch.einsum("bhi,hij->bhj", h, r)
+    return torch.einsum("bhi,bhij->bhj", h, r)
+
+
+def _slstm_cell(c, n, m, pz, pi, pf, po):
+    """The sLSTM cell of one step on the gates' pre-activations:
+    ``(c, n, m_new, h)``."""
+    z_t = torch.tanh(pz)
+    o_t = torch.sigmoid(po)
+    log_f = logsigmoid(pf)
+    m_new = torch.maximum(log_f + m, pi)
+    i_p = torch.exp(pi - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    c = f_p * c + i_p * z_t
+    n = f_p * n + i_p
+    h = o_t * c / torch.maximum(n, n.new_full((), 1e-6))
+    return c, n, m_new, h
+
+
 def slstm_step(r_z, r_i, r_f, r_o):
     """The reference's ``_slstm_step`` (``repro/models/xlstm.py:141-160``)
-    on the per-head recurrent matrices ``r_*`` (H, dh, dh): ``(carry,
-    xs_t) -> (carry, h_t)`` with carry ``(c, n, m, h)`` and ``xs_t`` = zx,
-    ix, fx, ox, each (B, H, dh) f32."""
-    def rec(w, h):
-        return torch.einsum("bhi,hij->bhj", h, w)
+    on the per-head recurrent matrices ``r_*`` (H, dh, dh), or (B, H, dh,
+    dh) a batch row: ``(carry, xs_t) -> (carry, h_t)`` with carry ``(c,
+    n, m, h)`` and ``xs_t`` = zx, ix, fx, ox, each (B, H, dh) f32."""
+    rs = (r_z, r_i, r_f, r_o)
 
     def step(carry, xs_t):
         c, n, m, h = carry
-        zx, ix, fx, ox = xs_t
-        z_t = torch.tanh(zx + rec(r_z, h))
-        i_raw = ix + rec(r_i, h)
-        f_raw = fx + rec(r_f, h)
-        o_t = torch.sigmoid(ox + rec(r_o, h))
-        log_f = logsigmoid(f_raw)
-        m_new = torch.maximum(log_f + m, i_raw)
-        i_p = torch.exp(i_raw - m_new)
-        f_p = torch.exp(log_f + m - m_new)
-        c = f_p * c + i_p * z_t
-        n = f_p * n + i_p
-        h = o_t * c / torch.clamp(n, min=1e-6)
-        return (c, n, m_new, h), h
+        pre = [x + _rec(r, h) for x, r in zip(xs_t, rs)]
+        c, n, m, h = _slstm_cell(c, n, m, *pre)
+        return (c, n, m, h), h
     return step
 
 
-def _scan_heads(step, carry, xs, chunk: int):
-    """``models.ssm.chunked_scan`` of ``step`` over the S axis of the
-    (B, S, ...) tensors ``xs``; the outputs back as (B, S, ...).  (The
-    model package is imported here, not at the top: it imports the
-    kernels' wrappers, which import this module.)"""
-    from repro_torch.models.ssm import chunked_scan
-    swap = lambda a: a.transpose(0, 1)
-    _, hs = chunked_scan(step, carry, tuple(map(swap, xs)), chunk)
-    return hs.transpose(0, 1)
+def _mlstm_start(q, v):
+    B, _, H, dk = q.shape
+    return (q.new_zeros((B, H, dk, v.shape[-1]), dtype=F32),
+            q.new_zeros((B, H, dk), dtype=F32),
+            q.new_full((B, H), M_START, dtype=F32))
 
 
 def mlstm_scan_ref(q, k, v, log_i, log_f, chunk: int = SCAN_CHUNK):
     """K9's function: the reference's mLSTM step folded over S from
     ``C = 0``, ``n = 0``, ``m = -1e30`` (its ``mlstm_init_state``), as
-    ``chunked_scan`` (chunks of ``chunk``) runs it.  q, k, v (B, S, H,
-    dk), log_i, log_f (B, S, H), f32 -> h (B, S, H, dk)."""
+    ``chunked_scan`` runs it (chunks of ``chunk`` change no value).  q, k,
+    v (B, S, H, dk), log_i, log_f (B, S, H), f32 -> h (B, S, H, dk); the
+    ``h`` of :func:`mlstm_scan_fwd_ref`."""
+    return mlstm_scan_fwd_ref(q, k, v, log_i, log_f, chunk)[0]
+
+
+def mlstm_scan_fwd_ref(q, k, v, log_i, log_f, chunk: int = SCAN_CHUNK):
+    """K9's training launch: ``(h, C, n, m)``, ``h`` of the scan
+    (:func:`mlstm_scan_ref`) and the state before each chunk of
+    ``chunk`` steps, ``C`` (B, ceil(S / chunk), H, dk, dv), ``n`` (B,
+    ceil(S / chunk), H, dk), ``m`` (B, ceil(S / chunk), H)."""
     B, S, H, dk = q.shape
-    C = q.new_zeros((B, H, dk, v.shape[-1]), dtype=F32)
-    n = q.new_zeros((B, H, dk), dtype=F32)
-    m = q.new_full((B, H), M_START, dtype=F32)
+    carry, step = _mlstm_start(q, v), mlstm_step(dk)
+    hs, saved = [], []
+    for t in range(S):
+        if t % chunk == 0:
+            saved.append(carry)
+        carry, h = step(carry, (q[:, t], k[:, t], v[:, t], log_i[:, t],
+                                log_f[:, t]))
+        hs.append(h)
     if S == 0:
-        return q.new_zeros((B, 0, H, v.shape[-1]), dtype=F32)
-    return _scan_heads(mlstm_step(dk), (C, n, m), (q, k, v, log_i, log_f),
-                       chunk)
+        return (q.new_zeros((B, 0, H, v.shape[-1]), dtype=F32),
+                *(a.new_zeros((B, 0) + a.shape[1:]) for a in carry))
+    return (torch.stack(hs, 1), *(torch.stack(s, 1) for s in zip(*saved)))
+
+
+def mlstm_scan_bwd_ref(q, k, v, log_i, log_f, h, C, n, m, dh,
+                       chunk: int = SCAN_CHUNK):
+    """K9-bwd's function: ``(dq, dk, dv, dlog_i, dlog_f)`` of the scan of
+    :func:`mlstm_scan_fwd_ref` (its ``h`` and the states ``C``, ``n``,
+    ``m`` saved at ``chunk``) under the cotangent ``dh`` (B, S, H, dv),
+    by an explicit reverse walk.
+
+    Chunks go last to first; each chunk's states are recomputed forward
+    from the saved ones, then walked back.  With ``s = dk^-1/2``, ``den
+    = n_t . q s``, ``D = max(|den|, 1)`` and dC, dn, dm from 0, each step
+    does, in order::
+
+        dden = -(dh . h_t) / D * [|den| vs 1] * sign(den);  dnum = dh / D
+        dC  += (q s) (x) dnum;  dn += q s dden
+        dq   = s (C_t dnum + n_t dden)
+        u    = dC v + dn;  dk = i u;  di = k . u;  dv = i dC^T k
+        df   = sum(dC * C_{t-1}) + dn . n_{t-1};  dC *= f;  dn *= f
+        dm'  = dm - di i - df f                 (m' = max(log_f + m, log_i))
+        dlog_i = di i + dm' [log_i vs log_f + m]
+        dlog_f = df f + dm' [log_f + m vs log_i];  dm = dlog_f
+
+    where ``[a vs b]`` is :func:`tie_share` (1, 0.5 at a tie, 0): the
+    stabiliser ``m`` is differentiated as autodiff does (the clamps make
+    ``h`` depend on it).
+    """
+    B, S, H, dk = q.shape
+    scale = dk ** -0.5
+    dq, dk_, dv = (torch.zeros_like(a, dtype=F32) for a in (q, k, v))
+    dli, dlf = (torch.zeros_like(a, dtype=F32) for a in (log_i, log_f))
+    dC = torch.zeros_like(C[:, 0]) if C.shape[1] else None
+    dn = torch.zeros_like(n[:, 0]) if C.shape[1] else None
+    dm = torch.zeros_like(m[:, 0]) if C.shape[1] else None
+    for c in reversed(range(C.shape[1])):
+        t0, t1 = c * chunk, min(S, (c + 1) * chunk)
+        st = [(C[:, c], n[:, c], m[:, c], None, None)]
+        for t in range(t0, t1):
+            st.append(_mlstm_state(*st[-1][:3], k[:, t], v[:, t],
+                                   log_i[:, t], log_f[:, t]))
+        for t in reversed(range(t0, t1)):
+            C_prev, n_prev, m_prev = st[t - t0][:3]
+            C_t, n_t, _, i_p, f_p = st[t - t0 + 1]
+            qs = q[:, t] * scale
+            den = torch.einsum("bhk,bhk->bh", n_t, qs)
+            D = torch.maximum(den.abs(), den.new_ones(()))
+            dden = (-(dh[:, t] * h[:, t]).sum(-1) / D
+                    * tie_share(den.abs(), 1.0) * torch.sign(den))
+            dnum = dh[:, t] / D[..., None]
+            dC = dC + qs[..., :, None] * dnum[..., None, :]
+            dn = dn + qs * dden[..., None]
+            dq[:, t] = scale * (torch.einsum("bhkv,bhv->bhk", C_t, dnum)
+                                + n_t * dden[..., None])
+            u = torch.einsum("bhkv,bhv->bhk", dC, v[:, t]) + dn
+            dk_[:, t] = i_p[..., None] * u
+            di = (k[:, t] * u).sum(-1)
+            dv[:, t] = i_p[..., None] * torch.einsum("bhkv,bhk->bhv", dC,
+                                                     k[:, t])
+            df = (dC * C_prev).sum((-2, -1)) + (dn * n_prev).sum(-1)
+            dC = f_p[..., None, None] * dC
+            dn = f_p[..., None] * dn
+            share = tie_share(log_f[:, t] + m_prev, log_i[:, t])
+            dm_new = dm - di * i_p - df * f_p
+            dli[:, t] = di * i_p + dm_new * (1.0 - share)
+            dlf[:, t] = dm = df * f_p + dm_new * share
+    return dq, dk_, dv, dli, dlf
 
 
 def slstm_scan_ref(zx, ix, fx, ox, r_z, r_i, r_f, r_o,
                    chunk: int = SCAN_CHUNK):
     """K10's function: the reference's sLSTM step folded over S from
     ``c = n = h = 0``, ``m = -1e30`` (its ``slstm_init_state``), as
-    ``chunked_scan`` runs it.  zx, ix, fx, ox (B, S, H, dh), r_* (H, dh,
-    dh), f32 -> h (B, S, H, dh)."""
+    ``chunked_scan`` runs it (``chunk``, the reference's, changes no
+    value).  zx, ix, fx, ox (B, S, H, dh), r_* (H, dh, dh), or (G, H, dh,
+    dh) with batch row ``b`` taking group ``b // (B // G)``, f32 -> h (B,
+    S, H, dh); the ``h`` of :func:`slstm_scan_fwd_ref`."""
+    return slstm_scan_fwd_ref(zx, ix, fx, ox, r_z, r_i, r_f, r_o)[0]
+
+
+#: The states K10's training launch keeps, each (B, S, H, dh): the cell
+#: state after each step (c, n, m) and the four gates' pre-activations
+#: (``zx + h r_z``, ``ix + h r_i``, ``fx + h r_f``, ``ox + h r_o``).
+SLSTM_STATES = ("c", "n", "m", "pz", "pi", "pf", "po")
+
+
+def slstm_scan_fwd_ref(zx, ix, fx, ox, r_z, r_i, r_f, r_o):
+    """K10's training launch: ``(h, c, n, m, pz, pi, pf, po)``, ``h`` of
+    the scan (:func:`slstm_scan_ref`) and every step's
+    :data:`SLSTM_STATES`, each (B, S, H, dh)."""
     B, S, H, dh = zx.shape
-    zeros = zx.new_zeros((B, H, dh), dtype=F32)
+    rs = [_slstm_rows(r, B) for r in (r_z, r_i, r_f, r_o)]
+    c = n = h = zx.new_zeros((B, H, dh), dtype=F32)
     m = zx.new_full((B, H, dh), M_START, dtype=F32)
+    out = [[] for _ in range(8)]
+    for t in range(S):
+        pre = [x[:, t] + _rec(r, h) for x, r in zip((zx, ix, fx, ox), rs)]
+        c, n, m, h = _slstm_cell(c, n, m, *pre)
+        for seq, a in zip(out, [h, c, n, m] + pre):
+            seq.append(a)
     if S == 0:
-        return zx.new_zeros((B, 0, H, dh), dtype=F32)
-    return _scan_heads(slstm_step(r_z, r_i, r_f, r_o),
-                       (zeros, zeros, m, zeros), (zx, ix, fx, ox), chunk)
+        return tuple(zx.new_zeros((B, 0, H, dh), dtype=F32)
+                     for _ in range(8))
+    return tuple(torch.stack(seq, 1) for seq in out)
+
+
+def slstm_scan_bwd_ref(r_z, r_i, r_f, r_o, h, c, n, m, pz, pi, pf, po, dh):
+    """K10-bwd's function: ``(dzx, dix, dfx, dox, dr_z, dr_i, dr_f,
+    dr_o)`` of the scan of :func:`slstm_scan_fwd_ref` (its ``h`` and
+    states) under the cotangent ``dh`` (B, S, H, dh), by an explicit
+    reverse walk over t = S-1 .. 0 from dc = dn = dm = 0 and the
+    recurrent cotangent g_h = 0.  With ``z = tanh(pz)``, ``o =
+    sigmoid(po)``, ``N = max(n_t, 1e-6)`` and ``i``, ``f`` the step's
+    gates, each step does, in order::
+
+        g   = dh_t + g_h;   do = g c_t / N
+        dc += g o / N;      dn += -g h_t / N [n_t vs 1e-6]
+        df  = dc c_{t-1} + dn n_{t-1};  di = dc z + dn;  dz = dc i
+        dc *= f;  dn *= f
+        dm' = dm - di i - df f
+        dpi = di i + dm' [pi vs log_f + m];  dlf = df f + dm' [log_f + m vs pi]
+        dm  = dlf;  dpf = dlf sigmoid(-pf)
+        dpz = dz (1 - z^2);  dpo = do o (1 - o)
+        g_h = sum_g r_g d_g          (d_g: dpz, dpi, dpf, dpo)
+
+    The inputs enter the pre-activations additively, so ``d(zx, ix, fx,
+    ox)`` are ``d_g``; ``dr_g = sum_(b, t) h_{t-1} (x) d_g``, a product
+    over the saved ``h`` after the walk, per group for grouped r."""
+    B, S, H, dh_ = h.shape
+    rs = (r_z, r_i, r_f, r_o)
+    rows = [_slstm_rows(r, B) for r in rs]
+    d = [torch.zeros_like(h) for _ in range(4)]
+    zero = h.new_zeros((B, H, dh_))
+    m0 = torch.full_like(zero, M_START)
+    dc = dn = dm = g_h = zero
+    for t in reversed(range(S)):
+        c_prev, n_prev, m_prev = ((c[:, t - 1], n[:, t - 1], m[:, t - 1])
+                                  if t else (zero, zero, m0))
+        z = torch.tanh(pz[:, t])
+        o = torch.sigmoid(po[:, t])
+        log_f = logsigmoid(pf[:, t])
+        i_p = torch.exp(pi[:, t] - m[:, t])
+        f_p = torch.exp(log_f + m_prev - m[:, t])
+        N = torch.maximum(n[:, t], n.new_full((), 1e-6))
+        g = dh[:, t] + g_h
+        do = g * c[:, t] / N
+        dc = dc + g * o / N
+        dn = dn - g * h[:, t] / N * tie_share(n[:, t], 1e-6)
+        df = dc * c_prev + dn * n_prev
+        di = dc * z + dn
+        dz = dc * i_p
+        dc, dn = dc * f_p, dn * f_p
+        share = tie_share(log_f + m_prev, pi[:, t])
+        dm_new = dm - di * i_p - df * f_p
+        d[1][:, t] = di * i_p + dm_new * (1.0 - share)
+        dm = df * f_p + dm_new * share
+        d[2][:, t] = dm * torch.sigmoid(-pf[:, t])
+        d[0][:, t] = dz * (1.0 - z * z)
+        d[3][:, t] = do * o * (1.0 - o)
+        g_h = sum(torch.einsum("bhj,hij->bhi", d_g[:, t], r)
+                  if r.dim() == 3 else
+                  torch.einsum("bhj,bhij->bhi", d_g[:, t], r)
+                  for d_g, r in zip(d, rows))
+    h_prev = torch.cat([zero[:, None], h[:, :-1]], 1) if S else h
+    return tuple(d) + tuple(slstm_dr(r, h_prev, d_g) for r, d_g in zip(rs, d))
+
+
+def slstm_dr(r, h_prev, d_g):
+    """``dr = sum_(b, t) h_{t-1} (x) d_g`` a head, over every row for an
+    (H, dh, dh) ``r``, within each group for a grouped one: a plain
+    product over B*S (the reference's autodiff forms it outside any
+    kernel too)."""
+    if r.dim() == 3:
+        return torch.einsum("bshi,bshj->hij", h_prev, d_g)
+    G = r.shape[0]
+    shape = (G, -1) + tuple(h_prev.shape[1:])
+    return torch.einsum("gbshi,gbshj->ghij", h_prev.reshape(shape),
+                        d_g.reshape(shape))

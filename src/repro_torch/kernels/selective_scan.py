@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import I, P
-from repro_torch.kernels.vmap_fold import fold, unfold
+from repro_torch.kernels.vmap_fold import fold_contiguous, unfold
 
 #: State sizes the kernels are built for (a template parameter).
 STATE_DIMS = (8, 16)
@@ -188,12 +188,6 @@ def selective_scan_bwd(xs, dt, Bc, Cc, A, H, dy):
     return dxs, ddt, dBc, dCc, dA
 
 
-def _fold_in(info, in_dims, *tensors):
-    """:func:`vmap_fold.fold` into B, each made contiguous (the kernels'
-    layout)."""
-    return [t.contiguous() for t in fold(info, in_dims, *tensors)]
-
-
 def _fold_A(info, dim, A, per_client: bool):
     """``A`` for a launch over the folded batch: mapped, its clients'
     groups in client order (G = K or K x G); unmapped, as it is (one A
@@ -235,7 +229,7 @@ class _SelectiveScan(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, xs, dt, Bc, Cc, A, with_states):
         y, H = _SelectiveScan.apply(
-            *_fold_in(info, in_dims[:4], xs, dt, Bc, Cc),
+            *fold_contiguous(info, in_dims[:4], xs, dt, Bc, Cc),
             _fold_A(info, in_dims[4], A, per_client=False), with_states)
         return ((unfold(info, y), unfold(info, H)),
                 (0, None if H is None else 0))
@@ -263,8 +257,8 @@ class _SelectiveScanBwd(torch.autograd.Function):
     def vmap(info, in_dims, xs, dt, Bc, Cc, A, H, dy):
         shape_A = A.shape if in_dims[4] is None else \
             A.movedim(in_dims[4], 0).shape[1:]
-        xs, dt, Bc, Cc, H, dy = _fold_in(info, in_dims[:4] + in_dims[5:],
-                                         xs, dt, Bc, Cc, H, dy)
+        xs, dt, Bc, Cc, H, dy = fold_contiguous(
+            info, in_dims[:4] + in_dims[5:], xs, dt, Bc, Cc, H, dy)
         grads = _SelectiveScanBwd.apply(
             xs, dt, Bc, Cc, _fold_A(info, in_dims[4], A, per_client=True),
             H, dy)

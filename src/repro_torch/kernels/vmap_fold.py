@@ -20,6 +20,12 @@ def fold(info, in_dims, *tensors):
     return out
 
 
+def fold_contiguous(info, in_dims, *tensors):
+    """:func:`fold`, each tensor made contiguous (the kernels' layout;
+    nested vmaps hand over expanded views)."""
+    return [t.contiguous() for t in fold(info, in_dims, *tensors)]
+
+
 def unfold(info, t):
     """A folded output back to ``(batch, lead, ...)``; None stays None."""
     return None if t is None else t.reshape(

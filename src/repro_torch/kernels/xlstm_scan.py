@@ -1,4 +1,5 @@
-"""The xLSTM scans: mLSTM (K9) and sLSTM (K10), kernels of the port.
+"""The xLSTM scans: mLSTM (K9) and sLSTM (K10), their backward (K9-bwd,
+K10-bwd) and their autograd Functions, kernels of the port.
 
 K9 folds the reference's ``_mlstm_step`` (``repro/models/xlstm.py:52-68``)
 over S steps from ``C = 0``, ``n = 0``, ``m = -1e30``::
@@ -20,12 +21,25 @@ and layer, so each scan is one launch of a hand-written kernel:
 slab of C in registers) and ``csrc/slstm_scan.cu`` (a block a (b, head)
 that reads the head's recurrent matrices from L2 every step).
 
-For tensors on the CPU the wrappers take the plain versions
-``kernels/ref.mlstm_scan_ref`` / ``slstm_scan_ref``.  The kernels take
-float32 only; inputs are made contiguous here.  Both scans serve only:
-the backward kernels are not written yet, so an input that requires grad
-under grad mode raises (on the CPU too) rather than run a loop autograd
-could differentiate.
+Training: the reference differentiates ``chunked_scan``, whose chunks of
+``ref.SCAN_CHUNK`` = 64 steps are under ``jax.checkpoint``.  With grad
+on, K9's training launch also writes the state before each chunk (C, n,
+m), and K9-bwd (``csrc/mlstm_scan_bwd.cu``) recomputes each chunk's
+states from it and walks them back.  K10's state is small, so its
+training launch writes every step's c, n, m and the four gates'
+pre-activations, and K10-bwd (``csrc/slstm_scan_bwd.cu``) walks t = S-1
+.. 0 on them alone; the recurrent matrices' gradients are a product
+over the saved h after the walk (``ref.slstm_dr``).  Each Function has a
+``vmap`` rule that folds the mapped dim into B, so the trainer's
+``vmap(grad)`` over K clients launches each kernel once; under vmap the
+sLSTM's matrices go in a client each as groups (G, H, dh, dh), batch row
+``b`` taking group ``b // (B // G)``.
+
+For tensors on the CPU the wrappers take the plain versions in
+``kernels/ref.py`` (``mlstm_scan_ref``, ``mlstm_scan_fwd_ref``,
+``mlstm_scan_bwd_ref`` and the sLSTM's), so the CPU tests run the
+Functions and their vmap rules.  The kernels take float32 only; inputs
+are made contiguous here.
 """
 from __future__ import annotations
 
@@ -33,21 +47,34 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import F, I, P
+from repro_torch.kernels.vmap_fold import fold_contiguous, unfold
 
 F32 = torch.float32
-#: Head dims K9 is built for (a template over dk / 16 rows a thread).
+#: Head dims K9 and K9-bwd are built for (templates over dk).
 MLSTM_DIMS = (64, 128, 256, 512)
-#: Head dims K10 takes (its 1,024 threads split evenly over dh^2 / 4).
+#: Head dims K10 and K10-bwd take (1,024 threads split evenly over dh^2 / 4).
 SLSTM_DIMS = (32, 64, 128, 256)
+#: Steps between the states K9's training launch saves, fixed in both
+#: sources.
+CHUNK = ref.SCAN_CHUNK
+#: Columns of C a block of K9 and K9-bwd takes (``kCols``): K9-bwd's
+#: partial sums come one a column block.
+MLSTM_COLS = 16
 
-_MLSTM_SIGNATURES = {"mlstm_scan_f32": (P, P, P, P, P, P, I, I, I, I, F, P)}
-_SLSTM_SIGNATURES = {"slstm_scan_f32": (P,) * 9 + (I, I, I, I, P)}
-
-
-def _refuse_grad(what: str, tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError(f"{what}: xLSTM training (the scan's backward "
-                         f"kernel) is not yet ported; the scan serves only")
+_MLSTM_SIGNATURES = {
+    "mlstm_scan_f32": (P, P, P, P, P, P, I, I, I, I, F, P),
+    "mlstm_scan_states_f32": (P,) * 9 + (I, I, I, I, F, P),
+}
+_MLSTM_BWD_SIGNATURES = {
+    "mlstm_scan_bwd_f32": (P,) * 16 + (I, I, I, I, F, P),
+}
+_SLSTM_SIGNATURES = {
+    "slstm_scan_f32": (P,) * 9 + (I, I, I, I, P),
+    "slstm_scan_states_f32": (P,) * 16 + (I, I, I, I, I, P),
+}
+_SLSTM_BWD_SIGNATURES = {
+    "slstm_scan_bwd_f32": (P,) * 13 + (I, I, I, I, I, P),
+}
 
 
 def _check_same(what: str, named, want, device) -> None:
@@ -67,66 +94,403 @@ def _check_card(what: str, named) -> None:
                             f"{t.dtype}")
 
 
-def mlstm_scan(q, k, v, log_i, log_f):
-    """K9: h (B, S, H, dk) f32 of the mLSTM scan (module docstring).  On
-    the card it launches the kernel or raises; on the CPU it runs the
-    plain version."""
-    what = "mlstm_scan"
+def _chunks(S: int) -> int:
+    return -(-S // CHUNK)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM: K9 and K9-bwd
+# ---------------------------------------------------------------------------
+
+def _check_mlstm(what, q, k, v, log_i, log_f, chunk):
     named = (("q", q), ("k", k), ("v", v), ("log_i", log_i),
              ("log_f", log_f))
-    _refuse_grad(what, [t for _, t in named])
     if q.dim() != 4:
         raise ValueError(f"{what}: q must be (B, S, H, dk), got "
                          f"{tuple(q.shape)}")
     B, S, H, dk = q.shape
     _check_same(what, named[1:3], (B, S, H, dk), q.device)
     _check_same(what, named[3:], (B, S, H), q.device)
+    if q.device.type != "cpu":
+        _check_card(what, named)
+        if dk not in MLSTM_DIMS:
+            raise ValueError(f"{what}: head dim {dk}; the kernel is built "
+                             f"for {MLSTM_DIMS}")
+        if chunk != CHUNK:
+            raise ValueError(f"{what}: chunk {chunk}; the kernel's is "
+                             f"{CHUNK}")
+    return named
+
+
+def mlstm_scan_fwd(q, k, v, log_i, log_f, *, with_states: bool = False,
+                   chunk: int = CHUNK):
+    """K9's launch: ``(h, C, n, m)``, ``h`` (B, S, H, dk) f32 of the scan
+    (module docstring) and, ``with_states``, the state before each chunk
+    of 64 steps: ``C`` (B, ceil(S / 64), H, dk, dk), ``n`` (B, ceil(S /
+    64), H, dk), ``m`` (B, ceil(S / 64), H) (else None).  On the card it
+    launches the kernel or raises; on the CPU it runs the plain version
+    (``chunk``: the plain version's chunk; the kernel's is 64)."""
+    what = "mlstm_scan"
+    named = _check_mlstm(what, q, k, v, log_i, log_f, chunk)
     if q.device.type == "cpu":
-        return ref.mlstm_scan_ref(q, k, v, log_i, log_f)
-    _check_card(what, named)
-    if dk not in MLSTM_DIMS:
-        raise ValueError(f"{what}: head dim {dk}; the kernel is built for "
-                         f"{MLSTM_DIMS}")
+        if with_states:
+            return ref.mlstm_scan_fwd_ref(q, k, v, log_i, log_f, chunk)
+        return (ref.mlstm_scan_ref(q, k, v, log_i, log_f, chunk),
+                None, None, None)
+    B, S, H, dk = q.shape
     h = torch.empty((B, S, H, dk), dtype=F32, device=q.device)
+    states = ((torch.empty((B, _chunks(S), H, dk, dk), dtype=F32,
+                           device=q.device),
+               torch.empty((B, _chunks(S), H, dk), dtype=F32,
+                           device=q.device),
+               torch.empty((B, _chunks(S), H), dtype=F32, device=q.device))
+              if with_states else (None, None, None))
     if h.numel() == 0:
-        return h
+        return (h,) + states
     q, k, v, log_i, log_f = (t.contiguous() for _, t in named)
     lib = build.library(what, _MLSTM_SIGNATURES)
-    rc = lib.mlstm_scan_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            log_i.data_ptr(), log_f.data_ptr(), h.data_ptr(),
-                            B, S, H, dk, dk ** -0.5, build.stream())
+    if with_states:
+        rc = lib.mlstm_scan_states_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
+            log_f.data_ptr(), h.data_ptr(), *(s.data_ptr() for s in states),
+            B, S, H, dk, dk ** -0.5, build.stream())
+    else:
+        rc = lib.mlstm_scan_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                log_i.data_ptr(), log_f.data_ptr(),
+                                h.data_ptr(), B, S, H, dk, dk ** -0.5,
+                                build.stream())
     build.check_launch(rc, what)
     build.launch_counts[what] += 1
-    return h
+    return (h,) + states
 
 
-def slstm_scan(zx, ix, fx, ox, r_z, r_i, r_f, r_o):
-    """K10: h (B, S, H, dh) f32 of the sLSTM scan (module docstring).  On
-    the card it launches the kernel or raises; on the CPU it runs the
+def mlstm_bwd_scratch_floats(B: int, S: int, H: int, dk: int) -> int:
+    """K9-bwd's scratch, in floats: each column block's recomputed chunk
+    of C (64 x dk x 16) and n (64 x dk, one block a head); its partial
+    sums a step (two dk-rows and one scalar); and six (B, S, H) rows of
+    scalars (see ``csrc/mlstm_scan_bwd.cu``)."""
+    nb = dk // MLSTM_COLS
+    return (B * H * CHUNK * dk * dk + B * H * CHUNK * dk
+            + B * H * nb * S * (2 * dk + 1) + 6 * B * S * H)
+
+
+def mlstm_scan_bwd(q, k, v, log_i, log_f, h, C, n, m, dh, *,
+                   chunk: int = CHUNK):
+    """K9-bwd's launch: ``(dq, dk, dv, dlog_i, dlog_f)`` of the scan under
+    the cotangent ``dh`` (B, S, H, dk), from the forward's ``h`` and
+    states.  On the card: a prologue (``dh . h`` a row), the walk (a
+    block a (b, head, 16 columns), chunks last to first), a closing
+    launch that adds the column blocks' partial sums in block order and
+    one that walks the stabiliser's scalar chain back -- no atomics, so
+    the same inputs give the same bits -- one count; on the CPU the
     plain version."""
+    what = "mlstm_scan_bwd"
+    named = _check_mlstm(what, q, k, v, log_i, log_f, chunk)
+    B, S, H, dk = q.shape
+    nc = -(-S // chunk)
+    _check_same(what, (("h", h), ("dh", dh)), (B, S, H, dk), q.device)
+    _check_same(what, (("C", C),), (B, nc, H, dk, dk), q.device)
+    _check_same(what, (("n", n),), (B, nc, H, dk), q.device)
+    _check_same(what, (("m", m),), (B, nc, H), q.device)
+    if q.device.type == "cpu":
+        return ref.mlstm_scan_bwd_ref(q, k, v, log_i, log_f, h, C, n, m, dh,
+                                      chunk)
+    _check_card(what, (("h", h), ("C", C), ("n", n), ("m", m), ("dh", dh)))
+    grads = [torch.empty((B, S, H, dk), dtype=F32, device=q.device)
+             for _ in range(3)]
+    grads += [torch.empty((B, S, H), dtype=F32, device=q.device)
+              for _ in range(2)]
+    if q.numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    args = [t.contiguous() for _, t in named] + [
+        t.contiguous() for t in (h, C, n, m, dh)]
+    scratch = torch.empty(mlstm_bwd_scratch_floats(B, S, H, dk),
+                          dtype=F32, device=q.device)
+    lib = build.library(what, _MLSTM_BWD_SIGNATURES)
+    rc = lib.mlstm_scan_bwd_f32(
+        *(t.data_ptr() for t in args), *(g.data_ptr() for g in grads),
+        scratch.data_ptr(), B, S, H, dk, dk ** -0.5, build.stream())
+    build.check_launch(rc, what)
+    build.launch_counts[what] += 1
+    return tuple(grads)
+
+
+class _MlstmScan(torch.autograd.Function):
+    """K9 with its backward; see the module docstring."""
+
+    @staticmethod
+    def forward(q, k, v, log_i, log_f, with_states, chunk):
+        return mlstm_scan_fwd(q, k, v, log_i, log_f,
+                              with_states=with_states, chunk=chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, log_i, log_f, _, chunk = inputs
+        h, C, n, m = output
+        if C is not None:
+            ctx.mark_non_differentiable(C, n, m)
+        ctx.chunk = chunk
+        ctx.save_for_backward(q, k, v, log_i, log_f, h, C, n, m)
+
+    @staticmethod
+    def backward(ctx, dh, _dC, _dn, _dm):
+        q, k, v, log_i, log_f, h, C, n, m = ctx.saved_tensors
+        if C is None:
+            raise RuntimeError("mlstm_scan: the forward ran without grad "
+                               "mode, so it kept no chunk states")
+        return _MlstmScanBwd.apply(q, k, v, log_i, log_f, h, C, n, m,
+                                   dh.contiguous(), ctx.chunk) + (None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, log_i, log_f, with_states, chunk):
+        out = _MlstmScan.apply(
+            *fold_contiguous(info, in_dims[:5], q, k, v, log_i, log_f),
+            with_states, chunk)
+        return (tuple(unfold(info, t) for t in out),
+                (0,) + tuple(None if t is None else 0 for t in out[1:]))
+
+
+class _MlstmScanBwd(torch.autograd.Function):
+    """K9-bwd as a function of its own, so that it too folds a vmap into
+    B; it has no derivative."""
+
+    @staticmethod
+    def forward(q, k, v, log_i, log_f, h, C, n, m, dh, chunk):
+        return mlstm_scan_bwd(q, k, v, log_i, log_f, h, C, n, m, dh,
+                              chunk=chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("mlstm_scan: a second derivative of K9 is not "
+                           "implemented")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        tensors, chunk = args[:10], args[10]
+        grads = _MlstmScanBwd.apply(
+            *fold_contiguous(info, in_dims[:10], *tensors), chunk)
+        return tuple(unfold(info, g) for g in grads), (0,) * 5
+
+
+def mlstm_scan(q, k, v, log_i, log_f, chunk: int = CHUNK):
+    """K9: h (B, S, H, dk) f32 of the mLSTM scan (module docstring).
+    Differentiable once (K9-bwd) and vmappable (one launch for the mapped
+    batch).  The chunk states of the backward are kept only where it can
+    run: with grad mode on and an input that requires grad; else the
+    launch is serving's, which writes h alone.  On the card it launches
+    the kernels or raises; on the CPU it runs the plain versions
+    (``chunk``: theirs; the kernels' is 64)."""
+    with_states = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, log_i, log_f))
+    return _MlstmScan.apply(q, k, v, log_i, log_f, with_states, chunk)[0]
+
+
+# ---------------------------------------------------------------------------
+# sLSTM: K10 and K10-bwd
+# ---------------------------------------------------------------------------
+
+def _check_slstm(what, xs, rs):
+    if xs[0][1].dim() != 4:
+        raise ValueError(f"{what}: zx must be (B, S, H, dh), got "
+                         f"{tuple(xs[0][1].shape)}")
+    B, S, H, dh = xs[0][1].shape
+    device = xs[0][1].device
+    _check_same(what, xs[1:], (B, S, H, dh), device)
+    r0 = rs[0][1]
+    if r0.dim() not in (3, 4) or tuple(r0.shape[-3:]) != (H, dh, dh):
+        raise ValueError(f"{what}: r_z must be {(H, dh, dh)} or (G, {H}, "
+                         f"{dh}, {dh}), got {tuple(r0.shape)}")
+    if r0.dim() == 4 and (r0.shape[0] == 0 or B % r0.shape[0]):
+        raise ValueError(f"{what}: batch {B} is not a multiple of the "
+                         f"recurrent matrices' {r0.shape[0]} groups")
+    _check_same(what, rs[1:], tuple(r0.shape), device)
+    if device.type != "cpu":
+        _check_card(what, xs + rs)
+        if dh not in SLSTM_DIMS:
+            raise ValueError(f"{what}: head dim {dh}; the kernel is built "
+                             f"for {SLSTM_DIMS}")
+
+
+def _groups(r) -> int:
+    return 1 if r.dim() == 3 else r.shape[0]
+
+
+def slstm_scan_fwd(zx, ix, fx, ox, r_z, r_i, r_f, r_o, *,
+                   with_states: bool = False):
+    """K10's launch: ``(h, c, n, m, pz, pi, pf, po)``, ``h`` (B, S, H,
+    dh) f32 of the scan (module docstring) and, ``with_states``, every
+    step's ``ref.SLSTM_STATES`` (each (B, S, H, dh); else None).  The r's
+    are (H, dh, dh), or (G, H, dh, dh) groups of batch rows (the training
+    launch only).  On the card it launches the kernel or raises; on the
+    CPU it runs the plain version."""
     what = "slstm_scan"
     xs = (("zx", zx), ("ix", ix), ("fx", fx), ("ox", ox))
     rs = (("r_z", r_z), ("r_i", r_i), ("r_f", r_f), ("r_o", r_o))
-    _refuse_grad(what, [t for _, t in xs + rs])
-    if zx.dim() != 4:
-        raise ValueError(f"{what}: zx must be (B, S, H, dh), got "
-                         f"{tuple(zx.shape)}")
-    B, S, H, dh = zx.shape
-    _check_same(what, xs[1:], (B, S, H, dh), zx.device)
-    _check_same(what, rs, (H, dh, dh), zx.device)
+    _check_slstm(what, xs, rs)
     if zx.device.type == "cpu":
-        return ref.slstm_scan_ref(zx, ix, fx, ox, r_z, r_i, r_f, r_o)
-    _check_card(what, xs + rs)
-    if dh not in SLSTM_DIMS:
-        raise ValueError(f"{what}: head dim {dh}; the kernel is built for "
-                         f"{SLSTM_DIMS}")
-    h = torch.empty((B, S, H, dh), dtype=F32, device=zx.device)
-    if h.numel() == 0:
-        return h
+        if with_states:
+            return ref.slstm_scan_fwd_ref(zx, ix, fx, ox, r_z, r_i, r_f, r_o)
+        return ((ref.slstm_scan_ref(zx, ix, fx, ox, r_z, r_i, r_f, r_o),)
+                + (None,) * 7)
+    B, S, H, dh = zx.shape
+    out = [torch.empty((B, S, H, dh), dtype=F32, device=zx.device)
+           for _ in range(8 if with_states else 1)]
+    out += [None] * (8 - len(out))
+    if out[0].numel() == 0:
+        return tuple(out)
     args = [t.contiguous() for _, t in xs + rs]
     lib = build.library(what, _SLSTM_SIGNATURES)
-    rc = lib.slstm_scan_f32(*(t.data_ptr() for t in args), h.data_ptr(),
-                            B, S, H, dh, build.stream())
+    if with_states:
+        rc = lib.slstm_scan_states_f32(
+            *(t.data_ptr() for t in args), *(t.data_ptr() for t in out),
+            B, S, H, dh, _groups(r_z), build.stream())
+    else:
+        if r_z.dim() == 4:
+            raise ValueError(f"{what}: grouped recurrent matrices take the "
+                             f"training launch (with_states=True)")
+        rc = lib.slstm_scan_f32(*(t.data_ptr() for t in args),
+                                out[0].data_ptr(), B, S, H, dh,
+                                build.stream())
     build.check_launch(rc, what)
     build.launch_counts[what] += 1
-    return h
+    return tuple(out)
+
+
+def slstm_scan_bwd(r_z, r_i, r_f, r_o, h, c, n, m, pz, pi, pf, po, dh):
+    """K10-bwd's launch: ``(dzx, dix, dfx, dox, dr_z, dr_i, dr_f, dr_o)``
+    of the scan under the cotangent ``dh`` (B, S, H, dh), from the
+    forward's ``h`` and states; each ``dr`` has its ``r``'s shape (per
+    group for grouped r's).  On the card the walk (a block a (b, head),
+    t = S-1 .. 0, the four recurrent products of each step in a fixed
+    order: the same inputs give the same bits), one count, then the
+    product ``ref.slstm_dr`` over the saved h; on the CPU the plain
+    version."""
+    what = "slstm_scan_bwd"
+    seq = (("h", h), ("c", c), ("n", n), ("m", m), ("pz", pz), ("pi", pi),
+           ("pf", pf), ("po", po), ("dh", dh))
+    rs = (("r_z", r_z), ("r_i", r_i), ("r_f", r_f), ("r_o", r_o))
+    _check_slstm(what, seq[:4], rs)
+    B, S, H, dh_ = h.shape
+    _check_same(what, seq[4:], (B, S, H, dh_), h.device)
+    if h.device.type == "cpu":
+        return ref.slstm_scan_bwd_ref(r_z, r_i, r_f, r_o, h, c, n, m, pz, pi,
+                                      pf, po, dh)
+    _check_card(what, seq)
+    d = [torch.empty((B, S, H, dh_), dtype=F32, device=h.device)
+         for _ in range(4)]
+    if h.numel() == 0:
+        return tuple(t.zero_() for t in d) + tuple(
+            torch.zeros_like(r) for _, r in rs)
+    # the four matrices of each group, transposed: the walk's products
+    # r_g d_g read rows of r_g^T as the forward's h r_g reads rows of r_g
+    r_t = torch.stack([r for _, r in rs], dim=-4).transpose(-1, -2)
+    r_t = r_t.contiguous()
+    args = [t.contiguous() for _, t in seq]
+    lib = build.library(what, _SLSTM_BWD_SIGNATURES)
+    rc = lib.slstm_scan_bwd_f32(
+        r_t.data_ptr(), *(t.data_ptr() for t in args[1:]),
+        *(t.data_ptr() for t in d), B, S, H, dh_, _groups(r_z),
+        build.stream())
+    build.check_launch(rc, what)
+    build.launch_counts[what] += 1
+    h_prev = torch.cat([h.new_zeros((B, 1, H, dh_)), args[0][:, :-1]], 1)
+    return tuple(d) + tuple(ref.slstm_dr(r, h_prev, d_g)
+                            for (_, r), d_g in zip(rs, d))
+
+
+def _fold_r(info, dims, rs, per_client: bool):
+    """The r's for a launch over the folded batch: mapped, their clients'
+    groups in client order (G = K or K x G); unmapped, as they are (one
+    set for every row) unless ``per_client`` or grouped, then repeated a
+    client.  The four are mapped alike or expanded to be."""
+    if all(d is None for d in dims) and not per_client and rs[0].dim() == 3:
+        return list(rs)
+    out = []
+    for r, d in zip(rs, dims):
+        r = (r.movedim(d, 0) if d is not None
+             else r.expand((info.batch_size,) + r.shape))
+        out.append(r.reshape((-1,) + r.shape[-3:]).contiguous())
+    return out
+
+
+class _SlstmScan(torch.autograd.Function):
+    """K10 with its backward; see the module docstring."""
+
+    @staticmethod
+    def forward(zx, ix, fx, ox, r_z, r_i, r_f, r_o, with_states):
+        return slstm_scan_fwd(zx, ix, fx, ox, r_z, r_i, r_f, r_o,
+                              with_states=with_states)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        states = output[1:]
+        if states[0] is not None:
+            ctx.mark_non_differentiable(*states)
+        ctx.save_for_backward(*inputs[4:8], *output)
+
+    @staticmethod
+    def backward(ctx, dh, *_):
+        saved = ctx.saved_tensors
+        if saved[5] is None:
+            raise RuntimeError("slstm_scan: the forward ran without grad "
+                               "mode, so it kept no states")
+        return _SlstmScanBwd.apply(*saved, dh.contiguous()) + (None,)
+
+    @staticmethod
+    def vmap(info, in_dims, zx, ix, fx, ox, r_z, r_i, r_f, r_o,
+             with_states):
+        out = _SlstmScan.apply(
+            *fold_contiguous(info, in_dims[:4], zx, ix, fx, ox),
+            *_fold_r(info, in_dims[4:8], (r_z, r_i, r_f, r_o), False),
+            with_states)
+        return (tuple(unfold(info, t) for t in out),
+                (0,) + tuple(None if t is None else 0 for t in out[1:]))
+
+
+class _SlstmScanBwd(torch.autograd.Function):
+    """K10-bwd as a function of its own, so that it too folds a vmap into
+    B; it has no derivative.  Under vmap the r's are always taken a
+    client (their gradients are each client's own)."""
+
+    @staticmethod
+    def forward(r_z, r_i, r_f, r_o, h, c, n, m, pz, pi, pf, po, dh):
+        return slstm_scan_bwd(r_z, r_i, r_f, r_o, h, c, n, m, pz, pi, pf,
+                              po, dh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("slstm_scan: a second derivative of K10 is not "
+                           "implemented")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        rs, seq = args[:4], args[4:]
+        shape_r = rs[0].shape if in_dims[0] is None else \
+            rs[0].movedim(in_dims[0], 0).shape[1:]
+        grads = _SlstmScanBwd.apply(
+            *_fold_r(info, in_dims[:4], rs, True),
+            *fold_contiguous(info, in_dims[4:], *seq))
+        return (tuple(unfold(info, g) for g in grads[:4])
+                + tuple(g.reshape((info.batch_size,) + tuple(shape_r))
+                        for g in grads[4:]), (0,) * 8)
+
+
+def slstm_scan(zx, ix, fx, ox, r_z, r_i, r_f, r_o):
+    """K10: h (B, S, H, dh) f32 of the sLSTM scan (module docstring).
+    Differentiable once (K10-bwd) and vmappable (one launch for the
+    mapped batch).  The states of the backward are kept only with grad
+    mode on and an input that requires grad; else the launch is
+    serving's.  On the card it launches the kernels or raises; on the
+    CPU it runs the plain versions."""
+    with_states = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (zx, ix, fx, ox, r_z, r_i, r_f, r_o))
+    return _SlstmScan.apply(zx, ix, fx, ox, r_z, r_i, r_f, r_o,
+                            with_states)[0]

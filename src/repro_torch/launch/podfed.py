@@ -17,8 +17,8 @@ rank holding the same count, the mean of all pods).  The reference's
 XLA shardings inside a pod (``_client_pspecs``: FSDP over ``data``,
 tensor parallel over ``model``) are not ported: a pod is one rank here.
 The archs are those of the train steps (``steps.check_trainable``): the
-dense archs, the MoE archs and the hybrid jamba-v0.1-52b, whose pod loss
-adds the MoE blocks' aux.
+dense archs, the MoE archs, the hybrid jamba-v0.1-52b, whose pod loss
+adds the MoE blocks' aux, and xlstm-350m.
 """
 from __future__ import annotations
 

@@ -21,13 +21,13 @@ The train steps take gradients with ``torch.autograd.grad`` (so every
 remat policy works; on the card attention goes through K7 and its
 backward), return new state dicts and never write into their inputs.
 Serving and training take the dense archs, the MoE ones
-(qwen3-moe-235b-a22b, arctic-480b) and the hybrid jamba-v0.1-52b (its
+(qwen3-moe-235b-a22b, arctic-480b), the hybrid jamba-v0.1-52b (its
 mamba blocks' scan through K8, and its gradient through K8-bwd, on the
-card); the loss adds the MoE blocks' load-balance aux.  Serving also
-takes xlstm-350m (its mLSTM and sLSTM scans through K9 and K10 on the
-card).  :func:`check_trainable` refuses what the model refuses
-(encoder-decoder models and the audio and patch frontends) and the xLSTM
-blocks, whose scans have no backward kernel yet, as not yet ported.
+card) and xlstm-350m (its mLSTM and sLSTM scans through K9 and K10, and
+their gradients through K9-bwd and K10-bwd, on the card); the loss adds
+the MoE blocks' load-balance aux.  :func:`check_trainable` refuses what
+the model refuses (encoder-decoder models and the audio and patch
+frontends) as not yet ported.
 """
 from __future__ import annotations
 
@@ -36,8 +36,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.configs import base as cb
-from repro_torch.configs.base import InputShape, ModelConfig, _not_ported
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import pytree as pt
 from repro_torch.models import transformer
 
@@ -54,15 +53,11 @@ class ShapeDtype:
 # ---------------------------------------------------------------------------
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless the train side takes ``cfg``: the ``attn``,
-    ``attn_moe``, ``mamba`` and ``mamba_moe`` patterns.  The model also
-    takes the xLSTM blocks, but serves them only: K9 and K10 have no
-    backward yet."""
+    """Raise unless the train side takes ``cfg``: every block kind the
+    model takes (``attn``, ``attn_moe``, ``mamba``, ``mamba_moe``,
+    ``mlstm``, ``slstm``); encoder-decoder models and the audio and
+    patch frontends are refused as not yet ported."""
     transformer._check_ported(cfg)
-    for kind in cfg.pattern:
-        if kind in (cb.MLSTM, cb.SLSTM):
-            raise _not_ported(f"{cfg.name}: training block kind {kind!r} "
-                              f"(xLSTM training)")
 
 
 def train_state_specs(cfg: ModelConfig, algo: str = "feddane") -> dict:

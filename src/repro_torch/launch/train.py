@@ -1,8 +1,8 @@
 """End-to-end federated training driver for the LM stack.
 
-Federated fine-tuning of a dense, an MoE or the hybrid architecture
-(the reduced preset unless ``--full-size``) with FedDANE / FedAvg /
-FedProx / variants from the core library:
+Federated fine-tuning of a dense, an MoE, the hybrid or the xLSTM
+architecture (the reduced preset unless ``--full-size``) with FedDANE /
+FedAvg / FedProx / variants from the core library:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --rounds 20 --devices-per-round 4 --local-epochs 2 --algo feddane
@@ -10,6 +10,11 @@ FedProx / variants from the core library:
       --arch qwen3-moe-235b-a22b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch jamba-v0.1-52b --layers 1 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch xlstm-350m --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
+      --full-size --num-devices 8 --devices-per-round 2 --local-epochs 1 \\
+      --samples-per-device 16 --rounds 2
   PYTHONPATH=src python -m repro_torch.launch.train --full-size \\
       --num-devices 8 --devices-per-round 2 --local-epochs 1 \\
       --samples-per-device 16 --rounds 2
@@ -35,10 +40,13 @@ top-2 (``ModelConfig.reduced``); their loss adds the blocks' load-balance
 aux.  So does jamba-v0.1-52b's, whose reduced preset keeps whole repeats
 of its 8-block pattern (``--layers 1``: 8 layers, 7 of them mamba, at
 d=128 and state N=8); on the card its mamba blocks' scan runs K8 and its
-gradient K8-bwd, once a layer for all the clients of a local step.  The
-xLSTM blocks (served, not trained: their scan kernels have no backward
-yet) and the audio and patch frontends are refused as not yet ported
-(``steps.check_trainable``).
+gradient K8-bwd, once a layer for all the clients of a local step.
+xlstm-350m's reduced preset keeps whole repeats of its (sLSTM, mLSTM)
+pattern (at least 4 layers; at d=128, 4 heads: dk=64, dh=32), and
+``--full-size`` takes all 24 layers (405 M params); on the card its
+scans run K9 and K10 and their gradients K9-bwd and K10-bwd, once a
+layer for all the clients of a local step.  The audio and patch
+frontends are refused as not yet ported (``steps.check_trainable``).
 """
 from __future__ import annotations
 

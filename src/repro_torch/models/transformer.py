@@ -23,10 +23,10 @@ products (``aten.mm``, the reference's dots without batch dims) and
 recomputes the rest.  All three give the same values, and take every
 block kind: under ``"full"`` a mamba layer's scan runs twice on the card
 (K8 in the forward and in its recomputation) and its backward once
-(K8-bwd, from the recomputation's chunk states).  An xLSTM layer's
-gradient runs on the CPU alone: K9 and K10 have no backward yet and
-refuse an input that requires grad (training refuses xlstm-350m,
-``launch/steps.check_trainable``).  Checkpoints need
+(K8-bwd, from the recomputation's chunk states), and an xLSTM layer's
+scan runs twice (K9 or K10) and its backward once (K9-bwd from the
+recomputation's chunk states, K10-bwd from its every-step states).
+Checkpoints need
 plain ``torch.autograd``: ``torch.func.grad`` refuses them, so the
 federated trainer's loss runs with ``remat="none"``, as the reference's
 ``launch/train.py`` does.  ``prefill`` and ``decode_step`` run under

@@ -6,13 +6,15 @@ Counterpart of ``repro/models/xlstm.py``, with its parameter trees
 (``mlstm_specs``, ``slstm_specs``), projections, steps and states:
 
 - :func:`mlstm_scan`, :func:`slstm_scan`: the recurrences of the prefill
-  -- on the card the hand-written kernels K9 and K10
-  (``kernels/xlstm_scan.py``), on the CPU their plain versions
-  ``kernels/ref.mlstm_scan_ref`` / ``slstm_scan_ref``, ``ssm.chunked_scan``
-  of the reference's step from its initial state (``m = -1e30``).  The
-  mixers look them up at call time, so a comparison run can swap the
-  plain versions in on the card.  Both kernels serve only: their
-  backward is not written yet.
+  and of training, the autograd Functions of ``kernels/xlstm_scan.py`` on
+  every device -- on the card the hand-written kernels K9 and K10, and
+  under grad their backward K9-bwd and K10-bwd; on the CPU their plain
+  versions (``kernels/ref.mlstm_scan_ref`` / ``slstm_scan_ref``,
+  ``ssm.chunked_scan`` of the reference's step from its initial state,
+  ``m = -1e30``, and the explicit backward walks ``mlstm_scan_bwd_ref`` /
+  ``slstm_scan_bwd_ref``).  The mixers look them up at call time, so a
+  comparison run can swap the plain scans in on the card (autograd then
+  differentiates the plain step loop).
 - :func:`mlstm_decode_step`, :func:`slstm_decode_step`: one step of the
   same recurrence on the decode cache, plain PyTorch on every device; they
   write the new state into the cache in place (the reference returns new
@@ -97,12 +99,11 @@ def mlstm_init_state(cfg: ModelConfig, batch: int, device=None):
 
 
 def mlstm_scan(q, k, v, log_i, log_f, chunk: int = SCAN_CHUNK):
-    """The prefill's mLSTM scan: K9 on the card; on the CPU
-    ``ref.mlstm_scan_ref``, ``chunked_scan`` of ``_mlstm_step`` from
-    ``mlstm_init_state``.  (B, S, H, dk) f32."""
-    if q.device.type == "cuda":
-        return xlstm_scan.mlstm_scan(q, k, v, log_i, log_f)
-    return ref.mlstm_scan_ref(q, k, v, log_i, log_f, chunk)
+    """The mLSTM scan of the prefill and of training: K9 (with K9-bwd
+    under grad) on the card; on the CPU ``ref.mlstm_scan_ref``,
+    ``chunked_scan`` of ``_mlstm_step`` from ``mlstm_init_state``, and its
+    explicit backward.  (B, S, H, dk) f32."""
+    return xlstm_scan.mlstm_scan(q, k, v, log_i, log_f, chunk)
 
 
 def mlstm_mixer(params, x, cfg: ModelConfig, chunk: int = SCAN_CHUNK):
@@ -180,12 +181,12 @@ def _slstm_inputs(params, x, cfg: ModelConfig):
 
 
 def slstm_scan(zx, ix, fx, ox, r_z, r_i, r_f, r_o, chunk: int = SCAN_CHUNK):
-    """The prefill's sLSTM scan: K10 on the card; on the CPU
-    ``ref.slstm_scan_ref``, ``chunked_scan`` of ``_slstm_step`` from
-    ``slstm_init_state``.  (B, S, H, dh) f32."""
-    if zx.device.type == "cuda":
-        return xlstm_scan.slstm_scan(zx, ix, fx, ox, r_z, r_i, r_f, r_o)
-    return ref.slstm_scan_ref(zx, ix, fx, ox, r_z, r_i, r_f, r_o, chunk)
+    """The sLSTM scan of the prefill and of training: K10 (with K10-bwd
+    under grad) on the card; on the CPU ``ref.slstm_scan_ref``,
+    ``chunked_scan`` of ``_slstm_step`` from ``slstm_init_state``, and its
+    explicit backward.  (B, S, H, dh) f32.  ``chunk``, the reference's,
+    changes no value here: K10 keeps every step's state."""
+    return xlstm_scan.slstm_scan(zx, ix, fx, ox, r_z, r_i, r_f, r_o)
 
 
 def slstm_mixer(params, x, cfg: ModelConfig, chunk: int = SCAN_CHUNK):

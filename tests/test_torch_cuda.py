@@ -1403,8 +1403,8 @@ def test_slstm_scan_kernel_matches_plain(card, B, S, H, D):
 
 @pytest.mark.cuda
 def test_xlstm_scan_kernels_refuse(card):
-    """Another dtype, a head dim they are not built for and an input that
-    requires grad raise; nothing is launched."""
+    """Another dtype and a head dim they are not built for raise; nothing
+    is launched."""
     from repro_torch.kernels.xlstm_scan import mlstm_scan, slstm_scan
     m = _mlstm_inputs(card, 1, 8, 2, 64)
     s = _slstm_inputs(card, 1, 8, 2, 64)
@@ -1417,12 +1417,110 @@ def test_xlstm_scan_kernels_refuse(card):
         mlstm_scan(*_mlstm_inputs(card, 1, 8, 2, 96))
     with pytest.raises(ValueError, match="head dim 96"):
         slstm_scan(*_slstm_inputs(card, 1, 8, 2, 96))
-    with pytest.raises(ValueError, match="xLSTM training"):
-        mlstm_scan(m[0].clone().requires_grad_(), *m[1:])
-    with pytest.raises(ValueError, match="xLSTM training"):
-        slstm_scan(*s[:4], s[4].clone().requires_grad_(), *s[5:])
     assert build.launch_counts["mlstm_scan"] == 0
     assert build.launch_counts["slstm_scan"] == 0
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D", [
+    (2, 100, 4, 128),      # the reduced preset, a chunk and a part
+    (1, 130, 2, 512),      # full width, three chunks
+    (2, 64, 2, 64),        # one whole chunk
+])
+def test_mlstm_scan_bwd_kernel_matches_plain(card, B, S, H, D):
+    """K9's training launch (h and the chunk states) and K9-bwd against
+    their plain versions on the card, each output within 1e-5 x its max
+    |.| (the states at chunk 0 are exact zeros); K9-bwd's two calls
+    bitwise equal; one count a call."""
+    from repro_torch.kernels.xlstm_scan import (mlstm_scan_bwd,
+                                                mlstm_scan_fwd)
+    args = _mlstm_inputs(card, B, S, H, D)
+    dh = _normal(80, (B, S, H, D), torch.float32, card)
+    build.reset_launch_counts()
+    out = mlstm_scan_fwd(*args, with_states=True)
+    got = mlstm_scan_bwd(*args, *out, dh)
+    again = mlstm_scan_bwd(*args, *out, dh)
+    torch.cuda.synchronize()
+    assert build.launch_counts["mlstm_scan"] == 1
+    assert build.launch_counts["mlstm_scan_bwd"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want_out = ref.mlstm_scan_fwd_ref(*args)
+    for a, b in zip(out[:3], want_out[:3]):
+        assert _rel_err(a, b) <= 1e-5
+    assert torch.equal(out[3][:, 0], want_out[3][:, 0])
+    want = ref.mlstm_scan_bwd_ref(*args, *out, dh)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel_err(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D,G", [
+    (2, 100, 4, 64, 0),    # the reduced preset
+    (1, 64, 4, 256, 0),    # full width
+    (4, 30, 2, 32, 2),     # a vmap fold of 2 clients, r in 2 groups
+])
+def test_slstm_scan_bwd_kernel_matches_plain(card, B, S, H, D, G):
+    """K10's training launch (h and every step's states, r in G groups)
+    and K10-bwd against their plain versions on the card, each output
+    within 1e-5 x its max |.|; K10-bwd's two calls bitwise equal; one
+    count a call."""
+    from repro_torch.kernels.xlstm_scan import (slstm_scan_bwd,
+                                                slstm_scan_fwd)
+    args = _slstm_inputs(card, B, S, H, D)
+    if G:
+        args = args[:4] + [torch.stack([r, 0.5 * r]) for r in args[4:]]
+    dh = _normal(81, (B, S, H, D), torch.float32, card)
+    build.reset_launch_counts()
+    out = slstm_scan_fwd(*args, with_states=True)
+    got = slstm_scan_bwd(*args[4:], *out, dh)
+    again = slstm_scan_bwd(*args[4:], *out, dh)
+    torch.cuda.synchronize()
+    assert build.launch_counts["slstm_scan"] == 1
+    assert build.launch_counts["slstm_scan_bwd"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, b in zip(out, ref.slstm_scan_fwd_ref(*args)):
+        assert _rel_err(a, b) <= 1e-5
+    want = ref.slstm_scan_bwd_ref(*args[4:], *out, dh)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel_err(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_xlstm_train_step_runs_the_backward_kernels_on_the_card(card):
+    """The reduced xlstm-350m preset's fedavg step on the card launches
+    K9 and K10 once and K9-bwd and K10-bwd once a layer of each kind
+    (remat none) and its new params agree with the CPU path's within
+    1e-4 x eta max |g| of each leaf (plus 1e-7, an ulp of the params)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch import steps
+    from repro_torch.models import param, transformer
+    cfg = get_arch("xlstm-350m").reduced()
+    p = param.init_params(transformer.model_specs(cfg),
+                          torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(4)
+    b = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 100))
+                             .astype(np.int32)) for k in ("tokens",
+                                                          "labels")}
+    step = steps.make_fedavg_step(cfg, eta=0.05, remat="none")
+    build.reset_launch_counts()
+    got, _ = step({"params": pt.tmap(lambda t: t.to(card), p)},
+                  {k: v.to(card) for k, v in b.items()})
+    torch.cuda.synchronize()
+    layers = cfg.num_layers // 2
+    for name in ("mlstm_scan", "slstm_scan", "mlstm_scan_bwd",
+                 "slstm_scan_bwd"):
+        assert build.launch_counts[name] == layers, name
+    want, _ = step({"params": p}, b)
+    for a, c, w in zip(pt.leaves(got["params"]), pt.leaves(p),
+                       pt.leaves(want["params"])):
+        moved = float((w - c).abs().max())       # eta x max |g|
+        assert float((a.cpu() - w).abs().max()) <= 1e-4 * moved + 1e-7
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ The same numpy-seeded inputs then go through both packages: the plain
 scans (K9's and K10's functions) and the mixers at S=16, 100 and 128
 with chunk=64 (128 takes ``chunked_scan``'s chunked branch, 100 its
 unchunked one), the decode steps, the model's prefill and decode, and
-the serve loop.  The reference runs under ``jax.jit``.
+the serve loop; the wrappers take inputs that require grad (their
+training is held in ``tests/test_torch_xlstm_train.py``).  The reference
+runs under ``jax.jit``.
 
 The reference's prefill starts the stabiliser ``m`` at -1e30, its decode
 cache at 0 (every cache leaf is ``init="zeros"``): the two paths agree
@@ -374,35 +376,39 @@ def test_serve_main_serves_xlstm_on_the_cpu(capsys):
 
 
 # ---------------------------------------------------------------------------
-# Serving only
+# Training takes the xLSTM blocks
 # ---------------------------------------------------------------------------
 
-def test_scan_wrappers_refuse_an_input_that_requires_grad():
-    """K9 and K10 have no backward: under grad mode an input that requires
-    grad raises, on the CPU as on the card, instead of running a loop;
-    under no_grad the same input is served."""
+def test_scan_wrappers_take_an_input_that_requires_grad():
+    """K9 and K10 are differentiable: under grad mode an input that
+    requires grad gives an output with a gradient, whose values are
+    those of the no-grad launch; a malformed gate still raises."""
     B, S, H, D = 1, 4, 2, 8
     q, k, v = (torch.randn(B, S, H, D) for _ in range(3))
     gates = [torch.randn(B, S, H) for _ in range(2)]
     xs = [torch.randn(B, S, H, D) for _ in range(4)]
     rs = [0.02 * torch.randn(H, D, D) for _ in range(4)]
-    with pytest.raises(ValueError, match="xLSTM training.*not yet ported"):
-        xlstm_scan.mlstm_scan(q.requires_grad_(), k, v, *gates)
-    with pytest.raises(ValueError, match="xLSTM training.*not yet ported"):
-        xlstm_scan.slstm_scan(*xs, rs[0].requires_grad_(), *rs[1:])
     with torch.no_grad():
-        assert xlstm_scan.mlstm_scan(q, k, v, *gates).shape == (B, S, H, D)
-        assert xlstm_scan.slstm_scan(*xs, *rs).shape == (B, S, H, D)
+        h_m = xlstm_scan.mlstm_scan(q, k, v, *gates)
+        h_s = xlstm_scan.slstm_scan(*xs, *rs)
+    got_m = xlstm_scan.mlstm_scan(q.requires_grad_(), k, v, *gates)
+    got_s = xlstm_scan.slstm_scan(*xs, rs[0].requires_grad_(), *rs[1:])
+    assert got_m.requires_grad and got_s.requires_grad
+    assert torch.equal(got_m.detach(), h_m)
+    assert torch.equal(got_s.detach(), h_s)
+    assert torch.autograd.grad(got_m.sum(), q)[0].shape == q.shape
+    assert torch.autograd.grad(got_s.sum(), rs[0])[0].shape == rs[0].shape
     with pytest.raises(ValueError, match="log_f must be"):
         xlstm_scan.mlstm_scan(q.detach(), k, v, gates[0], gates[1][:, :2])
 
 
-def test_check_trainable_refuses_xlstm():
+def test_check_trainable_takes_xlstm_and_refuses_the_rest():
     for cfg in (configs.get_arch(ARCH), configs.get_arch(ARCH).reduced()):
+        steps.check_trainable(cfg)
+        steps.make_fedavg_step(cfg)
+    for arch in ("whisper-tiny", "internvl2-26b"):
         with pytest.raises(ValueError, match="not yet ported"):
-            steps.check_trainable(cfg)
-        with pytest.raises(ValueError, match="not yet ported"):
-            steps.make_fedavg_step(cfg)
+            steps.check_trainable(configs.get_arch(arch))
     shape = configs.get_shape("decode_32k")
     steps.prefill_batch_specs(configs.get_arch(ARCH), shape)
     steps.abstract_decode_cache(configs.get_arch(ARCH), shape)
