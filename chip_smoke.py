@@ -50,7 +50,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    keys and 8 of 16*1024 against 1024, hd=64, causal_period=S; (o) and
    (p) jamba-v0.1-52b's, 4 query heads a KV head, hd=128: B*Kv=8
    slices of 4*4096 rows against 4096 keys and 16 of 4*1024 against
-   1024; and,
+   1024; (q), (r) and (r') whisper-tiny's non-causal attentions (6
+   heads of 64, B=8: BH=48): the encoder over 1,500 frames, 448
+   training tokens against them and a prefill's one BOS token against
+   them; and,
    writing the row log-sum-exp as training does, (a)'s
    shape and the trainer's local-step fold (K*B*H = 128 slices of S=64):
    f32 within atol 4e-5 / rtol 2e-5 (the reference's own sweep
@@ -58,13 +61,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    both sides round an f32 result once), beside SDPA's time.  K7's f32
    bound is its flops at the TF32 tensor-core rate (it multiplies there,
    in three passes), its bf16 bound at the bf16 rate.  K7's backward (a
-   kernel of the port, no TPU counterpart), causal, from the forward
-   kernel's lse, against the explicit formula on the card (the worst of
-   dq, dk, dv, K7's tolerances) at (h) the train step, BH=16, S=T=4096,
-   hd=64, f32; (i) the trainer's local-step fold, BH=128 (K*B*H =
+   kernel of the port, no TPU counterpart), from the forward kernel's
+   lse, against the explicit formula on the card (the worst of dq, dk,
+   dv, K7's tolerances) at (h) the train step, BH=16, S=T=4096, hd=64,
+   causal, f32; (i) the trainer's local-step fold, BH=128 (K*B*H =
    2*4*16), S=T=64; (i') its phase-A fold, BH=512 (K*nb*B*H); (j)
    yi-9b's GQA fold ((c)'s shape, period 2048, hd=128); (k) ragged,
-   S=T=1000; (l) (h) in bf16: beside its bound (5 products of 2*hd
+   S=T=1000; (l) (h) in bf16; (q) and (r) whisper-tiny's encoder and
+   cross-attention in training, non-causal: beside its bound (5
+   products of 2*hd
    flops a visible pair, TF32 or bf16 rate), the plain version and
    ``torch.autograd.grad`` through SDPA (its backward).  K1 and K4 also
    at the trainer's qwen1.5-0.5b pack (K=2 devices of 463,987,712
@@ -283,11 +288,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 10d. xLSTM: xlstm-350m at full width and full depth (24 layers, 12 sLSTM
    and 12 mLSTM blocks, d=1,024, H=4, dk=512, dh=256, V=50,304;
    405,185,632 params, 1.62 GB), weights drawn on the card from seed 0,
-   f32: (a) one mLSTM and one sLSTM layer's mixer at B=1, S=4096 through
-   K9 and K10 (once each) against the plain scans on the card
-   (``xlstm.mlstm_scan`` / ``slstm_scan`` swapped for
-   ``ref.mlstm_scan_ref`` / ``slstm_scan_ref``;
-   within XLSTM_REL x max |out|); (b) the prefill at XLSTM_CMP = B=2,
+   f32: (a) one mLSTM and one sLSTM layer's mixer through K9 and K10
+   (once each) against the plain scans on the card at B=1,
+   S=XLSTM_MIXER_CMP_S=1024 (``xlstm.mlstm_scan`` / ``slstm_scan``
+   swapped for ``ref.mlstm_scan_ref`` / ``slstm_scan_ref``; within
+   XLSTM_REL x max |out|; phase 3 holds both at S=4096), then timed at
+   S=4096; (b) the prefill at XLSTM_CMP = B=2,
    S=256 against the plain scans on the card (logits within LOGIT_REL,
    argmax equal; K9 and K10 exactly 12 times each a prefill); (c) ms a
    prefill at B=1 S=4096 and B=2 S=1024, and the idle share of one
@@ -296,6 +302,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    the prompt within LOGIT_REL of the CPU path's on the same weights and
    greedy tokens equal (decode starts the stabiliser m at 0, the prefill
    at -1e30, so decode is not held to the prefill); ms a decode step;
+10e. the encoder-decoder: whisper-tiny at full width and full depth (4
+   encoder + 4 decoder layers, d=384, 6 heads of 64, d_ff 1,536,
+   V=51,865; 56,371,200 params), weights drawn on the card from seed 0,
+   f32: (a) ``make_prefill_step`` on the reference's serving batch
+   (frame embeddings for the encoder, one BOS token for the decoder) at
+   B=8 x 1,500 frames (Whisper's 30-s window) and B=1 x 4,096, against
+   the plain attention on the card (logits within LOGIT_REL, argmax
+   equal; K7 exactly 12 times a prefill: the encoder's self-attention,
+   the decoder's and its cross-attention over the frames, 4 layers
+   each), ms a prefill and the idle share of one; (b) 3 ``decode_step``
+   calls on random ``ck`` / ``cv`` of 1,500 rows against the CPU path's
+   (no kernel launched), ms a step; (c) ``serve.generate`` at B=2
+   (4-token prompt, 8 new tokens, cache 64) with 1,500 frames, the
+   cross caches filled from the encoder (K7 once an encoder layer): the
+   decode path's logits at every prompt position within LOGIT_REL of
+   the teacher-forced forward's (K7) and each greedy token that
+   forward's argmax; without frames (the reference's loop: zero cross
+   caches, which no reference code writes) greedy tokens equal to the
+   CPU path's;
 11. LM training at full width, qwen1.5-0.5b, random weights from seed
    0, f32: (a) ``loss_fn`` and its gradient at B=1, S=64 against the
    CPU path (the loss within LOGIT_REL relative, each leaf within
@@ -346,9 +371,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    a local step); pods as clients, 2 pods x 2 local steps, finite;
 11c. training the hybrid arch: jamba-v0.1-52b at full width, weights
    drawn on the card from seed 0, f32: (b) one ``mamba_mixer``'s
-   gradient (x and every weight) at B=1, S=4096 through K8 and K8-bwd
-   (once each) against the plain scan's autograd on the card (each leaf
-   within GRAD_REL of its max |g|); (c) ``loss_fn``'s gradient at its
+   gradient (x and every weight) through K8 and K8-bwd (once each)
+   against the plain scan's autograd on the card at B=1,
+   S=JAMBA_MIXER_CMP_S=1024 (each leaf within GRAD_REL of its max |g|;
+   phase 3 holds K8-bwd at S=4096), then timed at S=4096; (c) ``loss_fn``'s gradient at its
    first JAMBA_TRAIN_LAYERS=2 layers (mamba, mamba_moe: 3.74 B params)
    at B=1, S=4096, ``remat="full"`` (K8 twice and K8-bwd once a layer),
    two runs bitwise equal, against the plain scan route on the card
@@ -369,9 +395,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    first, pods as clients, 2 pods x 2 local steps, finite;
 11d. training xLSTM: xlstm-350m at full width and depth (24 layers),
    weights drawn on the card from seed 0, f32: (a) one mLSTM and one
-   sLSTM mixer's gradient (x and every weight) at B=1, S=4096 through
-   K9/K10 and K9-bwd/K10-bwd (once each) against autograd of the plain
-   scans on the card (each leaf within GRAD_REL of its max |g|); (b)
+   sLSTM mixer's gradient (x and every weight) through K9/K10 and
+   K9-bwd/K10-bwd (once each) against autograd of the plain scans on the
+   card at B=1, S=XLSTM_MIXER_CMP_S=1024 (each leaf within GRAD_REL of
+   its max |g|; phase 3 holds both backward kernels at S=4096), then
+   timed at S=4096; (b)
    ``loss_fn``'s gradient, ``remat="full"`` (K9/K10 twice and
    K9-bwd/K10-bwd once a layer), at XLSTM_GRAD_CMP (B=1, S=256, four
    chunks) against the plain scans' route (remat none; loss within
@@ -388,13 +416,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-7 printed at that lr and at 0.05), 1 round on ``per_leaf``
    bitwise equal to flat's first, pods as clients, 2 pods x 2 local
    steps, finite;
+11e. training the encoder-decoder: whisper-tiny at full width and
+   depth, weights drawn on the card from seed 0, f32: (a) ``loss_fn``'s
+   gradient, ``remat="full"``, at B=8, 1,500 frames, 448 tokens, with
+   random frames and with the trainer's zero frames, against the plain
+   attention's route (remat none) on the card (the loss within
+   LOGIT_REL, each leaf within GRAD_REL of its own max |g|; K7 24 and
+   K7-bwd 12 times: 12 attentions, each forward twice and backward
+   once), two timed runs and the card's peak; (b) ``make_fedavg_step``
+   (its loss and params bitwise (a)'s loss and params - eta g), 3
+   ``make_feddane_round_step`` steps (the loss falls) and a pipelined
+   step at that shape, with exact K7 and K7-bwd counts; one gradient at
+   B=1, frames = tokens = 4,096; (c) ``train.main --arch whisper-tiny``
+   (2 + 2 layers, d=128, zero frames, lr 0.05): feddane N=8 K=2 E=1 B=4
+   S=64, 2 rounds on ``auto`` (= flat; K7 and K7-bwd 6 times a local
+   step for both clients) against the CPU path (in the pool: the same
+   selections, params within TRAJECTORY_TOL x max(1, each leaf's max
+   |p|); the CPU path's own spreads from weights nudged by 1e-7 x w and
+   by 1e-7 added, printed), 1 round on ``per_leaf`` bitwise equal to
+   flat's first, pods as clients, 2 pods x 2 local steps, finite; (d)
+   one round of ``train.main --full-size`` (K=2, N=8, E=1, B=4, S=64):
+   K1 once and K7, K7-bwd 12 times a local step, ms and the card's
+   peak;
 12. the ``kernels`` JSON line: every kernel with its launches on the
    main path -- phases 4-8d in this process (the counters are set to 0
    just before phase 4 and read just after phase 8d; a captured kernel
    counts once a replay, and once for the warm-up run before its
-   capture), phase 9's ranks, phase 10, phases 10c and 10d, phases
-   11-11c and phase 11d (each set to 0 just before it and read just
-   after) -- error,
+   capture), phase 9's ranks, phase 10, phases 10c, 10d and 10e,
+   phases 11-11c, phase 11d and phase 11e (each set to 0 just before it
+   and read just after) -- error,
    times and bound, and each checked shape under ``cases`` (with its
    ``device_ms`` where phase 3 took one, and the update paths' kernels
    and launches a step).
@@ -546,6 +596,10 @@ JAMBA_STEP_CMP_S = 1024
 #: expert choice flipped), so no two f32 runs could agree within
 #: TRAJECTORY_TOL over 2 rounds there; 0.005 takes smaller steps.
 JAMBA_TRAIN_LR = "0.005"
+#: Phase 11c (b): the mixer's gradient is held to the plain scan's
+#: autograd at B=1 and this S (phase 3's K8-bwd row holds the kernel at
+#: S=4096), and timed at S=4096.
+JAMBA_MIXER_CMP_S = 1024
 
 PAPER = dict(num_devices=30, devices_per_round=10, local_epochs=20,
              local_batch_size=10, learning_rate=0.01, seed=0)
@@ -1071,10 +1125,10 @@ def kernel_checks(torch, syn, fem):
                                  enable_gqa=gqa is not None))
 
     def k7_bwd_case(label, bh, s, t_len, hd, dtype, period=0, gqa=None,
-                    calls=5):
+                    calls=5, causal=True):
         """The K7 backward on numpy-seeded ``(bh, s|t_len, hd)`` inputs
-        and cotangent, causal, from the forward kernel's lse: held to
-        the explicit formula on the card (the worst of dq, dk and dv);
+        and cotangent, causal or not, from the forward kernel's lse: held
+        to the explicit formula on the card (the worst of dq, dk and dv);
         its bound is 5 products of 2*hd flops a visible pair; the
         library call is ``torch.autograd.grad`` through SDPA (its
         backward alone, the forward recorded once)."""
@@ -1084,10 +1138,11 @@ def kernel_checks(torch, syn, fem):
         v = normal(bh, t_len, hd).to(tdt)
         do = normal(bh, s, hd).to(tdt)
         o, lse = flash_attention.flash_attention_3d_fwd(
-            q, k, v, causal=True, causal_period=period, with_lse=True)
+            q, k, v, causal=causal, causal_period=period, with_lse=True)
         pos = torch.arange(s)
         pos = pos % period if period else pos
-        pairs = bh * int(torch.clamp(pos + 1, max=t_len).sum())
+        pairs = bh * (int(torch.clamp(pos + 1, max=t_len).sum()) if causal
+                      else s * t_len)
         # q, k, v, o, dO and lse read once; dq, dk, dv written once
         nbytes = q.element_size() * bh * hd * (4 * s + 4 * t_len) \
             + 4 * bh * s
@@ -1096,7 +1151,7 @@ def kernel_checks(torch, syn, fem):
         k4, v4 = (x.view(heads[0], -1, t_len, hd).detach().requires_grad_(
             True) for x in (k, v))
         out4 = torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=gqa is not None)
+            q4, k4, v4, is_causal=causal, enable_gqa=gqa is not None)
         do4 = do.view(out4.shape)
         atol, rtol = FLASH_TOL[dtype]
         name = (f"flash_attention_3d_bwd ({bh}, {s}, {hd}) x T={t_len} "
@@ -1104,7 +1159,7 @@ def kernel_checks(torch, syn, fem):
 
         def kernel():
             return flash_attention.flash_attention_3d_bwd(
-                q, k, v, o, do, lse, causal=True, causal_period=period)
+                q, k, v, o, do, lse, causal=causal, causal_period=period)
 
         # no atomics, the split walk's parts summed in a fixed order: a
         # second call gives the first one's bits (phase 11's flat ==
@@ -1116,7 +1171,7 @@ def kernel_checks(torch, syn, fem):
         return case(
             name, kernel,
             lambda: ref.flash_attention_3d_bwd_ref(
-                q, k, v, o, do, lse, causal=True, causal_period=period),
+                q, k, v, o, do, lse, causal=causal, causal_period=period),
             atol, nbytes, 10 * hd * pairs, calls=calls, plain_repeats=3,
             rtol=rtol,
             peak_flops=PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_TF32_FLOPS,
@@ -1493,7 +1548,16 @@ def kernel_checks(torch, syn, fem):
                      16, 4096, 4096, 64, True, "f32", lse=True),
              k7_case(f"trainer, a local step (K={LM_TRAIN_K}, B=4, 16 "
                      f"heads), with lse", LM_TRAIN_K * 64, 64, 64, 64, True,
-                     "f32", calls=20, lse=True)]),
+                     "f32", calls=20, lse=True),
+             # phases 10e and 11e's whisper-tiny (6 heads of 64, no GQA):
+             # the encoder at B=8 x 1,500 frames, cross-attention of 448
+             # training tokens and of a prefill's BOS token against them
+             k7_case("(q) whisper encoder B=8 T=1500", 48, 1500, 1500, 64,
+                     False, "f32", period=1500),
+             k7_case("(r) whisper cross-attention B=8 S=448", 48, 448, 1500,
+                     64, False, "f32", period=448),
+             k7_case("(r') whisper cross-attention, a prefill's BOS", 48, 1,
+                     1500, 64, False, "f32", period=1, calls=20)]),
         dict(row_bwd(
             [k7_bwd_case("(h) qwen train_4k B=1 S=4096", 16, 4096, 4096, 64,
                          "f32"),
@@ -1507,7 +1571,11 @@ def kernel_checks(torch, syn, fem):
                          2048, 128, "f32", period=2048, gqa=(1, 32, 4)),
              k7_bwd_case("(k) ragged", 16, 1000, 1000, 64, "f32"),
              k7_bwd_case("(l) qwen train_4k B=1 S=4096", 16, 4096, 4096, 64,
-                         "bf16")])),
+                         "bf16"),
+             k7_bwd_case("(q) whisper encoder B=8 T=1500", 48, 1500, 1500,
+                         64, "f32", period=1500, causal=False),
+             k7_bwd_case("(r) whisper cross-attention B=8 S=448", 48, 448,
+                         1500, 64, "f32", period=448, causal=False)])),
         # K8 at phase 10c's jamba prefills (di = 2 d_model = 8,192,
         # N=16) and the reduced preset at a length off the chunk
         row_k8([k8_case("(s1) jamba B=1 S=4096", 1, 4096, 8192, 16),
@@ -4014,6 +4082,12 @@ def jamba_phase(torch, counts):
 #: Phase 10d (b): the prefill held against the plain scans' Python loop
 #: (~25 s at S=4096), at this prompt.
 XLSTM_CMP = (2, 256)
+#: Phases 10d (a) and 11d (a): the mixers and their gradients are held to
+#: the plain scans (and their autograd) at B=1 and this S, and timed at
+#: S=4096 (the plain step loops take ~2-3 s a mixer at S=4096, their
+#: autograd ~12-13 s; phase 3's K9, K10, K9-bwd and K10-bwd rows hold the
+#: kernels at S=4096).
+XLSTM_MIXER_CMP_S = 1024
 #: Phase 10d (d): serving at B=2, the prompt and the greedy tokens.
 XLSTM_SERVE = (2, 16, 8)
 
@@ -4021,8 +4095,9 @@ XLSTM_SERVE = (2, 16, 8)
 def xlstm_phase(torch, counts):
     """Phase 10d: xlstm-350m at full width and full depth (24 layers,
     12 sLSTM and 12 mLSTM blocks), random weights drawn on the card from
-    seed 0, f32: (a) one mLSTM and one sLSTM mixer at B=1 S=4096 through
-    K9 and K10 against the plain scans on the card, (b) the prefill
+    seed 0, f32: (a) one mLSTM and one sLSTM mixer through K9 and K10
+    against the plain scans on the card at B=1 S=XLSTM_MIXER_CMP_S,
+    timed at S=4096, (b) the prefill
     against the plain scans at XLSTM_CMP, (c) the prefill timed at B=1
     S=4096 and B=2 S=1024, (d) ``serve.generate`` against the CPU path on
     the same weights; returns the timings (ms) and the idle share."""
@@ -4052,22 +4127,23 @@ def xlstm_phase(torch, counts):
                 swapped(xlstm, "slstm_scan", ref.slstm_scan_ref):
             return fn()
 
-    # (a) one layer's mixer of each kind at B=1, S=4096: the kernel
-    # against the plain scan
+    # (a) one layer's mixer of each kind at B=1: the kernel against the
+    # plain scan at XLSTM_MIXER_CMP_S, then timed at S=4096
     S = 4096
     gen = card_generator(torch, 3)
     x = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+    x_cmp = x[:, :XLSTM_MIXER_CMP_S]
     for kind, pos, kernel in (("mlstm", "pos_1", "mlstm_scan"),
                               ("slstm", "pos_0", "slstm_scan")):
         layer = pt.tmap(lambda a: a[0], params["stack"][pos][kind])
         mix = getattr(xlstm, f"{kind}_mixer")
         mixer = lambda: mix(layer, x, cfg)
         before = counts[kernel]
-        got = mixer()
+        got = mix(layer, x_cmp, cfg)
         torch.cuda.synchronize()
         check(counts[kernel] - before == 1,
               f"{kind}_mixer: {kernel} not launched once")
-        want = plain(mixer)
+        want = plain(lambda: mix(layer, x_cmp, cfg))
         scale = float(want.abs().max())
         err = float((got - want).abs().max())
         check(bool(torch.isfinite(got).all()), f"{kind}_mixer: not finite")
@@ -4076,12 +4152,12 @@ def xlstm_phase(torch, counts):
               f"{err} > {XLSTM_REL} x {scale}")
         key = f"{name} {kind}_mixer B=1 S={S}"
         out[key] = cuda_ms(torch, mixer, 1, repeats=3)
-        print(f"  (a) {kind}_mixer, one layer, B=1 S={S}: max |diff| "
-              f"{err:.3g} against the plain scan (bound {XLSTM_REL:g} x max "
-              f"|out| {scale:.4g}); {out[key]:.2f} ms (the plain scan's "
-              f"time: phase 3)")
+        print(f"  (a) {kind}_mixer, one layer, B=1 S={XLSTM_MIXER_CMP_S}: "
+              f"max |diff| {err:.3g} against the plain scan (bound "
+              f"{XLSTM_REL:g} x max |out| {scale:.4g}); at S={S} "
+              f"{out[key]:.2f} ms (the plain scan's time: phase 3)")
         del got, want
-    del x
+    del x, x_cmp
 
     # (b) the 24-layer prefill through K9 and K10 against the plain scans
     step = make_prefill_step(cfg)
@@ -4456,10 +4532,11 @@ def train_phase(torch, counts):
     return out
 
 
-def train_drawn(argv, nudge: float = 0.0):
+def train_drawn(argv, nudge: float = 0.0, relative: bool = False):
     """``launch/train.py``'s ``main`` on ``argv``, its selections
     recorded: (its result, the selections), its prints swallowed.
-    ``nudge``: the drawn weights moved by ``nudge`` x N(0, 1) (seed 7)."""
+    ``nudge``: the drawn weights moved by ``nudge`` x N(0, 1) (seed 7),
+    times each weight where ``relative`` (zeros stay zeros)."""
     import io
 
     from repro_torch.core import FederatedTrainer
@@ -4478,7 +4555,7 @@ def train_drawn(argv, nudge: float = 0.0):
         import torch
         g = torch.Generator().manual_seed(7)
         return pt.tmap(lambda t: t + nudge * torch.randn(
-            t.shape, generator=g).to(t.device),
+            t.shape, generator=g).to(t.device) * (t if relative else 1),
             orig_init(specs, gen, device=device))
 
     FederatedTrainer._sample = spy
@@ -4492,8 +4569,8 @@ def train_drawn(argv, nudge: float = 0.0):
         train.init_params = orig_init
 
 
-def _pooled_train(argv, nudge: float = 0.0):
-    res, drawn = train_drawn(argv, nudge)
+def _pooled_train(argv, nudge: float = 0.0, relative: bool = False):
+    res, drawn = train_drawn(argv, nudge, relative)
     return res.state.params, drawn, res.losses
 
 
@@ -4850,7 +4927,7 @@ def jamba_train_phase(torch, counts, cpu_run):
     """Phase 11c: training the hybrid arch.  jamba-v0.1-52b at full
     width, weights drawn on the card from seed 0, f32: (b) one
     ``mamba_mixer``'s gradient through K8 and K8-bwd against the plain
-    scan's autograd; (c) ``loss_fn``'s gradient at JAMBA_TRAIN_LAYERS
+    scan's autograd at B=1 S=JAMBA_MIXER_CMP_S, timed at S=4096; (c) ``loss_fn``'s gradient at JAMBA_TRAIN_LAYERS
     layers, B=1 S=4096, remat="full", against the plain scan route;
     (d) one ``make_fedavg_step``; (e) 3 ``make_feddane_round_step``
     steps at JAMBA_STEP_LAYERS layer against the plain scan's, one
@@ -4896,35 +4973,43 @@ def jamba_train_phase(torch, counts, cpu_run):
           f"({n_params * 4 / 2 ** 30:.2f} GiB f32), drawn on the card")
 
     # (b) one mixer's gradient, x and every leaf, K8/K8-bwd vs plain scan
+    # at JAMBA_MIXER_CMP_S, then timed at S
     layer = pt.tmap(lambda a: a[0], params["stack"]["pos_0"]["mamba"])
     gen = card_generator(torch, 3)
     x = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
     w = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+    S_cmp = JAMBA_MIXER_CMP_S
 
-    def mixer_grad():
+    def mixer_grad(s):
         xs = [t.detach().requires_grad_(True)
-              for t in [x] + pt.leaves(layer)]
+              for t in [x[:, :s]] + pt.leaves(layer)]
         p = pt.unflatten(pt.flatten(layer)[1], xs[1:])
         return torch.autograd.grad(
-            (ssm.mamba_mixer(p, xs[0], cfg) * w).sum(), xs)
+            (ssm.mamba_mixer(p, xs[0], cfg) * w[:, :s]).sum(), xs)
 
-    (got, ms), n = launches(lambda: events(mixer_grad))
+    (got, cmp_ms), n = launches(lambda: events(lambda: mixer_grad(S_cmp)))
     check(n == {k8[0]: 1, k8[1]: 1}, f"(b) the mixer's gradient launched "
                                      f"{n}, not K8 and K8-bwd once")
-    want, plain_ms = events(lambda: plain_scan(mixer_grad))
+    want, plain_ms = events(lambda: plain_scan(lambda: mixer_grad(S_cmp)))
     err = worst(got, want)
     check(all(bool(torch.isfinite(g).all()) for g in got)
           and err <= GRAD_REL, f"(b) the mixer's gradient differs from the "
                                f"plain scan's by {err} x max |g|")
-    ms = [ms, events(mixer_grad)[1]]
+    del got, want
+    (got, ms), n = launches(lambda: events(lambda: mixer_grad(S)))
+    check(n == {k8[0]: 1, k8[1]: 1}
+          and all(bool(torch.isfinite(g).all()) for g in got),
+          f"(b) the mixer's S={S} gradient launched {n}, or is not finite")
+    ms = [ms, events(lambda: mixer_grad(S))[1]]
     out[f"jamba mamba_mixer grad B=1 S={S} ms"] = ms
-    out[f"jamba mamba_mixer grad B=1 S={S} plain scan ms"] = plain_ms
+    out[f"jamba mamba_mixer grad B=1 S={S_cmp} ms"] = cmp_ms
+    out[f"jamba mamba_mixer grad B=1 S={S_cmp} plain scan ms"] = plain_ms
     print(f"  (b) mamba_mixer's gradient (x and {len(got) - 1} weights), "
-          f"B=1 S={S}: worst leaf {err:.2e} x its max |g| (<= "
+          f"B=1 S={S_cmp}: worst leaf {err:.2e} x its max |g| (<= "
           f"{GRAD_REL:g}) against the plain scan's autograd; K8 + K8-bwd "
-          f"once; {ms[0]:.2f}, {ms[1]:.2f} ms, plain scan {plain_ms:.1f} ms "
-          f"(CUDA events)")
-    del got, want, x, w, layer
+          f"once; {cmp_ms:.2f} ms, plain scan {plain_ms:.1f} ms; at S={S}: "
+          f"{ms[0]:.2f}, {ms[1]:.2f} ms (CUDA events)")
+    del got, x, w, layer
 
     # (d) one fedavg step, then (c) the loss's gradient it takes
     b = card_batch(torch, S + 5, cfg.vocab_size, 1, S)
@@ -5196,7 +5281,7 @@ def jamba_train_phase(torch, counts, cpu_run):
 #: plain scans at this (B, S): four chunks of 64 (the plain scans'
 #: Python loops take ~20 launches a step and layer).
 XLSTM_GRAD_CMP = (1, 256)
-#: Phase 11d (b)-(c): the timed gradient's and the steps' (B, S).
+#: Phase 11d (a)-(c): the timed gradients' and the steps' (B, S).
 XLSTM_TRAIN_S = 4096
 #: Phase 11d (c): the steps' eta.
 XLSTM_STEP_ETA = 1e-2
@@ -5235,8 +5320,9 @@ def xlstm_cpu_jobs(pool):
 def xlstm_train_phase(torch, counts, cpu_runs):
     """Phase 11d: training xlstm-350m at full width and depth (24 layers,
     random weights drawn on the card from seed 0, f32): (a) one mLSTM and
-    one sLSTM mixer's gradient at B=1 S=4096 through K9/K10 and
-    K9-bwd/K10-bwd against autograd of the plain scans on the card; (b)
+    one sLSTM mixer's gradient through K9/K10 and K9-bwd/K10-bwd against
+    autograd of the plain scans on the card at B=1 S=XLSTM_MIXER_CMP_S,
+    then timed at B=1 S=4096; (b)
     ``loss_fn``'s gradient, remat="full", at XLSTM_GRAD_CMP against the
     plain scans' route (remat none), then timed at B=1 S=4096 with its
     peak; (c) a fedavg step (params - eta g of (b)'s gradient, bitwise),
@@ -5282,40 +5368,52 @@ def xlstm_train_phase(torch, counts, cpu_runs):
           f"({n_params * 4 / 2 ** 30:.2f} GiB f32), drawn on the card")
 
     # (a) one mixer of each kind: x and every leaf, the kernels vs autograd
-    # of the plain scan
+    # of the plain scan at XLSTM_MIXER_CMP_S, then timed at S
     gen = card_generator(torch, 5)
     x = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
     w = torch.randn(1, S, cfg.d_model, generator=gen, device=gen.device)
+    S_cmp = XLSTM_MIXER_CMP_S
     for kind, pos in (("mlstm", "pos_1"), ("slstm", "pos_0")):
         layer = pt.tmap(lambda a: a[0], params["stack"][pos][kind])
         mix = getattr(xlstm, f"{kind}_mixer")
 
-        def mixer_grad():
+        def mixer_grad(s):
             xs = [t.detach().requires_grad_(True)
-                  for t in [x] + pt.leaves(layer)]
+                  for t in [x[:, :s]] + pt.leaves(layer)]
             p = pt.unflatten(pt.flatten(layer)[1], xs[1:])
-            return torch.autograd.grad((mix(p, xs[0], cfg) * w).sum(), xs)
+            return torch.autograd.grad(
+                (mix(p, xs[0], cfg) * w[:, :s]).sum(), xs)
 
-        (got, ms), n = launches(lambda: events(mixer_grad))
+        (got, cmp_ms), n = launches(lambda: events(
+            lambda: mixer_grad(S_cmp)))
         k = f"{kind}_scan"
         check({c: n.get(c, 0) for c in (k, k + "_bwd")} == {k: 1,
                                                           k + "_bwd": 1},
               f"(a) the {kind} mixer's gradient launched {n}")
-        want, plain_ms = events(lambda: plain(mixer_grad))
+        want, plain_ms = events(lambda: plain(lambda: mixer_grad(S_cmp)))
         err = worst_rel(got, want)
         check(all(bool(torch.isfinite(g).all()) for g in got)
               and err <= GRAD_REL, f"(a) the {kind} mixer's gradient "
                                    f"differs from the plain scan's by {err} "
                                    f"x max |g|")
-        ms = [ms, events(mixer_grad)[1]]
-        out[f"{name} {kind}_mixer grad B=1 S={S} ms"] = ms
-        out[f"{name} {kind}_mixer grad B=1 S={S} plain scan ms"] = plain_ms
-        print(f"  (a) {kind}_mixer's gradient (x and {len(got) - 1} weights),"
-              f" B=1 S={S}: worst leaf {err:.2e} x its max |g| (<= "
-              f"{GRAD_REL:g}) against autograd of the plain scan; {k} + "
-              f"{k}_bwd once; {ms[0]:.2f}, {ms[1]:.2f} ms, plain scan "
-              f"{plain_ms:.1f} ms (CUDA events)")
         del got, want
+        (got, ms), n = launches(lambda: events(lambda: mixer_grad(S)))
+        check({c: n.get(c, 0) for c in (k, k + "_bwd")} == {k: 1,
+                                                          k + "_bwd": 1}
+              and all(bool(torch.isfinite(g).all()) for g in got),
+              f"(a) the {kind} mixer's S={S} gradient launched {n}, or is "
+              f"not finite")
+        ms = [ms, events(lambda: mixer_grad(S))[1]]
+        out[f"{name} {kind}_mixer grad B=1 S={S} ms"] = ms
+        out[f"{name} {kind}_mixer grad B=1 S={S_cmp} ms"] = cmp_ms
+        out[f"{name} {kind}_mixer grad B=1 S={S_cmp} plain scan ms"] = \
+            plain_ms
+        print(f"  (a) {kind}_mixer's gradient (x and {len(got) - 1} weights),"
+              f" B=1 S={S_cmp}: worst leaf {err:.2e} x its max |g| (<= "
+              f"{GRAD_REL:g}) against autograd of the plain scan; {k} + "
+              f"{k}_bwd once; {cmp_ms:.2f} ms, plain scan {plain_ms:.1f} ms; "
+              f"at S={S}: {ms[0]:.2f}, {ms[1]:.2f} ms (CUDA events)")
+        del got
         torch.cuda.empty_cache()
     del x, w
 
@@ -5515,6 +5613,520 @@ def xlstm_train_phase(torch, counts, cpu_runs):
     print(f"      podfed 2 pods x 2 local steps, 1 round: finite, loss "
           f"{float(pm['loss']):.5f}, {pod_ms:.1f} ms, launches {grew}")
     del two, pnew, p0
+    torch.cuda.empty_cache()
+    return out
+
+
+#: Phases 10e and 11e: Whisper's start-of-transcript token, the decoder's
+#: first input (any id serves a random model; this one is the model's).
+WHISPER_BOS = 50258
+#: Phase 10e (a): the prefills' (B, frames), one BOS token each: Whisper's
+#: 30-s window of 1,500 frames at B=8, and the repo's long prompt.
+WHISPER_PREFILLS = ((8, 1500), (1, 4096))
+#: Phase 10e (b)-(c): the decode batch, the prompt, the new tokens, the
+#: self-attention cache and the frames that fill the cross caches.
+WHISPER_SERVE = dict(B=2, prompt=4, new=8, cache_len=64, frames=1500)
+#: Phase 11e (a)-(b): the gradient's (B, frames, tokens): Whisper's 30-s
+#: window against its decoder's 448 positions.
+WHISPER_TRAIN = (8, 1500, 448)
+#: Phase 11e (b): the steps' eta and the repo's long sequence (frames =
+#: tokens = S at B=1).
+WHISPER_STEP_ETA = 1e-2
+WHISPER_LONG_S = 4096
+#: Phase 11e (c)'s argv of ``launch/train.py`` (the CPU path's runs add
+#: ``--device cpu``): the reduced preset, 2 encoder + 2 decoder layers at
+#: d=128, V=256, zero frames, feddane N=8 K=2 E=1 B=4 S=64 at train.py's
+#: lr 0.05.
+WHISPER_TRAIN_ARGV = ["--arch", "whisper-tiny", "--num-devices", "8",
+                      "--devices-per-round", "2", "--local-epochs", "1",
+                      "--batch-size", "4", "--seq-len", "64",
+                      "--samples-per-device", "16", "--seed", "0"]
+#: Phase 11e (c)'s CPU-path runs: name -> (nudge, relative).  The zero
+#: frames meet every encoder ``rms_norm`` at 0, where its derivative is
+#: rsqrt(1e-6) = 1,000: the encoder's MLP biases grow to ~1e6 in 2
+#: rounds.  A nudge of w by 1e-7 x N(0, 1) x w ("relative") keeps the
+#: zero-initialised leaves at 0 and measures rounding's amplification;
+#: 1e-7 x N(0, 1) added to every leaf ("additive") moves the encoder off
+#: that point, which changes the run by about all of each leaf.
+WHISPER_CPU_RUNS = {"w0": (0.0, False), "relative": (1e-7, True),
+                    "additive": (1e-7, False)}
+#: Phase 11e (d): the full-size trainer's argv, 1 round.
+WHISPER_FULL_ARGV = WHISPER_TRAIN_ARGV + ["--full-size", "--rounds", "1"]
+
+
+def whisper_cpu_jobs(pool):
+    """Phase 11e (c)'s CPU-path runs (:data:`WHISPER_CPU_RUNS`), submitted
+    to ``pool``: {name: future}."""
+    argv = WHISPER_TRAIN_ARGV + ["--rounds", "2", "--device", "cpu"]
+    return {key: pool.submit(_pooled_train, argv, nudge, relative)
+            for key, (nudge, relative) in WHISPER_CPU_RUNS.items()}
+
+
+def leaf_rel(torch, got, want) -> float:
+    """The worst leaf's max |got - want| over max(1, its max |want|)."""
+    from repro_torch.core import pytree as pt
+    return max(float((a.float().cpu() - b.float().cpu()).abs().max())
+               / max(1.0, float(b.float().abs().max()))
+               for a, b in zip(pt.leaves(got), pt.leaves(want)))
+
+
+def whisper_phase(torch, counts):
+    """Phase 10e: whisper-tiny at full width and full depth (4 encoder + 4
+    decoder layers, 56,371,200 params), random weights drawn on the card
+    from seed 0, f32: (a) ``make_prefill_step`` on the reference's serving
+    batch (frames, one BOS token) at WHISPER_PREFILLS against the plain
+    attention on the card, K7 exactly 12 times a prefill (encoder self,
+    decoder self, cross), ms a prefill and the idle share of one; (b) 3
+    ``decode_step`` calls on random ``ck`` / ``cv`` against the CPU
+    path's; (c) ``serve.generate`` with frames against the port's own
+    teacher-forced forward (the logits at every prompt position, the
+    greedy tokens) and without frames against the CPU path's loop; (d)
+    ms a decode step.  Returns the timings (ms) and the idle share."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import (attention, model_specs, param_count,
+                                    transformer)
+
+    out = {}
+    name = "whisper-tiny"
+    cfg = get_arch(name)
+    n_attn = cfg.num_encoder_layers + 2 * cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_on_card(torch, model_specs(cfg), 0)
+    torch.cuda.synchronize()
+    dev = pt.leaves(params)[0].device
+    print(f"  {name} at full width and depth ({cfg.num_encoder_layers} "
+          f"encoder + {cfg.num_layers} decoder layers, d={cfg.d_model}, "
+          f"H={cfg.num_heads}, d_ff={cfg.d_ff}, V={cfg.vocab_size}): "
+          f"{param_count(model_specs(cfg)):,} params (f32), drawn on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
+    gen = card_generator(torch, 11)
+
+    def plain(fn):
+        with swapped(attention, "attention", attention.plain_attention):
+            return fn()
+
+    def frames(B, T):
+        return torch.randn(B, T, cfg.d_model, generator=gen,
+                           device=gen.device)
+
+    # (a) the prefill: the encoder over T frames, one BOS token decoded
+    step = make_prefill_step(cfg)
+    for B, T in WHISPER_PREFILLS:
+        batch = {"frames": frames(B, T),
+                 "tokens": torch.full((B, 1), WHISPER_BOS, dtype=torch.int32,
+                                      device=dev)}
+        logits, n = launches_of(torch, counts, lambda: step(params, batch))
+        check(logits.shape == (B, 1, cfg.vocab_size),
+              f"{name}: shape {tuple(logits.shape)}")
+        check(n == {"flash_attention": n_attn},
+              f"{name} B={B} T={T}: one prefill launched {n}, not K7 "
+              f"{n_attn} times")
+        want = plain(lambda: step(params, batch))
+        compare_logits(torch, f"(a) {name} prefill B={B} frames={T}, K7 vs "
+                              f"plain attention on the card", logits, want)
+        ms = cuda_ms(torch, lambda: step(params, batch), 1, repeats=3)
+        plain_ms = cuda_ms(torch, lambda: plain(lambda: step(params, batch)),
+                           1, repeats=3)
+        out[f"{name} prefill B={B} frames={T}"] = ms
+        out[f"{name} prefill B={B} frames={T} plain attention"] = plain_ms
+        print(f"    {ms:.2f} ms a prefill ({B * T / ms * 1e3:.0f} frames/s), "
+              f"plain attention {plain_ms:.2f} ms (CUDA events, median of "
+              f"3); K7 {n_attn} launches")
+        if B == WHISPER_PREFILLS[0][0]:
+            out[f"idle share, {name} B={B} frames={T} prefill"] = \
+                device_share(torch, lambda: step(params, batch),
+                             f"{name} B={B} frames={T} prefill")
+        del batch, logits, want
+
+    # (b) decode steps from equal random cross caches, card vs CPU path
+    sv = WHISPER_SERVE
+    B, cache_len, T = sv["B"], sv["cache_len"], sv["frames"]
+    specs = transformer.decode_cache_specs(cfg, B, cache_len, T)
+    cache = pt.tmap(lambda s: (torch.randn(s.shape, generator=gen,
+                                           device=gen.device)
+                               if s.shape[2] == T else
+                               torch.zeros(s.shape, device=dev)), specs)
+    params_cpu = pt.tmap(lambda a: a.cpu(), params)
+    cache_cpu = pt.tmap(lambda a: a.cpu(), cache)
+    toks = card_tokens(torch, 29, cfg.vocab_size, 3, B)
+    before = dict(counts)
+    for t in range(3):
+        batch = {"tokens": toks[t][:, None], "t": t}
+        logits, cache = transformer.decode_step(params, batch, cache, cfg)
+        want, cache_cpu = transformer.decode_step(
+            params_cpu, pt.tmap(lambda a: a.cpu() if torch.is_tensor(a)
+                                else a, batch), cache_cpu, cfg)
+        compare_logits(torch, f"(b) {name} decode step t={t} (B={B}, "
+                              f"random ck/cv of {T} rows), card vs CPU path",
+                       logits, want)
+    check(_delta(before, counts) == {}, f"{name}: the decode path launched "
+                                        f"a kernel")
+    out[f"{name} decode step ms (B={B}, ck/cv {T} rows)"] = cuda_ms(
+        torch, lambda: transformer.decode_step(
+            params, {"tokens": toks[0][:, None], "t": 3}, cache, cfg), 1,
+        repeats=3)
+    print(f"    (d) a decode step: "
+          f"{out[f'{name} decode step ms (B={B}, ck/cv {T} rows)']:.2f} ms "
+          f"(CUDA events, median of 3)")
+    del cache, cache_cpu
+
+    # (c) serve.generate with frames against the teacher-forced forward,
+    # and without against the CPU path's loop (the reference's zero cross
+    # caches)
+    P, new = sv["prompt"], sv["new"]
+    prompt = torch.cat([torch.full((B, 1), WHISPER_BOS, dtype=torch.int32,
+                                   device=dev),
+                        card_tokens(torch, 31, cfg.vocab_size, B, P - 1)], 1)
+    f = frames(B, T)
+    gen_f, n = launches_of(torch, counts, lambda: serve.generate(
+        params, cfg, prompt, new, cache_len, frames=f))
+    check(n == {"flash_attention": cfg.num_encoder_layers},
+          f"{name} serve with frames launched {n}, not K7 once an encoder "
+          f"layer")
+    fed = torch.cat([gen_f.prompt_logits.argmax(-1), gen_f.tokens], 1)
+    seq = torch.cat([prompt, fed.to(prompt.dtype)], 1)
+    with torch.no_grad():
+        forced = transformer._logits(params, transformer.forward_hidden(
+            params, {"tokens": seq, "frames": f}, cfg), cfg)
+    check(torch.equal(forced[:, P - 1:-1].argmax(-1), fed),
+          f"{name} serve with frames: greedy tokens {fed.tolist()} are not "
+          f"the teacher-forced forward's argmax "
+          f"{forced[:, P - 1:-1].argmax(-1).tolist()}")
+    # the decode path's logits after each prompt token
+    cache = pt.tmap(lambda s: torch.zeros(s.shape, device=dev),
+                    transformer.decode_cache_specs(cfg, B, cache_len, T))
+    transformer.fill_cross_cache(params, f, cache, cfg)
+    worst = 0.0
+    for t in range(P):
+        logits, cache = transformer.decode_step(
+            params, {"tokens": prompt[:, t:t + 1], "t": t}, cache, cfg)
+        ok, err, scale = logits_agree(torch, logits[:, 0], forced[:, t])
+        check(ok, f"{name} serve with frames: the decode path's logits at "
+                  f"position {t} differ from the forward's by {err} (bound "
+                  f"{LOGIT_REL} x {scale}) or their argmax differs")
+        worst = max(worst, err / scale)
+    out[f"{name} serve ms per decode step (B={B}, frames)"] = \
+        gen_f.decode_s / new * 1e3
+    gen0 = serve.generate(params, cfg, prompt, new, cache_len)
+    t0 = time.perf_counter()
+    gen0_cpu = serve.generate(params_cpu, cfg, prompt.cpu(), new, cache_len)
+    cpu_s = time.perf_counter() - t0
+    check(torch.equal(gen0.tokens.cpu(), gen0_cpu.tokens),
+          f"{name} serve without frames: greedy tokens differ from the CPU "
+          f"path's: {gen0.tokens.tolist()} vs {gen0_cpu.tokens.tolist()}")
+    print(f"  (c) serve.generate B={B}, {P}-token prompt, {new} new tokens, "
+          f"cache {cache_len}: with {T} frames (ck/cv filled from the "
+          f"encoder, K7 {cfg.num_encoder_layers} launches) the logits at "
+          f"every prompt position within {worst:.2e} x max |logit| of the "
+          f"teacher-forced forward (K7), greedy tokens its argmax "
+          f"{fed.tolist()}; "
+          f"{out[f'{name} serve ms per decode step (B={B}, frames)']:.2f} ms "
+          f"a decode step (host clock); without frames (the reference's "
+          f"zero ck/cv) tokens equal the CPU path's {gen0.tokens.tolist()} "
+          f"(its run {cpu_s:.1f} s)")
+    del params, params_cpu, cache, forced
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_train_phase(torch, counts, cpu_runs):
+    """Phase 11e: training whisper-tiny at full width and depth (random
+    weights drawn on the card from seed 0, f32): (a) ``loss_fn``'s
+    gradient, ``remat="full"``, at WHISPER_TRAIN (B=8, 1,500 frames, 448
+    tokens) with random frames and with the trainer's zero frames,
+    against the plain attention's route (remat none) on the card (the
+    loss within LOGIT_REL, each leaf within GRAD_REL of its max |g|),
+    K7 24 and K7-bwd 12 times, timed with the card's peak; (b) a fedavg
+    step (params - eta g of (a)'s gradient, bitwise), 3
+    ``make_feddane_round_step`` steps and a pipelined step at that
+    shape, then one gradient at B=1, frames = tokens = WHISPER_LONG_S;
+    (c) ``train.main`` on WHISPER_TRAIN_ARGV, 2 rounds on ``auto`` (=
+    flat) against the CPU path (``cpu_runs``: :func:`whisper_cpu_jobs`;
+    params within TRAJECTORY_TOL x max(1, each leaf's max |p|), the CPU
+    path's own nudge spreads printed), 1 round on ``per_leaf`` bitwise
+    equal to flat's first, pods 2 x 2; (d) one ``--full-size`` round.
+    Returns timings (ms) and peaks (GiB)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import pytree as pt
+    from repro_torch.kernels import dane_update
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import podfed, steps
+    from repro_torch.models import (attention, model_specs, param_count,
+                                    transformer)
+
+    out = {}
+    k7 = ("flash_attention", "flash_attention_bwd")
+    launches = functools.partial(launches_of, torch, counts)
+    events = functools.partial(cuda_events, torch)
+    peak_gib = functools.partial(card_peak_gib, torch)
+
+    def plain(fn):
+        with swapped(attention, "attention", attention.plain_attention):
+            return fn()
+
+    def took(n, fwd, bwd):
+        return {k: n.get(k, 0) for k in k7} == {k7[0]: fwd, k7[1]: bwd}
+
+    name = "whisper-tiny"
+    cfg = get_arch(name)
+    n_attn = cfg.num_encoder_layers + 2 * cfg.num_layers
+    params = init_on_card(torch, model_specs(cfg), 0)
+    n_params = param_count(model_specs(cfg))
+    print(f"  {name} at full width and depth: {n_params:,} params "
+          f"({n_params * 4 / 2 ** 30:.2f} GiB f32), drawn on the card; "
+          f"{n_attn} attentions a forward")
+
+    # (a) the gradient at Whisper's shape, random and zero frames
+    B, T, S = WHISPER_TRAIN
+    gen = card_generator(torch, 13)
+    toks = card_batch(torch, S + 5, cfg.vocab_size, B, S)
+    batches = {"random": dict(toks, frames=torch.randn(
+        B, T, cfg.d_model, generator=gen, device=gen.device)),
+        "zero": dict(toks, frames=torch.zeros(B, T, cfg.d_model,
+                                              device=gen.device))}
+    grads = {}
+    for kind, b in batches.items():
+        lf = lambda p: transformer.loss_fn(p, b, cfg, remat="full")  # noqa
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ((loss, g), ms), n = launches(lambda: events(
+            lambda: steps.value_and_grad(lf, params)))
+        peak = peak_gib()
+        check(took(n, 2 * n_attn, n_attn),
+              f"(a) a gradient under remat full ({kind} frames) launched "
+              f"{n}, not K7 {2 * n_attn} and K7-bwd {n_attn} times")
+        (loss_p, g_p), p_ms = events(lambda: plain(
+            lambda: steps.value_and_grad(lambda p: transformer.loss_fn(
+                p, b, cfg, remat="none"), params)))
+        rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+        err = worst_rel(g, g_p)
+        check(rel <= LOGIT_REL and err <= GRAD_REL
+              and all(bool(torch.isfinite(t).all()) for t in pt.leaves(g)),
+              f"(a) {kind} frames: loss {rel}, worst gradient leaf {err} x "
+              f"its max |g| against the plain attention")
+        ms2 = events(lambda: steps.value_and_grad(lf, params))[1]
+        out[f"{name} loss grad B={B} T={T} S={S} {kind} frames ms"] = \
+            [ms, ms2]
+        out[f"{name} loss grad B={B} T={T} S={S} {kind} frames plain "
+            f"attention ms"] = p_ms
+        out[f"{name} loss grad B={B} T={T} S={S} peak GiB"] = peak
+        print(f"  (a) loss_fn B={B}, {T} {kind} frames, {S} tokens, "
+              f"remat=full: loss {float(loss):.6f}, rel {rel:.2e} (<= "
+              f"{LOGIT_REL:g}) and worst gradient leaf {err:.2e} x its max "
+              f"|g| (<= {GRAD_REL:g}) against the plain attention (remat "
+              f"none, {p_ms:.1f} ms); {ms:.2f}, {ms2:.2f} ms (CUDA events), "
+              f"card peak {peak:.2f} GiB; launches {n}")
+        grads[kind] = (loss, g)
+        del g_p
+    loss, g = grads.pop("random")
+    del grads
+    b = batches["random"]
+
+    # (b) the steps at that shape, then one gradient at the long S
+    eta = WHISPER_STEP_ETA
+    fa = steps.make_fedavg_step(cfg, eta=eta, remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    ((new, m), fa_ms), n = launches(lambda: events(
+        lambda: fa({"params": params}, b)))
+    fa_peak = peak_gib()
+    check(took(n, 2 * n_attn, n_attn), f"(b) the fedavg step launched {n}")
+    check(torch.equal(m["loss"], loss) and all(
+        torch.equal(a, p - t * eta) for a, p, t in zip(
+            pt.leaves(new["params"]), pt.leaves(params), pt.leaves(g))),
+        "(b) the fedavg step is not params - eta g of (a)'s gradient")
+    del new, g
+    zeros = pt.tmap(torch.zeros_like, params)
+    fd = steps.make_feddane_round_step(cfg, eta=eta, mu=0.01, remat="full")
+    st, losses, fd_ms = {"params": params, "anchor": params,
+                         "g_t": zeros}, [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        ((st, m), ms), n = launches(lambda: events(lambda: fd(st, b)))
+        check(took(n, 4 * n_attn, 2 * n_attn),
+              f"(b) a feddane step launched {n}")
+        losses.append(float(m["loss"]))
+        fd_ms.append(ms)
+    fd_peak = peak_gib()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and all(bool(torch.isfinite(t).all())
+                  for t in pt.leaves(st["params"])),
+          f"(b) the feddane steps' losses {losses}")
+    pipe = steps.make_feddane_pipelined_step(cfg, eta=eta, mu=0.01,
+                                             remat="full")
+    ((new, m), pipe_ms), n = launches(lambda: events(lambda: pipe(st, b)))
+    check(np.isfinite(float(m["loss"])) and took(n, 2 * n_attn, n_attn),
+          f"(b) the pipelined step: loss {float(m['loss'])}, launches {n}")
+    out[f"{name} fedavg step B={B} ms"] = fa_ms
+    out[f"{name} fedavg step peak GiB"] = fa_peak
+    out[f"{name} feddane B={B} ms a step"] = fd_ms
+    out[f"{name} feddane peak GiB"] = fd_peak
+    out[f"{name} pipelined step B={B} ms"] = pipe_ms
+    print(f"  (b) B={B} T={T} S={S} remat=full eta={eta:g}: "
+          f"make_fedavg_step {fa_ms:.2f} ms (bitwise params - eta g of "
+          f"(a)), peak {fa_peak:.2f} GiB; 3 make_feddane_round_step steps, "
+          f"losses {[round(x, 6) for x in losses]}, ms "
+          f"{[round(x, 2) for x in fd_ms]}, peak {fd_peak:.2f} GiB (K7 "
+          f"{4 * n_attn} + K7-bwd {2 * n_attn} a step); the pipelined step "
+          f"{pipe_ms:.2f} ms")
+    del st, new, zeros, batches, b
+    L = WHISPER_LONG_S
+    lb = dict(card_batch(torch, L + 3, cfg.vocab_size, 1, L),
+              frames=torch.randn(1, L, cfg.d_model, generator=gen,
+                                 device=gen.device))
+    lf = lambda p: transformer.loss_fn(p, lb, cfg, remat="full")  # noqa
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ((loss, g), ms), n = launches(lambda: events(
+        lambda: steps.value_and_grad(lf, params)))
+    long_peak = peak_gib()
+    check(took(n, 2 * n_attn, n_attn)
+          and all(bool(torch.isfinite(t).all()) for t in pt.leaves(g)),
+          f"(b) the B=1 S={L} gradient launched {n}, or is not finite")
+    ms2 = events(lambda: steps.value_and_grad(lf, params))[1]
+    out[f"{name} loss grad B=1 T=S={L} ms"] = [ms, ms2]
+    out[f"{name} loss grad B=1 T=S={L} peak GiB"] = long_peak
+    print(f"      one gradient at B=1, frames = tokens = {L}: loss "
+          f"{float(loss):.6f}, {ms:.2f}, {ms2:.2f} ms (CUDA events), card "
+          f"peak {long_peak:.2f} GiB; launches {n}")
+    del params, g, lb
+    torch.cuda.empty_cache()
+
+    # (c) launch/train.py's reduced preset against the CPU path
+    rcfg = get_arch(name).reduced(num_layers=2, d_model=128, vocab_size=256)
+    r_attn = rcfg.num_encoder_layers + 2 * rcfg.num_layers
+    step_counts, first = [], []
+    orig_step, orig_init = kops.FlatUpdate.step, kops.FlatUpdate.__init__
+    orig_round = FederatedTrainer.round
+
+    def spy_init(self, *a, **kw):
+        step_counts.append([dict(counts)])
+        return orig_init(self, *a, **kw)
+
+    def spy_step(self, *a, **kw):
+        step_counts[-1].append(dict(counts))
+        return orig_step(self, *a, **kw)
+
+    def spy_round(self, st):
+        new = orig_round(self, st)
+        if not first:
+            first.append(pt.tmap(torch.clone, new.params))
+        return new
+
+    def spied(fn):
+        step_counts[:] = []
+        kops.FlatUpdate.step, kops.FlatUpdate.__init__ = spy_step, spy_init
+        FederatedTrainer.round = spy_round
+        try:
+            return launches(fn)
+        finally:
+            kops.FlatUpdate.step, kops.FlatUpdate.__init__ = orig_step, \
+                orig_init
+            FederatedTrainer.round = orig_round
+
+    def step_launches(what, fwd, bwd):
+        for solve in step_counts:
+            for a, c in zip(solve, solve[1:]):
+                d = _delta(a, c)
+                check(took(d, fwd, bwd), f"{what}: a local step of K=2 "
+                                         f"launched {d}, not K7 {fwd} and "
+                                         f"K7-bwd {bwd}")
+        return sum(len(c) - 1 for c in step_counts)
+
+    (res, sel), grew = spied(lambda: train_drawn(
+        WHISPER_TRAIN_ARGV + ["--rounds", "2"]))
+    local_steps = step_launches("(c)", r_attn, r_attn)
+    check(grew.get("dane_update_flat") == local_steps == 2 * 4
+          and not grew.get("dane_update_2d"),
+          f"(c) trainer auto: {grew} (K1 once a local step, {local_steps} "
+          f"steps)")
+    (res_leaf, sel_leaf), grew_leaf = launches(lambda: train_drawn(
+        WHISPER_TRAIN_ARGV + ["--rounds", "1", "--local-solver",
+                              "per_leaf"]))
+    chunks = -(-len(pt.leaves(model_specs(rcfg)))
+               // dane_update.MAX_SEGMENTS)
+    check(grew_leaf.get("dane_update_2d") == 4 * chunks
+          and not grew_leaf.get("dane_update_flat"),
+          f"(c) per_leaf: {grew_leaf} (K4 {chunks} a local step)")
+    check(sel_leaf == sel[:len(sel_leaf)]
+          and same_bits(res_leaf.state.params, first[0]),
+          "(c) per_leaf's round differs from flat's")
+    cpu = {key: f.result() for key, f in cpu_runs.items()}
+    p_cpu, sel_cpu, losses_cpu = cpu["w0"]
+    spread = {key: leaf_rel(torch, cpu[key][0], p_cpu)
+              for key in ("relative", "additive")}
+    check(sel == sel_cpu, f"(c) selections {sel} on the card, {sel_cpu} on "
+                          f"the CPU path")
+    diff = leaf_rel(torch, res.state.params, p_cpu)
+    moved = leaf_rel(torch, res.state.params, first[0])
+    check(diff <= TRAJECTORY_TOL and moved >= 10 * TRAJECTORY_TOL
+          and all(np.isfinite(res.losses)),
+          f"(c) params {diff} x max(1, max |p|) from the CPU path's after 2 "
+          f"rounds > {TRAJECTORY_TOL} (round 2 moved them {moved})")
+    top = max(float(t.abs().max()) for t in pt.leaves(p_cpu))
+    out[f"{name} reduced trainer: CPU path's 1e-7-nudge spreads"] = spread
+    out[f"{name} reduced trainer ms/round"] = res.round_ms
+    out[f"{name} reduced trainer ms/round, per_leaf"] = res_leaf.round_ms
+    print(f"  (c) train.py --arch {name} ({param_count(model_specs(rcfg)):,}"
+          f" params: {rcfg.num_encoder_layers} + {rcfg.num_layers} layers, "
+          f"d={rcfg.d_model}, zero frames), feddane N=8 K=2 E=1 B=4 S=64 lr "
+          f"0.05: 2 rounds on auto (flat) "
+          f"{[round(t, 1) for t in res.round_ms]} ms/round (CUDA events), "
+          f"losses {[round(t, 5) for t in res.losses]} (CPU path "
+          f"{[round(t, 5) for t in losses_cpu]}); selections equal the CPU "
+          f"path's, params within {diff:.2e} x max(1, max |p|) (<= "
+          f"{TRAJECTORY_TOL:g}; round 2 moved them {moved:.2e}; the largest "
+          f"leaf reaches {top:.4g}); the CPU path's own run from weights "
+          f"nudged by 1e-7 x w lands {spread['relative']:.2e} away, by 1e-7 "
+          f"added {spread['additive']:.2e}; a local step K7 {r_attn} + "
+          f"K7-bwd {r_attn} for both clients; per_leaf 1 round bitwise "
+          f"equal to flat's ({res_leaf.round_ms[0]:.1f} ms, K4 {chunks} "
+          f"launches a local step); launches flat {grew}")
+    p0 = res.state.params
+    del res, res_leaf, first[:]
+    two = pt.tmap(lambda t: t.unsqueeze(0).expand((2,) + t.shape)
+                  .contiguous(), p0)
+    rb = dict(card_batch(torch, 65, rcfg.vocab_size, 4, 64),
+              frames=torch.randn(4, 64, rcfg.d_model, generator=gen,
+                                 device=gen.device))
+    bb = {k: torch.stack([v, torch.roll(v, 1, dims=1)])[:, None].expand(
+        2, 2, *v.shape).contiguous() for k, v in rb.items()}
+    fn2, _ = podfed.make_podfed_round_step(rcfg, local_steps=2, eta=1e-2,
+                                           mu=0.01, remat="full")
+    ((pnew, pm), pod_ms), grew = launches(lambda: events(lambda: fn2(
+        {"params": two, "anchor": two,
+         "g_t": pt.tmap(torch.zeros_like, two)}, bb)))
+    check(np.isfinite(float(pm["loss"])) and all(
+        bool(torch.isfinite(t).all()) for t in pt.leaves(pnew))
+        and all(grew.get(k, 0) > 0 for k in k7),
+        f"(c) podfed 2 pods x 2 steps: not finite, or launches {grew}")
+    out[f"{name} reduced podfed 2 pods x 2 steps ms"] = pod_ms
+    print(f"      podfed 2 pods x 2 local steps (random frames), 1 round: "
+          f"finite, loss {float(pm['loss']):.5f}, {pod_ms:.1f} ms, launches "
+          f"{grew}")
+    del two, pnew, p0
+    torch.cuda.empty_cache()
+
+    # (d) one round of the full-size trainer
+    torch.cuda.reset_peak_memory_stats()
+    (full, _), grew = spied(lambda: train_drawn(WHISPER_FULL_ARGV))
+    full_peak = peak_gib()
+    local_steps = step_launches("(d)", n_attn, n_attn)
+    check(grew.get("dane_update_flat") == local_steps == 4
+          and all(np.isfinite(full.losses)),
+          f"(d) the full-size round: {grew} (K1 once a local step, "
+          f"{local_steps} steps), losses {full.losses}")
+    out[f"{name} full-size trainer ms/round"] = full.round_ms
+    out[f"{name} full-size trainer peak GiB"] = full_peak
+    print(f"  (d) train.py --arch {name} --full-size, feddane N=8 K=2 E=1 B=4"
+          f" S=64, 1 round on auto (flat): {full.round_ms[0]:.1f} ms (CUDA "
+          f"events), loss {full.losses[0]:.5f}, card peak {full_peak:.2f} "
+          f"GiB; {local_steps} local steps, each K1 once and K7 {n_attn} + "
+          f"K7-bwd {n_attn} for both clients; launches {grew}")
+    del full
     torch.cuda.empty_cache()
     return out
 
@@ -5743,11 +6355,12 @@ def run(torch, pool, threads: int) -> int:
     on_mesh = mesh_phase(torch, int8_tol["feddane"])
     print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
-    # phases 11c and 11d's CPU paths, in the pool while phases 10-11b run
+    # phases 11c-11e's CPU paths, in the pool while phases 10-11b run
     jamba_cpu = pool.submit(_pooled_train,
                             JAMBA_TRAIN_ARGV + ["--rounds", "2",
                                                 "--device", "cpu"])
     xlstm_cpu = xlstm_cpu_jobs(pool)
+    whisper_cpu = whisper_cpu_jobs(pool)
     print("[10] LM stack inference at full width (prefill and serve)")
     t0 = time.perf_counter()
     build.reset_launch_counts()          # the LM path starts here
@@ -5773,6 +6386,15 @@ def run(torch, pool, threads: int) -> int:
     xlstm_path = dict(counts)            # and is read here
     print(f"  phase 10d took {time.perf_counter() - t0:.1f} s; launches "
           f"{ {k: v for k, v in xlstm_path.items() if v} }")
+
+    print("[10e] the encoder-decoder at full width and depth: whisper-tiny "
+          "(4 + 4 layers) through K7")
+    t0 = time.perf_counter()
+    build.reset_launch_counts()          # the whisper path starts here
+    lm_ms.update(whisper_phase(torch, counts))
+    whisper_path = dict(counts)          # and is read here
+    print(f"  phase 10e took {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: v for k, v in whisper_path.items() if v} }")
 
     print("[11] LM training at full width: qwen1.5-0.5b's loss, train "
           "steps, federated trainer and pods as clients")
@@ -5802,12 +6424,22 @@ def run(torch, pool, threads: int) -> int:
     xlstm_train_path = dict(counts)      # and is read here
     print(f"  phase 11d took {time.perf_counter() - t0:.1f} s; launches "
           f"{ {k: v for k, v in xlstm_train_path.items() if v} }")
+    print("[11e] training whisper-tiny at full width and depth (4 + 4 "
+          "layers) through K7 and K7-bwd, and reduced")
+    t0 = time.perf_counter()
+    build.reset_launch_counts()          # the whisper training path starts
+    train_out.update(whisper_train_phase(torch, counts, whisper_cpu))
+    whisper_train_path = dict(counts)    # and is read here
+    print(f"  phase 11e took {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: v for k, v in whisper_train_path.items() if v} }")
 
     for r in rows:
         r["launches"] = (main_path[r["name"]] + on_mesh.get(r["name"], 0)
                          + lm_path[r["name"]] + jamba_path[r["name"]]
-                         + xlstm_path[r["name"]] + train_path[r["name"]]
-                         + xlstm_train_path[r["name"]])
+                         + xlstm_path[r["name"]] + whisper_path[r["name"]]
+                         + train_path[r["name"]]
+                         + xlstm_train_path[r["name"]]
+                         + whisper_train_path[r["name"]])
         check(r["launches"] > 0, f"{r['name']} not launched on the main "
                                  f"path")
     print(f"[12] done in {time.perf_counter() - t_start:.1f} s; phase "

@@ -5,9 +5,9 @@
 properties and ``reduced()`` preset, so an architecture reads the same in
 both packages.  The model path of the port takes the ``attn``,
 ``attn_moe``, ``mamba``, ``mamba_moe``, ``mlstm`` and ``slstm`` block
-kinds (``models/transformer.py`` refuses encoder-decoder models and the
-audio and patch frontends as not yet ported; training refuses the
-xLSTM blocks, ``launch/steps.check_trainable``).
+kinds and the encoder-decoder with the frames frontend, serving and
+training (``models/transformer.py`` refuses the patch frontend as not
+yet ported).
 
 ``FederatedConfig`` is the counterpart of the reference's
 ``FederatedConfig``: the same fields, defaults and validation, checked

@@ -18,7 +18,9 @@ XLA shardings inside a pod (``_client_pspecs``: FSDP over ``data``,
 tensor parallel over ``model``) are not ported: a pod is one rank here.
 The archs are those of the train steps (``steps.check_trainable``): the
 dense archs, the MoE archs, the hybrid jamba-v0.1-52b, whose pod loss
-adds the MoE blocks' aux, and xlstm-350m.
+adds the MoE blocks' aux, xlstm-350m, and the encoder-decoder
+whisper-tiny, whose batch carries frames ``(pods, local_steps, b, S, d)``
+beside the tokens and labels.
 """
 from __future__ import annotations
 

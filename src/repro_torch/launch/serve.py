@@ -4,6 +4,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 Counterpart of ``repro/launch/serve.py``, with its CLI and defaults (the
@@ -12,11 +13,20 @@ reduced preset of ``--arch``).  As there, the prompt is fed through
 cache (and, for jamba-v0.1-52b's mamba blocks, the SSM state and conv
 window; for xlstm-350m's blocks, their recurrent states), and the model
 then decodes greedily.  The dense archs, the MoE archs
-(qwen3-moe-235b-a22b, arctic-480b), the hybrid jamba-v0.1-52b and
-xlstm-350m are served.  The recurrent states start from zeros, as the
-reference's cache does: an xLSTM block's stabiliser ``m`` too, where its
-prefill starts it at -1e30 (``models/xlstm.py``).  Runs on the card unless ``--device cpu``.  The weights are
-drawn by ``init_params`` from ``--seed``, and so is the prompt (from a
+(qwen3-moe-235b-a22b, arctic-480b), the hybrid jamba-v0.1-52b,
+xlstm-350m and the encoder-decoder whisper-tiny are served.  For
+whisper-tiny without frames the loop is the reference's: the
+cross-attention's ``ck`` / ``cv`` caches hold ``cache_len`` rows of
+zeros, which no reference code writes, so its decoder never sees an
+encoder.  Given ``frames`` (precomputed frame embeddings, the
+reference's stub frontend), ``generate`` runs the encoder once and
+fills every decoder layer's ``ck`` / ``cv`` with the keys and values
+the teacher-forced forward's cross-attention takes
+(``transformer.fill_cross_cache``).  The recurrent states start from
+zeros, as the reference's cache does: an xLSTM block's stabiliser ``m``
+too, where its prefill starts it at -1e30 (``models/xlstm.py``).  Runs
+on the card unless ``--device cpu``.  The weights are drawn by
+``init_params`` from ``--seed``, and so is the prompt (from a
 ``torch.Generator``, not the reference's ``jax.random``).
 """
 from __future__ import annotations
@@ -30,8 +40,8 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core import pytree as pt
 from repro_torch.device import resolve_device
-from repro_torch.models import (decode_cache_specs, decode_step, init_params,
-                                model_specs)
+from repro_torch.models import (decode_cache_specs, decode_step,
+                                fill_cross_cache, init_params, model_specs)
 
 
 class Generation(NamedTuple):
@@ -47,20 +57,31 @@ def _clock(device) -> float:
     return time.perf_counter()
 
 
-def generate(params, cfg, prompt, tokens: int, cache_len: int) -> Generation:
+def generate(params, cfg, prompt, tokens: int, cache_len: int,
+             frames=None) -> Generation:
     """Feed ``prompt`` (B, P) through the decode path, then decode
     ``tokens`` greedy tokens, as the reference's serve loop does: the
     argmax after the prompt is fed first, and each step's argmax is
-    kept."""
+    kept.  An encoder-decoder's cross-attention attends over zero
+    ``ck`` / ``cv`` of ``cache_len`` rows, as the reference's, or, given
+    ``frames`` (B, T, d), over the encoder's keys and values of them
+    (module docstring); the encoder's run counts in ``prompt_s``."""
     B, P = prompt.shape
     dev = prompt.device
     dtype = params["embed"]["embedding"].dtype
+    enc_len = 0
+    if cfg.encoder_decoder:
+        enc_len = cache_len if frames is None else frames.shape[1]
+    elif frames is not None:
+        raise ValueError(f"{cfg.name} takes no frames")
     # KV caches in the params' dtype, recurrent states (mamba, xLSTM) in
     # f32
     cache = pt.tmap(lambda s: torch.zeros(
         s.shape, dtype=dtype if "seq" in s.axes else torch.float32,
-        device=dev), decode_cache_specs(cfg, B, cache_len))
+        device=dev), decode_cache_specs(cfg, B, cache_len, enc_len))
     t0 = _clock(dev)
+    if frames is not None:
+        fill_cross_cache(params, frames, cache, cfg)
     for t in range(P):
         logits, cache = decode_step(
             params, {"tokens": prompt[:, t:t + 1], "t": t}, cache, cfg)

@@ -23,11 +23,12 @@ backward), return new state dicts and never write into their inputs.
 Serving and training take the dense archs, the MoE ones
 (qwen3-moe-235b-a22b, arctic-480b), the hybrid jamba-v0.1-52b (its
 mamba blocks' scan through K8, and its gradient through K8-bwd, on the
-card) and xlstm-350m (its mLSTM and sLSTM scans through K9 and K10, and
-their gradients through K9-bwd and K10-bwd, on the card); the loss adds
+card), xlstm-350m (its mLSTM and sLSTM scans through K9 and K10, and
+their gradients through K9-bwd and K10-bwd, on the card) and the
+encoder-decoder whisper-tiny (frames for its encoder beside the tokens;
+its three attentions through K7 and K7-bwd on the card); the loss adds
 the MoE blocks' load-balance aux.  :func:`check_trainable` refuses what
-the model refuses (encoder-decoder models and the audio and patch
-frontends) as not yet ported.
+the model refuses (the patch frontend) as not yet ported.
 """
 from __future__ import annotations
 
@@ -55,8 +56,8 @@ class ShapeDtype:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise unless the train side takes ``cfg``: every block kind the
     model takes (``attn``, ``attn_moe``, ``mamba``, ``mamba_moe``,
-    ``mlstm``, ``slstm``); encoder-decoder models and the audio and
-    patch frontends are refused as not yet ported."""
+    ``mlstm``, ``slstm``) and the encoder-decoder; the patch frontend is
+    refused as not yet ported."""
     transformer._check_ported(cfg)
 
 
@@ -76,21 +77,29 @@ def abstract_train_state(cfg: ModelConfig, algo: str = "feddane",
                    train_state_specs(cfg, algo))
 
 
-def train_batch_specs(cfg: ModelConfig, shape: InputShape
-                      ) -> Dict[str, ShapeDtype]:
-    """Tokens and labels, (B, S) int32; the audio and patch frontends
-    are refused as not yet ported."""
+def train_batch_specs(cfg: ModelConfig, shape: InputShape,
+                      dtype=torch.bfloat16) -> Dict[str, ShapeDtype]:
+    """Tokens and labels, (B, S) int32, and for an encoder-decoder the
+    frames (B, S, d) in the activation ``dtype``; the patch frontend is
+    refused as not yet ported."""
     check_trainable(cfg)
     bs = (shape.global_batch, shape.seq_len)
-    return {"tokens": ShapeDtype(bs, torch.int32),
-            "labels": ShapeDtype(bs, torch.int32)}
+    out = {"tokens": ShapeDtype(bs, torch.int32),
+           "labels": ShapeDtype(bs, torch.int32)}
+    if cfg.encoder_decoder:
+        out = {"frames": ShapeDtype(bs + (cfg.d_model,), dtype), **out}
+    return out
 
 
-def prefill_batch_specs(cfg: ModelConfig, shape: InputShape
-                        ) -> Dict[str, ShapeDtype]:
-    transformer._check_ported(cfg)
-    return {"tokens": ShapeDtype((shape.global_batch, shape.seq_len),
-                                 torch.int32)}
+def prefill_batch_specs(cfg: ModelConfig, shape: InputShape,
+                        dtype=torch.bfloat16) -> Dict[str, ShapeDtype]:
+    """The train batch without labels; an encoder-decoder's encoder takes
+    S frames and its decoder scores one BOS token (B, 1)."""
+    spec = train_batch_specs(cfg, shape, dtype)
+    del spec["labels"]
+    if cfg.encoder_decoder:
+        spec["tokens"] = ShapeDtype((shape.global_batch, 1), torch.int32)
+    return spec
 
 
 def decode_batch_specs(cfg: ModelConfig, shape: InputShape
@@ -101,12 +110,14 @@ def decode_batch_specs(cfg: ModelConfig, shape: InputShape
 
 def abstract_decode_cache(cfg: ModelConfig, shape: InputShape,
                           dtype=torch.bfloat16) -> dict:
-    """The decode cache's shapes: KV caches in the activation dtype,
+    """The decode cache's shapes: KV caches (an encoder-decoder's ``ck``
+    / ``cv`` of ``seq_len`` encoder rows too) in the activation dtype,
     recurrent states (a mamba block's ``h`` and conv window, an xLSTM
     block's states) in f32."""
     cache_len = transformer.effective_cache_len(cfg, shape.seq_len)
+    enc_len = shape.seq_len if cfg.encoder_decoder else 0
     specs = transformer.decode_cache_specs(cfg, shape.global_batch,
-                                           cache_len)
+                                           cache_len, enc_len)
     return pt.tmap(lambda s: ShapeDtype(
         s.shape, dtype if "seq" in s.axes else torch.float32), specs)
 

@@ -1,8 +1,8 @@
 """End-to-end federated training driver for the LM stack.
 
-Federated fine-tuning of a dense, an MoE, the hybrid or the xLSTM
-architecture (the reduced preset unless ``--full-size``) with FedDANE /
-FedAvg / FedProx / variants from the core library:
+Federated fine-tuning of a dense, an MoE, the hybrid, the xLSTM or the
+encoder-decoder architecture (the reduced preset unless ``--full-size``)
+with FedDANE / FedAvg / FedProx / variants from the core library:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --rounds 20 --devices-per-round 4 --local-epochs 2 --algo feddane
@@ -17,6 +17,11 @@ FedAvg / FedProx / variants from the core library:
       --samples-per-device 16 --rounds 2
   PYTHONPATH=src python -m repro_torch.launch.train --full-size \\
       --num-devices 8 --devices-per-round 2 --local-epochs 1 \\
+      --samples-per-device 16 --rounds 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+      --full-size --num-devices 8 --devices-per-round 2 --local-epochs 1 \\
       --samples-per-device 16 --rounds 2
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu
 
@@ -45,8 +50,12 @@ xlstm-350m's reduced preset keeps whole repeats of its (sLSTM, mLSTM)
 pattern (at least 4 layers; at d=128, 4 heads: dk=64, dh=32), and
 ``--full-size`` takes all 24 layers (405 M params); on the card its
 scans run K9 and K10 and their gradients K9-bwd and K10-bwd, once a
-layer for all the clients of a local step.  The audio and patch
-frontends are refused as not yet ported (``steps.check_trainable``).
+layer for all the clients of a local step.  whisper-tiny (the
+encoder-decoder; 4 + 4 layers, 56 M params at ``--full-size``) trains
+as the reference's trainer drives it: the decoder on the token data, the
+encoder on zero frames of the tokens' length (a stub frontend); on the
+card its three attentions a layer run K7 and K7-bwd.  The patch frontend
+is refused as not yet ported (``steps.check_trainable``).
 """
 from __future__ import annotations
 
@@ -85,12 +94,18 @@ def make_lm_fed_data(num_devices: int, seq_len: int, batch_size: int,
 
 def make_lm_loss(cfg):
     """The trainer's loss over a ``(b, seq_len + 1)`` batch: the first
-    ``seq_len`` positions, no remat."""
+    ``seq_len`` positions, no remat; an encoder-decoder's encoder takes
+    zero frames (b, seq_len, d) in f32, as the reference's trainer feeds
+    it."""
     check_trainable(cfg)
 
     def loss_fn(params, batch):
         b = {"tokens": batch["tokens"][:, :-1],
              "labels": batch["labels"][:, :-1]}
+        if cfg.encoder_decoder:
+            b["frames"] = torch.zeros(b["tokens"].shape + (cfg.d_model,),
+                                      dtype=torch.float32,
+                                      device=b["tokens"].device)
         return transformer.loss_fn(params, b, cfg, remat="none")
 
     return loss_fn
@@ -157,6 +172,9 @@ def main(argv=None) -> TrainResult:
                           vocab_size=args.vocab)
     specs = model_specs(cfg)
     print(f"arch={cfg.name} params~{param_count(specs):,} on {dev}")
+    if cfg.encoder_decoder:
+        print("note: audio/VLM archs use stub frontends; federated LM "
+              "training here drives the decoder on token data only")
 
     data = make_lm_fed_data(args.num_devices, args.seq_len + 1,
                             args.batch_size, args.samples_per_device,

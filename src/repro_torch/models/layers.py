@@ -2,8 +2,8 @@
 the chunked cross-entropy.
 
 Counterpart of ``repro/models/layers.py`` (``rms_norm``, ``norm_spec``,
-``swiglu_ffn(_specs)``, ``embed(_specs)``, ``unembed``, ``head(_specs)``,
-``chunked_softmax_xent``).
+``swiglu_ffn(_specs)``, ``gelu_mlp(_specs)``, ``embed(_specs)``,
+``unembed``, ``head(_specs)``, ``chunked_softmax_xent``).
 Each layer is a function of ``(params_dict, inputs)`` over tensors, and
 each spec builder returns the matching :class:`ParamSpec` tree, with the
 reference's shapes and axis names.  Plain PyTorch on every device: the
@@ -43,6 +43,24 @@ def swiglu_ffn(params, x):
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
     return (torch.nn.functional.silu(gate) * up) @ params["w_down"]
+
+
+def gelu_mlp_specs(d_model: int, d_ff: int) -> dict:
+    """The encoder-decoder FFN (whisper): biased in/out projections."""
+    return {
+        "w_in": ParamSpec((d_model, d_ff), ("d_model", "d_ff")),
+        "b_in": ParamSpec((d_ff,), ("d_ff",), init="zeros"),
+        "w_out": ParamSpec((d_ff, d_model), ("d_ff", "d_model")),
+        "b_out": ParamSpec((d_model,), ("d_model",), init="zeros"),
+    }
+
+
+def gelu_mlp(params, x):
+    h = x @ params["w_in"] + params["b_in"]
+    # jax.nn.gelu's default is the tanh approximation, not the exact erf
+    # form that F.gelu takes by default
+    h = torch.nn.functional.gelu(h, approximate="tanh")
+    return h @ params["w_out"] + params["b_out"]
 
 
 def embed_specs(vocab: int, d_model: int) -> dict:

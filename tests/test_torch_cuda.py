@@ -48,6 +48,10 @@ def _normal(seed, shape, dtype, device):
     (3, 100, 77, 32, False, 0, torch.float32),
     (3, 70, 130, 32, True, 0, torch.bfloat16),
     (1, 1, 1, 128, True, 0, torch.float32),
+    # whisper-tiny's cross-attention: B=8 x 6 heads, 448 tokens or one
+    # BOS token against 1,500 frames
+    (48, 448, 1500, 64, False, 448, torch.float32),
+    (48, 1, 1500, 64, False, 1, torch.float32),
 ])
 def test_flash_attention_kernel_matches_plain(card, bh, s, t, hd, causal,
                                               period, dtype):
@@ -935,6 +939,8 @@ def test_segmented_mesh_replay_equals_eager_rounds(card, monkeypatch,
     (2, 300, 170, 64, True, 0, torch.float32),
     (2, 130, 300, 64, False, 0, torch.float32),
     (1, 4160, 4160, 32, True, 0, torch.float32),
+    # whisper-tiny's cross-attention in training: 448 tokens, 1,500 frames
+    (48, 448, 1500, 64, False, 448, torch.float32),
 ])
 def test_flash_attention_backward_matches_plain(card, bh, s, t, hd, causal,
                                                 period, dtype):
@@ -1553,3 +1559,74 @@ def test_xlstm_model_runs_k9_and_k10_on_the_card(card):
     assert set(build.launch_counts.values()) == {0}
     assert torch.equal(gen.tokens.cpu(),
                        serve.generate(p, cfg, toks[:, :6], 4, 16).tokens)
+
+
+def _whisper(card):
+    """The reduced whisper-tiny preset (2 + 2 layers, d=256), weights
+    from seed 0 on the CPU and the card, and a numpy-seeded batch of 2 x
+    40 tokens and labels with 2 x 60 random frames."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import pytree as pt
+    from repro_torch.models import param, transformer
+    cfg = get_arch("whisper-tiny").reduced()
+    p = param.init_params(transformer.model_specs(cfg),
+                          torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(6)
+    b = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40))
+                             .astype(np.int32)) for k in ("tokens",
+                                                          "labels")}
+    b["frames"] = torch.from_numpy(
+        rng.normal(size=(2, 60, cfg.d_model)).astype(np.float32))
+    return (cfg, p, pt.tmap(lambda t: t.to(card), p), b,
+            {k: v.to(card) for k, v in b.items()})
+
+
+@pytest.mark.cuda
+def test_whisper_model_runs_k7_on_the_card(card):
+    """The reduced whisper-tiny's prefill (60 frames, one token) launches
+    K7 once an attention (2 encoder, 2 decoder self, 2 cross) and agrees
+    with the CPU path within 1e-4 x max |logit|; ``serve.generate`` with
+    the frames launches K7 once an encoder layer (the cross caches) and
+    gives the CPU path's tokens."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg, p, pc, b, bc = _whisper(card)
+    batch = {"frames": bc["frames"], "tokens": bc["tokens"][:, :1]}
+    build.reset_launch_counts()
+    got = transformer.prefill(pc, batch, cfg)
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_attention"] == \
+        cfg.num_encoder_layers + 2 * cfg.num_layers
+    want = transformer.prefill(p, {"frames": b["frames"],
+                                   "tokens": b["tokens"][:, :1]}, cfg)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    build.reset_launch_counts()
+    gen = serve.generate(pc, cfg, bc["tokens"][:, :6], 4, 16,
+                         frames=bc["frames"])
+    assert build.launch_counts["flash_attention"] == cfg.num_encoder_layers
+    assert torch.equal(gen.tokens.cpu(), serve.generate(
+        p, cfg, b["tokens"][:, :6], 4, 16, frames=b["frames"]).tokens)
+
+
+@pytest.mark.cuda
+def test_whisper_train_step_runs_k7_bwd_on_the_card(card):
+    """The reduced whisper-tiny's fedavg step (remat none, 40 tokens
+    against 60 frames) launches K7 and K7-bwd once an attention, and its
+    new params agree with the CPU path's within 1e-4 x eta max |g| of
+    each leaf (plus 1e-7, an ulp of the params)."""
+    from repro_torch.core import pytree as pt
+    from repro_torch.launch import steps
+    cfg, p, pc, b, bc = _whisper(card)
+    step = steps.make_fedavg_step(cfg, eta=0.05, remat="none")
+    build.reset_launch_counts()
+    got, _ = step({"params": pc}, bc)
+    torch.cuda.synchronize()
+    n = cfg.num_encoder_layers + 2 * cfg.num_layers
+    assert build.launch_counts["flash_attention"] == n
+    assert build.launch_counts["flash_attention_bwd"] == n
+    want, _ = step({"params": p}, b)
+    for a, c, w in zip(pt.leaves(got["params"]), pt.leaves(p),
+                       pt.leaves(want["params"])):
+        moved = float((w - c).abs().max())       # eta x max |g|
+        assert float((a.cpu() - w).abs().max()) <= 1e-4 * moved + 1e-7

@@ -43,7 +43,8 @@ DENSE = ["qwen1.5-0.5b", "yi-9b", "minitron-8b", "phi4-mini-3.8b"]
 MOE = ["qwen3-moe-235b-a22b", "arctic-480b"]
 HYBRID = ["jamba-v0.1-52b"]
 XLSTM = ["xlstm-350m"]
-NOT_PORTED = ["whisper-tiny", "internvl2-26b"]
+ENC_DEC = ["whisper-tiny"]
+NOT_PORTED = ["internvl2-26b"]
 SMALL = {"qwen": ("qwen1.5-0.5b", {}),
          "yi-gqa": ("yi-9b", {"num_kv_heads": 2}),
          "qwen3-moe": ("qwen3-moe-235b-a22b", {}),
@@ -115,7 +116,7 @@ def test_registry_matches_reference():
         configs.get_shape("train_8k")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID + XLSTM)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID + XLSTM + ENC_DEC)
 def test_model_specs_match_reference_at_full_width(arch):
     """The full configs' spec trees -- keys, shapes, axes, initialisers
     -- and parameter counts, from the specs alone (nothing allocated)."""
@@ -142,7 +143,7 @@ def test_other_families_are_refused(arch):
         transformer.decode_cache_specs(cfg, 1, 8)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID + XLSTM)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID + XLSTM + ENC_DEC)
 @pytest.mark.parametrize("shape", sorted(jconfigs.INPUT_SHAPES))
 def test_step_input_specs_match_reference(arch, shape):
     jcfg, tcfg = jconfigs.get_arch(arch), configs.get_arch(arch)
