@@ -97,14 +97,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the plain loop's time; no PyTorch call computes either.  K9-bwd
    and K10-bwd (their backward, kernels of the port) at (x1)/(y1),
    (x2)/(y2), (x4)/(y4) and (x5)/(y5) the reduced trainer's fold of 2
-   clients (B=2x4, S=64, dk=64, dh=32, the sLSTM's r in 2 groups), from
+   clients (B=2x4, S=64, dk=64, dh=32, the sLSTM's r in 2 groups), K10-bwd
+   also at (y6) the fold of 2 clients at full width (B=2x1, S=1024,
+   dh=256, r in 2 groups), from
    the states the training launches saved: each output within GRAD_REL
    x its own max |g| of the plain backward, two calls bitwise equal, and
    the training launches' h and states within XLSTM_REL x their max of
    the plain forward's, beside the bound (the bytes, or the walk's flops
-   at the f32 rate).  Every plain step loop of the scans (K8-K10 and
-   their backward) runs once, its comparison call timed with CUDA
-   events;
+   at the f32 rate); each K10 and K10-bwd case prints its time a step,
+   its cluster and how many of its clusters fit the card at once.  Every
+   plain step loop of the scans (K8-K10 and their backward) runs once,
+   its comparison call timed with CUDA events;
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
    E=20, B=10, lr=0.01 -- for feddane, fedprox (mu=0.001) and fedavg,
    5 rounds each with the default ``local_solver="auto"``, held round by
@@ -403,7 +406,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``loss_fn``'s gradient, ``remat="full"`` (K9/K10 twice and
    K9-bwd/K10-bwd once a layer), at XLSTM_GRAD_CMP (B=1, S=256, four
    chunks) against the plain scans' route (remat none; loss within
-   LOGIT_REL, each leaf within GRAD_REL), then at B=1 S=4096 twice,
+   LOGIT_REL, each leaf within GRAD_REL; the worst leaf named, with the
+   move of its gradient through the kernels under an XLSTM_NUDGE x |p|
+   nudge of the params), then at B=1 S=4096 twice,
    bitwise equal, ms and the card's peak; (c) ``make_fedavg_step`` at
    B=1 S=4096 (its loss and params bitwise (b)'s loss and params - eta
    g), 3 ``make_feddane_round_step`` steps (the loss falls) and a
@@ -1301,12 +1306,24 @@ def kernel_checks(torch, syn, fem):
         args = tuple(xs + rs)
         bitwise_case(f"K10 {label}", xlstm_scan.slstm_scan, *args)
         nbytes = 4 * (5 * B * S * H * D + 4 * H * D * D)
-        return case(
+        return k10_plan(case(
             f"slstm_scan ({B}, {S}, {H}, {D}) f32, {label}",
             lambda: xlstm_scan.slstm_scan(*args),
             lambda: ref.slstm_scan_ref(*args),
             XLSTM_REL, nbytes, B * S * H * D * (8 * D + 30), calls=calls,
-            plain_once=True, scaled=True)
+            plain_once=True, scaled=True), S, D, "serve")
+
+    def k10_plan(c, S, D, kind):
+        """A K10 or K10-bwd case with its time a step, its cluster and how
+        many of its clusters fit the card at once."""
+        plan = xlstm_scan.slstm_plan(D)
+        c.update(us_per_step=c["ms"] * 1e3 / S, cluster=plan.cluster,
+                 resident_clusters=xlstm_scan.slstm_resident_clusters(D,
+                                                                      kind))
+        print(f"      {c['us_per_step']:.4f} us a step; clusters of "
+              f"{plan.cluster} x {plan.threads} threads, "
+              f"{c['resident_clusters']} resident at once")
+        return c
 
     def row_xlstm(name, source, step, cases):
         """K9 or K10: a kernel of the port with no TPU counterpart (the
@@ -1380,13 +1397,13 @@ def kernel_checks(torch, syn, fem):
         args = tuple(rs) + out + (dh,)
         bitwise_all(f"K10-bwd {label}", xlstm_scan.slstm_scan_bwd, *args)
         nbytes = 4 * (13 * B * S * H * D + 8 * rs[0].numel())
-        return case(
+        return k10_plan(case(
             f"slstm_scan_bwd ({B}, {S}, {H}, {D}) f32"
             + (f" r in {groups} groups" if groups else "") + f", {label}",
             lambda: xlstm_scan.slstm_scan_bwd(*args),
             lambda: ref.slstm_scan_bwd_ref(*args),
             GRAD_REL, nbytes, B * S * H * D * (16 * D + 40), calls=calls,
-            plain_once=True, scaled=True, each=True)
+            plain_once=True, scaled=True, each=True), S, D, "bwd")
 
     def row_xlstm_bwd(name, source, step, cases):
         """K9-bwd or K10-bwd: a kernel of the port with no TPU counterpart
@@ -1632,7 +1649,9 @@ def kernel_checks(torch, syn, fem):
                           calls=20),
              k10_bwd_case("(y5) the reduced trainer's fold of 2 clients, "
                           "B=2x4 S=64", 8, 64, 4, 32, groups=2,
-                          calls=20)]),
+                          calls=20),
+             k10_bwd_case("(y6) the fold of 2 clients at full width, "
+                          "B=2x1 S=1024", 2, 1024, 4, 256, groups=2)]),
     ]
 
 
@@ -3610,11 +3629,29 @@ def cuda_events(torch, fn):
     return res, start.elapsed_time(end)
 
 
+def leaf_rels(got, want):
+    """Each leaf's max |got - want| relative to its max |want|, in the
+    trees' leaf order."""
+    from repro_torch.core import pytree as pt
+    return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(pt.leaves(got), pt.leaves(want))]
+
+
 def worst_rel(got, want):
     """The worst leaf's max |got - want| relative to its max |want|."""
-    from repro_torch.core import pytree as pt
-    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-               for a, b in zip(pt.leaves(got), pt.leaves(want)))
+    return max(leaf_rels(got, want))
+
+
+def leaf_names(tree):
+    """The '/'-joined keys of each leaf of ``tree``, in its leaf order
+    (dicts by sorted key, as ``pytree.flatten`` walks them)."""
+    if isinstance(tree, dict):
+        return [f"{k}/{n}" if n else str(k) for k in sorted(tree)
+                for n in leaf_names(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [f"{i}/{n}" if n else str(i) for i, t in enumerate(tree)
+                for n in leaf_names(t)]
+    return [] if tree is None else [""]
 
 
 def same_bits(a, b):
@@ -5281,6 +5318,9 @@ def jamba_train_phase(torch, counts, cpu_run):
 #: plain scans at this (B, S): four chunks of 64 (the plain scans'
 #: Python loops take ~20 launches a step and layer).
 XLSTM_GRAD_CMP = (1, 256)
+#: Phase 11d (b): the relative nudge of the params (times N(0, 1)) whose
+#: move of the worst leaf's gradient is printed beside that leaf's error.
+XLSTM_NUDGE = 1e-7
 #: Phase 11d (a)-(c): the timed gradients' and the steps' (B, S).
 XLSTM_TRAIN_S = 4096
 #: Phase 11d (c): the steps' eta.
@@ -5428,16 +5468,35 @@ def xlstm_train_phase(torch, counts, cpu_runs):
     (loss_p, g_p), p_ms = events(lambda: plain(lambda: steps.value_and_grad(
         lambda p: transformer.loss_fn(p, b, cfg, remat="none"), params)))
     rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
-    err = worst_rel(g, g_p)
-    check(rel <= LOGIT_REL and err <= GRAD_REL
-          and all(bool(torch.isfinite(t).all()) for t in pt.leaves(g)),
-          f"(b) B={B_cmp} S={S_cmp}: loss {rel}, worst gradient leaf {err} "
-          f"x its max |g| against the plain scans")
+    rels = leaf_rels(g, g_p)
+    err = max(rels)
+    worst = rels.index(err)
     print(f"  (b) loss_fn B={B_cmp} S={S_cmp} remat=full: loss "
           f"{float(loss):.6f}, rel {rel:.2e} (<= {LOGIT_REL:g}) and worst "
           f"gradient leaf {err:.2e} x its max |g| (<= {GRAD_REL:g}) against "
           f"the plain scans (remat none, {p_ms:.1f} ms); launches {n}")
-    del g, g_p
+    del g_p
+    # the worst leaf's own spread: the same gradient through the kernels
+    # from params nudged by XLSTM_NUDGE x |p| x N(0, 1)
+    gen = card_generator(torch, 11)
+    nudged_p = pt.tmap(lambda t: t + XLSTM_NUDGE * t.abs() * torch.randn(
+        t.shape, generator=gen, device=t.device), params)
+    _, g_n = steps.value_and_grad(
+        lambda p: transformer.loss_fn(p, b, cfg, remat="full"), nudged_p)
+    spreads = leaf_rels(g_n, g)
+    print(f"      the worst leaf is {leaf_names(params)[worst]}; a "
+          f"{XLSTM_NUDGE:g} x |p| nudge of the params moves it "
+          f"{spreads[worst]:.2e} x its max |g| through the kernels (error "
+          f"/ spread {err / max(spreads[worst], 1e-30):.3g}); the largest "
+          f"leaf spread {max(spreads):.2e} "
+          f"({leaf_names(params)[spreads.index(max(spreads))]})")
+    check(rel <= LOGIT_REL and err <= GRAD_REL
+          and all(bool(torch.isfinite(t).all()) for t in pt.leaves(g)),
+          f"(b) B={B_cmp} S={S_cmp}: loss {rel}, worst gradient leaf {err} "
+          f"x its max |g| against the plain scans")
+    check(all(bool(torch.isfinite(t).all()) for t in pt.leaves(g_n)),
+          "(b) the nudged gradient is not finite")
+    del g, g_n, nudged_p
     b = card_batch(torch, S + 9, cfg.vocab_size, 1, S)
     lf = lambda p: transformer.loss_fn(p, b, cfg, remat="full")  # noqa
     torch.cuda.empty_cache()

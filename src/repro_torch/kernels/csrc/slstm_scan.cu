@@ -24,27 +24,48 @@
 // H=4, dh=256) the four recurrent products are 4.3 GFLOP (0.064 ms at
 // 67 TFLOP/s) and the bytes the inputs, matrices and output (84 MB,
 // 0.025 ms).  The recurrence is what holds it back: every step's products
-// need the whole h of the step before, and a head's four matrices (1 MB)
-// do not fit one SM's shared memory.
+// need the whole h of the step before, so the S steps run one after the
+// other, and a head's four matrices (1 MB at dh = 256) do not fit one SM.
 //
-// The design, simple first (the cluster design that keeps the matrices
-// in the shared memory of 8 blocks is later work):
-// - one block a (b, head) of kThreads = 1,024 threads;
-// - each step reads the head's four matrices whole from L2 (the 4 MB of
-//   all heads stay resident there), as many bytes in flight as one SM
-//   allows: thread (p, g, q) multiplies rows i of part p (dh / P rows,
-//   P = 1,024 / dh parts) of matrix g by h[i] and sums them into the
-//   four columns 4q .. 4q+3, reading each row's four as one 16-byte load
-//   (a warp reads 512 contiguous bytes a row), h[i] a broadcast from
-//   shared memory;
-// - the parts' sums meet in shared memory; thread j < dh adds them in
-//   part order for column j of each gate and updates the cell state of
-//   column j, which it keeps in registers; the step's inputs are read one
-//   step ahead into its registers;
-// - two barriers a step: the parts' sums, then h (two buffers
-//   alternating with the step's parity);
-// - sums in a fixed order, no atomics: two calls give the same bits;
-// - expf, tanhf, log1pf (not the fast intrinsics).
+// The design: a thread-block cluster a (b, head) that holds the head's
+// matrices on chip for the whole launch, and one exchange across the
+// cluster a step (Plan in slstm_cluster.cuh):
+// - kCluster blocks a (b, head), 8 at dh = 256 (a portable cluster), 2 at
+//   128, 1 at 64 and 32; block r owns the kCols = dh / kCluster output
+//   columns j in [r kCols, (r + 1) kCols) and keeps their c, n, m;
+// - at the start each thread loads, once, kRows = 64 entries (dh at 32)
+//   of one gate's column into registers: thread (column, gate g, chunk q)
+//   holds R_g[i][j] for the rows i = 4 (kChunks s + q) + e, e < 4, so the
+//   column's kChunks chunk lanes read adjacent 16 bytes of h (a warp's
+//   float4 load is one shared-memory wavefront): 128 KiB of the matrices
+//   a block at dh = 256 and 128, in 512 threads (126 registers, no
+//   spills);
+// - each step every thread multiplies its rows by the h of the step
+//   before (in this block's shared memory; four accumulators), the chunk
+//   lanes add their sums by shuffles in a fixed order, and the column's
+//   first lane gathers the four gates' pre-activations and updates the
+//   cell; kCluster of the column's lanes store h[j] into every block's h
+//   buffer with st.async (distributed shared memory), each store counted
+//   in that block's mbarrier of the buffer, which the block arms for the
+//   4 dh bytes of each step; a block goes on when its own mbarrier
+//   completes.  On the card that exchange takes a fraction of the cluster
+//   barrier a step the kernel first had (barrier.cluster, which every
+//   thread of the 8 blocks must reach; tools/slstm_step_parts.py times
+//   both).  The two h
+//   buffers alternate with the step's parity: a block stores h_t into a
+//   peer's buffer only once it has all of h_{t-1}, which every block
+//   sends only after it has read h_{t-2} from that buffer, so the buffer
+//   is free without a second barrier; h[j] and the states go to global
+//   memory after the exchange, off the step's chain;
+// - nothing of R is read from global memory or L2 inside the step loop;
+//   the step's zx, ix, fx, ox are staged in shared memory by cp.async,
+//   kTile steps at a time (kTile kCols = 512 floats a gate), a tile ahead;
+// - sums in a fixed order, no atomics: two calls give the same bits, and a
+//   (b, head)'s h does not depend on B (a vmap fold is each client's call);
+// - expf, tanhf, log1pf (not the fast intrinsics), and no FMA contraction
+//   (-fmad=false, build.py): the cell's multiplies and adds round one by
+//   one, as the plain version's elementwise ops do; the products' fmaf
+//   stay fused.
 //
 // Training (slstm_scan_states_f32): the same kernel also writes every
 // step's cell state c, n, m and the four gates' pre-activations zx + a_z,
@@ -55,11 +76,9 @@
 // launch is the template without those stores, on one group.
 #include <cuda_runtime.h>
 
-namespace {
+#include "slstm_cluster.cuh"
 
-constexpr int kThreads = 1024;
-constexpr int kMaxDim = 256;  // 1,024 / 4 gates: one (gate, column quad)
-                              // a thread at the least
+namespace {
 
 // The seven state outputs of a training launch (c, n, m, and the
 // pre-activations of z, i, f, o), passed by value.
@@ -68,78 +87,107 @@ struct States {
 };
 
 // kSave: the training launch, which also writes the states into st.
-template <bool kSave>
-__global__ void __launch_bounds__(kThreads) slstm_scan_kernel(
+template <int D, bool kSave>
+__global__ void __launch_bounds__(Plan<D>::kThreads, 1) slstm_scan_kernel(
     const float* __restrict__ zx, const float* __restrict__ ix,
     const float* __restrict__ fx, const float* __restrict__ ox,
     const float* __restrict__ rz, const float* __restrict__ ri,
     const float* __restrict__ rf, const float* __restrict__ ro,
-    float* __restrict__ h, States st, int seq_len,
-    int heads, int dim, int rows_per_group) {
-  __shared__ float hs[2][kMaxDim];
-  __shared__ __align__(16) float partial[kThreads * 4];  // [p][g][dim]
-  const int b = blockIdx.x / heads, head = blockIdx.x % heads;
-  const int tid = threadIdx.x;
-  // the products: thread (p, g, q)
-  const int quads = dim / 4;
-  const int q = tid % quads, g = (tid / quads) % 4, p = tid / dim;
-  const int rows = dim * dim / kThreads;  // rows a part
+    float* __restrict__ h, States st, int seq_len, int heads,
+    int rows_per_group) {
+  using P = Plan<D>;
+  constexpr int kVec = P::kRows / 4;  // float4s of h a thread reads a step
+  constexpr int kTile = P::kTile;
+  __shared__ __align__(16) float hs[2][D];
+  __shared__ float xs[2][4][kTile][P::kCols];  // [tile parity][gate][step][col]
+  __shared__ uint64_t full[2];                 // hs[x] holds the whole h
+  const int rank = block_rank<P::kCluster>();
+  const int bh = blockIdx.x / P::kCluster;
+  const int b = bh / heads, head = bh % heads;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int col = tid / P::kLanes, sub = tid % P::kLanes;
+  const int g = sub & 3, q = sub >> 2;
+  const int j = rank * P::kCols + col;
+  const int first = lane - sub;  // the column's first lane
+  const bool cell = sub == 0;
+
+  // the block's slice of the matrices, once: R_g[i][j] of this thread's
+  // rows, r[4 s + e] at i = 4 (kChunks s + q) + e
   const float* mat = g == 0 ? rz : g == 1 ? ri : g == 2 ? rf : ro;
-  const long long grp = b / rows_per_group;
-  const float4* __restrict__ col = reinterpret_cast<const float4*>(
-      mat + ((grp * heads + head) * dim + (long long)p * rows) * dim) + q;
-  float4* out4 = reinterpret_cast<float4*>(partial) + tid;
-  // the cell: thread j < dim, column j
-  const int j = tid;
-  const bool cell = j < dim;
-  const long long row0 = ((long long)b * seq_len * heads + head) * dim + j;
-  const long long stride = (long long)heads * dim;
+  const float* rc =
+      mat + ((long long)(b / rows_per_group) * heads + head) * D * D + j;
+  float r[P::kRows];
+#pragma unroll
+  for (int s = 0; s < kVec; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      r[4 * s + e] = rc[(long long)(4 * (P::kChunks * s + q) + e) * D];
+
+  const long long stride = (long long)heads * D;
+  // step 0 of the block's first column
+  const long long blk0 =
+      ((long long)b * seq_len * heads + head) * D + rank * P::kCols;
+  // tile k's inputs (steps k kTile ..) into xs[k & 1], one group
+  auto stage = [&](int k) {
+    const int t0 = k * kTile;
+    for (int e = tid; e < 4 * kTile * P::kCols; e += P::kThreads) {
+      const int a = e / (kTile * P::kCols), tt = e / P::kCols % kTile,
+                c = e % P::kCols;
+      const float* src = a == 0 ? zx : a == 1 ? ix : a == 2 ? fx : ox;
+      if (t0 + tt < seq_len)
+        cp_async4(&xs[k & 1][a][tt][c], src + blk0 + (t0 + tt) * stride + c);
+    }
+    cp_commit();
+  };
+
+  for (int e = tid; e < D; e += P::kThreads) hs[0][e] = 0.0f;
+  if (tid == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  stage(0);
+  stage(1);
+  cp_wait<1>();
+  // every block of the cluster running, its barriers set, h_{-1} zero,
+  // tile 0 in
+  cluster_barrier<P::kCluster>();
 
   float c = 0.0f, n = 0.0f, m = -1e30f;
-  float nz = 0.0f, ni = 0.0f, nf = 0.0f, no = 0.0f;
-  if (cell) {
-    hs[0][j] = 0.0f;
-    nz = zx[row0];
-    ni = ix[row0];
-    nf = fx[row0];
-    no = ox[row0];
-  }
-  __syncthreads();
+  const long long col0 = blk0 + col;
   for (int t = 0; t < seq_len; ++t) {
-    const float* hp = hs[t & 1] + p * rows;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 8
-    for (int i = 0; i < rows; ++i) {
-      const float hi = hp[i];
-      const float4 r = __ldg(col + (long long)i * quads);
-      acc.x += hi * r.x;
-      acc.y += hi * r.y;
-      acc.z += hi * r.z;
-      acc.w += hi * r.w;
+    const int tt = t % kTile, buf = (t / kTile) & 1;
+    if (tt == 0 && t > 0) {  // tile t / kTile in, the one before read
+      cp_wait<0>();
+      __syncthreads();
+      stage(t / kTile + 1);
     }
-    *out4 = acc;
-    __syncthreads();
-    if (cell) {
-      const long long at = row0 + t * stride;
-      const float xz = nz, xi = ni, xf = nf, xo = no;
-      if (t + 1 < seq_len) {
-        nz = zx[at + stride];
-        ni = ix[at + stride];
-        nf = fx[at + stride];
-        no = ox[at + stride];
-      }
-      float a[4];
+    const float x = xs[buf][g][tt][col];  // this lane's gate's input
+    // h_{t-1}, the (t-1)/2-th that hs[t & 1] takes
+    if (t > 0) mbar_wait(&full[t & 1], ((t - 1) >> 1) & 1);
+    if (tid == 0 && t + 1 < seq_len) mbar_expect(&full[(t + 1) & 1], 4 * D);
+    const float4* h4 = reinterpret_cast<const float4*>(hs[t & 1]);
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
 #pragma unroll
-      for (int gate = 0; gate < 4; ++gate) {
-        float sum = 0.0f;
-        for (int part = 0; part < kThreads / dim; ++part)
-          sum += partial[(part * 4 + gate) * dim + j];
-        a[gate] = sum;
-      }
-      const float pz = xz + a[0], po = xo + a[3];
+    for (int s = 0; s < kVec; ++s) {
+      const float4 hv = h4[P::kChunks * s + q];
+      a0 = fmaf(hv.x, r[4 * s], a0);
+      a1 = fmaf(hv.y, r[4 * s + 1], a1);
+      a2 = fmaf(hv.z, r[4 * s + 2], a2);
+      a3 = fmaf(hv.w, r[4 * s + 3], a3);
+    }
+    // the chunks' sums, alike in every chunk lane (x + y == y + x), and
+    // gate g's pre-activation; the column's first lane gathers the four
+    float a = (a0 + a1) + (a2 + a3);
+#pragma unroll
+    for (int o = 4; o < P::kLanes; o *= 2) a += __shfl_xor_sync(~0u, a, o);
+    const float pz = x + a;  // of gate g: z in the first lane
+    const float i_raw = __shfl_sync(~0u, pz, first + 1);
+    const float f_raw = __shfl_sync(~0u, pz, first + 2);
+    const float po = __shfl_sync(~0u, pz, first + 3);
+    float hv = 0.0f;
+    if (cell) {
       const float z = tanhf(pz);
-      const float i_raw = xi + a[1];
-      const float f_raw = xf + a[2];
       const float o_t = 1.0f / (1.0f + expf(-po));
       const float log_f = fminf(f_raw, 0.0f) - log1pf(expf(-fabsf(f_raw)));
       const float m_new = fmaxf(log_f + m, i_raw);
@@ -148,9 +196,16 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(
       m = m_new;
       c = fp * c + ip * z;
       n = fp * n + ip;
-      const float hv = o_t * c / fmaxf(n, 1e-6f);
+      hv = o_t * c / fmaxf(n, 1e-6f);
+    }
+    if (t + 1 < seq_len) {
+      hv = __shfl_sync(~0u, hv, first);
+      if (sub < P::kCluster)
+        st_async(&hs[(t + 1) & 1][j], hv, &full[(t + 1) & 1], sub);
+    }
+    if (cell) {  // off the step's chain: after the exchange
+      const long long at = col0 + t * stride;
       h[at] = hv;
-      hs[(t + 1) & 1][j] = hv;
       if (kSave) {
         st.p[0][at] = c;
         st.p[1][at] = n;
@@ -161,39 +216,65 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(
         st.p[6][at] = po;
       }
     }
-    __syncthreads();
   }
+  cp_wait<0>();
+  cluster_barrier<P::kCluster>();  // no block leaves while stores fly
 }
 
+template <int D, bool kSave>
+int launch_dim(const void* zx, const void* ix, const void* fx,
+               const void* ox, const void* rz, const void* ri, const void* rf,
+               const void* ro, void* h, States st, int batch, int seq_len,
+               int heads, int rows_per_group, void* stream) {
+  static int resident = -1;
+  const auto f = [](const void* x) { return static_cast<const float*>(x); };
+  return launch_clusters<D>(
+      slstm_scan_kernel<D, kSave>, &resident, batch * heads, stream, f(zx),
+      f(ix), f(fx), f(ox), f(rz), f(ri), f(rf), f(ro),
+      static_cast<float*>(h), st, seq_len, heads, rows_per_group);
+}
+
+// The launch of head dim ``dim`` with the plan (cluster, cols, threads,
+// tile) the wrapper passes: cudaErrorInvalidValue for another dim, a plan
+// other than the kernel's, or a batch the groups do not divide.
 template <bool kSave>
 int launch(const void* zx, const void* ix, const void* fx, const void* ox,
            const void* rz, const void* ri, const void* rf, const void* ro,
-           void* h, States st, int batch, int seq_len, int heads,
-           int dim, int groups, void* stream) {
-  if (dim < 32 || dim > kMaxDim || (dim & (dim - 1)) != 0 || groups < 1 ||
-      batch % groups != 0)
+           void* h, States st, int batch, int seq_len, int heads, int dim,
+           int groups, int cluster, int cols, int threads, int tile,
+           void* stream) {
+  if (groups < 1 || batch % groups != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  slstm_scan_kernel<kSave><<<batch * heads, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(zx), static_cast<const float*>(ix),
-      static_cast<const float*>(fx), static_cast<const float*>(ox),
-      static_cast<const float*>(rz), static_cast<const float*>(ri),
-      static_cast<const float*>(rf), static_cast<const float*>(ro),
-      static_cast<float*>(h), st, seq_len, heads, dim, batch / groups);
-  return static_cast<int>(cudaGetLastError());
+  const int rpg = batch / groups;
+#define SLSTM_DIM(DIM)                                                    \
+  case DIM:                                                               \
+    if (!plan_matches<DIM>(cluster, cols, threads, tile)) break;          \
+    return launch_dim<DIM, kSave>(zx, ix, fx, ox, rz, ri, rf, ro, h, st,  \
+                                  batch, seq_len, heads, rpg, stream);
+  switch (dim) {
+    SLSTM_DIM(32)
+    SLSTM_DIM(64)
+    SLSTM_DIM(128)
+    SLSTM_DIM(256)
+  }
+#undef SLSTM_DIM
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// h (B, S, H, dh) of the scan; dh 32, 64, 128 or 256 (any other returns
-// cudaErrorInvalidValue; the wrapper refuses it first).
+// h (B, S, H, dh) of the scan; dh 32, 64, 128 or 256 with its plan
+// (cluster, cols, threads, tile; any other returns cudaErrorInvalidValue,
+// the wrapper refuses the dim first).
 extern "C" int slstm_scan_f32(const void* zx, const void* ix, const void* fx,
                               const void* ox, const void* rz, const void* ri,
                               const void* rf, const void* ro, void* h,
                               int batch, int seq_len, int heads, int dim,
+                              int cluster, int cols, int threads, int tile,
                               void* stream) {
   return launch<false>(zx, ix, fx, ox, rz, ri, rf, ro, h, States{}, batch,
-                       seq_len, heads, dim, 1, stream);
+                       seq_len, heads, dim, 1, cluster, cols, threads, tile,
+                       stream);
 }
 
 // The training launch: h and every step's c, n, m, zx + a_z, ix + a_i,
@@ -203,11 +284,33 @@ extern "C" int slstm_scan_states_f32(
     const void* zx, const void* ix, const void* fx, const void* ox,
     const void* rz, const void* ri, const void* rf, const void* ro, void* h,
     void* c, void* n, void* m, void* pz, void* pi, void* pf, void* po,
-    int batch, int seq_len, int heads, int dim, int groups, void* stream) {
+    int batch, int seq_len, int heads, int dim, int groups, int cluster,
+    int cols, int threads, int tile, void* stream) {
   const States st{{static_cast<float*>(c), static_cast<float*>(n),
                    static_cast<float*>(m), static_cast<float*>(pz),
                    static_cast<float*>(pi), static_cast<float*>(pf),
                    static_cast<float*>(po)}};
   return launch<true>(zx, ix, fx, ox, rz, ri, rf, ro, h, st, batch, seq_len,
-                      heads, dim, groups, stream);
+                      heads, dim, groups, cluster, cols, threads, tile,
+                      stream);
+}
+
+// How many clusters of the launch of head dim ``dim`` (the training
+// launch where ``save``) can be resident on the card at once, into
+// *count (cudaOccupancyMaxActiveClusters); the CUDA error code.
+extern "C" int slstm_scan_resident_clusters(int dim, int save, void* count) {
+  int* out = static_cast<int*>(count);
+#define SLSTM_DIM(DIM)                                             \
+  case DIM:                                                        \
+    return resident_clusters<DIM>(                                 \
+        save ? (const void*)slstm_scan_kernel<DIM, true>           \
+             : (const void*)slstm_scan_kernel<DIM, false>, out);
+  switch (dim) {
+    SLSTM_DIM(32)
+    SLSTM_DIM(64)
+    SLSTM_DIM(128)
+    SLSTM_DIM(256)
+  }
+#undef SLSTM_DIM
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,8 +18,11 @@ The reference has no Pallas kernel here (XLA loops its ``lax.scan``); on
 the card a Python loop of either step would cost 12-20 launches a token
 and layer, so each scan is one launch of a hand-written kernel:
 ``csrc/mlstm_scan.cu`` (a block a (b, head) and 16 columns of C, its
-slab of C in registers) and ``csrc/slstm_scan.cu`` (a block a (b, head)
-that reads the head's recurrent matrices from L2 every step).
+slab of C in registers) and ``csrc/slstm_scan.cu`` (a thread-block
+cluster a (b, head), each block holding its columns of the head's four
+recurrent matrices in registers for the whole launch and storing its
+part of each step's h into every block's shared memory, which each
+block's mbarrier counts in; :func:`slstm_plan` lays it out).
 
 Training: the reference differentiates ``chunked_scan``, whose chunks of
 ``ref.SCAN_CHUNK`` = 64 steps are under ``jax.checkpoint``.  With grad
@@ -27,9 +30,10 @@ on, K9's training launch also writes the state before each chunk (C, n,
 m), and K9-bwd (``csrc/mlstm_scan_bwd.cu``) recomputes each chunk's
 states from it and walks them back.  K10's state is small, so its
 training launch writes every step's c, n, m and the four gates'
-pre-activations, and K10-bwd (``csrc/slstm_scan_bwd.cu``) walks t = S-1
-.. 0 on them alone; the recurrent matrices' gradients are a product
-over the saved h after the walk (``ref.slstm_dr``).  Each Function has a
+pre-activations, and K10-bwd (``csrc/slstm_scan_bwd.cu``, the same
+cluster, each block holding rows of the matrices) walks t = S-1 .. 0 on
+them alone; the recurrent matrices' gradients are a product over the
+saved h after the walk (``ref.slstm_dr``).  Each Function has a
 ``vmap`` rule that folds the mapped dim into B, so the trainer's
 ``vmap(grad)`` over K clients launches each kernel once; under vmap the
 sLSTM's matrices go in a client each as groups (G, H, dh, dh), batch row
@@ -43,6 +47,9 @@ are made contiguous here.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import build, ref
@@ -52,7 +59,7 @@ from repro_torch.kernels.vmap_fold import fold_contiguous, unfold
 F32 = torch.float32
 #: Head dims K9 and K9-bwd are built for (templates over dk).
 MLSTM_DIMS = (64, 128, 256, 512)
-#: Head dims K10 and K10-bwd take (1,024 threads split evenly over dh^2 / 4).
+#: Head dims K10 and K10-bwd take (templates over dh; :func:`slstm_plan`).
 SLSTM_DIMS = (32, 64, 128, 256)
 #: Steps between the states K9's training launch saves, fixed in both
 #: sources.
@@ -69,12 +76,55 @@ _MLSTM_BWD_SIGNATURES = {
     "mlstm_scan_bwd_f32": (P,) * 16 + (I, I, I, I, F, P),
 }
 _SLSTM_SIGNATURES = {
-    "slstm_scan_f32": (P,) * 9 + (I, I, I, I, P),
-    "slstm_scan_states_f32": (P,) * 16 + (I, I, I, I, I, P),
+    "slstm_scan_f32": (P,) * 9 + (I,) * 8 + (P,),
+    "slstm_scan_states_f32": (P,) * 16 + (I,) * 9 + (P,),
+    "slstm_scan_resident_clusters": (I, I, P),
 }
 _SLSTM_BWD_SIGNATURES = {
-    "slstm_scan_bwd_f32": (P,) * 13 + (I, I, I, I, I, P),
+    "slstm_scan_bwd_f32": (P,) * 16 + (I,) * 9 + (P,),
+    "slstm_scan_bwd_resident_clusters": (I, P),
 }
+
+
+class SlstmPlan(NamedTuple):
+    """How K10 and K10-bwd lay out head dim dh (``Plan`` in
+    ``csrc/slstm_cluster.cuh``): every launch passes the first four
+    fields, and the kernel refuses a plan other than its own."""
+    #: Blocks of the thread-block cluster a (b, head) runs on.
+    cluster: int
+    #: Columns a block owns: the forward's outputs, the backward's rows of
+    #: g_h, and their cell states.
+    cols: int
+    #: Threads a block, each holding ``rows`` = 64 (dh below 64: dh) of
+    #: the block's matrix entries: ``4 * dh / rows`` a column.
+    threads: int
+    #: Steps of inputs staged in shared memory at a time.
+    tile: int
+    #: Shared memory of the larger kernel (K10-bwd's) a block.
+    shared_bytes: int
+    #: On-chip bytes a block: its slice of the four matrices (registers)
+    #: and ``shared_bytes``.
+    on_chip_bytes: int
+
+
+def slstm_plan(dh: int) -> SlstmPlan:
+    """K10's and K10-bwd's plan for head dim ``dh``: a cluster of the
+    fewest blocks that hold a head's four (dh, dh) f32 matrices at no more
+    than 128 KiB a block (8 at dh = 256, 2 at 128, 1 at 64 and 32), each
+    block owning dh / cluster columns."""
+    cluster = max(1, dh * dh // 8192)
+    cols = dh // cluster
+    rows = min(dh, 64)
+    tile = 512 // cols
+    threads = cols * 4 * (dh // rows)
+    # K10-bwd's (K10's 2 dh + 4,096 floats are fewer): the d_g float4s
+    # of two steps, two tiles of 8 arrays of tile + 1 steps of the
+    # block's columns, a partial sum a thread, 9 values a column for two
+    # steps, and two mbarriers
+    shared = 4 * (2 * 4 * dh + 2 * 8 * (tile + 1) * cols + threads
+                  + 2 * 9 * cols) + 16
+    return SlstmPlan(cluster, cols, threads, tile, shared,
+                     16 * dh * cols + shared)
 
 
 def _check_same(what: str, named, want, device) -> None:
@@ -343,17 +393,18 @@ def slstm_scan_fwd(zx, ix, fx, ox, r_z, r_i, r_f, r_o, *,
     if out[0].numel() == 0:
         return tuple(out)
     args = [t.contiguous() for _, t in xs + rs]
+    plan = slstm_plan(dh)[:4]
     lib = build.library(what, _SLSTM_SIGNATURES)
     if with_states:
         rc = lib.slstm_scan_states_f32(
             *(t.data_ptr() for t in args), *(t.data_ptr() for t in out),
-            B, S, H, dh, _groups(r_z), build.stream())
+            B, S, H, dh, _groups(r_z), *plan, build.stream())
     else:
         if r_z.dim() == 4:
             raise ValueError(f"{what}: grouped recurrent matrices take the "
                              f"training launch (with_states=True)")
         rc = lib.slstm_scan_f32(*(t.data_ptr() for t in args),
-                                out[0].data_ptr(), B, S, H, dh,
+                                out[0].data_ptr(), B, S, H, dh, *plan,
                                 build.stream())
     build.check_launch(rc, what)
     build.launch_counts[what] += 1
@@ -364,11 +415,11 @@ def slstm_scan_bwd(r_z, r_i, r_f, r_o, h, c, n, m, pz, pi, pf, po, dh):
     """K10-bwd's launch: ``(dzx, dix, dfx, dox, dr_z, dr_i, dr_f, dr_o)``
     of the scan under the cotangent ``dh`` (B, S, H, dh), from the
     forward's ``h`` and states; each ``dr`` has its ``r``'s shape (per
-    group for grouped r's).  On the card the walk (a block a (b, head),
-    t = S-1 .. 0, the four recurrent products of each step in a fixed
-    order: the same inputs give the same bits), one count, then the
-    product ``ref.slstm_dr`` over the saved h; on the CPU the plain
-    version."""
+    group for grouped r's).  On the card the walk (a cluster a (b,
+    head) holding the r's as they are, t = S-1 .. 0, the four recurrent
+    products of each step in a fixed order: the same inputs give the
+    same bits), one count, then the product ``ref.slstm_dr`` over the
+    saved h; on the CPU the plain version."""
     what = "slstm_scan_bwd"
     seq = (("h", h), ("c", c), ("n", n), ("m", m), ("pz", pz), ("pi", pi),
            ("pf", pf), ("po", po), ("dh", dh))
@@ -385,21 +436,35 @@ def slstm_scan_bwd(r_z, r_i, r_f, r_o, h, c, n, m, pz, pi, pf, po, dh):
     if h.numel() == 0:
         return tuple(t.zero_() for t in d) + tuple(
             torch.zeros_like(r) for _, r in rs)
-    # the four matrices of each group, transposed: the walk's products
-    # r_g d_g read rows of r_g^T as the forward's h r_g reads rows of r_g
-    r_t = torch.stack([r for _, r in rs], dim=-4).transpose(-1, -2)
-    r_t = r_t.contiguous()
+    r_args = [r.contiguous() for _, r in rs]
     args = [t.contiguous() for _, t in seq]
     lib = build.library(what, _SLSTM_BWD_SIGNATURES)
     rc = lib.slstm_scan_bwd_f32(
-        r_t.data_ptr(), *(t.data_ptr() for t in args[1:]),
+        *(t.data_ptr() for t in r_args + args[1:]),
         *(t.data_ptr() for t in d), B, S, H, dh_, _groups(r_z),
-        build.stream())
+        *slstm_plan(dh_)[:4], build.stream())
     build.check_launch(rc, what)
     build.launch_counts[what] += 1
     h_prev = torch.cat([h.new_zeros((B, 1, H, dh_)), args[0][:, :-1]], 1)
     return tuple(d) + tuple(ref.slstm_dr(r, h_prev, d_g)
                             for (_, r), d_g in zip(rs, d))
+
+
+def slstm_resident_clusters(dh: int, kind: str) -> int:
+    """How many clusters of head dim ``dh`` of K10's serving launch
+    (``kind`` "serve"), its training launch ("train") or K10-bwd ("bwd")
+    can be resident on the card at once (``cudaOccupancyMaxActiveClusters``;
+    a launch raises where it is 0).  Needs the card."""
+    count = ctypes.c_int(0)
+    if kind == "bwd":
+        rc = build.library("slstm_scan_bwd", _SLSTM_BWD_SIGNATURES) \
+            .slstm_scan_bwd_resident_clusters(dh, ctypes.addressof(count))
+    else:
+        rc = build.library("slstm_scan", _SLSTM_SIGNATURES) \
+            .slstm_scan_resident_clusters(dh, int(kind == "train"),
+                                          ctypes.addressof(count))
+    build.check_launch(rc, "slstm_resident_clusters")
+    return count.value
 
 
 def _fold_r(info, dims, rs, per_client: bool):

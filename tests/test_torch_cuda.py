@@ -1389,6 +1389,8 @@ def test_mlstm_scan_kernel_matches_plain(card, B, S, H, D):
     (2, 100, 4, 64),       # the reduced preset
     (1, 64, 4, 256),       # full width, a short prompt
     (3, 1, 2, 32),         # one step
+    (1, 300, 4, 256),      # full width: the 8-block cluster, many steps
+    (2, 64, 4, 128),       # a cluster of 2
 ])
 def test_slstm_scan_kernel_matches_plain(card, B, S, H, D):
     """K10 against its plain version on the card within 1e-5 x max |h|;
@@ -1405,6 +1407,17 @@ def test_slstm_scan_kernel_matches_plain(card, B, S, H, D):
     assert got.shape == want.shape and got.dtype == torch.float32
     assert float((got - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["serve", "train", "bwd"])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_slstm_clusters_fit_the_card(card, D, kind):
+    """Each K10 launch and K10-bwd, at each head dim, has room for at
+    least one of its clusters on the card (a launch refuses where it has
+    none)."""
+    from repro_torch.kernels.xlstm_scan import slstm_resident_clusters
+    assert slstm_resident_clusters(D, kind) >= 1
 
 
 @pytest.mark.cuda
@@ -1469,6 +1482,7 @@ def test_mlstm_scan_bwd_kernel_matches_plain(card, B, S, H, D):
     (2, 100, 4, 64, 0),    # the reduced preset
     (1, 64, 4, 256, 0),    # full width
     (4, 30, 2, 32, 2),     # a vmap fold of 2 clients, r in 2 groups
+    (4, 64, 4, 256, 2),    # the fold at full width: 8-block clusters
 ])
 def test_slstm_scan_bwd_kernel_matches_plain(card, B, S, H, D, G):
     """K10's training launch (h and every step's states, r in G groups)

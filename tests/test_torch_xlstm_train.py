@@ -179,6 +179,31 @@ def _check_slstm_bwd(args, dh):
 # The plain backward
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("dh", kx.SLSTM_DIMS)
+def test_slstm_plan_splits_each_head_over_a_cluster(dh):
+    """K10's and K10-bwd's launch plan at each head dim they take: a
+    portable cluster (at most 8 blocks) of the fewest blocks that hold a
+    head's four (dh, dh) f32 matrices at 128 KiB a block or less, which
+    splits dh into whole warps of whole columns, each column's lanes
+    holding its 4 dh entries evenly (64 a lane at most) and numbering at
+    least the blocks they store its value into; a block's matrices and
+    shared memory within 227 KiB, its shared memory within the 48 KiB a
+    block has without the opt-in; tiles of 512 floats a gate."""
+    p = kx.slstm_plan(dh)
+    slab = 16 * dh * dh // p.cluster          # a block's matrix bytes
+    assert 1 <= p.cluster <= 8 and dh % p.cluster == 0
+    assert slab <= 128 * 1024
+    assert p.cluster == 1 or 2 * slab > 128 * 1024
+    assert p.cols == dh // p.cluster
+    lanes = p.threads // p.cols
+    assert p.threads == p.cols * lanes and p.threads % 32 == 0
+    assert 32 % lanes == 0 and lanes >= p.cluster
+    assert (4 * dh) % lanes == 0 and 4 * dh // lanes <= 64
+    assert p.tile * p.cols == 512
+    assert p.on_chip_bytes == slab + p.shared_bytes <= 227 * 1024
+    assert p.shared_bytes <= 48 * 1024
+
+
 @pytest.mark.parametrize("S", [16, 100, 128])
 def test_mlstm_bwd_ref_matches_autograd_and_reference_vjp(S):
     """S=16 in one chunk, 100 (a chunk and a part: S % 64 != 0, which the
