@@ -97,15 +97,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the plain loop's time; no PyTorch call computes either.  K9-bwd
    and K10-bwd (their backward, kernels of the port) at (x1)/(y1),
    (x2)/(y2), (x4)/(y4) and (x5)/(y5) the reduced trainer's fold of 2
-   clients (B=2x4, S=64, dk=64, dh=32, the sLSTM's r in 2 groups), K10-bwd
-   also at (y6) the fold of 2 clients at full width (B=2x1, S=1024,
-   dh=256, r in 2 groups), from
+   clients (B=2x4, S=64, dk=64, dh=32, the sLSTM's r in 2 groups), K9-bwd
+   also at (x6) B=2 S=201 at full width (a partial chunk and sub-chunk),
+   K10-bwd also at (y6) the fold of 2 clients at full width (B=2x1,
+   S=1024, dh=256, r in 2 groups), from
    the states the training launches saved: each output within GRAD_REL
    x its own max |g| of the plain backward, two calls bitwise equal, and
    the training launches' h and states within XLSTM_REL x their max of
    the plain forward's, beside the bound (the bytes, or the walk's flops
-   at the f32 rate); each K10 and K10-bwd case prints its time a step,
-   its cluster and how many of its clusters fit the card at once.  Every
+   at the f32 rate); each K9-K10-bwd case prints its time a step and its
+   plan, and the cluster ones how many of their clusters fit the card at
+   once.  Every
    plain step loop of the scans (K8-K10 and their backward) runs once,
    its comparison call timed with CUDA events;
 4. the paper's experiment on the card -- synthetic(1,1), N=30, K=10,
@@ -1286,12 +1288,34 @@ def kernel_checks(torch, syn, fem):
         args = (q, k, v, log_i, log_f)
         bitwise_case(f"K9 {label}", xlstm_scan.mlstm_scan, *args)
         nbytes = 4 * (4 * B * S * H * D + 2 * B * S * H)
-        return case(
+        return k9_plan(case(
             f"mlstm_scan ({B}, {S}, {H}, {D}) f32, {label}",
             lambda: xlstm_scan.mlstm_scan(*args),
             lambda: ref.mlstm_scan_ref(*args),
             XLSTM_REL, nbytes, B * S * H * (5 * D * D + 8 * D), calls=calls,
-            plain_once=True, scaled=True)
+            plain_once=True, scaled=True), S, D, bwd=False)
+
+    def k9_plan(c, S, D, bwd):
+        """A K9 or K9-bwd case with its time a step and its plan
+        (``xlstm_scan.mlstm_plan``); K9-bwd's with how many of its walk's
+        clusters fit the card at once."""
+        plan = xlstm_scan.mlstm_plan(D)
+        c.update(us_per_step=c["ms"] * 1e3 / S, plan=plan._asdict())
+        if bwd:
+            c["resident_clusters"] = xlstm_scan.mlstm_resident_clusters(D)
+            print(f"      {c['us_per_step']:.4f} us a step; walk blocks of "
+                  f"{plan.cols} columns x {plan.threads} threads, "
+                  f"sub-chunks of {plan.sub} steps, clusters of "
+                  f"{plan.cluster} ({c['resident_clusters']} resident at "
+                  f"once), {plan.shared_bytes} B of shared memory a block; "
+                  f"the second recompute's flops, beyond the bound: "
+                  f"{c['design_overhead_ms']:.4f} ms")
+        else:
+            print(f"      {c['us_per_step']:.4f} us a step; blocks of "
+                  f"{plan.fwd_cols} columns x {plan.fwd_threads} threads, "
+                  f"tiles of {plan.fwd_tile} steps, "
+                  f"{plan.fwd_shared_bytes} B of shared memory a block")
+        return c
 
     def k10_case(label, B, S, H, D, calls=5):
         """K10 on numpy-seeded inputs (zx, ix, fx, ox of O(1), the
@@ -1340,10 +1364,14 @@ def kernel_checks(torch, syn, fem):
         within GRAD_REL x its own max |g| of the plain backward (which
         runs once, its call timed), two calls bitwise equal.  Its bound:
         q, k, v, h, dh, the gates and the saved states read once, dq,
-        dk, dv and the gates' gradients written once, against 14 flops
-        an element of C a step (the recurrence recomputed, 3, and the
-        walk's five products with dC, 11) at 67 TFLOP/s; no PyTorch call
-        computes the scan's gradient."""
+        dk, dv and the gates' gradients written once, against the 14
+        flops an element of C a step that the function needs (the
+        recurrence recomputed once, 3, and the walk's five products with
+        dC, 11) at 67 TFLOP/s.  The kernel recomputes the recurrence
+        twice (once for the sub-chunks' starts, once into shared
+        memory): that third product, 3 flops more, is its design's own
+        overhead, reported apart (``design_overhead_ms``).  No PyTorch
+        call computes the scan's gradient."""
         q, k, v, dh = (normal(B, S, H, D) for _ in range(4))
         log_i = normal(B, S, H)
         log_f = ref.logsigmoid(normal(B, S, H) + 2.0)
@@ -1361,12 +1389,13 @@ def kernel_checks(torch, syn, fem):
         nc = -(-S // 64)
         nbytes = 4 * (8 * B * S * H * D + 4 * B * S * H
                       + B * nc * H * (D * D + D + 1))
-        return case(
-            f"mlstm_scan_bwd ({B}, {S}, {H}, {D}) f32, {label}",
-            lambda: xlstm_scan.mlstm_scan_bwd(*args),
-            lambda: ref.mlstm_scan_bwd_ref(*args),
-            GRAD_REL, nbytes, 14 * B * S * H * D * D, calls=calls,
-            plain_once=True, scaled=True, each=True)
+        c = case(f"mlstm_scan_bwd ({B}, {S}, {H}, {D}) f32, {label}",
+                 lambda: xlstm_scan.mlstm_scan_bwd(*args),
+                 lambda: ref.mlstm_scan_bwd_ref(*args),
+                 GRAD_REL, nbytes, 14 * B * S * H * D * D, calls=calls,
+                 plain_once=True, scaled=True, each=True)
+        c["design_overhead_ms"] = 3 * B * S * H * D * D / PEAK_F32_FLOPS * 1e3
+        return k9_plan(c, S, D, bwd=True)
 
     def k10_bwd_case(label, B, S, H, D, groups=0, calls=5):
         """K10-bwd on K10's inputs (as :func:`k10_case`; ``groups``: the
@@ -1639,7 +1668,9 @@ def kernel_checks(torch, syn, fem):
              k9_bwd_case("(x4) xlstm reduced B=2 S=100", 2, 100, 4, 128,
                          calls=20),
              k9_bwd_case("(x5) the reduced trainer's fold of 2 clients, "
-                         "B=2x4 S=64", 8, 64, 4, 64, calls=20)]),
+                         "B=2x4 S=64", 8, 64, 4, 64, calls=20),
+             k9_bwd_case("(x6) full width, a partial chunk, sub-chunk and "
+                         "cluster walk, B=2 S=201", 2, 201, 4, 512)]),
         row_xlstm_bwd(
             "slstm_scan_bwd", "slstm_scan_bwd.cu",
             "_slstm_step (src/repro/models/xlstm.py:141-160)",

@@ -18,21 +18,24 @@ The reference has no Pallas kernel here (XLA loops its ``lax.scan``); on
 the card a Python loop of either step would cost 12-20 launches a token
 and layer, so each scan is one launch of a hand-written kernel:
 ``csrc/mlstm_scan.cu`` (a block a (b, head) and 16 columns of C, its
-slab of C in registers) and ``csrc/slstm_scan.cu`` (a thread-block
-cluster a (b, head), each block holding its columns of the head's four
-recurrent matrices in registers for the whole launch and storing its
-part of each step's h into every block's shared memory, which each
-block's mbarrier counts in; :func:`slstm_plan` lays it out).
+slab of C in registers, each staged tile's shared values made once a
+block and h's sums added beside the steps; :func:`mlstm_plan`) and
+``csrc/slstm_scan.cu`` (a thread-block cluster a (b, head), each block
+holding its columns of the head's four recurrent matrices in registers
+for the whole launch and storing its part of each step's h into every
+block's shared memory, which each block's mbarrier counts in;
+:func:`slstm_plan` lays it out).
 
 Training: the reference differentiates ``chunked_scan``, whose chunks of
 ``ref.SCAN_CHUNK`` = 64 steps are under ``jax.checkpoint``.  With grad
 on, K9's training launch also writes the state before each chunk (C, n,
 m), and K9-bwd (``csrc/mlstm_scan_bwd.cu``) recomputes each chunk's
-states from it and walks them back.  K10's state is small, so its
-training launch writes every step's c, n, m and the four gates'
-pre-activations, and K10-bwd (``csrc/slstm_scan_bwd.cu``, the same
-cluster, each block holding rows of the matrices) walks t = S-1 .. 0 on
-them alone; the recurrent matrices' gradients are a product over the
+states from it in sub-chunks that stay in a block's shared memory and
+walks them back, a thread-block cluster of column blocks adding their
+partial sums.  K10's state is small, so its training launch writes
+every step's c, n, m and the four gates' pre-activations, and K10-bwd
+(``csrc/slstm_scan_bwd.cu``, the same cluster, each block holding rows
+of the matrices) walks t = S-1 .. 0 on them alone; the recurrent matrices' gradients are a product over the
 saved h after the walk (``ref.slstm_dr``).  Each Function has a
 ``vmap`` rule that folds the mapped dim into B, so the trainer's
 ``vmap(grad)`` over K clients launches each kernel once; under vmap the
@@ -64,16 +67,14 @@ SLSTM_DIMS = (32, 64, 128, 256)
 #: Steps between the states K9's training launch saves, fixed in both
 #: sources.
 CHUNK = ref.SCAN_CHUNK
-#: Columns of C a block of K9 and K9-bwd takes (``kCols``): K9-bwd's
-#: partial sums come one a column block.
-MLSTM_COLS = 16
 
 _MLSTM_SIGNATURES = {
-    "mlstm_scan_f32": (P, P, P, P, P, P, I, I, I, I, F, P),
-    "mlstm_scan_states_f32": (P,) * 9 + (I, I, I, I, F, P),
+    "mlstm_scan_f32": (P,) * 6 + (I,) * 8 + (F, P),
+    "mlstm_scan_states_f32": (P,) * 9 + (I,) * 8 + (F, P),
 }
 _MLSTM_BWD_SIGNATURES = {
-    "mlstm_scan_bwd_f32": (P,) * 16 + (I, I, I, I, F, P),
+    "mlstm_scan_bwd_f32": (P,) * 16 + (I,) * 9 + (F, P),
+    "mlstm_scan_bwd_resident_clusters": (I, P),
 }
 _SLSTM_SIGNATURES = {
     "slstm_scan_f32": (P,) * 9 + (I,) * 8 + (P,),
@@ -125,6 +126,63 @@ def slstm_plan(dh: int) -> SlstmPlan:
                   + 2 * 9 * cols) + 16
     return SlstmPlan(cluster, cols, threads, tile, shared,
                      16 * dh * cols + shared)
+
+
+class MlstmPlan(NamedTuple):
+    """How K9 and K9-bwd lay out head dim dk (``Layout`` in
+    ``csrc/mlstm_scan.cu``, ``Plan`` in ``csrc/mlstm_scan_bwd.cu``): each
+    launch passes its kernel's fields, and the kernel refuses a plan
+    other than its own."""
+    #: K9-bwd's walk: columns of C a block (all dk rows of them).
+    cols: int
+    #: Steps of a sub-chunk, whose recomputed states of the block's
+    #: columns fill 128 KB of its shared memory.
+    sub: int
+    #: Threads a block, each owning ``dk // threads`` rows of the columns.
+    threads: int
+    #: Column blocks of a head in a thread-block cluster, whose members
+    #: send their partial sums of dq and dk into the shared memory of the
+    #: member that owns those rows (``kCluster`` in the source).
+    cluster: int
+    #: Dynamic shared memory of a walk block.
+    shared_bytes: int
+    #: K9: columns of C a block, steps of a staged tile, threads a block
+    #: (dk, each with 4 rows of 4 columns, and a service warp) and dynamic
+    #: shared memory.
+    fwd_cols: int
+    fwd_tile: int
+    fwd_threads: int
+    fwd_shared_bytes: int
+
+
+def mlstm_plan(dk: int) -> MlstmPlan:
+    """K9's and K9-bwd's plan for head dim ``dk``.  K9-bwd: blocks of 8
+    columns, 2 rows a thread at dk = 512 (else 1), sub-chunks of 4096 / dk
+    steps (8 at dk = 512, 64 at 64, where a chunk is one sub-chunk),
+    clusters of 2 blocks (the card holds 66 of them, one block an SM on
+    all 132, so xlstm-350m's B=1 S=4096 gradient takes two whole waves;
+    it holds only 30 clusters of 4 and 15 of 8, PERF.md);
+    K9: blocks of 16 columns and dk threads (4 x 4 elements of C each)
+    with a service warp, tiles of 16 steps."""
+    cols, chunk, cluster = 8, CHUNK, 2
+    threads = dk // (2 if dk >= 512 else 1)
+    warps = threads // 32
+    sub = 4096 // dk
+    # the states, n's, two buffers each of the (w, u) rows received from
+    # the cluster, of dv's warp partials and of i, the chunk's v and dnum
+    # columns and its i, f, dden and max(|den|, 1), and two buffers of
+    # the df partials received from the cluster (``Plan::bytes``)
+    floats = (sub * dk * cols + sub * dk + 2 * sub * 2 * dk
+              + 2 * sub * warps * cols + 2 * sub
+              + 2 * chunk * cols + 4 * chunk + 2 * sub * cluster * warps)
+    tile, fcols, fwarps = 16, 16, dk // 32
+    # two tiles of q, k and v, two of (i, f), two of the warps' partials
+    # of h's numerator and of den (``Layout::kFloats``)
+    tile_floats = 2 * tile * dk + tile * fcols
+    fwd = 2 * tile_floats + 4 * tile + 2 * tile * fwarps * fcols \
+        + 2 * tile * fwarps
+    return MlstmPlan(cols, sub, threads, cluster, 4 * floats, fcols, tile,
+                     dk + 32, 4 * fwd)
 
 
 def _check_same(what: str, named, want, device) -> None:
@@ -198,42 +256,49 @@ def mlstm_scan_fwd(q, k, v, log_i, log_f, *, with_states: bool = False,
     if h.numel() == 0:
         return (h,) + states
     q, k, v, log_i, log_f = (t.contiguous() for _, t in named)
+    plan = mlstm_plan(dk)[5:]
     lib = build.library(what, _MLSTM_SIGNATURES)
     if with_states:
         rc = lib.mlstm_scan_states_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
             log_f.data_ptr(), h.data_ptr(), *(s.data_ptr() for s in states),
-            B, S, H, dk, dk ** -0.5, build.stream())
+            B, S, H, dk, *plan, dk ** -0.5, build.stream())
     else:
         rc = lib.mlstm_scan_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 log_i.data_ptr(), log_f.data_ptr(),
-                                h.data_ptr(), B, S, H, dk, dk ** -0.5,
-                                build.stream())
+                                h.data_ptr(), B, S, H, dk, *plan,
+                                dk ** -0.5, build.stream())
     build.check_launch(rc, what)
     build.launch_counts[what] += 1
     return (h,) + states
 
 
 def mlstm_bwd_scratch_floats(B: int, S: int, H: int, dk: int) -> int:
-    """K9-bwd's scratch, in floats: each column block's recomputed chunk
-    of C (64 x dk x 16) and n (64 x dk, one block a head); its partial
-    sums a step (two dk-rows and one scalar); and six (B, S, H) rows of
-    scalars (see ``csrc/mlstm_scan_bwd.cu``)."""
-    nb = dk // MLSTM_COLS
-    return (B * H * CHUNK * dk * dk + B * H * CHUNK * dk
-            + B * H * nb * S * (2 * dk + 1) + 6 * B * S * H)
+    """K9-bwd's scratch, in floats: each cluster's partial sums a step
+    (the w and u rows of dq and dk, and df; dk / 8 / cluster clusters a
+    head, :func:`mlstm_plan`) and seven (B, S, H) rows of scalars (dh .
+    h, den, i, f, the tie shares, di, df; see
+    ``csrc/mlstm_scan_bwd.cu``).  No recomputed state: a sub-chunk's
+    states stay in a block's shared memory, and the starts of the
+    sub-chunks (6/64 of a chunk's state at dk = 512) in each thread's
+    local memory, which L2 serves."""
+    plan = mlstm_plan(dk)
+    n_cl = dk // plan.cols // plan.cluster
+    return B * H * n_cl * S * (2 * dk + 1) + 7 * B * S * H
 
 
 def mlstm_scan_bwd(q, k, v, log_i, log_f, h, C, n, m, dh, *,
                    chunk: int = CHUNK):
     """K9-bwd's launch: ``(dq, dk, dv, dlog_i, dlog_f)`` of the scan under
     the cotangent ``dh`` (B, S, H, dk), from the forward's ``h`` and
-    states.  On the card: a prologue (``dh . h`` a row), the walk (a
-    block a (b, head, 16 columns), chunks last to first), a closing
-    launch that adds the column blocks' partial sums in block order and
-    one that walks the stabiliser's scalar chain back -- no atomics, so
-    the same inputs give the same bits -- one count; on the CPU the
-    plain version."""
+    states.  On the card: a prologue (each chunk's gates, den and ``dh .
+    h`` a step), the walk (a block a (b, head, 8 columns), chunks last to
+    first, each recomputed in sub-chunks whose states stay in the block's
+    shared memory; a cluster of column blocks adds their partial sums of
+    dq and dk a sub-chunk; :func:`mlstm_plan`), a closing launch that
+    adds the clusters' sums in order and one that walks the stabiliser's
+    scalar chain back -- no atomics, so the same inputs give the same
+    bits -- one count; on the CPU the plain version."""
     what = "mlstm_scan_bwd"
     named = _check_mlstm(what, q, k, v, log_i, log_f, chunk)
     B, S, H, dk = q.shape
@@ -259,10 +324,22 @@ def mlstm_scan_bwd(q, k, v, log_i, log_f, h, C, n, m, dh, *,
     lib = build.library(what, _MLSTM_BWD_SIGNATURES)
     rc = lib.mlstm_scan_bwd_f32(
         *(t.data_ptr() for t in args), *(g.data_ptr() for g in grads),
-        scratch.data_ptr(), B, S, H, dk, dk ** -0.5, build.stream())
+        scratch.data_ptr(), B, S, H, dk, *mlstm_plan(dk)[:5], dk ** -0.5,
+        build.stream())
     build.check_launch(rc, what)
     build.launch_counts[what] += 1
     return tuple(grads)
+
+
+def mlstm_resident_clusters(dk: int) -> int:
+    """How many clusters of K9-bwd's walk blocks of head dim ``dk`` can be
+    resident on the card at once (``cudaOccupancyMaxActiveClusters``).
+    Needs the card."""
+    count = ctypes.c_int(0)
+    rc = build.library("mlstm_scan_bwd", _MLSTM_BWD_SIGNATURES) \
+        .mlstm_scan_bwd_resident_clusters(dk, ctypes.addressof(count))
+    build.check_launch(rc, "mlstm_resident_clusters")
+    return count.value
 
 
 class _MlstmScan(torch.autograd.Function):

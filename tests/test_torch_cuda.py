@@ -1366,6 +1366,7 @@ def _slstm_inputs(card, B, S, H, D, seed=70):
     (2, 100, 4, 128),      # the reduced preset, S off the kernel's tile
     (1, 64, 4, 512),       # full width, a short prompt
     (3, 1, 2, 64),         # one step
+    (1, 300, 4, 512),      # full width: many staged tiles and a part
 ])
 def test_mlstm_scan_kernel_matches_plain(card, B, S, H, D):
     """K9 against its plain version on the card within 1e-5 x max |h|;
@@ -1421,6 +1422,15 @@ def test_slstm_clusters_fit_the_card(card, D, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256, 512])
+def test_mlstm_bwd_clusters_fit_the_card(card, D):
+    """K9-bwd's walk, at each head dim, has room for at least one of its
+    plan's clusters on the card (a launch fails where it has none)."""
+    from repro_torch.kernels.xlstm_scan import mlstm_resident_clusters
+    assert mlstm_resident_clusters(D) >= 1
+
+
+@pytest.mark.cuda
 def test_xlstm_scan_kernels_refuse(card):
     """Another dtype and a head dim they are not built for raise; nothing
     is launched."""
@@ -1450,6 +1460,8 @@ def _rel_err(got, want) -> float:
     (2, 100, 4, 128),      # the reduced preset, a chunk and a part
     (1, 130, 2, 512),      # full width, three chunks
     (2, 64, 2, 64),        # one whole chunk
+    (1, 201, 2, 512),      # a partial chunk and sub-chunk, 8-step plan
+    (2, 75, 2, 256),       # a partial chunk and sub-chunk, 16-step plan
 ])
 def test_mlstm_scan_bwd_kernel_matches_plain(card, B, S, H, D):
     """K9's training launch (h and the chunk states) and K9-bwd against

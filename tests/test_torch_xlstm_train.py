@@ -204,6 +204,38 @@ def test_slstm_plan_splits_each_head_over_a_cluster(dh):
     assert p.shared_bytes <= 48 * 1024
 
 
+@pytest.mark.parametrize("dk", kx.MLSTM_DIMS)
+def test_mlstm_plan_keeps_the_backward_states_on_chip(dk):
+    """K9-bwd's and K9's launch plan at each head dim they take: the walk's
+    blocks of ``cols`` columns split dk into whole warps of whole rows; its
+    sub-chunks divide a chunk of 64 steps and their states of the block's
+    columns fill 128 KB; its cluster divides the head's column blocks, at
+    most 8, each rank a whole number of float4 rows;
+    both kernels' shared memory within a block's 232,448 bytes; and the
+    scratch holds no recomputed state: at (x1) (B=1, S=4096, H=4) it is
+    at most 7/64 of the B·H·64·dk² floats the states took before plus
+    the partial sums of 16-column blocks, and it grows with S alone."""
+    p = kx.mlstm_plan(dk)
+    rows = dk // p.threads
+    assert dk % p.cols == 0 and p.threads * rows == dk
+    assert p.threads % 32 == 0 and rows in (1, 2)
+    assert kx.CHUNK % p.sub == 0 and p.sub * dk * p.cols * 4 == 128 * 1024
+    blocks = dk // p.cols
+    assert blocks % p.cluster == 0 and 1 <= p.cluster <= 8
+    assert (dk // p.cluster) % 4 == 0
+    assert p.shared_bytes <= 232_448 and p.fwd_shared_bytes <= 232_448
+    assert dk % p.fwd_cols == 0 and p.fwd_cols % 4 == 0
+    assert p.fwd_threads == dk + 32                # 4 x 4 a thread, a warp
+    assert dk * p.fwd_cols == 16 * (p.fwd_threads - 32)
+    assert kx.CHUNK % p.fwd_tile == 0
+    B, S, H = 1, 4096, 4
+    before_states = B * H * kx.CHUNK * dk * dk
+    before_partials = B * H * (dk // 16) * S * (2 * dk + 1)
+    got = kx.mlstm_bwd_scratch_floats(B, S, H, dk)
+    assert got <= 7 * before_states // 64 + before_partials
+    assert got == 64 * kx.mlstm_bwd_scratch_floats(B, S // 64, H, dk)
+
+
 @pytest.mark.parametrize("S", [16, 100, 128])
 def test_mlstm_bwd_ref_matches_autograd_and_reference_vjp(S):
     """S=16 in one chunk, 100 (a chunk and a part: S % 64 != 0, which the
